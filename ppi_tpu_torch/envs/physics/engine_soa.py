@@ -1,0 +1,468 @@
+"""The scalar structure-of-arrays (SoA) physics program.
+
+Port of ``ppi_tpu/envs/physics/engine_soa.py``. Every per-sample quantity is
+a Python tuple of scalars: rotations are 9 scalars, the mass matrix an
+nq x nq list, the linear solve unrolled Gauss-Jordan. The program is written
+once over ``scalar_math`` and so runs on three kinds of scalar (see that
+module): Python floats for the folded model constants, ``(N,)`` torch
+tensors for the eager plain version, and symbols for the generated CUDA
+body of the rollout kernel. The static topology prunes structurally zero
+Jacobian and mass-matrix terms while the program runs, as in the JAX trace.
+"""
+
+import copy
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ppi_tpu_torch.envs.physics import scalar_math as sm
+from ppi_tpu_torch.envs.physics.engine import HINGE, ArticulatedModel
+
+Vec3 = Tuple  # (x, y, z) scalars
+Mat3 = Tuple  # 9 scalars, row-major
+
+
+# ---- scalar linear algebra -------------------------------------------------
+
+def v3_add(a, b):
+    return (a[0] + b[0], a[1] + b[1], a[2] + b[2])
+
+
+def v3_sub(a, b):
+    return (a[0] - b[0], a[1] - b[1], a[2] - b[2])
+
+
+def v3_scale(s, a):
+    return (s * a[0], s * a[1], s * a[2])
+
+
+def v3_dot(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def v3_cross(a, b):
+    return (a[1] * b[2] - a[2] * b[1],
+            a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0])
+
+
+def m3_vec(m: Mat3, v: Vec3) -> Vec3:
+    return (m[0] * v[0] + m[1] * v[1] + m[2] * v[2],
+            m[3] * v[0] + m[4] * v[1] + m[5] * v[2],
+            m[6] * v[0] + m[7] * v[1] + m[8] * v[2])
+
+
+def m3_mul(a: Mat3, b: Mat3) -> Mat3:
+    return (
+        a[0] * b[0] + a[1] * b[3] + a[2] * b[6],
+        a[0] * b[1] + a[1] * b[4] + a[2] * b[7],
+        a[0] * b[2] + a[1] * b[5] + a[2] * b[8],
+        a[3] * b[0] + a[4] * b[3] + a[5] * b[6],
+        a[3] * b[1] + a[4] * b[4] + a[5] * b[7],
+        a[3] * b[2] + a[4] * b[5] + a[5] * b[8],
+        a[6] * b[0] + a[7] * b[3] + a[8] * b[6],
+        a[6] * b[1] + a[7] * b[4] + a[8] * b[7],
+        a[6] * b[2] + a[7] * b[5] + a[8] * b[8],
+    )
+
+
+def m3_T(a: Mat3) -> Mat3:
+    return (a[0], a[3], a[6], a[1], a[4], a[7], a[2], a[5], a[8])
+
+
+def rodrigues_soa(axis: Vec3, angle) -> Mat3:
+    """R = I + sin K + (1-cos) K^2 with K = [axis]_x, fully unrolled."""
+    x, y, z = axis
+    s, c = sm.sin(angle), sm.cos(angle)
+    t = 1.0 - c
+    return (
+        c + x * x * t, x * y * t - z * s, x * z * t + y * s,
+        y * x * t + z * s, c + y * y * t, y * z * t - x * s,
+        z * x * t - y * s, z * y * t + x * s, c + z * z * t,
+    )
+
+
+# ---- model access (constants folded when the program runs) ------------------
+
+def _const_v3(row) -> Vec3:
+    return (float(row[0]), float(row[1]), float(row[2]))
+
+
+def _const_m3(arr) -> Mat3:
+    return tuple(float(v) for v in np.asarray(arr).reshape(9))
+
+
+class SoaModel:
+    """Every parameter of an ArticulatedModel as Python floats and ints."""
+
+    def __init__(self, model: ArticulatedModel):
+        self.parents = model.parents
+        self.joint_types = model.joint_types
+        nb = model.nq
+        self.offset_pos = [_const_v3(model.offset_pos[b]) for b in range(nb)]
+        self.offset_rot = [_const_m3(model.offset_rot[b]) for b in range(nb)]
+        self.axis = [_const_v3(model.axis[b]) for b in range(nb)]
+        self.mass = [float(v) for v in model.mass]
+        self.com = [_const_v3(model.com[b]) for b in range(nb)]
+        self.inertia = [_const_m3(model.inertia[b]) for b in range(nb)]
+        self.damping = [float(v) for v in model.damping]
+        self.friction_loss = [float(v) for v in model.friction_loss]
+        self.armature = [float(v) for v in model.armature]
+        self.spring_k = [float(v) for v in model.spring_k]
+        self.spring_ref = [float(v) for v in model.spring_ref]
+        self.q_limit = [(float(r[0]), float(r[1])) for r in model.q_limit]
+        self.limit_k = [float(v) for v in model.limit_k]
+        self.sphere_body = [int(v) for v in model.sphere_body]
+        self.sphere_pos = [_const_v3(model.sphere_pos[s])
+                           for s in range(len(self.sphere_body))]
+        self.sphere_radius = [float(v) for v in model.sphere_radius]
+        self.plane_normal = [_const_v3(r) for r in model.plane_normal]
+        self.plane_offset = [float(v) for v in model.plane_offset]
+        self.pair_sphere_plane = [tuple(int(v) for v in r)
+                                  for r in model.pair_sphere_plane]
+        self.pair_sphere_sphere = [tuple(int(v) for v in r)
+                                   for r in model.pair_sphere_sphere]
+        self.pair_sphere_segment = [tuple(int(v) for v in r)
+                                    for r in model.pair_sphere_segment]
+        self.gravity = _const_v3(model.gravity)
+        self.contact_stiffness = float(model.contact_stiffness)
+        self.contact_damping = float(model.contact_damping)
+        self.friction_mu = float(model.friction_mu)
+        self.friction_vel_k = float(model.friction_vel_k)
+        self.nq = nb
+        anc = []
+        for b in range(nb):
+            row = set()
+            j = b
+            while j >= 0:
+                row.add(j)
+                j = self.parents[j]
+            anc.append(row)
+        self.ancestors = anc
+
+    @property
+    def identity3(self) -> Mat3:
+        return (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
+
+    def with_body_offset(self, body: int, pos) -> "SoaModel":
+        """Shallow copy with body ``body``'s joint-origin offset replaced.
+
+        ``pos`` may hold tensors or symbols: the offset then becomes a
+        per-episode runtime input (the sampled door frame). Only generic
+        arithmetic reads ``offset_pos``, so nothing else changes."""
+        m2 = copy.copy(self)
+        m2.offset_pos = list(self.offset_pos)
+        m2.offset_pos[body] = (pos[0], pos[1], pos[2])
+        return m2
+
+
+# ---- kinematics -------------------------------------------------------------
+
+def fk_soa(m: SoaModel, q: Sequence):
+    """Per-body world (rot, joint origin, world axis, com). All tuples."""
+    rots, poss, axes, coms = [], [], [], []
+    for b in range(m.nq):
+        p = m.parents[b]
+        r_p = rots[p] if p >= 0 else m.identity3
+        p_p = poss[p] if p >= 0 else (0.0, 0.0, 0.0)
+        r_joint = m3_mul(r_p, m.offset_rot[b])
+        p_joint = v3_add(p_p, m3_vec(r_p, m.offset_pos[b]))
+        a_world = m3_vec(r_joint, m.axis[b])
+        if m.joint_types[b] == HINGE:
+            r_b = m3_mul(r_joint, rodrigues_soa(m.axis[b], q[b]))
+            p_b = p_joint
+        else:
+            r_b = r_joint
+            p_b = v3_add(p_joint, v3_scale(q[b], a_world))
+        rots.append(r_b)
+        poss.append(p_b)
+        axes.append(a_world)
+        coms.append(v3_add(p_b, m3_vec(r_b, m.com[b])))
+    return rots, poss, axes, coms
+
+
+def _jacobians(m: SoaModel, poss, axes, coms):
+    """jv[b][j], jw[b][j] as vec3 or None (static sparsity)."""
+    jv = [[None] * m.nq for _ in range(m.nq)]
+    jw = [[None] * m.nq for _ in range(m.nq)]
+    for b in range(m.nq):
+        for j in m.ancestors[b]:
+            if m.joint_types[j] == HINGE:
+                jv[b][j] = v3_cross(axes[j], v3_sub(coms[b], poss[j]))
+                jw[b][j] = axes[j]
+            else:
+                jv[b][j] = axes[j]
+                jw[b][j] = None  # zero
+    return jv, jw
+
+
+# ---- contacts ---------------------------------------------------------------
+
+def _contact_force_soa(m: SoaModel, delta, rel_vel: Vec3, normal: Vec3):
+    v_n = v3_dot(rel_vel, normal)
+    fn = sm.maximum(m.contact_stiffness * delta - m.contact_damping * v_n,
+                    0.0)
+    fn = sm.where(sm.gt(delta, 0.0), fn, 0.0)
+    v_t = v3_sub(rel_vel, v3_scale(v_n, normal))
+    vt_norm = sm.sqrt(v3_dot(v_t, v_t)) + 1e-9
+    ft = sm.minimum(m.friction_vel_k * vt_norm, m.friction_mu * fn)
+    return v3_sub(v3_scale(fn, normal), v3_scale(ft / vt_norm, v_t))
+
+
+def contact_forces_soa(m: SoaModel, pts, vels):
+    """Returns a list of vec3 forces per sphere geom."""
+    forces = [(0.0, 0.0, 0.0) for _ in pts]
+
+    for (si, pi) in m.pair_sphere_plane:
+        n = m.plane_normal[pi]
+        dist = v3_dot(pts[si], n) - m.plane_offset[pi]
+        delta = m.sphere_radius[si] - dist
+        f = _contact_force_soa(m, delta, vels[si], n)
+        forces[si] = v3_add(forces[si], f)
+
+    for (ai, bi) in m.pair_sphere_sphere:
+        diff = v3_sub(pts[ai], pts[bi])
+        dist = sm.sqrt(v3_dot(diff, diff)) + 1e-9
+        n = v3_scale(1.0 / dist, diff)
+        delta = m.sphere_radius[ai] + m.sphere_radius[bi] - dist
+        rel = v3_sub(vels[ai], vels[bi])
+        f = _contact_force_soa(m, delta, rel, n)
+        forces[ai] = v3_add(forces[ai], f)
+        forces[bi] = v3_sub(forces[bi], f)
+
+    for (si, ea, eb) in m.pair_sphere_segment:
+        a, b, p = pts[ea], pts[eb], pts[si]
+        ab = v3_sub(b, a)
+        t = sm.clip(v3_dot(v3_sub(p, a), ab) / (v3_dot(ab, ab) + 1e-9),
+                    0.0, 1.0)
+        closest = v3_add(a, v3_scale(t, ab))
+        diff = v3_sub(p, closest)
+        dist = sm.sqrt(v3_dot(diff, diff)) + 1e-9
+        n = v3_scale(1.0 / dist, diff)
+        seg_r = 0.5 * (m.sphere_radius[ea] + m.sphere_radius[eb])
+        delta = m.sphere_radius[si] + seg_r - dist
+        v_closest = v3_add(vels[ea], v3_scale(t, v3_sub(vels[eb], vels[ea])))
+        rel = v3_sub(vels[si], v_closest)
+        f = _contact_force_soa(m, delta, rel, n)
+        forces[si] = v3_add(forces[si], f)
+        forces[ea] = v3_sub(forces[ea], v3_scale(1.0 - t, f))
+        forces[eb] = v3_sub(forces[eb], v3_scale(t, f))
+    return forces
+
+
+# ---- solve + dynamics -------------------------------------------------------
+
+def solve_pd_scalar(mass, rhs):
+    """Gauss-Jordan on scalar lists (PD, no pivoting)."""
+    n = len(rhs)
+    aug = [list(mass[i]) + [rhs[i]] for i in range(n)]
+    for k in range(n):
+        inv_p = 1.0 / aug[k][k]
+        row_k = [v * inv_p for v in aug[k]]
+        for i in range(n):
+            if i == k:
+                continue
+            f = aug[i][k]
+            aug[i] = [aug[i][c] - f * row_k[c] for c in range(n + 1)]
+        aug[k] = row_k
+    return tuple(aug[i][n] for i in range(n))
+
+
+def passive_torque_soa(m: SoaModel, q, qd):
+    out = []
+    for j in range(m.nq):
+        tau = -m.damping[j] * qd[j]
+        if m.spring_k[j] != 0.0:
+            tau = tau - m.spring_k[j] * (q[j] - m.spring_ref[j])
+        if m.limit_k[j] != 0.0:
+            lo, hi = m.q_limit[j]
+            tau = tau - m.limit_k[j] * (sm.maximum(q[j] - hi, 0.0)
+                                        + sm.minimum(q[j] - lo, 0.0))
+        out.append(tau)
+    return tuple(out)
+
+
+def velocity_kinematics_soa(m: SoaModel, q, qd, rots, poss, axes, coms):
+    """Per-body world (omega, v_origin, v_com, alpha, a_origin, a_com) with
+    qdd = 0: the velocity-product (Coriolis/centrifugal) accelerations."""
+    zero = (0.0, 0.0, 0.0)
+    omega, v_o, v_c, alpha, a_o, a_c = [], [], [], [], [], []
+    for b in range(m.nq):
+        p = m.parents[b]
+        w_p = omega[p] if p >= 0 else zero
+        vo_p = v_o[p] if p >= 0 else zero
+        al_p = alpha[p] if p >= 0 else zero
+        ao_p = a_o[p] if p >= 0 else zero
+        o_p = poss[p] if p >= 0 else zero
+        rel = v3_sub(poss[b], o_p)
+        a_axis = axes[b]
+        if m.joint_types[b] == HINGE:
+            w_b = v3_add(w_p, v3_scale(qd[b], a_axis))
+            vo_b = v3_add(vo_p, v3_cross(w_p, rel))
+            al_b = v3_add(al_p, v3_scale(qd[b], v3_cross(w_p, a_axis)))
+            ao_b = v3_add(v3_add(ao_p, v3_cross(al_p, rel)),
+                          v3_cross(w_p, v3_sub(vo_b, vo_p)))
+        else:
+            w_b = w_p
+            vo_b = v3_add(v3_add(vo_p, v3_cross(w_p, rel)),
+                          v3_scale(qd[b], a_axis))
+            al_b = al_p
+            ao_b = v3_add(
+                v3_add(v3_add(ao_p, v3_cross(al_p, rel)),
+                       v3_cross(w_p, v3_sub(vo_b, vo_p))),
+                v3_scale(qd[b], v3_cross(w_p, a_axis)))
+        c_rel = v3_sub(coms[b], poss[b])
+        vc_b = v3_add(vo_b, v3_cross(w_b, c_rel))
+        ac_b = v3_add(v3_add(ao_b, v3_cross(al_b, c_rel)),
+                      v3_cross(w_b, v3_sub(vc_b, vo_b)))
+        omega.append(w_b)
+        v_o.append(vo_b)
+        v_c.append(vc_b)
+        alpha.append(al_b)
+        a_o.append(ao_b)
+        a_c.append(ac_b)
+    return omega, v_o, v_c, alpha, a_o, a_c
+
+
+def forward_dynamics_soa(m: SoaModel, q, qd, tau):
+    """Scalar forward dynamics for one sample (or one (N,) lane vector).
+
+    Closed-form Newton-Euler: one position FK, one velocity/acceleration
+    pass, explicit Jacobian-transpose mapping of gravity, contact and bias
+    wrenches. Returns (qdd, diagonal of the mass matrix)."""
+    rots, poss, axes, coms = fk_soa(m, q)
+    jv, jw = _jacobians(m, poss, axes, coms)
+
+    # mass matrix (ancestor-sparse upper triangle)
+    mass = [[0.0] * m.nq for _ in range(m.nq)]
+    i_world = []
+    for b in range(m.nq):
+        r = rots[b]
+        i_w = m3_mul(m3_mul(r, m.inertia[b]), m3_T(r))
+        i_world.append(i_w)
+        mb = m.mass[b]
+        anc = sorted(m.ancestors[b])
+        iw_jw = {j: m3_vec(i_w, jw[b][j]) for j in anc if jw[b][j] is not None}
+        for ii, k in enumerate(anc):
+            for l in anc[ii:]:
+                term = mb * v3_dot(jv[b][k], jv[b][l])
+                if jw[b][k] is not None and l in iw_jw:
+                    term = term + v3_dot(jw[b][k], iw_jw[l])
+                mass[k][l] = mass[k][l] + term
+    for k in range(m.nq):
+        mass[k][k] = mass[k][k] + m.armature[k]
+        for l in range(k):
+            mass[k][l] = mass[l][k]
+
+    omega, v_o, v_c, alpha, a_o, a_c = velocity_kinematics_soa(
+        m, q, qd, rots, poss, axes, coms)
+
+    pts, pt_vels, pt_body = [], [], []
+    for s, sb in enumerate(m.sphere_body):
+        p_s = v3_add(poss[sb], m3_vec(rots[sb], m.sphere_pos[s]))
+        v_s = v3_add(v_o[sb], v3_cross(omega[sb], v3_sub(p_s, poss[sb])))
+        pts.append(p_s)
+        pt_vels.append(v_s)
+        pt_body.append(sb)
+    forces = contact_forces_soa(m, pts, pt_vels) if pts else []
+
+    passive = passive_torque_soa(m, q, qd)
+    f_bias, n_bias = [], []
+    for b in range(m.nq):
+        f_bias.append(v3_sub(v3_scale(m.mass[b], m.gravity),
+                             v3_scale(m.mass[b], a_c[b])))
+        n_bias.append(v3_add(m3_vec(i_world[b], alpha[b]),
+                             v3_cross(omega[b], m3_vec(i_world[b], omega[b]))))
+    rhs = []
+    for j in range(m.nq):
+        t = tau[j] + passive[j]
+        a_j, o_j = axes[j], poss[j]
+        hinge = m.joint_types[j] == HINGE
+        for b in range(m.nq):
+            if j not in m.ancestors[b]:
+                continue
+            t = t + v3_dot(jv[b][j], f_bias[b])
+            if jw[b][j] is not None:
+                t = t - v3_dot(jw[b][j], n_bias[b])
+        for s, sb in enumerate(pt_body):
+            if j not in m.ancestors[sb]:
+                continue
+            col = (v3_cross(a_j, v3_sub(pts[s], o_j)) if hinge else a_j)
+            t = t + v3_dot(col, forces[s])
+        rhs.append(t)
+    return solve_pd_scalar(mass, tuple(rhs)), tuple(
+        mass[k][k] for k in range(m.nq))
+
+
+def substep_soa(m: SoaModel, q, qd, tau, h: float):
+    """One semi-implicit Euler substep with the velocity-level Coulomb
+    clip (exact stiction, cap ``friction_loss * h / M_jj``)."""
+    qdd, mdiag = forward_dynamics_soa(m, q, qd, tau)
+    qd2 = [qd[j] + h * qdd[j] for j in range(m.nq)]
+    for j in range(m.nq):
+        if m.friction_loss[j] > 0.0:
+            cap = m.friction_loss[j] * h / mdiag[j]
+            qd2[j] = qd2[j] - sm.clip(qd2[j], -cap, cap)
+    qd2 = tuple(qd2)
+    q2 = tuple(q[j] + h * qd2[j] for j in range(m.nq))
+    return q2, qd2
+
+
+def make_single_step_soa(model: ArticulatedModel, dt: float,
+                         substeps: int = 1, dyn_body=None):
+    """``(qpos (..., nq), qvel (..., nq), tau (..., nq)[, body_pos (3,)])
+    -> (qpos, qvel)`` over any leading batch shape.
+
+    The scalar path of the JAX ``make_single_step_soa``; the stacked
+    variant for nq >= 10 is not ported. With ``dyn_body`` the step takes a
+    trailing runtime offset for that body (the sampled scene placement)."""
+    m = SoaModel(model)
+    h = dt / substeps
+
+    def one(qpos, qvel, tau, body_pos=None):
+        mm = m
+        if dyn_body is not None and body_pos is not None:
+            mm = m.with_body_offset(dyn_body, body_pos.unbind(-1))
+        q, qd = qpos.unbind(-1), qvel.unbind(-1)
+        tu = tau.unbind(-1)
+        for _ in range(substeps):
+            q, qd = substep_soa(mm, q, qd, tu, h)
+        return torch.stack(q, -1), torch.stack(qd, -1)
+
+    return one
+
+
+def geom_point_soa(m: SoaModel, rots, poss, s: int) -> Vec3:
+    """World position of sphere geom ``s`` given fk_soa outputs."""
+    sb = m.sphere_body[s]
+    return v3_add(poss[sb], m3_vec(rots[sb], m.sphere_pos[s]))
+
+
+def make_sites_soa(model: ArticulatedModel, dyn_body=None):
+    """``qpos (..., nq)[, body_pos (3,)] -> (..., ns, 3)`` sphere-geom world
+    positions (scalar inside, stacked at the end)."""
+    m = SoaModel(model)
+
+    def sites(qpos, body_pos=None):
+        mm = m
+        if dyn_body is not None and body_pos is not None:
+            mm = m.with_body_offset(dyn_body, body_pos.unbind(-1))
+        rots, poss, _, _ = fk_soa(mm, qpos.unbind(-1))
+        pts = [stack_lanes(geom_point_soa(mm, rots, poss, s))
+               for s in range(len(mm.sphere_body))]
+        return torch.stack(pts, -2)
+
+    return sites
+
+
+def stack_lanes(xs, dim: int = -1) -> torch.Tensor:
+    """Stack scalars of the program into one tensor. Entries that stayed
+    Python constants (a coordinate no joint moves) are broadcast to the
+    lanes' shape."""
+    ts = [x for x in xs if isinstance(x, torch.Tensor)]
+    ts = torch.broadcast_tensors(*ts)
+    like = ts[0]
+    full = [x if isinstance(x, torch.Tensor) else torch.full_like(like, x)
+            for x in xs]
+    return torch.stack(torch.broadcast_tensors(*full), dim)

@@ -1,0 +1,124 @@
+"""Receding-horizon MPC agent.
+
+Port of ``Mpc`` from ``ppi_tpu/mpc/agent.py``. One control step shifts the
+GP prior onto the current window, runs ``n_iters`` x (sample -> N rollouts
+-> posterior update) and returns the first action of the posterior mean.
+The window is always H steps; a reward mask zeroes steps past the episode.
+
+On a CUDA device every rollout is one launch of the hand-written kernel
+(``kernel_mpc_objective``); on the CPU the eager plain version runs
+(``mpc_objective``). The loop reads nothing back from the device: the
+no-op window shift is decided from the integer time index in the carry.
+"""
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from ppi_tpu_torch.algorithms.base import _one_iteration
+from ppi_tpu_torch.envs.base import mpc_objective
+from ppi_tpu_torch.envs.physics.rollout_kernel import kernel_mpc_objective
+
+
+@dataclasses.dataclass(frozen=True)
+class MpcCarry:
+    """Everything the agent threads between control steps."""
+
+    policy: Any                  # policy state
+    generator: torch.Generator   # every draw of the agent
+    window: int                  # time index of the policy's current window
+
+
+@dataclasses.dataclass(frozen=True)
+class Mpc:
+    """MPC agent configuration (static)."""
+
+    env: Any
+    solver: Any
+    family: Any
+    timesteps: int            # episode length T
+    horizon: int              # planning horizon H
+    n_samples: int
+    n_iters: int = 1
+    anneal: float = 1.0
+    use_map: bool = False     # return the MAP first action
+    device: Any = "cpu"
+
+    @property
+    def dt(self) -> float:
+        return self.env.dt
+
+    def init(self, policy_state, generator: torch.Generator) -> MpcCarry:
+        """Precompute the prior on the initial window."""
+        policy_state = self.family.compute_prior(policy_state,
+                                                 self.time_window(0))
+        return MpcCarry(policy=policy_state, generator=generator, window=0)
+
+    def time_window(self, time_index: int):
+        """H-step window starting at time_index (always full length)."""
+        return self.dt * (torch.arange(self.horizon, device=self.device)
+                          + time_index)
+
+    def horizon_mask(self, time_index: int):
+        return ((torch.arange(self.horizon, device=self.device) + time_index)
+                < self.timesteps).to(torch.float32)
+
+    def objective(self, env_state, time_index: int):
+        mask = self.horizon_mask(time_index)
+        if torch.device(self.device).type == "cuda":
+            return kernel_mpc_objective(self.env, env_state, self.horizon,
+                                        mask)
+        return mpc_objective(self.env, env_state, mask)
+
+    def optimize(self, carry: MpcCarry, env_state, time_index: int,
+                 n_iters: int):
+        """Run n_iters solver iterations about (env_state, time_index);
+        returns (carry, stats stacked over iterations, last costs)."""
+        policy = self.family.update_timesteps(
+            carry.policy, self.time_window(time_index), self.anneal,
+            same=time_index == carry.window)
+        policy = self.solver.reset(self.family, policy)
+        step = _one_iteration(self.solver, self.family,
+                              self.objective(env_state, time_index),
+                              self.n_samples)
+        trace, costs = [], None
+        for _ in range(n_iters):
+            policy, (stats, _, costs) = step(policy, carry.generator)
+            trace.append(stats)
+        stacked = {k: torch.stack([s[k] for s in trace]) for k in trace[0]}
+        return (dataclasses.replace(carry, policy=policy, window=time_index),
+                stacked, costs)
+
+    def action(self, carry: MpcCarry):
+        if self.use_map:
+            return self.family.map_action_sequence(carry.policy)[0, :]
+        return self.family.predict_mean(carry.policy)[0, :]
+
+    def control_step(self, carry: MpcCarry, env_state, time_index: int):
+        """One MPC control step; returns (action, carry, stats)."""
+        carry, trace, last_costs = self.optimize(carry, env_state,
+                                                 time_index, self.n_iters)
+        stats = {k: v[-1] for k, v in trace.items()}
+        stats["costs"] = last_costs
+        return self.action(carry), carry, stats
+
+    def warm_start(self, carry: MpcCarry, env_state, n_iters: int = 50):
+        """Long optimization at t=0 before the episode."""
+        carry, trace, _ = self.optimize(carry, env_state, 0, n_iters)
+        return carry, trace
+
+    def run_episode(self, carry: MpcCarry, env_state, callback=None):
+        """The closed-loop episode; returns (carry, env_state, track) with
+        the per-step action, reward, ess, alpha and observation stacked."""
+        track = []
+        for t in range(self.timesteps):
+            action, carry, stats = self.control_step(carry, env_state, t)
+            env_state, reward = self.env.step(env_state, action)
+            row = dict(action=action, reward=reward, ess=stats["ess"],
+                       alpha=stats["alpha"], obs=self.env.observe(env_state))
+            track.append(row)
+            if callback is not None and callback(t, env_state, row):
+                break
+        stacked = {k: torch.stack([r[k] for r in track]) for k in track[0]}
+        return carry, env_state, stacked

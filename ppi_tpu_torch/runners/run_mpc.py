@@ -1,0 +1,101 @@
+"""MPC experiment runner (torch).
+
+The part of ``ppi_tpu/runners/run_mpc.py`` that the canonical door-v0 LBPS
+run uses, with the same positional layout plus ``--device``:
+
+    python -m ppi_tpu_torch.runners.run_mpc Lbps door-v0 \\
+        SquaredExponentialKernel --delta 0.9 --n-iters 2 --anneal 0.5 \\
+        --lengthscale 0.08 MonteCarlo --n-samples 64
+
+``--device cuda`` (the default) needs a CUDA card and rolls out through the
+hand-written kernel; ``--device cpu`` runs the eager plain version. Plots,
+rendering, checkpoints and model selection are not ported yet.
+"""
+
+import argparse
+import logging
+import time
+
+import torch
+
+from ppi_tpu_torch.algorithms import ALGORITHMS, make_solver
+from ppi_tpu_torch.envs.door import Door
+from ppi_tpu_torch.mpc import Mpc
+from ppi_tpu_torch.policies import POLICY_NAMES, design_moments, make_policy
+
+ENVS = {"door-v0": Door}
+
+
+def build_parser():
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("algorithm", choices=sorted(ALGORITHMS))
+    parser.add_argument("env", choices=sorted(ENVS))
+    parser.add_argument("policy", choices=POLICY_NAMES)
+    parser.add_argument("--timesteps", type=int, default=250)
+    parser.add_argument("--horizon", type=int, default=30)
+    parser.add_argument("--n-warmstart-iters", type=int, default=50)
+    parser.add_argument("--n-iters", type=int, default=1)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--anneal", type=float, default=1.0)
+    parser.add_argument("--delta", type=float, default=0.9)
+    parser.add_argument("--lengthscale", type=float, default=1.0)
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (the rollout kernel) or cpu (the eager "
+                             "plain version)")
+    sub = parser.add_subparsers(title="sampling", dest="sampling",
+                                required=True)
+    sp = sub.add_parser("MonteCarlo")
+    sp.add_argument("--n-samples", type=int, default=64)
+    return parser
+
+
+def main(args):
+    """Run one episode; returns (return, success, track)."""
+    logging.basicConfig(
+        format="%(asctime)s,%(msecs)d %(name)s %(levelname)s %(message)s",
+        datefmt="%H:%M:%S", level=logging.INFO, force=True)
+    for k, v in sorted(vars(args).items()):
+        logging.info("%s: %s", k, v)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available")
+    # f32 everywhere: TF32 matmuls and convolutions off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    env = ENVS[args.env]()
+    mean, cov_in, cov_out = design_moments(env.action_low, env.action_high,
+                                           ratio=1000.0)
+    family, policy = make_policy(
+        args.policy, env.dt * torch.arange(args.horizon), env.action_dim,
+        mean, cov_in, cov_out, lengthscale=args.lengthscale,
+        sampler=args.sampling, lower=env.action_low, upper=env.action_high,
+        device=device)
+    solver = make_solver(args.algorithm, delta=args.delta)
+    agent = Mpc(env=env, solver=solver, family=family,
+                timesteps=args.timesteps, horizon=args.horizon,
+                n_samples=args.n_samples, n_iters=args.n_iters,
+                anneal=args.anneal, device=device)
+    carry = agent.init(policy,
+                       torch.Generator(device).manual_seed(args.seed))
+    env_state = env.reset(torch.Generator(device).manual_seed(args.seed),
+                          device)
+
+    t0 = time.perf_counter()
+    if args.n_warmstart_iters > 0:
+        carry, wtrace = agent.warm_start(carry, env_state,
+                                         args.n_warmstart_iters)
+        logging.info("Warm start: %.2f +/- %.2f",
+                     float(wtrace["mean"][-1]), float(wtrace["std"][-1]))
+    carry, env_state, track = agent.run_episode(carry, env_state)
+    ret = float(track["reward"].sum())
+    success = bool(env.success(env_state))
+    logging.info("Return: %.2f over %d timesteps", ret, args.timesteps)
+    logging.info("Success: %s", success)
+    logging.info("Episode wall time: %.2f s (%s)", time.perf_counter() - t0,
+                 device)
+    return ret, success, track
+
+
+if __name__ == "__main__":
+    main(build_parser().parse_args())

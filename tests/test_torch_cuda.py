@@ -1,0 +1,128 @@
+"""The rollout kernel on a CUDA card against its plain version.
+
+Marked ``cuda``; each test skips without a card. These need no JAX, so on
+a machine with a card and without JAX they run as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_helpers import door_q0
+from ppi_tpu_torch.envs.base import batch_rollout, mpc_objective
+from ppi_tpu_torch.envs.door import DOOR, Door
+from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+
+pytestmark = pytest.mark.cuda
+
+N, H = 300, 8
+
+
+def _device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _acts(dev, n=N, h=H):
+    rng = np.random.default_rng(0)
+    return torch.from_numpy((0.4 * rng.standard_normal((n, h, 4))).astype(
+        np.float32)).to(dev)
+
+
+def _rel(a, b):
+    return float(((a - b).abs() / (1.0 + b.abs())).max())
+
+
+def test_kernel_matches_plain_and_counts_its_launch():
+    dev = _device()
+    door = Door(fixed_scene=True)
+    s0 = door.reset(None, dev)
+    acts = _acts(dev)
+    run = rk.make_rollout(door._model, door.dt, door.substeps, H, 4,
+                          door.scalar_torque, door.scalar_reward,
+                          dyn_body=DOOR)
+    q0 = torch.from_numpy(door_q0(N)).to(dev)
+    before = rk.LAUNCHES["rollout"]
+    rew, qf, qdf = run(q0, torch.zeros_like(q0), acts, dyn=s0.frame)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rollout"] == before + 1
+    final, rew_p = batch_rollout(door, s0, acts)
+    assert _rel(rew, rew_p) <= 1e-4
+    assert _rel(qf, final.physics.qpos) <= 1e-4
+    assert _rel(qdf, final.physics.qvel) <= 1e-4
+
+
+def test_kernel_isolates_a_nan_lane_and_masks_the_ragged_edge():
+    dev = _device()
+    door = Door(fixed_scene=True)
+    s0 = door.reset(None, dev)
+    n = 129  # one lane past a 128-thread block
+    run = rk.make_rollout(door._model, door.dt, door.substeps, H, 4,
+                          door.scalar_torque, door.scalar_reward,
+                          dyn_body=DOOR)
+    q0 = torch.from_numpy(door_q0(n)).to(dev)
+    q0[128] = torch.nan
+    rew, qf, _ = run(q0, torch.zeros_like(q0), _acts(dev, n), dyn=s0.frame)
+    assert rew.shape == (n, H) and qf.shape == (n, 6)
+    assert bool(torch.isnan(rew[128]).all())
+    assert bool(torch.isfinite(rew[:128]).all())
+
+
+def test_kernel_objective_with_sampled_frame_matches_plain():
+    dev = _device()
+    door = Door()
+    s0 = door.reset(torch.Generator(dev).manual_seed(3), dev)
+    acts = _acts(dev)
+    mask = (torch.arange(H, device=dev) < H - 2).float()
+    c_k = rk.kernel_mpc_objective(door, s0, H, mask)(None, acts)
+    c_p = mpc_objective(door, s0, mask)(None, acts)
+    assert _rel(c_k, c_p) <= 1e-4
+
+
+def test_kernel_rejects_bad_inputs():
+    dev = _device()
+    door = Door()
+    run = rk.make_rollout(door._model, door.dt, door.substeps, H, 4,
+                          door.scalar_torque, door.scalar_reward,
+                          dyn_body=DOOR)
+    q0 = torch.zeros((4, 6), device=dev)
+    with pytest.raises(ValueError):
+        run(q0, q0, _acts(dev, 4), dyn=None)
+    with pytest.raises(TypeError):
+        run(q0.double(), q0, _acts(dev, 4),
+            dyn=torch.zeros(3, device=dev))
+
+
+def test_ppi_iteration_and_control_step_never_wait_for_the_card():
+    """No operation of a PPI iteration, a control step or the real env step
+    synchronizes with the host (an implicit .item() would make the host
+    wait for the rollout kernel before issuing the update)."""
+    dev = _device()
+    from ppi_tpu_torch.algorithms import make_solver
+    from ppi_tpu_torch.mpc import Mpc
+    from ppi_tpu_torch.policies import design_moments, make_policy
+    door = Door()
+    mean, ci, co = design_moments(door.action_low, door.action_high, 1000.0)
+    fam, pol = make_policy("SquaredExponentialKernel",
+                           door.dt * torch.arange(H), 4, mean, ci, co,
+                           lengthscale=0.08, lower=door.action_low,
+                           upper=door.action_high, device=dev)
+    agent = Mpc(env=door, solver=make_solver("Lbps", delta=0.9), family=fam,
+                timesteps=20, horizon=H, n_samples=64, n_iters=2, anneal=0.5,
+                device=dev)
+    state = door.reset(torch.Generator(dev).manual_seed(0), dev)
+    carry = agent.init(pol, torch.Generator(dev).manual_seed(0))
+    carry, _ = agent.warm_start(carry, state, 2)  # builds and loads first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(2):
+            action, carry, _ = agent.control_step(carry, state, t)
+            state, _ = door.step(state, action)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(state.physics.qpos).all())

@@ -1,0 +1,119 @@
+"""The code generator of the rollout kernel's per-env body.
+
+The generated header and the hand-written skeleton (csrc/rollout.cu) also
+compile as host C; where a C compiler exists, that build is run through
+ctypes against the plain version, which checks the generator before any
+GPU run.
+"""
+
+import math
+import re
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from torch_helpers import door_q0, to_np, to_torch
+from ppi_tpu_torch.envs.door import DOOR, Door
+from ppi_tpu_torch.envs.physics import scalar_math as sm
+from ppi_tpu_torch.envs.physics.rollout_kernel import (
+    generate_env_header, load_host_rollout, plain_rollout)
+
+
+def _header(door):
+    return generate_env_header(door._model, door.dt, door.substeps,
+                               door.action_dim, door.scalar_torque,
+                               door.scalar_reward, door.scalar_dyn_body)
+
+
+def test_emitted_source_is_deterministic():
+    assert _header(Door()) == _header(Door()) == _header(Door(
+        fixed_scene=True))
+
+
+def test_emitted_source_is_single_precision():
+    """Every literal is an f32 hex float with an f suffix and every math
+    call an f-suffixed one: a bare 0.5 would turn the arithmetic to fp64."""
+    body = _header(Door()).split("PPI_QUAL void env_torque", 1)[1]
+    for lit in re.findall(r"(?<![\w.])[0-9][0-9a-fA-FxX.pP+\-]*f?", body):
+        assert re.fullmatch(r"0x[0-9a-f]\.[0-9a-f]+p[+-]\d+f", lit) or \
+            lit.isdigit(), lit  # integers are array indices and defines
+    calls = set(re.findall(r"= ([a-z_]+)\(", body))
+    assert calls == {"sqrtf", "sinf", "cosf", "ppi_max", "ppi_min",
+                     "ppi_gt", "ppi_where", "ppi_sigmoid"}, calls
+
+
+def test_literals_are_exact_f32():
+    for v in (0.1, -1.2, 1e-9, 2e3, 1.0 / 3.0, -0.0):
+        lit = sm.f32_literal(v).strip("()").rstrip("f")
+        assert np.float32(float.fromhex(lit)) == np.float32(v)
+        assert float.fromhex(lit) == float(np.float32(v))
+    with pytest.raises(ValueError):
+        sm.f32_literal(math.inf)
+
+
+def test_sym_folds_constants_in_float64_and_keeps_zero_products():
+    em = sm.Emitter()
+    x = em.input("x", "x_in")
+    y = (0.1 * 3.0) * x          # Python folds 0.1 * 3.0 in float64 first
+    z = 0.0 * x                  # emitted: a NaN in x must survive
+    w = sum([x, x])              # sum() starts from the int 0
+    assert y.name != x.name and z.name != x.name
+    text = "\n".join(em.lines)
+    assert sm.f32_literal(0.1 * 3.0) in text
+    assert f"{sm.f32_literal(0.0)} * x" in text
+    assert f"{sm.f32_literal(0)} + x" in text and w.name in text
+    with pytest.raises(TypeError):
+        bool(x)
+
+
+@pytest.mark.parametrize("fn, x, ref", [
+    (sm.sqrt, 2.25, 1.5), (sm.sigmoid, 0.0, 0.5), (sm.sin, 0.0, 0.0),
+    (sm.cos, 0.0, 1.0), (lambda v: sm.gt(v, 0.5), 1.0, 1.0),
+    (lambda v: sm.gt(v, 0.5), 0.0, 0.0)])
+def test_namespace_on_floats_and_tensors(fn, x, ref):
+    assert fn(x) == pytest.approx(ref)
+    np.testing.assert_allclose(to_np(fn(torch.tensor([x]))), [ref])
+
+
+def test_namespace_propagates_nan_like_xla():
+    t = torch.tensor([np.nan, 1.0])
+    assert torch.isnan(sm.maximum(t, 0.0)[0])
+    assert torch.isnan(sm.minimum(0.0, t)[0])
+    assert torch.isnan(sm.clip(t, -1.0, 1.0)[0])
+    np.testing.assert_array_equal(to_np(sm.where(sm.gt(t, 0.0), t, -t)),
+                                  [np.nan, 1.0])
+
+
+@pytest.mark.parametrize("case", ["nominal", "sampled_frame_nan_lane"])
+def test_host_c_build_matches_plain(case):
+    if shutil.which("cc") is None:
+        pytest.skip("no host C compiler")
+    door = Door()
+    rng = np.random.default_rng(1)
+    n, h = 21, 4
+    acts = (0.4 * rng.standard_normal((n, h, 4))).astype(np.float32)
+    q0 = door_q0(n)
+    frame = np.array([0.55, 0.35, 1.0], np.float32)
+    if case != "nominal":
+        frame = np.array([0.53, 0.39, 0.95], np.float32)
+        q0[7] = np.nan
+    qd0 = (0.1 * rng.standard_normal(q0.shape)).astype(np.float32)
+    rew_p, qf_p, qdf_p = (to_np(x) for x in plain_rollout(
+        door._model, door.dt, door.substeps, door.scalar_torque,
+        door.scalar_reward, to_torch(q0), to_torch(qd0), to_torch(acts),
+        DOOR, to_torch(frame)))
+
+    fn = load_host_rollout(_header(door))
+    q0_t, qd0_t = np.ascontiguousarray(q0.T), np.ascontiguousarray(qd0.T)
+    act_t = np.ascontiguousarray(acts.transpose(1, 2, 0))
+    rew = np.empty((h, n), np.float32)
+    qf, qdf = np.empty((6, n), np.float32), np.empty((6, n), np.float32)
+    ptr = lambda a: a.ctypes.data
+    assert fn(ptr(q0_t), ptr(qd0_t), ptr(act_t), ptr(frame), ptr(rew),
+              ptr(qf), ptr(qdf), n, h) == 0
+    np.testing.assert_allclose(rew.T, rew_p, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(qf.T, qf_p, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(qdf.T, qdf_p, rtol=1e-5, atol=1e-5)
+    assert np.array_equal(np.isnan(rew.T), np.isnan(rew_p))

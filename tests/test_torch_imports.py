@@ -1,0 +1,76 @@
+"""Import hygiene and the no-fallback rule of the torch port."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import torch_helpers  # noqa: F401  (sets torch threads)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+SLICE_MODULES = [
+    "ppi_tpu_torch",
+    "ppi_tpu_torch.convert",
+    "ppi_tpu_torch.samplers",
+    "ppi_tpu_torch.envs.base",
+    "ppi_tpu_torch.envs.door",
+    "ppi_tpu_torch.envs.physics",
+    "ppi_tpu_torch.envs.physics.engine",
+    "ppi_tpu_torch.envs.physics.engine_soa",
+    "ppi_tpu_torch.envs.physics.scalar_math",
+    "ppi_tpu_torch.envs.physics.rollout_kernel",
+    "ppi_tpu_torch.ops",
+    "ppi_tpu_torch.policies",
+    "ppi_tpu_torch.algorithms",
+    "ppi_tpu_torch.mpc",
+    "ppi_tpu_torch.runners.run_mpc",
+]
+
+
+def test_port_imports_neither_jax_nor_flax():
+    code = ("import importlib, sys\n"
+            f"for m in {SLICE_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_runner_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from ppi_tpu_torch.runners import run_mpc
+    args = run_mpc.build_parser().parse_args(
+        ["Lbps", "door-v0", "SquaredExponentialKernel", "MonteCarlo"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_mpc.main(args)
+
+
+def test_kernel_wrapper_has_no_cpu_fallback_for_other_devices():
+    """CPU tensors take the plain version; any other device launches the
+    kernel or raises -- nothing falls back."""
+    from ppi_tpu_torch.envs.door import Door
+    from ppi_tpu_torch.envs.physics.rollout_kernel import make_rollout
+    door = Door(fixed_scene=True)
+    run = make_rollout(door._model, door.dt, door.substeps, 2, 4,
+                       door.scalar_torque, door.scalar_reward, dyn_body=4)
+    meta = torch.zeros((3, 6), device="meta")
+    with pytest.raises(TypeError, match="no rollout kernel"):
+        run(meta, meta, torch.zeros((3, 2, 4), device="meta"))
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
