@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from ppi_tpu_torch.envs.physics.engine import MODEL_FIELDS, ArticulatedModel
+from ppi_tpu_torch.policies.gaussian import GaussianState
 from ppi_tpu_torch.policies.kernels import KernelState
 
 _INT_FIELDS = {"sphere_body", "pair_sphere_plane", "pair_sphere_sphere",
@@ -28,7 +29,16 @@ def model_from_numpy(fields: dict, parents, joint_types) -> ArticulatedModel:
         joint_types=tuple(int(j) for j in joint_types))
 
 
+def _tensors(fields: dict, device) -> dict:
+    return {k: torch.from_numpy(np.array(v)).to(device)
+            for k, v in fields.items()}
+
+
 def kernel_state_from_numpy(fields: dict, device) -> KernelState:
     """A KernelState on ``device`` from each field as a numpy array."""
-    return KernelState(**{k: torch.from_numpy(np.array(v)).to(device)
-                          for k, v in fields.items()})
+    return KernelState(**_tensors(fields, device))
+
+
+def gaussian_state_from_numpy(fields: dict, device) -> GaussianState:
+    """A GaussianState on ``device`` from each field as a numpy array."""
+    return GaussianState(**_tensors(fields, device))

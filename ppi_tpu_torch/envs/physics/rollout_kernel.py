@@ -10,12 +10,13 @@ CUDA skeleton (``ppi_tpu_torch/csrc/rollout.cu``):
   * ``env_reward``  -- the env's ``scalar_reward``.
 
 The kernel is built with ``nvcc`` for ``sm_90a`` at first use into
-``build/kernels/<hash of sources and flags>/`` and bound with ``ctypes``.
+``build/kernels/<hash of sources and flags>/`` and bound with ``ctypes``
+(``ppi_tpu_torch/build.py``).
 
 The wrapper returned by ``make_rollout`` takes the plain version (the same
 scalar program, eagerly over torch tensors) for CPU tensors only. For CUDA
-tensors it launches the kernel or raises; ``LAUNCHES["rollout"]`` counts
-the launches.
+tensors it launches the kernel or raises; ``LAUNCHES["rollout"]`` (the
+shared counter of ``ppi_tpu_torch.build``) counts the launches.
 
 Env contract (duck-typed, as ``ppi_tpu``'s): ``env._model``, ``env.dt``,
 ``env.substeps``, ``env.action_dim``, ``env.scalar_torque(m, q, qd, act)``,
@@ -24,31 +25,14 @@ with ``env.scalar_dyn_consts(state) -> (3,)``. Reward constants, rewards
 that take the action and per-step projections are not ported yet.
 """
 
-import collections
-import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from ppi_tpu_torch.build import LAUNCHES, build_library, load_function
 from ppi_tpu_torch.envs.physics import scalar_math as sm
 from ppi_tpu_torch.envs.physics.engine_soa import SoaModel, substep_soa
-
-CSRC = Path(__file__).resolve().parents[2] / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HOST_CC_FLAGS = ("-x", "c", "-std=c99", "-O2", "-ffp-contract=off",
-                 "-shared", "-fPIC")
-
-# kernel name -> launches in this process (a run resets it to check that
-# its main path went through the kernel)
-LAUNCHES = collections.Counter()
-
 
 # ---- code generation -------------------------------------------------------
 
@@ -129,75 +113,18 @@ _env_header = functools.lru_cache(maxsize=8)(generate_env_header)
 
 # ---- build -------------------------------------------------------------------
 
-def _compiler(name: str, fallback: str) -> str:
-    path = shutil.which(name) or (fallback if os.path.exists(fallback)
-                                  else None)
-    if path is None:
-        raise RuntimeError(f"{name} not found: the rollout kernel is built "
-                           "from source at first use")
-    return path
-
-
-def build_library(header: str, host: bool = False) -> Path:
-    """Compile ``csrc/rollout.cu`` with ``header`` as ``env_body.h`` into a
-    shared library, once per distinct (sources, flags); returns its path.
-
-    ``host=True`` compiles the same file as host C (the CPU lane loop) with
-    ``cc``; otherwise ``nvcc`` builds the CUDA kernel for sm_90a. The
-    compiler's messages (with ``-Xptxas -v``: registers and spills) are
-    kept beside the library in ``build.log``."""
-    source = (CSRC / "rollout.cu").read_text()
-    flags = HOST_CC_FLAGS if host else NVCC_FLAGS
-    key = hashlib.sha256("\0".join(
-        (source, header, " ".join(flags), "host" if host else "cuda")
-    ).encode()).hexdigest()[:16]
-    out_dir = BUILD_ROOT / key
-    lib = out_dir / ("rollout_host.so" if host else "rollout.so")
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "env_body.h").write_text(header)
-    cu = out_dir / "rollout.cu"
-    cu.write_text(source)
-    tmp = out_dir / f".{lib.name}.{os.getpid()}"
-    if host:
-        cmd = [_compiler("cc", "/usr/bin/cc"), *flags, "-I", str(out_dir),
-               "-o", str(tmp), str(cu), "-lm"]
-    else:
-        cmd = [_compiler("nvcc", "/usr/local/cuda/bin/nvcc"), *flags,
-               "-I", str(out_dir), "-o", str(tmp), str(cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    return lib
-
-
-_LIBS = {}  # path -> loaded ctypes library (loaded once per process)
-
-
-def _load(lib: Path, host: bool):
-    if lib not in _LIBS:
-        dll = ctypes.CDLL(str(lib))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        if host:
-            fn = dll.ppi_rollout_host
-            fn.argtypes = [ptr] * 7 + [i32, i32]
-        else:
-            fn = dll.ppi_rollout_launch
-            fn.argtypes = [ptr] * 7 + [i32, i32, i32, ptr]
-        fn.restype = i32
-        _LIBS[lib] = fn
-    return _LIBS[lib]
+def _library(header: str, host: bool = False) -> Path:
+    """``csrc/rollout.cu`` with ``header`` as ``env_body.h``, built (once
+    per distinct header) by ``ppi_tpu_torch.build``."""
+    return build_library("rollout.cu", {"env_body.h": header}, host=host)
 
 
 def load_host_rollout(header: str):
     """The host-C build of the skeleton + ``header``:
     ``fn(q0, qd0, act, dyn, rew, qf, qdf, n, horizon)`` on pointers to
     C-contiguous f32 buffers in the kernel's layout."""
-    return _load(build_library(header, host=True), host=True)
+    return load_function(_library(header, host=True), "ppi_rollout_host",
+                         7, 2, stream=False)
 
 
 # ---- the plain version ---------------------------------------------------------
@@ -269,9 +196,9 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
             dyn = dyn.contiguous()
             dyn_ptr = dyn.data_ptr()
         if fn is None:
-            fn = _load(build_library(_env_header(
+            fn = load_function(_library(_env_header(
                 model, dt, substeps, action_dim, torque_fn, reward_fn,
-                dyn_body)), host=False)
+                dyn_body)), "ppi_rollout_launch", 7, 3, stream=True)
         # the kernel's lane-major layout (the Pallas layout)
         q0_t = q0.t().contiguous()
         qd0_t = qd0.t().contiguous()

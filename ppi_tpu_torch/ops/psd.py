@@ -1,10 +1,11 @@
 """Positive-definiteness guards without host round trips.
 
-Port of ``symmetric``, ``default_jitter`` and ``safe_cholesky`` from
-``ppi_tpu/ops/psd.py``. XLA returns NaNs for a failed factorization where
-torch raises, so the port uses ``torch.linalg.cholesky_ex`` and reports
-``ok = (info == 0) & all(isfinite(L))`` as a 0-dim bool tensor; callers
-select the fallback with ``torch.where``.
+Port of ``symmetric``, ``factorized``, ``default_jitter`` and
+``safe_cholesky`` from ``ppi_tpu/ops/psd.py``. XLA returns NaNs for a
+failed factorization where torch raises, so the port uses
+``torch.linalg.cholesky_ex`` and reports ``ok = (info == 0) &
+all(isfinite(L))`` as a 0-dim bool tensor; callers select the fallback
+with ``torch.where``.
 """
 
 import torch
@@ -13,6 +14,11 @@ import torch
 def symmetric(mat: torch.Tensor) -> torch.Tensor:
     """Symmetrize an (estimated) covariance."""
     return 0.5 * (mat + mat.transpose(-1, -2))
+
+
+def factorized(mat: torch.Tensor) -> torch.Tensor:
+    """Zero the off-diagonals."""
+    return torch.diag(torch.diagonal(mat))
 
 
 def default_jitter(dtype) -> float:

@@ -1,19 +1,23 @@
-"""Policy/prior library: the squared-exponential GP kernel prior.
+"""Policy/prior library: the squared-exponential GP kernel prior and the
+vector Gaussian of black-box optimization.
 
-``make_policy`` keeps the JAX package's name-based factory; the other
-families are ROADMAP queue 1 item 11.
+``make_policy`` keeps the JAX package's name-based factory for the
+trajectory priors; the other kernel, feature and noise families are ROADMAP
+queue 1 item 11.
 """
 
 import torch
 
 from ppi_tpu_torch.policies.design import (
     clip_actions, design_moments, unbounded_like)
+from ppi_tpu_torch.policies.gaussian import Gaussian, GaussianState
 from ppi_tpu_torch.policies.kernels import BaseKernel, KernelState
 from ppi_tpu_torch.samplers import BY_NAME as SAMPLERS_BY_NAME
 from ppi_tpu_torch.samplers import SamplerKind
 
-__all__ = ["BaseKernel", "KernelState", "clip_actions", "design_moments",
-           "unbounded_like", "make_policy", "POLICY_NAMES"]
+__all__ = ["BaseKernel", "KernelState", "Gaussian", "GaussianState",
+           "clip_actions", "design_moments", "unbounded_like", "make_policy",
+           "POLICY_NAMES"]
 
 POLICY_NAMES = ["SquaredExponentialKernel"]
 

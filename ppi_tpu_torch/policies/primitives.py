@@ -12,7 +12,7 @@ import dataclasses
 import torch
 
 from ppi_tpu_torch import ops
-from ppi_tpu_torch.samplers import SamplerKind, draw_base
+from ppi_tpu_torch.samplers import SamplerKind, draw_base, inject_particles
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,10 +58,13 @@ class MatrixPolicyBase:
     # ---- sampling ---------------------------------------------------------
 
     def base_sample(self, state: MatrixNormalState, generator, n: int):
-        """(n, m, d_a) standard-normal base draws."""
-        return draw_base(self.sampler, generator, n, self.dim_sample,
-                         state.mean.device).reshape(
-                             n, self.dim_features, self.action_dim)
+        """(n, m, d_a) standard-normal base draws with particle injection."""
+        z = draw_base(self.sampler, generator, n, self.dim_sample,
+                      state.mean.device).reshape(
+                          n, self.dim_features, self.action_dim)
+        if self.sampler == SamplerKind.PARTICLES:
+            z = inject_particles(z, state.particles, state.n_particles)
+        return z
 
     def transform_base(self, state: MatrixNormalState, z):
         """M + L_U Z L_V^T; (n, m, d_a)."""

@@ -1,4 +1,4 @@
-"""The rollout kernel on a CUDA card against its plain version.
+"""The port's kernels on a CUDA card against their plain versions.
 
 Marked ``cuda``; each test skips without a card. These need no JAX, so on
 a machine with a card and without JAX they run as
@@ -126,3 +126,113 @@ def test_ppi_iteration_and_control_step_never_wait_for_the_card():
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(state.physics.qpos).all())
+
+
+# ---- the moment-match kernel ---------------------------------------------------
+
+def _mm_inputs(dev, n, d, seed=0, offset=0.0):
+    rng = np.random.default_rng(seed)
+    x = (offset + rng.standard_normal((n, d))).astype(np.float32)
+    lw = rng.normal(scale=3.0, size=n).astype(np.float32)
+    lw[rng.permutation(n)[: n // 4]] = -np.inf
+    return torch.from_numpy(lw).to(dev), torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.parametrize("n, d", [(4096, 64), (1000, 17), (300, 130),
+                                  (4000, 640)])
+def test_moment_match_kernel_matches_plain_and_counts_launches(n, d):
+    """Ragged N and d; kernel vs plain within 1e-5 (mu, sigma; unit-scale
+    data) and 1e-5 relative (ESS), as the host-C build is held on the
+    CPU."""
+    dev = _device()
+    from ppi_tpu_torch.build import LAUNCHES
+    from ppi_tpu_torch.ops.cuda_ops import (
+        m_projection_cuda, m_projection_plain)
+    lw, x = _mm_inputs(dev, n, d)
+    before = LAUNCHES["moment_match"]
+    got = m_projection_cuda(lw, x)
+    torch.cuda.synchronize()
+    assert LAUNCHES["moment_match"] == before + 1
+    mu, sigma, ess = got
+    mu0, sigma0, ess0 = m_projection_plain(lw, x)
+    assert mu.shape == (d,) and sigma.shape == (d, d) and ess.shape == ()
+    assert float((mu - mu0).abs().max()) <= 1e-5
+    assert float((sigma - sigma0).abs().max()) <= 1e-5
+    assert abs(float(ess) - float(ess0)) <= 1e-5 * float(ess0)
+
+
+def test_moment_match_kernel_is_deterministic():
+    dev = _device()
+    from ppi_tpu_torch.ops.cuda_ops import m_projection_cuda
+    lw, x = _mm_inputs(dev, 16384, 640, seed=1)
+    first = m_projection_cuda(lw, x)
+    for _ in range(3):
+        again = m_projection_cuda(lw, x)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_moment_match_kernel_rejects_bad_inputs():
+    dev = _device()
+    from ppi_tpu_torch.ops.cuda_ops import m_projection_cuda
+    lw, x = _mm_inputs(dev, 64, 8)
+    with pytest.raises(TypeError):
+        m_projection_cuda(lw.double(), x)
+    with pytest.raises(TypeError):
+        m_projection_cuda(lw.cpu(), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        m_projection_cuda(lw, torch.zeros((8, 64), device=dev).T)
+    with pytest.raises(ValueError, match="shapes"):
+        m_projection_cuda(lw[:63], x)
+
+
+def test_optimization_iteration_never_waits_for_the_card():
+    """One Reps iteration at d=64, N=4096 (sample, NoisySphere, mask,
+    temperature search, the kernel's moment match, PD guards, KL) runs
+    no operation that synchronizes with the host."""
+    dev = _device()
+    from ppi_tpu_torch.algorithms import make_solver
+    from ppi_tpu_torch.algorithms.base import _one_iteration
+    from ppi_tpu_torch.build import LAUNCHES
+    from ppi_tpu_torch.envs.functions import make_function
+    from ppi_tpu_torch.policies.gaussian import Gaussian
+    d, n = 64, 4096
+    fam = Gaussian(dim=d)
+    state = fam.init(torch.ones(d, device=dev),
+                     0.5 * torch.eye(d, device=dev))
+    step = _one_iteration(make_solver("Reps"), fam,
+                          make_function("NoisySphere", d), n)
+    gen = torch.Generator(dev).manual_seed(0)
+    state, _ = step(state, gen)  # builds and loads the kernel first
+    torch.cuda.synchronize()
+    before = LAUNCHES["moment_match"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, (stats, _, _) = step(state, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert LAUNCHES["moment_match"] == before + 1
+    assert bool(torch.isfinite(stats["mean"])) and bool(
+        torch.isfinite(state.sigma).all())
+
+
+@pytest.mark.parametrize("sampler", ["mc", "qmc"])
+@pytest.mark.parametrize("algorithm", ["Ais", "Cem", "iCem", "Reps", "Lbps",
+                                       "More", "Essps", "Mppi",
+                                       "MppiUpdateCovariance"])
+def test_every_solver_runs_on_the_card(algorithm, sampler):
+    """Three iterations of run_opt at d=64, N=4096: finite costs, and one
+    moment-match kernel launch per iteration for every solver whose update
+    is a moment match (all but MORE)."""
+    _device()
+    from ppi_tpu_torch.build import LAUNCHES
+    from ppi_tpu_torch.runners import run_opt
+    args = run_opt.build_parser().parse_args([
+        algorithm, "NoisySphere", "--dimension", "64", "--n-iter", "3",
+        "--device", "cuda", sampler, "--n-samples", "4096"])
+    before = LAUNCHES["moment_match"]
+    state, trace = run_opt.main(args)
+    assert np.isfinite(trace["mean"]).all()
+    assert bool(torch.isfinite(state.mu).all())
+    expected = 0 if algorithm == "More" else 3
+    assert LAUNCHES["moment_match"] == before + expected

@@ -13,6 +13,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 SLICE_MODULES = [
     "ppi_tpu_torch",
+    "ppi_tpu_torch.build",
     "ppi_tpu_torch.convert",
     "ppi_tpu_torch.samplers",
     "ppi_tpu_torch.envs.base",
@@ -22,11 +23,18 @@ SLICE_MODULES = [
     "ppi_tpu_torch.envs.physics.engine_soa",
     "ppi_tpu_torch.envs.physics.scalar_math",
     "ppi_tpu_torch.envs.physics.rollout_kernel",
+    "ppi_tpu_torch.envs.functions",
     "ppi_tpu_torch.ops",
+    "ppi_tpu_torch.ops.cuda_ops",
+    "ppi_tpu_torch.ops.divergences",
+    "ppi_tpu_torch.ops.qmc",
     "ppi_tpu_torch.policies",
+    "ppi_tpu_torch.policies.gaussian",
     "ppi_tpu_torch.algorithms",
     "ppi_tpu_torch.mpc",
+    "ppi_tpu_torch.utils",
     "ppi_tpu_torch.runners.run_mpc",
+    "ppi_tpu_torch.runners.run_opt",
 ]
 
 
@@ -54,6 +62,16 @@ def test_runner_cuda_without_a_card_raises():
         run_mpc.main(args)
 
 
+def test_opt_runner_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from ppi_tpu_torch.runners import run_opt
+    args = run_opt.build_parser().parse_args(["Reps", "NoisySphere", "mc"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_opt.main(args)
+
+
 def test_kernel_wrapper_has_no_cpu_fallback_for_other_devices():
     """CPU tensors take the plain version; any other device launches the
     kernel or raises -- nothing falls back."""
@@ -65,6 +83,12 @@ def test_kernel_wrapper_has_no_cpu_fallback_for_other_devices():
     meta = torch.zeros((3, 6), device="meta")
     with pytest.raises(TypeError, match="no rollout kernel"):
         run(meta, meta, torch.zeros((3, 2, 4), device="meta"))
+    from ppi_tpu_torch.ops import m_projection
+    from ppi_tpu_torch.ops.cuda_ops import m_projection_cuda
+    with pytest.raises(TypeError, match="no moment-match kernel"):
+        m_projection_cuda(torch.zeros(3, device="meta"), meta)
+    with pytest.raises(TypeError, match="no moment-match kernel"):
+        m_projection(torch.zeros(3, device="meta"), meta, use_kernel="always")
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -103,8 +103,8 @@ def test_lbps_update_matches_reference(case):
 
 
 def test_unported_solvers_raise():
-    with pytest.raises(ValueError, match="item 10"):
-        make_solver("Cem")
+    with pytest.raises(ValueError, match="unknown solver"):
+        make_solver("Cma")
 
 
 def test_solve_matches_reference(monkeypatch):
