@@ -31,11 +31,33 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
   8. runs    -- three black-box runs through the port's run_opt (Reps,
                 NoisySphere, 50 iterations, seed 0): d=640 and d=64 at
                 N=4096 (exactly 50 kernel launches each), and the canonical
-                d=20, N=100 (below the dispatch threshold: 0 launches).
+                d=20, N=100 (below the dispatch threshold: 0 launches);
+  9. build   -- generate the pen-v0, relocate-v0 and cheetah bodies of the
+                rollout kernel (reward constants, action reward) and build
+                them with nvcc in parallel with phases 1 and 5; print each
+                body's line count, nvcc seconds and -Xptxas -v summary;
+ 10. check   -- each body against the plain version on the card at N=1000
+                (ragged), H=20: rewards and final state, a pre-poisoned NaN
+                lane, the horizon mask, two goals (pen-v0, relocate-v0) and
+                actions past the torque box (cheetah);
+ 11. timings -- each body's kernel time (CUDA events) and the plain
+                rollout's at its canonical shape (pen-v0 N=96/H=15,
+                relocate-v0 N=256/H=20, cheetah N=256/H=30; pen-v0 also at
+                N=1024/H=160), one synced PPI iteration at each canonical
+                shape and one real env step of each env;
+ 12. episodes -- four MPC episodes through the port's run_mpc (seed 0, 50
+                warm-start iterations): pen-v0 (Lbps, SE, T=100, H=15,
+                N=96) and relocate-v0 (Mppi, ColouredNoise, T=140, H=20,
+                N=256) to success, cheetah (Mppi, ColouredNoise, T=150,
+                N=256) to a positive return, and make mpc-cem's door-v0
+                (Cem, WhiteNoiseIid, N=64, T=250); exactly 250, 190, 200
+                and 300 kernel launches.
 Then one JSON line with the kernels' numbers and, last, the device line.
-All numbers go to chiprun_out/chip_smoke.json as well.
+All numbers go to chiprun_out/chip_smoke.json as well. The whole run takes
+about five minutes on an H100, the kernels' builds included.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -58,6 +80,44 @@ ORACLE_MU_ATOL, ORACLE_SIGMA_RTOL, ORACLE_SIGMA_ATOL, ORACLE_ESS_RTOL = (
 RUNS = (  # (dimension, n_samples, launches, bound on the final cost)
     (640, 4096, 50, "ratio"), (64, 4096, 50, 400.0), (20, 100, 0, 100.0))
 FINAL_RATIO = 0.5  # d=640: final cost <= this x the first iteration's
+# the card's peaks (NVIDIA H100 SXM data sheet, at 700 W): f32 outside the
+# tensor cores and device-memory bandwidth; a kernel's bound is the larger
+# of its operations and its bytes over these
+PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
+
+# phases 9-12: the variant-(b) envs. Per env: the scale of the random check
+# actions (cheetah's reach past its +-30 box), two pinned goals away from
+# the reward's bonus thresholds (pen-v0: yaw/pitch with a similarity below
+# 0.6 to the reset axis, which stays below 0.75 in the check's 20 steps;
+# relocate-v0: goals more than 0.25 from the ball, which falls freely from
+# 0.9 above the table, clear of the gripper, and stays 0.1 above the lift
+# gate), the canonical kernel shape, and the runner's arguments for the
+# episode with its expected launches; the solver and prior of the
+# canonical config, for the timed PPI iteration.
+VARIANT_B = {
+    "pen-v0": dict(
+        scale=0.12, goals=((0.9, -0.6), (-0.95, 0.5)), shape=(96, 15),
+        family=("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08}),
+        episode=["Lbps", "pen-v0", "SquaredExponentialKernel", "--delta",
+                 "0.9", "--n-iters", "2", "--anneal", "0.5", "--lengthscale",
+                 "0.08", "--timesteps", "100", "--horizon", "15"],
+        n_samples=96, launches=50 + 100 * 2),
+    "relocate-v0": dict(
+        scale=0.3, goals=((0.55, 0.15, 0.85), (0.65, 0.10, 0.88)),
+        shape=(256, 20), family=("Mppi", "ColouredNoise", {"beta": 2.0}),
+        episode=["Mppi", "relocate-v0", "ColouredNoise", "--beta", "2",
+                 "--alpha", "10", "--anneal", "0.9", "--timesteps", "140",
+                 "--horizon", "20"],
+        n_samples=256, launches=50 + 140),
+    "cheetah": dict(
+        scale=25.0, goals=None, shape=(256, 30),
+        family=("Mppi", "ColouredNoise", {"beta": 2.0}),
+        episode=["Mppi", "cheetah", "ColouredNoise", "--beta", "2",
+                 "--timesteps", "150"],
+        n_samples=256, launches=50 + 150),
+}
+DOOR_CEM = dict(episode=["Cem", "door-v0", "WhiteNoiseIid", "--n-elites",
+                         "10"], n_samples=64, launches=50 + 250)
 
 
 def check(cond, msg):
@@ -105,8 +165,207 @@ def oracle_moments(log_w, x):
     return mu, (w[:, None] * dev).T @ dev, 1.0 / (w * w).sum()
 
 
+def variant_b_state(env, name, dev, goal_index=0):
+    """The check's initial state: a pinned goal (pen-v0, relocate-v0) or a
+    start from the reset's noise (cheetah)."""
+    from ppi_tpu_torch.envs.pen import axis_from_angles
+    from ppi_tpu_torch.envs.physics.engine import PhysicsState
+    goals = VARIANT_B[name]["goals"]
+    if name == "pen-v0":
+        return env.reset(None, dev, goal=axis_from_angles(*goals[goal_index]))
+    if name == "relocate-v0":
+        from ppi_tpu_torch.envs.relocate import BALL_Z
+        s = env.reset(None, dev, goal=goals[goal_index], start=(0.0, -0.15))
+        qpos = s.physics.qpos.clone()
+        qpos[BALL_Z] = 0.9
+        return dataclasses.replace(s, physics=PhysicsState(
+            qpos=qpos, qvel=s.physics.qvel))
+    return env.reset(torch.Generator(dev).manual_seed(goal_index), dev)
+
+
+def env_header(env):
+    """The generated body the main path builds for ``env``."""
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    state = env.reset(torch.Generator().manual_seed(0), "cpu")
+    return rk.generate_env_header(*rk.body_args(env, state))
+
+
+def least_time(ops, nbytes):
+    """(least time in ms, what bounds it): the larger of the operations over
+    the f32 SIMT peak and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def rollout_bound(env, n, horizon):
+    """Bound of one rollout launch: the f32 operations the generated body
+    does (N x H x ops per lane step, ``ops_per_lane_step``) and the bytes
+    it must move (initial state and actions in, rewards and final state
+    out)."""
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    state = env.reset(torch.Generator().manual_seed(0), "cpu")
+    ops = n * horizon * rk.ops_per_lane_step(*rk.body_args(env, state))
+    nq = env._model.nq
+    nbytes = 4 * n * (2 * nq + horizon * env.action_dim + horizon + 2 * nq)
+    return least_time(ops, nbytes)
+
+
+def lanes(state, n):
+    return (state.physics.qpos.expand(n, -1).contiguous(),
+            state.physics.qvel.expand(n, -1).contiguous())
+
+
+def check_variant_b(name, env, dev):
+    """Phase 10 for one env: (errors, max abs error)."""
+    from ppi_tpu_torch.envs.base import batch_rollout
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    cfg = VARIANT_B[name]
+    rng = np.random.default_rng(1)
+    acts = torch.from_numpy((cfg["scale"] * rng.standard_normal(
+        (N_CHECK, H_CHECK, env.action_dim))).astype(np.float32)).to(dev)
+    s0 = variant_b_state(env, name, dev)
+    consts, _, _ = rk.kernel_operands(env, s0)
+    run = rk.env_rollout(env, s0, H_CHECK)
+    q0, qd0 = lanes(s0, N_CHECK)
+    rew, qf, qdf = run(q0, qd0, acts, consts=consts)
+    fin, rew_p = batch_rollout(env, s0, acts)
+    torch.cuda.synchronize()
+    errs = {"rewards": rel_err(rew, rew_p),
+            "qf": rel_err(qf, fin.physics.qpos),
+            "qdf": rel_err(qdf, fin.physics.qvel)}
+    max_abs = max(float((rew - rew_p).abs().max()),
+                  float((qf - fin.physics.qpos).abs().max()),
+                  float((qdf - fin.physics.qvel).abs().max()))
+    check(max(errs.values()) <= TOL, f"{name}: kernel vs plain {errs} > {TOL}")
+
+    q0_bad = q0.clone()
+    q0_bad[3] = torch.nan
+    rew_bad, _, _ = run(q0_bad, qd0, acts, consts=consts)
+    others = torch.cat([rew_bad[:3], rew_bad[4:]])
+    check(bool(torch.isnan(rew_bad[3]).all())
+          and bool(torch.isfinite(others).all())
+          and bool(torch.equal(others, torch.cat([rew[:3], rew[4:]]))),
+          f"{name}: a NaN lane must go NaN alone")
+
+    mask = (torch.arange(H_CHECK, device=dev) < H_CHECK - 5).float()
+    c_k = rk.kernel_mpc_objective(env, s0, H_CHECK, mask)(None, acts)
+    c_full = rk.kernel_mpc_objective(env, s0, H_CHECK)(None, acts)
+    errs["masked_costs"] = rel_err(c_k, -(rew_p * mask).sum(1))
+    check(errs["masked_costs"] <= TOL
+          and bool(torch.allclose(c_k, -(rew * mask).sum(1)))
+          and not bool(torch.allclose(c_k, c_full)),
+          f"{name}: horizon mask {errs['masked_costs']}")
+
+    if cfg["goals"] is not None:
+        s1 = variant_b_state(env, name, dev, 1)
+        c_k1 = rk.kernel_mpc_objective(env, s1, H_CHECK)(None, acts)
+        _, rew_p1 = batch_rollout(env, s1, acts)
+        errs["second_goal_costs"] = rel_err(c_k1, -rew_p1.sum(1))
+        check(errs["second_goal_costs"] <= TOL
+              and float((c_k1 - c_full).abs().min()) > 1e-3,
+              f"{name}: second goal {errs['second_goal_costs']}, or the "
+              "goal does not change every cost")
+    else:
+        # the action reward sees the raw action and clips it itself
+        past = float((acts.abs() > env.max_torque).float().mean())
+        rew_c, qf_c, _ = run(q0, qd0, acts.clamp(-env.max_torque,
+                                                 env.max_torque))
+        check(past > 0.1 and bool(torch.equal(rew_c, rew))
+              and bool(torch.equal(qf_c, qf)),
+              f"{name}: actions past the box ({past:.2f} of them) change "
+              "the result of the clip")
+        errs["past_box_share"] = past
+    return errs, max_abs
+
+
+def time_variant_b(name, env, dev):
+    """Phase 11 for one env: kernel and plain rollout at the canonical
+    shape, one synced PPI iteration there, one real env step."""
+    from ppi_tpu_torch.algorithms import make_solver
+    from ppi_tpu_torch.algorithms.base import _one_iteration
+    from ppi_tpu_torch.envs.base import batch_rollout
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    from ppi_tpu_torch.policies import design_moments, make_policy
+    cfg = VARIANT_B[name]
+    rng = np.random.default_rng(3)
+    s0 = variant_b_state(env, name, dev)
+    consts, _, _ = rk.kernel_operands(env, s0)
+    out = {}
+    shapes = [cfg["shape"]] + ([(1024, 160)] if name == "pen-v0" else [])
+    for n, h in shapes:
+        a = torch.from_numpy((cfg["scale"] * rng.standard_normal(
+            (n, h, env.action_dim))).astype(np.float32)).to(dev)
+        qn, qdn = lanes(s0, n)
+        r = rk.env_rollout(env, s0, h)
+        out[f"kernel_ms_N{n}_H{h}"] = cuda_ms(
+            lambda: r(qn, qdn, a, consts=consts), 20)
+        out[f"bound_ms_N{n}_H{h}"], out["bound_by"] = rollout_bound(env, n,
+                                                                    h)
+    n, h = cfg["shape"]
+    a = torch.from_numpy((cfg["scale"] * rng.standard_normal(
+        (n, h, env.action_dim))).astype(np.float32)).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch_rollout(env, s0, a)
+    torch.cuda.synchronize()
+    out[f"plain_ms_N{n}_H{h}"] = 1e3 * (time.perf_counter() - t0)
+
+    alg, policy, kwargs = cfg["family"]
+    mean, cov_in, cov_out = design_moments(env.action_low, env.action_high,
+                                           ratio=1000.0)
+    family, state = make_policy(
+        policy, env.dt * torch.arange(h), env.action_dim, mean, cov_in,
+        cov_out, lower=env.action_low, upper=env.action_high, device=dev,
+        **kwargs)
+    step = _one_iteration(make_solver(alg, delta=0.9, alpha=10.0), family,
+                          rk.kernel_mpc_objective(env, s0, h), n)
+    gen = torch.Generator(dev).manual_seed(0)
+    for _ in range(3):
+        state, (stats, _, _) = step(state, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state, (stats, _, _) = step(state, gen)
+        torch.cuda.synchronize()
+    out[f"ppi_iter_ms_N{n}_H{h}"] = 1e3 * (time.perf_counter() - t0) / 10
+    check(bool(torch.isfinite(stats["mean"])),
+          f"{name}: PPI iteration cost not finite")
+
+    action = family.predict_mean(state)[0]
+    env.step(s0, action)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        s1, _ = env.step(s0, action)
+    torch.cuda.synchronize()
+    out["env_step_ms"] = 1e3 * (time.perf_counter() - t0) / 3
+    check(bool(torch.isfinite(s1.physics.qpos).all()),
+          f"{name}: real env step not finite")
+    return out
+
+
+def run_episode(args_list, n_samples):
+    """One episode through the port's run_mpc; (return, success, wall s,
+    kernel launches)."""
+    from ppi_tpu_torch.build import LAUNCHES
+    from ppi_tpu_torch.runners import run_mpc
+    args = run_mpc.build_parser().parse_args(
+        args_list + ["--n-warmstart-iters", "50", "--seed", "0",
+                     "--device", "cuda", "MonteCarlo", "--n-samples",
+                     str(n_samples)])
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    ret, success, track = run_mpc.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(bool(torch.isfinite(track["action"]).all()),
+          f"{args.env}: episode actions not finite")
+    return ret, success, wall, LAUNCHES["rollout"]
+
+
 def main():
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         return run(pool)
 
 
@@ -122,10 +381,10 @@ def run(pool):
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
-    print(f"device: {name}; torch {torch.__version__}, CUDA "
+    kind = torch.cuda.get_device_name(0)
+    print(f"device: {kind}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    out = {"card": smi, "device": name}
+    out = {"card": smi, "device": kind}
 
     from ppi_tpu_torch.algorithms import make_solver
     from ppi_tpu_torch.algorithms.base import _one_iteration
@@ -140,6 +399,7 @@ def run(pool):
     from ppi_tpu_torch.policies import design_moments, make_policy
     from ppi_tpu_torch.policies.gaussian import Gaussian
     from ppi_tpu_torch.runners import run_mpc, run_opt
+    from ppi_tpu_torch.runners.run_mpc import ENVS
 
     # ---- 1. build (both kernels, in parallel) ------------------------------
     door = Door(fixed_scene=True)
@@ -150,6 +410,11 @@ def run(pool):
     rollout_build = pool.submit(build_timed, "rollout.cu",
                                 {"env_body.h": header})
     mm_build = pool.submit(build_timed, "moment_match.cu")
+    # phase 9's bodies build beside phases 1 and 5
+    bodies = {name: env_header(ENVS[name]()) for name in VARIANT_B}
+    body_builds = {name: pool.submit(build_timed, "rollout.cu",
+                                     {"env_body.h": h})
+                   for name, h in bodies.items()}
     lib, _ = rollout_build.result()
     build_s = time.perf_counter() - t0
     ptxas = ptxas_summary(lib)
@@ -161,10 +426,6 @@ def run(pool):
         return rk.make_rollout(d._model, d.dt, d.substeps, horizon,
                                d.action_dim, d.scalar_torque,
                                d.scalar_reward, dyn_body=DOOR)
-
-    def lanes(state, n):
-        return (state.physics.qpos.expand(n, -1).contiguous(),
-                state.physics.qvel.expand(n, -1).contiguous())
 
     # ---- 2. kernel vs plain ----------------------------------------------------
     rng = np.random.default_rng(0)
@@ -360,6 +621,17 @@ def run(pool):
                 ("plain", m_projection_plain),
                 ("two_pass", lambda l, s: m_projection(l, s, "never"))):
             mm_times[f"{label}_ms_{n}x{d}"] = cuda_ms(lambda: fn(lw, x), 50)
+    # the library's nearest single call: the weighted covariance alone
+    lw, x = mm_inputs(4096, 640, 30)
+    w = torch.exp(lw - lw.max())
+    mm_times["library_ms_4096x640"] = cuda_ms(
+        lambda: torch.cov(x.T, correction=0, aweights=w), 50)
+    # its work: the upper triangle of S2 (one FMA per sample and pair),
+    # S1, the weights; each input read once, mu, sigma and ESS written once
+    n, d = 4096, 640
+    mm_times["bound_ms_4096x640"], mm_bound_by = least_time(
+        n * d * (d + 1) + 2 * n * d + 4 * n,
+        4 * (n * d + n + d * d + d + 1))
     d, n = 640, 4096
     fam = Gaussian(dim=d)
     state = fam.init(torch.ones(d, device=dev),
@@ -409,23 +681,95 @@ def run(pool):
               f"{wall:.2f} s", flush=True)
     out.update(runs=runs)
 
+    # ---- 9. build the variant-(b) bodies -----------------------------------
+    body_info = {}
+    for name, fut in body_builds.items():
+        body_lib, secs = fut.result()
+        info = {"lines": len(bodies[name].splitlines()), "nvcc_s": secs,
+                "ptxas": ptxas_summary(body_lib)}
+        body_info[name] = info
+        print(f"body build {name}: {info['lines']} generated lines, nvcc "
+              f"{secs:.1f} s (in parallel with phases 1 and 5); ptxas: "
+              f"{' | '.join(info['ptxas'])}", flush=True)
+    out.update(bodies=body_info)
+
+    # ---- 10. variant (b): kernel vs plain ------------------------------------
+    b_errs, b_max_abs = {}, {}
+    for name in VARIANT_B:
+        b_errs[name], b_max_abs[name] = check_variant_b(name, ENVS[name](),
+                                                        dev)
+        print(f"check {name}: N={N_CHECK} H={H_CHECK} errors "
+              f"{json.dumps(b_errs[name])} (tol {TOL}); max abs err "
+              f"{b_max_abs[name]:.3g}; NaN lane isolated; mask applied",
+              flush=True)
+    out.update(variant_b_check=b_errs, variant_b_max_abs_err=b_max_abs)
+
+    # ---- 11. variant (b): timings --------------------------------------------
+    b_times = {}
+    for name in VARIANT_B:
+        b_times[name] = time_variant_b(name, ENVS[name](), dev)
+        print(f"timings {name}: {json.dumps(b_times[name])}", flush=True)
+    timings["bound_ms_N1024_H160"], _ = rollout_bound(door, 1024, 160)
+    print(f"door-v0 bound at N=1024/H=160: "
+          f"{timings['bound_ms_N1024_H160']:.4g} ms", flush=True)
+    out.update(variant_b_timings=b_times)
+
+    # ---- 12. episodes -----------------------------------------------------------
+    episodes = {}
+    for name in [*VARIANT_B, "door-v0 cem"]:
+        cfg = DOOR_CEM if name == "door-v0 cem" else VARIANT_B[name]
+        ret, success, wall, got = run_episode(cfg["episode"],
+                                              cfg["n_samples"])
+        episodes[name] = {"return": ret, "success": success,
+                          "wall_s": wall, "launches": got}
+        print(f"episode {name}: return {ret:.2f}, success {success}, "
+              f"{got} kernel launches, wall {wall:.1f} s", flush=True)
+        check(np.isfinite(ret), f"{name}: episode return {ret}")
+        check(got == cfg["launches"], f"{name}: {got} kernel launches, "
+              f"expected {cfg['launches']}")
+        if name in ("pen-v0", "relocate-v0"):
+            check(success, f"{name}: no success (return {ret:.2f})")
+        if name == "cheetah":
+            check(ret > 0.0, f"{name}: return {ret:.2f} not above 0")
+    out.update(episodes=episodes)
+
     Path("chiprun_out").mkdir(exist_ok=True)
     Path("chiprun_out/chip_smoke.json").write_text(json.dumps(out, indent=1))
-    print(json.dumps({"kernels": [
+    # door-v0's body ran on two paths: phase 4's Lbps episode and make
+    # mpc-cem's episode in phase 12
+    kernels = [
         {"name": "door_rollout", "route": "cuda",
          "source": "ppi_tpu_torch/csrc/rollout.cu",
          "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
-         "launches": launches, "max_abs_err": max_abs,
-         "ms": timings["kernel_ms_N1024_H160"],
-         "plain_ms": timings["plain_ms_N1024_H160"]},
+         "launches": launches + episodes["door-v0 cem"]["launches"],
+         "max_abs_err": max_abs, "ms": timings["kernel_ms_N1024_H160"],
+         "plain_ms": timings["plain_ms_N1024_H160"],
+         "bound_ms": timings["bound_ms_N1024_H160"],
+         "bound_by": "operations", "library_ms": None},
         {"name": "moment_match", "route": "cuda",
          "source": "ppi_tpu_torch/csrc/moment_match.cu",
          "replaces": "ppi_tpu/ops/pallas_ops.py:78",
          "launches": mm_launches, "max_abs_err": mm_max_abs,
          "ms": mm_times["kernel_ms_4096x640"],
-         "plain_ms": mm_times["plain_ms_4096x640"]}]}))
+         "plain_ms": mm_times["plain_ms_4096x640"],
+         "bound_ms": mm_times["bound_ms_4096x640"], "bound_by": mm_bound_by,
+         "library_ms": mm_times["library_ms_4096x640"]}]
+    for env_name, cfg in VARIANT_B.items():
+        n, h = cfg["shape"]
+        t = b_times[env_name]
+        kernels.append(
+            {"name": f"{env_name.split('-')[0]}_rollout", "route": "cuda",
+             "source": "ppi_tpu_torch/csrc/rollout.cu",
+             "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
+             "launches": episodes[env_name]["launches"],
+             "max_abs_err": b_max_abs[env_name],
+             "ms": t[f"kernel_ms_N{n}_H{h}"],
+             "plain_ms": t[f"plain_ms_N{n}_H{h}"],
+             "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
+             "library_ms": None})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
 
 

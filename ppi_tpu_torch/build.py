@@ -28,6 +28,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_CC_FLAGS = ("-x", "c", "-std=c99", "-O2", "-ffp-contract=off",
                  "-shared", "-fPIC")
+# per-source nvcc flags. The rollout kernel rounds every operation of the
+# scalar program once, as its plain version's eager torch ops do: no FMA
+# contraction. pen-v0's dynamics grow a 1e-7 difference in the state to
+# 1e-2 within 20 control steps, so contraction alone moved the kernel that
+# far from its plain version.
+SOURCE_NVCC_FLAGS = {"rollout.cu": ("-fmad=false",)}
 
 # kernel name -> launches in this process
 LAUNCHES = collections.Counter()
@@ -52,7 +58,8 @@ def build_library(source: str, headers=None, host: bool = False) -> Path:
     CUDA kernel for sm_90a."""
     headers = dict(headers or {})
     text = (CSRC / source).read_text()
-    flags = HOST_CC_FLAGS if host else NVCC_FLAGS
+    flags = HOST_CC_FLAGS if host else NVCC_FLAGS + SOURCE_NVCC_FLAGS.get(
+        source, ())
     parts = [source, text, " ".join(flags), "host" if host else "cuda"]
     for name in sorted(headers):
         parts += [name, headers[name]]

@@ -1,6 +1,6 @@
-"""Carry models and policy states across from the JAX package.
+"""Carry models, env states and policy states across from the JAX package.
 
-Both take plain numpy arrays (``np.asarray`` of each JAX field), so this
+All take plain numpy arrays (``np.asarray`` of each JAX field), so this
 module needs no JAX. The comparison tests run the two packages from the
 same numbers through these.
 """
@@ -8,9 +8,11 @@ same numbers through these.
 import numpy as np
 import torch
 
-from ppi_tpu_torch.envs.physics.engine import MODEL_FIELDS, ArticulatedModel
+from ppi_tpu_torch.envs.physics.engine import (
+    MODEL_FIELDS, ArticulatedModel, PhysicsState)
 from ppi_tpu_torch.policies.gaussian import GaussianState
 from ppi_tpu_torch.policies.kernels import KernelState
+from ppi_tpu_torch.policies.noise import NoiseState
 
 _INT_FIELDS = {"sphere_body", "pair_sphere_plane", "pair_sphere_sphere",
                "pair_sphere_segment"}
@@ -42,3 +44,26 @@ def kernel_state_from_numpy(fields: dict, device) -> KernelState:
 def gaussian_state_from_numpy(fields: dict, device) -> GaussianState:
     """A GaussianState on ``device`` from each field as a numpy array."""
     return GaussianState(**_tensors(fields, device))
+
+
+def noise_state_from_numpy(fields: dict, device) -> NoiseState:
+    """A NoiseState on ``device`` from each field as a numpy array."""
+    return NoiseState(**_tensors(fields, device))
+
+
+def env_state_from_numpy(state_cls, fields: dict, device):
+    """An env state (``PenState``, ``RelocateState``, ``CheetahState``,
+    ``DoorState``) on ``device``: ``fields`` holds ``qpos`` and ``qvel``
+    (the JAX state's physics), optionally ``t``, and the state's other
+    fields (the goal or the frame) as numpy arrays. The ball start of
+    relocate-v0 is part of ``qpos``."""
+    fields = dict(fields)
+    physics = PhysicsState(
+        qpos=torch.tensor(np.asarray(fields.pop("qpos"), np.float32),
+                          device=device),
+        qvel=torch.tensor(np.asarray(fields.pop("qvel"), np.float32),
+                          device=device))
+    t = torch.tensor(np.asarray(fields.pop("t", 0), np.int32), device=device)
+    rest = {k: torch.tensor(np.asarray(v, np.float32), device=device)
+            for k, v in fields.items()}
+    return state_cls(physics=physics, t=t, **rest)

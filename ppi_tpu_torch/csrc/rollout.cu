@@ -6,6 +6,8 @@
 // lane: the env's torque, PPI_SUBSTEPS physics substeps (FK, Jacobians,
 // mass matrix, Newton-Euler bias, penalty contacts, Gauss-Jordan solve,
 // semi-implicit Euler), a sticky NaN latch, and that step's reward.
+// The reward may take the step's raw action (a control cost) and
+// PPI_NCONSTS per-episode constants (a sampled goal), read once per lane.
 //
 // The per-env body (env_torque, env_substep, env_reward and the PPI_*
 // sizes) is the generated header "env_body.h": the same Python scalar
@@ -14,7 +16,8 @@
 // hand-written skeleton around it.
 //
 // Layout (as the Pallas kernel's): q0, qd0 (nq, N); actions (H, d_a, N);
-// rewards (H, N); qf, qdf (nq, N). Lane-major, so a warp's loads and
+// rewards (H, N); qf, qdf (nq, N); dyn (3,) and consts (PPI_NCONSTS,),
+// either null when the env has none. Lane-major, so a warp's loads and
 // stores are coalesced. Lanes >= n are masked, not padded.
 //
 // What bounds it on an H100: each lane is a long dependent scalar chain
@@ -44,7 +47,8 @@
 PPI_QUAL void ppi_rollout_lane(int lane, int n, int horizon,
                                const float* q0, const float* qd0,
                                const float* act, const float* dyn,
-                               float* rew, float* qf, float* qdf) {
+                               const float* consts, float* rew, float* qf,
+                               float* qdf) {
   float q[PPI_NQ], qd[PPI_NQ], a[PPI_DA], tau[PPI_NQ];
   for (int j = 0; j < PPI_NQ; ++j) {
     q[j] = q0[j * n + lane];
@@ -60,7 +64,7 @@ PPI_QUAL void ppi_rollout_lane(int lane, int n, int horizon,
     for (int j = 0; j < PPI_NQ; ++j) {
       if (ppi_isfinite(q[j]) == 0.0f || ppi_isfinite(qd[j]) == 0.0f) bad = 1;
     }
-    const float r = env_reward(q, qd, dyn);
+    const float r = env_reward(q, qd, a, dyn, consts);
     rew[t * n + lane] = bad ? PPI_NAN : r;
   }
   for (int j = 0; j < PPI_NQ; ++j) {
@@ -75,6 +79,7 @@ __global__ void ppi_rollout_kernel(const float* __restrict__ q0,
                                    const float* __restrict__ qd0,
                                    const float* __restrict__ act,
                                    const float* __restrict__ dyn,
+                                   const float* __restrict__ consts,
                                    float* __restrict__ rew,
                                    float* __restrict__ qf,
                                    float* __restrict__ qdf,
@@ -87,28 +92,32 @@ __global__ void ppi_rollout_kernel(const float* __restrict__ q0,
     d[1] = dyn[1];
     d[2] = dyn[2];
   }
-  ppi_rollout_lane(lane, n, horizon, q0, qd0, act, d, rew, qf, qdf);
+  // the episode's reward constants, in registers like the body offset
+  float c[PPI_NCONSTS > 0 ? PPI_NCONSTS : 1] = {0.0f};
+  for (int k = 0; k < PPI_NCONSTS; ++k) c[k] = consts[k];
+  ppi_rollout_lane(lane, n, horizon, q0, qd0, act, d, c, rew, qf, qdf);
 }
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int ppi_rollout_launch(const float* q0, const float* qd0,
                                   const float* act, const float* dyn,
-                                  float* rew, float* qf, float* qdf,
-                                  int n, int horizon, int block,
-                                  void* stream) {
+                                  const float* consts, float* rew,
+                                  float* qf, float* qdf, int n, int horizon,
+                                  int block, void* stream) {
   const int grid = (n + block - 1) / block;
   ppi_rollout_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      q0, qd0, act, dyn, rew, qf, qdf, n, horizon);
+      q0, qd0, act, dyn, consts, rew, qf, qdf, n, horizon);
   return (int)cudaGetLastError();
 }
 
 #else
 
 int ppi_rollout_host(const float* q0, const float* qd0, const float* act,
-                     const float* dyn, float* rew, float* qf, float* qdf,
-                     int n, int horizon) {
+                     const float* dyn, const float* consts, float* rew,
+                     float* qf, float* qdf, int n, int horizon) {
   for (int lane = 0; lane < n; ++lane)
-    ppi_rollout_lane(lane, n, horizon, q0, qd0, act, dyn, rew, qf, qdf);
+    ppi_rollout_lane(lane, n, horizon, q0, qd0, act, dyn, consts, rew, qf,
+                     qdf);
   return 0;
 }
 

@@ -11,7 +11,16 @@ only; the solver's mask turns it into a zero-weight sample.
 
 import dataclasses
 
+import numpy as np
 import torch
+
+
+def as_f32(x, device) -> torch.Tensor:
+    """A float32 tensor on ``device`` from a tensor, array or sequence (a
+    pinned goal, start or frame); arrays are copied."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x, np.float32))
+    return x.to(device=device, dtype=torch.float32)
 
 
 def _finite_lanes(state, n: int) -> torch.Tensor:

@@ -7,7 +7,8 @@ CUDA skeleton (``ppi_tpu_torch/csrc/rollout.cu``):
 
   * ``env_torque``  -- the env's ``scalar_torque``;
   * ``env_substep`` -- one ``engine_soa.substep_soa``;
-  * ``env_reward``  -- the env's ``scalar_reward``.
+  * ``env_reward``  -- the env's ``scalar_reward``, which may take the
+    step's raw action and per-episode reward constants.
 
 The kernel is built with ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/<hash of sources and flags>/`` and bound with ``ctypes``
@@ -20,9 +21,16 @@ shared counter of ``ppi_tpu_torch.build``) counts the launches.
 
 Env contract (duck-typed, as ``ppi_tpu``'s): ``env._model``, ``env.dt``,
 ``env.substeps``, ``env.action_dim``, ``env.scalar_torque(m, q, qd, act)``,
-``env.scalar_reward(m, q, qd)``, and optionally ``env.scalar_dyn_body``
-with ``env.scalar_dyn_consts(state) -> (3,)``. Reward constants, rewards
-that take the action and per-step projections are not ported yet.
+``env.scalar_reward(m, q, qd[, act][, consts])``, and optionally:
+
+  * ``env.scalar_dyn_body`` with ``env.scalar_dyn_consts(state) -> (3,)``,
+    the sampled body offset (door-v0's frame);
+  * ``env.scalar_reward_consts(state) -> (k,)``, the per-episode reward
+    constants (pen-v0's and relocate-v0's sampled goal);
+  * ``env.scalar_reward_takes_action = True``: the reward takes the step's
+    raw action, before any clip (cheetah's control cost).
+
+Per-step projections (``scalar_project``) are not ported yet.
 """
 
 import functools
@@ -42,14 +50,46 @@ def _function(signature: str, em: sm.Emitter, outputs) -> str:
     return f"PPI_QUAL {signature} {{\n{body}\n}}\n"
 
 
+def call_reward(reward_fn, m, q, qd, act, consts, reward_takes_action):
+    """``reward_fn(m, q, qd[, act][, consts])``, as the Pallas body calls
+    it: the raw action tuple ahead of the constants tuple."""
+    extra = (act,) if reward_takes_action else ()
+    if consts is not None:
+        extra = extra + (consts,)
+    return reward_fn(m, q, qd, *extra)
+
+
 def generate_env_header(model, dt: float, substeps: int, action_dim: int,
-                        torque_fn, reward_fn, dyn_body=None) -> str:
+                        torque_fn, reward_fn, dyn_body=None,
+                        n_consts: int = 0,
+                        reward_takes_action: bool = False) -> str:
     """C source of the per-env body (``env_body.h``) for the skeleton.
 
     Runs the scalar program over symbols; every model constant is folded
-    and written as an exact f32 literal, and the sampled body offset (when
-    ``dyn_body`` is set) is read from ``dyn[0..2]``. Deterministic: the
-    same inputs give the same text, which keys the build cache."""
+    and written as an exact f32 literal, the sampled body offset (when
+    ``dyn_body`` is set) is read from ``dyn[0..2]`` and the reward
+    constants from ``consts[0..n_consts-1]``. Deterministic: the same
+    inputs give the same text, which keys the build cache."""
+    return _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
+                     dyn_body, n_consts, reward_takes_action)[0]
+
+
+def ops_per_lane_step(model, dt: float, substeps: int, action_dim: int,
+                      torque_fn, reward_fn, dyn_body=None, n_consts: int = 0,
+                      reward_takes_action: bool = False) -> int:
+    """f32 operations one lane's control step emits (``Emitter.ops``):
+    torque + ``substeps`` x substep + reward, plus the NaN latch's 2 nq
+    finiteness tests. Times N x H, it is the work the rollout kernel must
+    do, which bounds its time from below."""
+    ops = _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
+                    dyn_body, n_consts, reward_takes_action)[1]
+    return (ops["torque"] + substeps * ops["substep"] + ops["reward"]
+            + 2 * model.nq)
+
+
+def _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
+              dyn_body, n_consts, reward_takes_action):
+    """(header text, {function: emitted f32 ops})."""
     m = SoaModel(model)
     nq, h = m.nq, dt / substeps
 
@@ -72,6 +112,7 @@ def generate_env_header(model, dt: float, substeps: int, action_dim: int,
     em = sm.Emitter()
     mm, q, qd, act = prologue(em, with_act=True)
     tau = torque_fn(mm, q, qd, act)
+    ops = {"torque": em.ops}
     torque = _function(
         "void env_torque(const float* q, const float* qd, const float* act, "
         "const float* dyn, float* tau)",
@@ -80,6 +121,7 @@ def generate_env_header(model, dt: float, substeps: int, action_dim: int,
     em = sm.Emitter()
     mm, q, qd, tau = prologue(em, with_tau=True)
     q2, qd2 = substep_soa(mm, q, qd, tau, h)
+    ops["substep"] = em.ops
     substep = _function(
         "void env_substep(float* q, float* qd, const float* tau, "
         "const float* dyn)",
@@ -87,23 +129,28 @@ def generate_env_header(model, dt: float, substeps: int, action_dim: int,
         + [(f"qd[{j}]", qd2[j]) for j in range(nq)])
 
     em = sm.Emitter()
-    mm, q, qd, _ = prologue(em)
-    r = reward_fn(mm, q, qd)
+    mm, q, qd, act = prologue(em, with_act=reward_takes_action)
+    consts = (tuple(em.input(f"c_{k}", f"consts[{k}]")
+                    for k in range(n_consts)) if n_consts else None)
+    r = call_reward(reward_fn, mm, q, qd, act, consts, reward_takes_action)
     em.lines.append(f"  return {sm._operand(r)};")
+    ops["reward"] = em.ops
     reward = _function(
-        "float env_reward(const float* q, const float* qd, const float* dyn)",
-        em, [])
+        "float env_reward(const float* q, const float* qd, const float* act, "
+        "const float* dyn, const float* consts)", em, [])
 
-    return "\n".join([
+    text = "\n".join([
         "/* Per-env body of ppi_tpu_torch/csrc/rollout.cu, generated by",
         "   ppi_tpu_torch/envs/physics/rollout_kernel.py from the scalar",
         "   physics program. Do not edit. */",
         f"#define PPI_NQ {nq}",
         f"#define PPI_DA {action_dim}",
         f"#define PPI_SUBSTEPS {substeps}",
+        f"#define PPI_NCONSTS {n_consts}",
         "",
         sm.C_HELPERS,
         torque, substep, reward])
+    return text, ops
 
 
 # the MPC agent builds an objective per control step: generate each env's
@@ -121,33 +168,39 @@ def _library(header: str, host: bool = False) -> Path:
 
 def load_host_rollout(header: str):
     """The host-C build of the skeleton + ``header``:
-    ``fn(q0, qd0, act, dyn, rew, qf, qdf, n, horizon)`` on pointers to
-    C-contiguous f32 buffers in the kernel's layout."""
+    ``fn(q0, qd0, act, dyn, consts, rew, qf, qdf, n, horizon)`` on pointers
+    to C-contiguous f32 buffers in the kernel's layout (``dyn`` and
+    ``consts`` may be null)."""
     return load_function(_library(header, host=True), "ppi_rollout_host",
-                         7, 2, stream=False)
+                         8, 2, stream=False)
 
 
 # ---- the plain version ---------------------------------------------------------
 
 def plain_rollout(model, dt: float, substeps: int, torque_fn, reward_fn,
-                  q0, qd0, actions, dyn_body=None, dyn=None):
+                  q0, qd0, actions, dyn_body=None, dyn=None, consts=None,
+                  reward_takes_action: bool = False):
     """What the kernel computes, eagerly over ``(N,)`` torch lanes:
     ``(q0 (N,nq), qd0 (N,nq), actions (N,H,d_a)) -> (rewards (N,H),
-    qf (N,nq), qdf (N,nq))`` with the sticky NaN latch."""
+    qf (N,nq), qdf (N,nq))`` with the sticky NaN latch. ``consts`` (k,)
+    are the reward constants; with ``reward_takes_action`` the reward gets
+    the step's raw action."""
     m = SoaModel(model)
     if dyn_body is not None:
         m = m.with_body_offset(dyn_body, dyn.unbind(-1))
     h = dt / substeps
     q, qd = q0.unbind(-1), qd0.unbind(-1)
+    c = None if consts is None else consts.unbind(-1)
     bad = torch.zeros(q0.shape[0], dtype=q0.dtype, device=q0.device)
     rewards = []
     for t in range(actions.shape[1]):
-        tau = torque_fn(m, q, qd, actions[:, t].unbind(-1))
+        act = actions[:, t].unbind(-1)
+        tau = torque_fn(m, q, qd, act)
         for _ in range(substeps):
             q, qd = substep_soa(m, q, qd, tau, h)
         fin = torch.stack([sm.isfinite(x) for x in q + qd]).amin(0)
         bad = torch.maximum(bad, 1.0 - fin)
-        r = reward_fn(m, q, qd)
+        r = call_reward(reward_fn, m, q, qd, act, c, reward_takes_action)
         rewards.append(torch.where(bad > 0.0, torch.nan, r))
     return (torch.stack(rewards, 1), torch.stack(q, -1),
             torch.stack(qd, -1))
@@ -163,15 +216,16 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
     dyn=None) -> (rewards (N,H), qpos_f (N,nq), qvel_f (N,nq))``, the
     counterpart of ``make_pallas_rollout``. ``block`` is the number of
     threads (lanes) per CUDA block. ``horizon`` is only checked: the kernel
-    takes it at run time, so one build serves every H."""
-    if project_fn is not None or n_consts or reward_takes_action:
+    takes it at run time, so one build serves every H. With ``n_consts``
+    the run takes the (n_consts,) f32 reward constants ``consts`` on the
+    actions' device."""
+    if project_fn is not None:
         raise NotImplementedError(
-            "reward constants, action-dependent rewards and per-step "
-            "projections are ROADMAP queue 2 item 1b/1c")
+            "per-step projections are ROADMAP queue 2 item 1c")
     nq = model.nq
     fn = None
 
-    def launch(q0, qd0, actions, dyn):
+    def launch(q0, qd0, actions, dyn, consts):
         nonlocal fn
         dev = actions.device
         n = actions.shape[0]
@@ -195,10 +249,12 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
                                  f"{dev} for a scene with a dynamic body")
             dyn = dyn.contiguous()
             dyn_ptr = dyn.data_ptr()
+        consts_ptr = consts.data_ptr() if n_consts else None
         if fn is None:
             fn = load_function(_library(_env_header(
                 model, dt, substeps, action_dim, torque_fn, reward_fn,
-                dyn_body)), "ppi_rollout_launch", 7, 3, stream=True)
+                dyn_body, n_consts, reward_takes_action)),
+                "ppi_rollout_launch", 8, 3, stream=True)
         # the kernel's lane-major layout (the Pallas layout)
         q0_t = q0.t().contiguous()
         qd0_t = qd0.t().contiguous()
@@ -209,8 +265,8 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(q0_t.data_ptr(), qd0_t.data_ptr(), act_t.data_ptr(),
-                     dyn_ptr, rew.data_ptr(), qf.data_ptr(), qdf.data_ptr(),
-                     n, horizon, block, stream)
+                     dyn_ptr, consts_ptr, rew.data_ptr(), qf.data_ptr(),
+                     qdf.data_ptr(), n, horizon, block, stream)
         if err != 0:
             raise RuntimeError(f"rollout kernel launch failed: CUDA error "
                                f"{err}")
@@ -218,13 +274,23 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
         return rew.t(), qf.t(), qdf.t()
 
     def run(q0, qd0, actions, consts=None, dyn=None):
-        del consts
+        if n_consts:
+            if consts is None or consts.shape != (n_consts,) \
+                    or consts.device != actions.device \
+                    or consts.dtype != torch.float32:
+                raise ValueError(
+                    f"consts must be a ({n_consts},) float32 tensor on "
+                    f"{actions.device}")
+            consts = consts.contiguous()
+        else:
+            consts = None
         if actions.device.type == "cpu":
             return plain_rollout(model, dt, substeps, torque_fn, reward_fn,
-                                 q0, qd0, actions, dyn_body, dyn)
+                                 q0, qd0, actions, dyn_body, dyn, consts,
+                                 reward_takes_action)
         if actions.device.type != "cuda":
             raise TypeError(f"no rollout kernel for {actions.device}")
-        return launch(q0, qd0, actions, dyn)
+        return launch(q0, qd0, actions, dyn, consts)
 
     return run
 
@@ -235,6 +301,38 @@ def supports_kernel(env) -> bool:
             and hasattr(env, "_model"))
 
 
+def kernel_operands(env, state0):
+    """(consts, dyn_body, dyn): the per-episode kernel inputs of
+    ``state0`` (``_pallas_operands`` of the JAX package)."""
+    consts = None
+    if hasattr(env, "scalar_reward_consts"):
+        consts = env.scalar_reward_consts(state0)
+    dyn_body = getattr(env, "scalar_dyn_body", None)
+    dyn = env.scalar_dyn_consts(state0) if dyn_body is not None else None
+    return consts, dyn_body, dyn
+
+
+def body_args(env, state):
+    """The positional arguments of ``generate_env_header`` and
+    ``ops_per_lane_step`` for ``env``; ``state`` gives the number of reward
+    constants."""
+    consts, dyn_body, _ = kernel_operands(env, state)
+    return (env._model, env.dt, env.substeps, env.action_dim,
+            env.scalar_torque, env.scalar_reward, dyn_body,
+            0 if consts is None else consts.shape[0],
+            getattr(env, "scalar_reward_takes_action", False))
+
+
+def env_rollout(env, state, horizon: int, block: int = 128):
+    """``make_rollout`` with ``env``'s kernel options."""
+    model, dt, substeps, action_dim, torque_fn, reward_fn, dyn_body, \
+        n_consts, takes_action = body_args(env, state)
+    return make_rollout(model, dt, substeps, horizon, action_dim, torque_fn,
+                        reward_fn, n_consts=n_consts,
+                        reward_takes_action=takes_action, dyn_body=dyn_body,
+                        block=block)
+
+
 def kernel_mpc_objective(env, state0, horizon: int, horizon_mask=None,
                          block: int = 128):
     """Counterpart of ``pallas_mpc_objective``: ``f(generator, actions
@@ -242,18 +340,15 @@ def kernel_mpc_objective(env, state0, horizon: int, horizon_mask=None,
     if not supports_kernel(env):
         raise ValueError(f"{env!r} does not implement the scalar kernel "
                          "contract (scalar_torque/scalar_reward)")
-    dyn_body = getattr(env, "scalar_dyn_body", None)
-    dyn = env.scalar_dyn_consts(state0) if dyn_body is not None else None
-    run = make_rollout(env._model, env.dt, env.substeps, horizon,
-                       env.action_dim, env.scalar_torque, env.scalar_reward,
-                       dyn_body=dyn_body, block=block)
+    consts, _, dyn = kernel_operands(env, state0)
+    run = env_rollout(env, state0, horizon, block)
     q0, qd0 = state0.physics.qpos, state0.physics.qvel
 
     def f(generator, action_sequences):
         del generator
         n = action_sequences.shape[0]
         rewards, _, _ = run(q0.expand(n, -1), qd0.expand(n, -1),
-                            action_sequences, dyn=dyn)
+                            action_sequences, consts=consts, dyn=dyn)
         if horizon_mask is not None:
             rewards = rewards * horizon_mask[None, :]
         return -torch.sum(rewards, dim=1)

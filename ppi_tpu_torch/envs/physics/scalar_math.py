@@ -10,9 +10,11 @@ over this namespace and runs on three kinds of scalar:
   * a ``Sym`` -> one line of CUDA C appended to an ``Emitter``: the code
     generator that writes the kernel's per-env body.
 
-Comparisons that the program uses as numbers (``gt``) return 0/1
-floats of the argument's kind. ``Sym`` overloads the arithmetic operators,
-so ``a * b + c`` in the program emits three lines. Constants are written as
+Comparisons that the program uses as numbers (``gt``, ``lt``) return 0/1
+floats of the argument's kind; ``logical_and`` of two such flags, and a
+flag times a value, are products (``0 * NaN`` is NaN, as in JAX). ``Sym``
+overloads the arithmetic operators, so ``a * b + c`` in the program emits
+two lines. Constants are written as
 exact f32 hex literals with an ``f`` suffix, and only the ``f``-suffixed C
 math functions are called, so every emitted operation is single precision.
 ``0.0 * x`` is emitted, never folded: a NaN has to reach the latch.
@@ -36,16 +38,22 @@ def f32_literal(value: float) -> str:
 
 
 class Emitter:
-    """Collects the straight-line C body of one generated function."""
+    """Collects the straight-line C body of one generated function.
+
+    ``ops`` counts the f32 operations emitted: each arithmetic operator and
+    each math or helper call is one (a literal is none)."""
 
     def __init__(self):
         self.lines = []
         self._n = 0
+        self.ops = 0
 
     def emit(self, expr: str) -> "Sym":
         name = f"t{self._n}"
         self._n += 1
         self.lines.append(f"  const float {name} = {expr};")
+        if not expr.startswith(("0x", "(-0x")):
+            self.ops += 1
         return Sym(self, name)
 
     def input(self, name: str, c_expr: str) -> "Sym":
@@ -174,6 +182,17 @@ def gt(a, b):
     if t is not None:
         return (a > b).to(t.dtype)
     return float(a > b)
+
+
+def lt(a, b):
+    """``a < b`` as a 0/1 float."""
+    return gt(b, a)
+
+
+def logical_and(a, b):
+    """``a & b`` of two 0/1 floats (from ``gt``/``lt``), as their product:
+    JAX's ``w * ((x > c) & (y < d))`` is the same number."""
+    return a * b
 
 
 def where(cond, a, b):

@@ -43,7 +43,7 @@ class Mpc:
     n_iters: int = 1
     anneal: float = 1.0
     use_map: bool = False     # return the MAP first action
-    device: Any = "cpu"
+    device: Any = "cuda"      # the card, unless the caller names the CPU
 
     @property
     def dt(self) -> float:

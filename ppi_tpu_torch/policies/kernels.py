@@ -37,6 +37,13 @@ def k_squared_exponential(hyper, t1, t2):
     return k
 
 
+def time_remap_matrix(t_new, t_old):
+    """(H, H) 0/1 matrix R with R[i, j] = 1 iff t_new[i] == t_old[j]: the
+    index remap of delta-correlated priors on a shifted window."""
+    return (torch.abs(t_new[:, None] - t_old[None, :]) == 0.0).to(
+        t_new.dtype)
+
+
 def _cho_solve(chol, b):
     """(L L^T)^-1 b for lower-triangular L."""
     return torch.cholesky_solve(b, chol, upper=False)

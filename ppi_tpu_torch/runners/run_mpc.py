@@ -1,15 +1,22 @@
 """MPC experiment runner (torch).
 
-The part of ``ppi_tpu/runners/run_mpc.py`` that the canonical door-v0 LBPS
-run uses, with the same positional layout plus ``--device``:
+The part of ``ppi_tpu/runners/run_mpc.py`` that the ported envs and
+priors use, with the same positional layout plus ``--device``:
 
     python -m ppi_tpu_torch.runners.run_mpc Lbps door-v0 \\
         SquaredExponentialKernel --delta 0.9 --n-iters 2 --anneal 0.5 \\
         --lengthscale 0.08 MonteCarlo --n-samples 64
+    python -m ppi_tpu_torch.runners.run_mpc Mppi relocate-v0 \\
+        ColouredNoise --beta 2 --alpha 10 --anneal 0.9 --timesteps 140 \\
+        --horizon 20 MonteCarlo --n-samples 256
 
-``--device cuda`` (the default) needs a CUDA card and rolls out through the
-hand-written kernel; ``--device cpu`` runs the eager plain version. Plots,
-rendering, checkpoints and model selection are not ported yet.
+Envs: door-v0, pen-v0, relocate-v0, cheetah. ``--alpha``, ``--epsilon``,
+``--n-elites``, ``--delta`` and ``--beta`` go to the solver and the prior as
+in the JAX runner; iCem samples with particle reuse and acts on the MAP
+sequence. ``--device cuda`` (the default) needs a CUDA card and rolls out
+through the hand-written kernel; ``--device cpu`` runs the eager plain
+version. Plots, rendering, checkpoints and model selection are not ported
+yet.
 """
 
 import argparse
@@ -19,11 +26,15 @@ import time
 import torch
 
 from ppi_tpu_torch.algorithms import ALGORITHMS, make_solver
+from ppi_tpu_torch.envs.cheetah import Cheetah
 from ppi_tpu_torch.envs.door import Door
+from ppi_tpu_torch.envs.pen import Pen
+from ppi_tpu_torch.envs.relocate import Relocate
 from ppi_tpu_torch.mpc import Mpc
 from ppi_tpu_torch.policies import POLICY_NAMES, design_moments, make_policy
 
-ENVS = {"door-v0": Door}
+ENVS = {"door-v0": Door, "pen-v0": Pen, "relocate-v0": Relocate,
+        "cheetah": Cheetah}
 
 
 def build_parser():
@@ -37,7 +48,13 @@ def build_parser():
     parser.add_argument("--n-iters", type=int, default=1)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--anneal", type=float, default=1.0)
+    # algorithm hyperparameters (the JAX runner's defaults)
+    parser.add_argument("--n-elites", type=int, default=10)
+    parser.add_argument("--alpha", type=float, default=10.0)
+    parser.add_argument("--epsilon", type=float, default=2.0)
     parser.add_argument("--delta", type=float, default=0.9)
+    # policy hyperparameters
+    parser.add_argument("--beta", type=float, default=2.0)
     parser.add_argument("--lengthscale", type=float, default=1.0)
     parser.add_argument("--device", default="cuda",
                         help="cuda (the rollout kernel) or cpu (the eager "
@@ -49,8 +66,10 @@ def build_parser():
     return parser
 
 
-def main(args):
-    """Run one episode; returns (return, success, track)."""
+def main(args, callback=None):
+    """Run one episode; returns (return, success, track); success is None
+    for an env without a success test (cheetah). ``callback(t, env_state,
+    row)`` sees every control step (``Mpc.run_episode``)."""
     logging.basicConfig(
         format="%(asctime)s,%(msecs)d %(name)s %(levelname)s %(message)s",
         datefmt="%H:%M:%S", level=logging.INFO, force=True)
@@ -66,16 +85,21 @@ def main(args):
     env = ENVS[args.env]()
     mean, cov_in, cov_out = design_moments(env.action_low, env.action_high,
                                            ratio=1000.0)
+    use_particles = args.algorithm == "iCem"
     family, policy = make_policy(
         args.policy, env.dt * torch.arange(args.horizon), env.action_dim,
         mean, cov_in, cov_out, lengthscale=args.lengthscale,
-        sampler=args.sampling, lower=env.action_low, upper=env.action_high,
-        device=device)
-    solver = make_solver(args.algorithm, delta=args.delta)
+        sampler="Particles" if use_particles else args.sampling,
+        beta=args.beta, lower=env.action_low, upper=env.action_high,
+        max_particles=max(1, int(0.33 * args.n_elites)), device=device)
+    solver = make_solver(args.algorithm, alpha=args.alpha,
+                         epsilon=args.epsilon, delta=args.delta,
+                         n_elites=args.n_elites,
+                         dimension=family.dim_features)
     agent = Mpc(env=env, solver=solver, family=family,
                 timesteps=args.timesteps, horizon=args.horizon,
                 n_samples=args.n_samples, n_iters=args.n_iters,
-                anneal=args.anneal, device=device)
+                anneal=args.anneal, use_map=use_particles, device=device)
     carry = agent.init(policy,
                        torch.Generator(device).manual_seed(args.seed))
     env_state = env.reset(torch.Generator(device).manual_seed(args.seed),
@@ -87,11 +111,13 @@ def main(args):
                                          args.n_warmstart_iters)
         logging.info("Warm start: %.2f +/- %.2f",
                      float(wtrace["mean"][-1]), float(wtrace["std"][-1]))
-    carry, env_state, track = agent.run_episode(carry, env_state)
+    carry, env_state, track = agent.run_episode(carry, env_state, callback)
     ret = float(track["reward"].sum())
-    success = bool(env.success(env_state))
     logging.info("Return: %.2f over %d timesteps", ret, args.timesteps)
-    logging.info("Success: %s", success)
+    success = None
+    if hasattr(env, "success"):
+        success = bool(env.success(env_state))
+        logging.info("Success: %s", success)
     logging.info("Episode wall time: %.2f s (%s)", time.perf_counter() - t0,
                  device)
     return ret, success, track

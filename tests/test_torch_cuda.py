@@ -236,3 +236,87 @@ def test_every_solver_runs_on_the_card(algorithm, sampler):
     assert bool(torch.isfinite(state.mu).all())
     expected = 0 if algorithm == "More" else 3
     assert LAUNCHES["moment_match"] == before + expected
+
+
+# ---- variant (b): reward constants and action rewards --------------------------
+
+def _variant_b_env(name):
+    from ppi_tpu_torch.runners.run_mpc import ENVS
+    return ENVS[name]()
+
+
+# per env: the scale of the random actions (cheetah's reach past +-30)
+ACTION_SCALE = {"pen-v0": 0.12, "relocate-v0": 0.3, "cheetah": 25.0}
+
+
+@pytest.mark.parametrize("name", sorted(ACTION_SCALE))
+def test_variant_b_kernel_matches_plain(name):
+    """Each new body at N=257 (ragged), H=5, from a sampled goal or start:
+    rewards and final state within 1e-4 of the plain version."""
+    dev = _device()
+    env = _variant_b_env(name)
+    s0 = env.reset(torch.Generator(dev).manual_seed(1), dev)
+    n, h = 257, 5
+    rng = np.random.default_rng(2)
+    acts = torch.from_numpy((ACTION_SCALE[name] * rng.standard_normal(
+        (n, h, env.action_dim))).astype(np.float32)).to(dev)
+    consts, _, _ = rk.kernel_operands(env, s0)
+    run = rk.env_rollout(env, s0, h)
+    q0 = s0.physics.qpos.expand(n, -1).contiguous()
+    qd0 = s0.physics.qvel.expand(n, -1).contiguous()
+    before = rk.LAUNCHES["rollout"]
+    rew, qf, qdf = run(q0, qd0, acts, consts=consts)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rollout"] == before + 1
+    final, rew_p = batch_rollout(env, s0, acts)
+    assert _rel(rew, rew_p) <= 1e-4
+    assert _rel(qf, final.physics.qpos) <= 1e-4
+    assert _rel(qdf, final.physics.qvel) <= 1e-4
+
+
+def test_consts_are_checked_for_device_and_dtype():
+    dev = _device()
+    env = _variant_b_env("pen-v0")
+    s0 = env.reset(torch.Generator(dev).manual_seed(0), dev)
+    run = rk.make_rollout(env._model, env.dt, env.substeps, 2, 4,
+                          env.scalar_torque, env.scalar_reward, n_consts=3)
+    q0 = s0.physics.qpos.expand(4, -1).contiguous()
+    acts = torch.zeros((4, 2, 4), device=dev)
+    with pytest.raises(ValueError, match="consts"):
+        run(q0, q0 * 0.0, acts, consts=s0.target_axis.cpu())
+    with pytest.raises(ValueError, match="consts"):
+        run(q0, q0 * 0.0, acts, consts=s0.target_axis.double())
+    with pytest.raises(ValueError, match="consts"):
+        run(q0, q0 * 0.0, acts)
+
+
+def test_coloured_noise_control_step_never_waits_for_the_card():
+    """One Mppi control step with the ColouredNoise prior on relocate-v0,
+    and the real env step, run no operation that synchronizes with the
+    host."""
+    dev = _device()
+    from ppi_tpu_torch.algorithms import make_solver
+    from ppi_tpu_torch.mpc import Mpc
+    from ppi_tpu_torch.policies import design_moments, make_policy
+    env = _variant_b_env("relocate-v0")
+    mean, ci, co = design_moments(env.action_low, env.action_high, 1000.0)
+    fam, pol = make_policy("ColouredNoise", env.dt * torch.arange(H), 6,
+                           mean, ci, co, beta=2.0, lower=env.action_low,
+                           upper=env.action_high, device=dev)
+    agent = Mpc(env=env, solver=make_solver("Mppi", alpha=10.0), family=fam,
+                timesteps=20, horizon=H, n_samples=64, anneal=0.9,
+                device=dev)
+    state = env.reset(torch.Generator(dev).manual_seed(0), dev)
+    carry = agent.init(pol, torch.Generator(dev).manual_seed(0))
+    carry, _ = agent.warm_start(carry, state, 2)  # builds and loads first
+    torch.cuda.synchronize()
+    before = rk.LAUNCHES["rollout"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        action, carry, _ = agent.control_step(carry, state, 1)
+        state, _ = env.step(state, action)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rollout"] == before + 1
+    assert bool(torch.isfinite(state.physics.qpos).all())

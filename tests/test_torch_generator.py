@@ -111,7 +111,7 @@ def test_host_c_build_matches_plain(case):
     rew = np.empty((h, n), np.float32)
     qf, qdf = np.empty((6, n), np.float32), np.empty((6, n), np.float32)
     ptr = lambda a: a.ctypes.data
-    assert fn(ptr(q0_t), ptr(qd0_t), ptr(act_t), ptr(frame), ptr(rew),
+    assert fn(ptr(q0_t), ptr(qd0_t), ptr(act_t), ptr(frame), None, ptr(rew),
               ptr(qf), ptr(qdf), n, h) == 0
     np.testing.assert_allclose(rew.T, rew_p, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(qf.T, qf_p, rtol=1e-5, atol=1e-5)

@@ -18,6 +18,9 @@ SLICE_MODULES = [
     "ppi_tpu_torch.samplers",
     "ppi_tpu_torch.envs.base",
     "ppi_tpu_torch.envs.door",
+    "ppi_tpu_torch.envs.pen",
+    "ppi_tpu_torch.envs.relocate",
+    "ppi_tpu_torch.envs.cheetah",
     "ppi_tpu_torch.envs.physics",
     "ppi_tpu_torch.envs.physics.engine",
     "ppi_tpu_torch.envs.physics.engine_soa",
@@ -27,14 +30,19 @@ SLICE_MODULES = [
     "ppi_tpu_torch.ops",
     "ppi_tpu_torch.ops.cuda_ops",
     "ppi_tpu_torch.ops.divergences",
+    "ppi_tpu_torch.ops.fftnoise",
     "ppi_tpu_torch.ops.qmc",
     "ppi_tpu_torch.policies",
     "ppi_tpu_torch.policies.gaussian",
+    "ppi_tpu_torch.policies.noise",
     "ppi_tpu_torch.algorithms",
     "ppi_tpu_torch.mpc",
     "ppi_tpu_torch.utils",
     "ppi_tpu_torch.runners.run_mpc",
     "ppi_tpu_torch.runners.run_opt",
+    "ppi_tpu_torch.studies.body_report",
+    "ppi_tpu_torch.studies.episode_trace",
+    "ppi_tpu_torch.studies.fma_contraction",
 ]
 
 
@@ -43,12 +51,26 @@ def test_port_imports_neither_jax_nor_flax():
             f"for m in {SLICE_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+            "                                    'ppi_tpu'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_default_to_the_card():
+    """A caller who names no device gets the card: the library entry
+    points' defaults, read from their signatures (no card needed)."""
+    import dataclasses
+    import inspect
+    from ppi_tpu_torch.mpc import Mpc
+    from ppi_tpu_torch.policies import make_policy
+    fields = {f.name: f.default for f in dataclasses.fields(Mpc)}
+    assert fields["device"] == "cuda"
+    assert inspect.signature(make_policy).parameters["device"].default \
+        == "cuda"
 
 
 def test_runner_cuda_without_a_card_raises():

@@ -71,7 +71,7 @@ def _port_episode():
     family, policy = make_policy(
         "SquaredExponentialKernel", env.dt * torch.arange(H), env.action_dim,
         mean, cov_in, cov_out, lengthscale=0.08, lower=env.action_low,
-        upper=env.action_high)
+        upper=env.action_high, device="cpu")
     agent = Mpc(env=env, solver=make_solver("Lbps", delta=0.9),
                 family=family, timesteps=T, horizon=H, n_samples=N,
                 n_iters=ITERS, anneal=0.5, device="cpu")

@@ -55,7 +55,7 @@ def policies():
     m, ci, co = design_moments(to_torch(LOW), to_torch(HIGH), 1000.0)
     fam, state = make_policy("SquaredExponentialKernel", to_torch(t), D, m,
                              ci, co, lengthscale=0.08, lower=to_torch(LOW),
-                             upper=to_torch(HIGH))
+                             upper=to_torch(HIGH), device="cpu")
     return jfam, jstate, fam, state
 
 
@@ -146,4 +146,4 @@ def test_compute_prior_and_predictions(policies, z, monkeypatch):
 def test_unported_families_raise():
     with pytest.raises(ValueError, match="item 11"):
         make_policy("Matern32Kernel", torch.zeros(H), D, torch.zeros(D),
-                    torch.ones(1), torch.eye(D))
+                    torch.ones(1), torch.eye(D), device="cpu")

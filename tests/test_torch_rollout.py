@@ -178,7 +178,24 @@ def test_supports_kernel_contract():
 
 
 def test_unported_variants_raise():
+    """Per-step projections (variant c) are not ported; reward constants
+    and action rewards (variant b) are."""
     door = Door()
     with pytest.raises(NotImplementedError, match="queue 2"):
         make_rollout(door._model, door.dt, door.substeps, H, 4,
-                     door.scalar_torque, door.scalar_reward, n_consts=3)
+                     door.scalar_torque, door.scalar_reward,
+                     project_fn=lambda m, q_prev, q, qd: (q, qd))
+    run = make_rollout(door._model, door.dt, door.substeps, H, 4,
+                       door.scalar_torque,
+                       lambda m, q, qd, act, consts: consts[0] * act[0],
+                       n_consts=2, reward_takes_action=True, dyn_body=DOOR)
+    acts = to_torch(np.ones((3, H, 4), np.float32))
+    q0 = to_torch(door_q0(3))
+    rew, _, _ = run(q0, q0 * 0.0, acts, consts=to_torch([2.5, 0.0]),
+                    dyn=to_torch(FRAME))
+    np.testing.assert_array_equal(to_np(rew), np.full((3, H), 2.5))
+    with pytest.raises(ValueError, match="consts"):
+        run(q0, q0 * 0.0, acts, dyn=to_torch(FRAME))
+    with pytest.raises(ValueError, match="consts"):
+        run(q0, q0 * 0.0, acts, consts=to_torch([1.0, 2.0, 3.0]),
+            dyn=to_torch(FRAME))

@@ -72,7 +72,7 @@ def test_lbps_update_matches_reference(case):
     m, ci, co = design_moments(to_torch(LOW), to_torch(-LOW), 1000.0)
     fam, state = make_policy("SquaredExponentialKernel", to_torch(t), D, m,
                              ci, co, lengthscale=0.08, lower=to_torch(LOW),
-                             upper=to_torch(-LOW))
+                             upper=to_torch(-LOW), device="cpu")
     params = np.clip(np.random.default_rng(1).standard_normal((N, H, D)),
                      LOW, -LOW).astype(np.float32)
     c = _costs(case)
@@ -131,7 +131,7 @@ def test_solve_matches_reference(monkeypatch):
     m, ci, co = design_moments(to_torch(LOW), to_torch(-LOW), 1000.0)
     fam, state = make_policy("SquaredExponentialKernel", to_torch(t), D, m,
                              ci, co, lengthscale=0.08, lower=to_torch(LOW),
-                             upper=to_torch(-LOW))
+                             upper=to_torch(-LOW), device="cpu")
     jnew, jtrace = jax_solve(
         jax_make_solver("Lbps"), jfam, jstate,
         lambda key, a: jnp.sum((a - 0.3) ** 2, axis=(1, 2)),
