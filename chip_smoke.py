@@ -51,10 +51,34 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 N=256) to success, cheetah (Mppi, ColouredNoise, T=150,
                 N=256) to a positive return, and make mpc-cem's door-v0
                 (Cem, WhiteNoiseIid, N=64, T=250); exactly 250, 190, 200
-                and 300 kernel launches.
+                and 300 kernel launches;
+ 13. build   -- generate the door-v0-hand (12 DoF) and door-v0-adroit (23
+                DoF) bodies (variants c and d: the bolt projection) and
+                build them with nvcc in parallel with phases 1, 5 and 9;
+                print each body's line count, nvcc seconds and -Xptxas -v
+                summary;
+ 14. check   -- each body against its plain version on the card at N=1000
+                (ragged), H=20 (door-v0-adroit H=10: its plain rollout is
+                ~200k eager launches a step): rewards and final state from
+                a sampled frame, with lanes where the bolt clamp holds the
+                door and lanes where the latch is pressed and it does not
+                (both sets must be non-empty), a pre-poisoned NaN lane,
+                the horizon mask in the objective and a second sampled
+                frame (H=5), and the real step through the kernel (N=1,
+                H=1) against the eager step;
+ 15. timings -- each body's kernel time at N=64/H=30 (canonical) and
+                N=1024/H=30, the plain rollout at N=64/H=30, one synced PPI
+                iteration at the canonical shape, one real step through the
+                kernel, one eager real step and one observation;
+ 16. episodes -- the canonical config (Lbps, SE, delta 0.9, 2 iters, anneal
+                0.5, lengthscale 0.08 = "4dt", N=64, H=30, T=250, 50
+                warm-start iterations) on door-v0-hand at seeds 0-4 (door
+                open at >= 3) and door-v0-adroit at seeds 0-2 (>= 1): finite
+                returns, exactly 800 kernel launches at seed 0 (50 + 250 x 2
+                iterations + 250 real steps).
 Then one JSON line with the kernels' numbers and, last, the device line.
 All numbers go to chiprun_out/chip_smoke.json as well. The whole run takes
-about five minutes on an H100, the kernels' builds included.
+about ten minutes on an H100, the kernels' builds included.
 """
 
 import dataclasses
@@ -118,6 +142,19 @@ VARIANT_B = {
 }
 DOOR_CEM = dict(episode=["Cem", "door-v0", "WhiteNoiseIid", "--n-elites",
                          "10"], n_samples=64, launches=50 + 250)
+
+# phases 13-16: the hand door scenes (variants c and d). Per env: the check
+# horizon, the seeds of phase 16 and how many must open the door. Every
+# episode runs the canonical config (``goal_success.py:63-66,74-77``); seed
+# 0 launches the kernel 50 + 250 x 2 + 250 times (its real step is one
+# launch too).
+HAND = {"door-v0-hand": dict(h_check=20, seeds=range(5), successes=3),
+        "door-v0-adroit": dict(h_check=10, seeds=range(3), successes=1)}
+HAND_EPISODE = ["Lbps", "SquaredExponentialKernel", "--delta", "0.9",
+                "--n-iters", "2", "--anneal", "0.5", "--lengthscale", "0.08",
+                "--timesteps", "250", "--horizon", "30"]
+HAND_LAUNCHES = 50 + 250 * 2 + 250
+H_FRAME = 5  # horizon of the mask and second-frame checks
 
 
 def check(cond, msg):
@@ -345,13 +382,160 @@ def time_variant_b(name, env, dev):
     return out
 
 
-def run_episode(args_list, n_samples):
+def hand_lanes(env, dev, n, h, seed=1):
+    """Phase 14's lanes from a frame sampled with ``seed``: the reset
+    posture in the first half, then the door opening at 1 rad/s from 0.02
+    rad with the latch up (the bolt clamp holds it) and, in the last
+    quarter, with the latch pressed to -1.0, past the unlock angle (it does
+    not); actions are the initial posture plus 0.3 z."""
+    s0 = env.reset(torch.Generator(dev).manual_seed(seed), dev)
+    q0, qd0 = (x.clone() for x in lanes(s0, n))
+    door, latch = env.scalar_dyn_body, env._latch
+    q0[n // 2:, door] = 0.02
+    qd0[n // 2:, door] = 1.0
+    q0[3 * n // 4:, latch] = -1.0
+    rng = np.random.default_rng(seed)
+    acts = q0[:, None, :env.action_dim] + torch.from_numpy(
+        (0.3 * rng.standard_normal((n, h, env.action_dim))).astype(
+            np.float32)).to(dev)
+    return s0, q0, qd0, acts
+
+
+def check_hand(name, env, dev):
+    """Phase 14 for one env: (errors, max abs error, clamp counts)."""
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    h = HAND[name]["h_check"]
+    s0, q0, qd0, acts = hand_lanes(env, dev, N_CHECK, h)
+    run = rk.env_rollout(env, s0, h)
+    rew, qf, qdf = run(q0, qd0, acts, dyn=s0.frame)
+    rew_p, qf_p, qdf_p = rk.env_plain_rollout(env, s0, q0, qd0, acts)
+    torch.cuda.synchronize()
+    errs = {"rewards": rel_err(rew, rew_p), "qf": rel_err(qf, qf_p),
+            "qdf": rel_err(qdf, qdf_p)}
+    max_abs = max(float((a - b).abs().max())
+                  for a, b in ((rew, rew_p), (qf, qf_p), (qdf, qdf_p)))
+    check(max(errs.values()) <= TOL, f"{name}: kernel vs plain {errs} > {TOL}")
+
+    # the bolt: held at its depth where the latch is up, passed where it is
+    # pressed below the unlock angle
+    door, latch = env.scalar_dyn_body, env._latch
+    held = qf_p[:, door] == env.bolt_depth
+    passed = (qf_p[:, door] > env.bolt_depth) & (
+        q0[:, latch] < env.latch_unlock_angle)
+    clamp = {"held": int(held.sum()), "passed": int(passed.sum())}
+    check(clamp["held"] > 0 and clamp["passed"] > 0
+          and bool(torch.equal(qf[:, door] == env.bolt_depth, held)),
+          f"{name}: the clamp must hold some lanes and not others {clamp}")
+
+    q0_bad = q0.clone()
+    q0_bad[3] = torch.nan
+    rew_bad, _, _ = run(q0_bad, qd0, acts, dyn=s0.frame)
+    others = torch.cat([rew_bad[:3], rew_bad[4:]])
+    check(bool(torch.isnan(rew_bad[3]).all())
+          and bool(torch.isfinite(others).all())
+          and bool(torch.equal(others, torch.cat([rew[:3], rew[4:]]))),
+          f"{name}: a NaN lane must go NaN alone")
+
+    # the objective from the reset state: the mask, and a second frame
+    a = acts[:, :H_FRAME].contiguous()
+    mask = (torch.arange(H_FRAME, device=dev) < H_FRAME - 2).float()
+    c_k = rk.kernel_mpc_objective(env, s0, H_FRAME, mask)(None, a)
+    c_full = rk.kernel_mpc_objective(env, s0, H_FRAME)(None, a)
+    q_r, qd_r = lanes(s0, N_CHECK)
+    r_p = rk.env_plain_rollout(env, s0, q_r, qd_r, a)[0]
+    errs["masked_costs"] = rel_err(c_k, -(r_p * mask).sum(1))
+    check(errs["masked_costs"] <= TOL and not bool(torch.allclose(c_k, c_full)),
+          f"{name}: horizon mask {errs['masked_costs']}")
+    s1 = env.reset(torch.Generator(dev).manual_seed(2), dev)
+    check(not bool(torch.equal(s1.frame, s0.frame)), f"{name}: frame not "
+          "sampled")
+    c_k1 = rk.kernel_mpc_objective(env, s1, H_FRAME)(None, a)
+    r_p1 = rk.env_plain_rollout(env, s1, q_r, qd_r, a)[0]
+    errs["second_frame_costs"] = rel_err(c_k1, -r_p1.sum(1))
+    check(errs["second_frame_costs"] <= TOL
+          and not bool(torch.allclose(c_k1, c_full)),
+          f"{name}: second frame {errs['second_frame_costs']}")
+
+    # the real step: one launch at N=1, H=1 against the eager step
+    action = acts[N_CHECK // 2, 0]
+    (s_k, r_k), (s_e, r_e) = env.step(s0, action), env.plain_step(s0, action)
+    errs["real_step"] = max(rel_err(s_k.physics.qpos, s_e.physics.qpos),
+                            rel_err(s_k.physics.qvel, s_e.physics.qvel),
+                            rel_err(r_k, r_e))
+    check(errs["real_step"] <= TOL, f"{name}: real step {errs['real_step']}")
+    return errs, max_abs, clamp
+
+
+def time_hand(name, env, dev):
+    """Phase 15 for one env."""
+    from ppi_tpu_torch.algorithms import make_solver
+    from ppi_tpu_torch.algorithms.base import _one_iteration
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    from ppi_tpu_torch.policies import design_moments, make_policy
+    out = {}
+    s0 = env.reset(torch.Generator(dev).manual_seed(0), dev)
+    for n, iters in ((64, 20), (1024, 5)):
+        _, qn, qdn, a = hand_lanes(env, dev, n, 30)
+        r = rk.env_rollout(env, s0, 30)
+        out[f"kernel_ms_N{n}_H30"] = cuda_ms(
+            lambda: r(qn, qdn, a, dyn=s0.frame), iters)
+    out["bound_ms_N64_H30"], out["bound_by"] = rollout_bound(env, 64, 30)
+    _, qn, qdn, a = hand_lanes(env, dev, 64, 30)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rk.env_plain_rollout(env, s0, qn, qdn, a)
+    torch.cuda.synchronize()
+    out["plain_ms_N64_H30"] = 1e3 * (time.perf_counter() - t0)
+
+    mean, cov_in, cov_out = design_moments(env.action_low, env.action_high,
+                                           ratio=1000.0)
+    family, state = make_policy(
+        "SquaredExponentialKernel", env.dt * torch.arange(30),
+        env.action_dim, mean, cov_in, cov_out, lengthscale=0.08,
+        lower=env.action_low, upper=env.action_high, device=dev)
+    step = _one_iteration(make_solver("Lbps", delta=0.9), family,
+                          rk.kernel_mpc_objective(env, s0, 30), 64)
+    gen = torch.Generator(dev).manual_seed(0)
+    for _ in range(3):
+        state, (stats, _, _) = step(state, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state, (stats, _, _) = step(state, gen)
+        torch.cuda.synchronize()
+    out["ppi_iter_ms_N64_H30"] = 1e3 * (time.perf_counter() - t0) / 10
+    check(bool(torch.isfinite(stats["mean"])),
+          f"{name}: PPI iteration cost not finite")
+
+    action = family.predict_mean(state)[0]
+    for label, fn, iters in (("kernel_step_ms", env.step, 20),
+                             ("eager_step_ms", env.plain_step, 1)):
+        fn(s0, action)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            s1, _ = fn(s0, action)
+        torch.cuda.synchronize()
+        out[label] = 1e3 * (time.perf_counter() - t0) / iters
+        check(bool(torch.isfinite(s1.physics.qpos).all()),
+              f"{name}: real env step not finite")
+    # the episode's other per-step host cost: the eager observation
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        env.observe(s1)
+    torch.cuda.synchronize()
+    out["observe_ms"] = 1e3 * (time.perf_counter() - t0) / 5
+    return out
+
+
+def run_episode(args_list, n_samples, seed=0):
     """One episode through the port's run_mpc; (return, success, wall s,
     kernel launches)."""
     from ppi_tpu_torch.build import LAUNCHES
     from ppi_tpu_torch.runners import run_mpc
     args = run_mpc.build_parser().parse_args(
-        args_list + ["--n-warmstart-iters", "50", "--seed", "0",
+        args_list + ["--n-warmstart-iters", "50", "--seed", str(seed),
                      "--device", "cuda", "MonteCarlo", "--n-samples",
                      str(n_samples)])
     LAUNCHES.clear()
@@ -365,7 +549,7 @@ def run_episode(args_list, n_samples):
 
 
 def main():
-    with ThreadPoolExecutor(max_workers=5) as pool:
+    with ThreadPoolExecutor(max_workers=7) as pool:
         return run(pool)
 
 
@@ -412,6 +596,8 @@ def run(pool):
     mm_build = pool.submit(build_timed, "moment_match.cu")
     # phase 9's bodies build beside phases 1 and 5
     bodies = {name: env_header(ENVS[name]()) for name in VARIANT_B}
+    # ... and phase 13's, all seven builds at once
+    bodies.update({name: env_header(ENVS[name]()) for name in HAND})
     body_builds = {name: pool.submit(build_timed, "rollout.cu",
                                      {"env_body.h": h})
                    for name, h in bodies.items()}
@@ -684,6 +870,8 @@ def run(pool):
     # ---- 9. build the variant-(b) bodies -----------------------------------
     body_info = {}
     for name, fut in body_builds.items():
+        if name in HAND:
+            continue
         body_lib, secs = fut.result()
         info = {"lines": len(bodies[name].splitlines()), "nvcc_s": secs,
                 "ptxas": ptxas_summary(body_lib)}
@@ -733,6 +921,57 @@ def run(pool):
             check(ret > 0.0, f"{name}: return {ret:.2f} not above 0")
     out.update(episodes=episodes)
 
+    # ---- 13. build the hand bodies -------------------------------------------
+    for name in HAND:
+        body_lib, secs = body_builds[name].result()
+        info = {"lines": len(bodies[name].splitlines()), "nvcc_s": secs,
+                "ptxas": ptxas_summary(body_lib)}
+        body_info[name] = info
+        print(f"body build {name}: {info['lines']} generated lines, nvcc "
+              f"{secs:.1f} s (in parallel with phases 1-12); ptxas: "
+              f"{' | '.join(info['ptxas'])}", flush=True)
+
+    # ---- 14. hand bodies: kernel vs plain --------------------------------------
+    hand_errs, hand_max_abs = {}, {}
+    for name, cfg in HAND.items():
+        hand_errs[name], hand_max_abs[name], clamp = check_hand(
+            name, ENVS[name](), dev)
+        print(f"check {name}: N={N_CHECK} H={cfg['h_check']} errors "
+              f"{json.dumps(hand_errs[name])} (tol {TOL}); max abs err "
+              f"{hand_max_abs[name]:.3g}; bolt held {clamp['held']} lanes, "
+              f"passed {clamp['passed']}; NaN lane isolated; mask and "
+              f"second frame applied; real step matches", flush=True)
+    out.update(hand_check=hand_errs, hand_max_abs_err=hand_max_abs)
+
+    # ---- 15. hand bodies: timings -------------------------------------------
+    hand_times = {}
+    for name in HAND:
+        hand_times[name] = time_hand(name, ENVS[name](), dev)
+        print(f"timings {name}: {json.dumps(hand_times[name])}", flush=True)
+    out.update(hand_timings=hand_times)
+
+    # ---- 16. hand episodes ------------------------------------------------------
+    hand_episodes = {}
+    for name, cfg in HAND.items():
+        runs = []
+        for seed in cfg["seeds"]:
+            ret, success, wall, got = run_episode(
+                HAND_EPISODE[:1] + [name] + HAND_EPISODE[1:], 64, seed)
+            runs.append({"seed": seed, "return": ret, "success": success,
+                         "wall_s": wall, "launches": got})
+            print(f"episode {name} seed {seed}: return {ret:.2f}, success "
+                  f"{success}, {got} kernel launches, wall {wall:.1f} s",
+                  flush=True)
+            check(np.isfinite(ret), f"{name} seed {seed}: return {ret}")
+            if seed == 0:
+                check(got == HAND_LAUNCHES, f"{name}: {got} kernel launches, "
+                      f"expected {HAND_LAUNCHES}")
+        opened = sum(r["success"] for r in runs)
+        check(opened >= cfg["successes"], f"{name}: door opened at {opened} "
+              f"of {len(runs)} seeds, expected >= {cfg['successes']}")
+        hand_episodes[name] = runs
+    out.update(hand_episodes=hand_episodes)
+
     Path("chiprun_out").mkdir(exist_ok=True)
     Path("chiprun_out/chip_smoke.json").write_text(json.dumps(out, indent=1))
     # door-v0's body ran on two paths: phase 4's Lbps episode and make
@@ -766,6 +1005,17 @@ def run(pool):
              "ms": t[f"kernel_ms_N{n}_H{h}"],
              "plain_ms": t[f"plain_ms_N{n}_H{h}"],
              "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
+             "library_ms": None})
+    for env_name in HAND:
+        t = hand_times[env_name]
+        kernels.append(
+            {"name": f"{env_name.replace('-v0-', '_')}_rollout",
+             "route": "cuda", "source": "ppi_tpu_torch/csrc/rollout.cu",
+             "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
+             "launches": sum(r["launches"] for r in hand_episodes[env_name]),
+             "max_abs_err": hand_max_abs[env_name],
+             "ms": t["kernel_ms_N64_H30"], "plain_ms": t["plain_ms_N64_H30"],
+             "bound_ms": t["bound_ms_N64_H30"], "bound_by": t["bound_by"],
              "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

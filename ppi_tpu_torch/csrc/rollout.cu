@@ -5,12 +5,15 @@
 // (make_pallas_rollout, pallas_call at line 190). Per control step, per
 // lane: the env's torque, PPI_SUBSTEPS physics substeps (FK, Jacobians,
 // mass matrix, Newton-Euler bias, penalty contacts, Gauss-Jordan solve,
-// semi-implicit Euler), a sticky NaN latch, and that step's reward.
+// semi-implicit Euler), the env's optional projection (PPI_PROJECT: a
+// kinematic clamp that sees the step's initial coordinates q_prev), a
+// sticky NaN latch, and that step's reward.
 // The reward may take the step's raw action (a control cost) and
 // PPI_NCONSTS per-episode constants (a sampled goal), read once per lane.
 //
-// The per-env body (env_torque, env_substep, env_reward and the PPI_*
-// sizes) is the generated header "env_body.h": the same Python scalar
+// The per-env body (env_torque, env_substep, env_reward, env_project where
+// PPI_PROJECT is defined, and the PPI_* sizes) is the generated header
+// "env_body.h": the same Python scalar
 // program that runs eagerly over torch tensors, emitted as straight-line
 // f32 C (ppi_tpu_torch/envs/physics/rollout_kernel.py). This file is the
 // hand-written skeleton around it.
@@ -23,9 +26,12 @@
 // What bounds it on an H100: each lane is a long dependent scalar chain
 // (thousands of f32 ops per substep) with q and qd in registers and almost
 // no memory traffic, so it is latency-bound at low occupancy: 1024 lanes
-// are 32 warps on 132 SMs, and the canonical 64 lanes are 2 warps. Making
-// it fast -- more parallelism per lane (splitting a substep across threads),
-// CUDA graphs around the PPI iteration -- is later work.
+// are 32 warps on 132 SMs, and the canonical 64 lanes are 2 warps. The
+// 12- and 23-DoF hand bodies exceed 255 registers and keep 2.6 and 7.5 KB
+// of stack a lane (nvcc -Xptxas -v, sm_90a), which at 64 lanes stays in L1
+// and adds latency, not memory traffic. Making it fast -- more parallelism
+// per lane (splitting a substep across threads), CUDA graphs around the
+// PPI iteration -- is later work.
 //
 // The file also compiles as host C (no __CUDACC__): the lane loop then runs
 // on the CPU through ppi_rollout_host, which the CPU tests call to check the
@@ -50,6 +56,9 @@ PPI_QUAL void ppi_rollout_lane(int lane, int n, int horizon,
                                const float* consts, float* rew, float* qf,
                                float* qdf) {
   float q[PPI_NQ], qd[PPI_NQ], a[PPI_DA], tau[PPI_NQ];
+#ifdef PPI_PROJECT
+  float q_prev[PPI_NQ];
+#endif
   for (int j = 0; j < PPI_NQ; ++j) {
     q[j] = q0[j * n + lane];
     qd[j] = qd0[j * n + lane];
@@ -58,7 +67,13 @@ PPI_QUAL void ppi_rollout_lane(int lane, int n, int horizon,
   for (int t = 0; t < horizon; ++t) {
     for (int k = 0; k < PPI_DA; ++k) a[k] = act[(t * PPI_DA + k) * n + lane];
     env_torque(q, qd, a, dyn, tau);
+#ifdef PPI_PROJECT
+    for (int j = 0; j < PPI_NQ; ++j) q_prev[j] = q[j];
+#endif
     for (int s = 0; s < PPI_SUBSTEPS; ++s) env_substep(q, qd, tau, dyn);
+#ifdef PPI_PROJECT
+    env_project(q_prev, q, qd, dyn);
+#endif
     // sticky NaN latch: from a lane's first non-finite state on, its
     // reward is NaN (the solver then gives it zero weight)
     for (int j = 0; j < PPI_NQ; ++j) {

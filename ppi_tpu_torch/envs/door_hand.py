@@ -1,0 +1,307 @@
+"""Door-opening with a three-digit hand (door-v0-hand) on the scalar program.
+
+Port of ``ppi_tpu/envs/door_hand.py``: the door-v0 arm carries a hand of
+two fingers above the handle bar and an opposing thumb below, two hinges
+each (10 actuated joints, 12 DoF with the door and latch), and works the
+handle through multi-point grasp contact. The latch bolt is a kinematic
+clamp applied after each control step's substeps (``scalar_project``):
+while the latch is up and the door started the step within the bolt's
+reach, the door cannot pass the bolt depth. The scene, the reward shape
+and the per-episode door-frame sampling are the JAX env's.
+
+``step`` on a CUDA state is one launch of the env's rollout kernel (N
+lanes, H=1; ``rollout_kernel.kernel_step``), the build that the MPC
+objective uses: the eager program is ~52k elementwise launches a step at
+12 DoF. On a CPU state ``step`` is ``plain_step``, the eager scalar
+program (torque, 4 substeps, the bolt clamp, the reward). The scripted
+expert of the JAX module (``scripted_open``) is not ported.
+"""
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ppi_tpu_torch.envs.base import as_f32
+from ppi_tpu_torch.envs.hand import add_digit
+from ppi_tpu_torch.envs.physics import scalar_math as sm
+from ppi_tpu_torch.envs.physics.engine import HINGE, ModelBuilder, PhysicsState
+from ppi_tpu_torch.envs.physics.engine_soa import (
+    SoaModel, fk_soa, geom_point_soa, make_sites_soa, substep_soa)
+from ppi_tpu_torch.envs.physics.rollout_kernel import kernel_step
+
+# dof indices
+(YAW, SHOULDER, ELBOW, WRIST,
+ IDX_MCP, IDX_PIP, MID_MCP, MID_PIP, TH_MCP, TH_PIP,
+ DOOR, LATCH) = range(12)
+
+N_ACT = 10  # all arm + digit joints are position-servoed
+
+_LOW = (-1.5, -1.6, -2.3, -2.0, -0.3, 0.0, -0.3, 0.0, -1.6, -1.8)
+_HIGH = (1.5, 1.6, 2.3, 2.0, 1.6, 1.8, 1.6, 1.8, 0.3, 0.0)
+
+# nominal door-frame origin of the hand scenes and the per-episode sampling
+# half-ranges about it (mj_envs door-v0 randomizes the door body position)
+FRAME = (0.50, 0.30, 1.0)
+FRAME_RANGE = (0.05, 0.05, 0.075)
+
+
+def add_door(b):
+    """The door and its latch, as in door-v0 (the offset is the nominal
+    frame, overridden per episode by the sampled one); returns the handle
+    bar's and the panel edge's sphere pairs."""
+    door = b.add_body(parent=-1, joint_type=HINGE, axis=(0, 0, 1),
+                      offset_pos=FRAME, mass=3.0, com=(0.0, -0.25, 0.0),
+                      inertia=np.diag([0.1, 0.02, 0.1]), damping=2.0,
+                      armature=0.0, q_limit=(0.0, 1.8), limit_k=200.0)
+    latch = b.add_body(parent=door, joint_type=HINGE, axis=(1, 0, 0),
+                       offset_pos=(-0.05, -0.45, 0.0), mass=0.3,
+                       com=(0.0, 0.08, 0.0),
+                       inertia=np.diag([2e-3, 2e-3, 2e-3]), damping=0.8,
+                       armature=0.01, spring_k=2.0, spring_ref=0.0,
+                       q_limit=(-1.6, 0.1), limit_k=30.0)
+    return door, latch
+
+
+def add_door_geoms(b, door, latch):
+    """(handle bar sphere pair, panel edge sphere pair)."""
+    h_a = b.add_sphere(latch, (0.0, 0.02, 0.0), 0.02)
+    h_b = b.add_sphere(latch, (0.0, 0.16, 0.0), 0.02)
+    d_a = b.add_sphere(door, (0.0, -0.1, 0.0), 0.02)
+    d_b = b.add_sphere(door, (0.0, -0.5, 0.0), 0.02)
+    return (h_a, h_b), (d_a, d_b)
+
+
+def add_arm(b, wrist_mass, wrist_com):
+    """The 4-DoF arm of the hand scenes (a light wrist link: the hand
+    carries the mass)."""
+    b.add_body(parent=-1, joint_type=HINGE, axis=(0, 0, 1),
+               offset_pos=(0, 0, 1.0), mass=2.0, com=(0.0, 0, 0),
+               damping=2.0, armature=0.1, q_limit=(-1.5, 1.5), limit_k=50.0)
+    b.add_body(parent=YAW, joint_type=HINGE, axis=(0, 1, 0),
+               offset_pos=(0, 0, 0), mass=2.0, com=(0.17, 0, 0),
+               damping=2.0, armature=0.1, q_limit=(-1.6, 1.6), limit_k=50.0)
+    b.add_body(parent=SHOULDER, joint_type=HINGE, axis=(0, 1, 0),
+               offset_pos=(0.35, 0, 0), mass=1.5, com=(0.17, 0, 0),
+               damping=1.5, armature=0.08, q_limit=(-2.3, 2.3), limit_k=50.0)
+    b.add_body(parent=ELBOW, joint_type=HINGE, axis=(0, 1, 0),
+               offset_pos=(0.35, 0, 0), mass=wrist_mass, com=wrist_com,
+               damping=1.0, armature=0.05, q_limit=(-2.0, 2.0), limit_k=50.0)
+
+
+def finish_contacts(b, palm, digit_spheres, handle, panel, panel_tips):
+    """Palm and every digit sphere against the handle bar, palm and two
+    fingertips against the panel edge, and the hand scenes' contact
+    constants."""
+    b.add_contact_sphere_segment(palm, *handle)
+    for s in digit_spheres:
+        b.add_contact_sphere_segment(s, *handle)
+    b.add_contact_sphere_segment(palm, *panel)
+    for s in panel_tips:
+        b.add_contact_sphere_segment(s, *panel)
+    b.contact_stiffness = 1e3
+    b.contact_damping = 30.0
+    b.friction_mu = 1.0
+    b.friction_vel_k = 50.0
+
+
+def _build_model():
+    b = ModelBuilder()
+    add_arm(b, 0.5, (0.06, 0, 0))
+    # hand: two fingers above the bar, thumb opposing from below
+    for y, z, lo, hi in ((+0.05, +0.03, 4, 5), (-0.05, +0.03, 6, 7),
+                         (0.0, -0.05, 8, 9)):
+        add_digit(b, WRIST, (0.16 if z > 0 else 0.12, y, z), (0, 1, 0),
+                  (_LOW[lo], _HIGH[lo]), (_LOW[hi], _HIGH[hi]))
+    door, latch = add_door(b)
+
+    palm = b.add_sphere(WRIST, (0.14, 0, 0), 0.04)
+    spheres = []
+    for mcp, pip in ((IDX_MCP, IDX_PIP), (MID_MCP, MID_PIP),
+                     (TH_MCP, TH_PIP)):
+        spheres += [b.add_sphere(mcp, (0.03, 0, 0), 0.016),
+                    b.add_sphere(pip, (0.045, 0, 0), 0.014)]
+    handle, panel = add_door_geoms(b, door, latch)
+    finish_contacts(b, palm, spheres, handle, panel,
+                    (spheres[1], spheres[5]))
+    return b.finalize(), palm, handle
+
+
+@dataclasses.dataclass(frozen=True)
+class DoorHandState:
+    physics: PhysicsState
+    frame: torch.Tensor  # (3,) sampled door-frame origin
+    t: torch.Tensor      # () int32 step count
+
+
+@dataclasses.dataclass(frozen=True)
+class DoorHand:
+    """door-v0-class task with a three-digit hand; actions are PD position
+    targets for the 10 arm + digit joints."""
+
+    action_dim: int = N_ACT
+    dt: float = 0.02
+    substeps: int = 4  # light finger links need h = 5 ms against the bar
+    kp: float = 60.0
+    kd: float = 6.0
+    kp_hand: float = 6.0
+    kd_hand: float = 0.4
+    latch_unlock_angle: float = -0.6  # handle travel that retracts the bolt
+    bolt_depth: float = 0.03          # rad of door travel the bolt blocks
+    seal_force: float = 2.5           # N m opening bias while nearly closed
+    fixed_scene: bool = False         # True: pin the nominal frame
+
+    name = "door-v0-hand"
+
+    # the sampled door frame overrides the door body's joint-origin offset
+    # (a runtime input of the rollout kernel)
+    scalar_dyn_body = DOOR
+    _latch = LATCH
+    _low, _high = _LOW, _HIGH
+    _qpos0 = (0.0, 0.6, -0.8, 0.2,            # arm
+              0.3, 0.4, 0.3, 0.4, -0.3, -0.4,  # digits ajar
+              0.0, 0.0)                        # door, latch
+    _build = staticmethod(_build_model)
+
+    def __post_init__(self):
+        model, palm, handle = self._build()
+        object.__setattr__(self, "_model", model)
+        object.__setattr__(self, "_soa", SoaModel(model))
+        object.__setattr__(self, "_palm_geom", palm)
+        object.__setattr__(self, "_handle_geoms", handle)
+        object.__setattr__(self, "_sites_soa", make_sites_soa(
+            model, dyn_body=self.scalar_dyn_body))
+
+    @property
+    def action_low(self):
+        return torch.tensor(self._low)
+
+    @property
+    def action_high(self):
+        return torch.tensor(self._high)
+
+    def sample_frame(self, generator: torch.Generator, device):
+        """Per-episode door-frame origin (see FRAME_RANGE)."""
+        frame = torch.tensor(FRAME, device=device)
+        if self.fixed_scene:
+            return frame
+        rng = torch.tensor(FRAME_RANGE, device=device)
+        u = torch.rand(3, generator=generator, device=device)
+        return frame + (2.0 * u - 1.0) * rng
+
+    def reset(self, generator: torch.Generator, device, frame=None):
+        """Initial state; ``frame`` pins the door frame instead of sampling."""
+        nq = len(self._qpos0)
+        if frame is None:
+            frame = self.sample_frame(generator, device)
+        return DoorHandState(
+            physics=PhysicsState(
+                qpos=torch.tensor(self._qpos0, device=device),
+                qvel=torch.zeros(nq, device=device)),
+            frame=as_f32(frame, device),
+            t=torch.zeros((), dtype=torch.int32, device=device))
+
+    # ---- the scalar contract (shared by step() and the rollout kernel) ----
+
+    def _gains(self):
+        return ([self.kp] * 4 + [self.kp_hand] * 6,
+                [self.kd] * 4 + [self.kd_hand] * 6)
+
+    def scalar_dyn_consts(self, state):
+        return state.frame
+
+    def scalar_torque(self, m, q, qd, act):
+        kps, kds = self._gains()
+        tau = [kps[j] * (sm.clip(act[j], self._low[j], self._high[j]) - q[j])
+               - kds[j] * qd[j] for j in range(self.action_dim)]
+        # seal/strike-pin spring: a bounded opening bias near the closed
+        # position, so an unlatched door pops ajar past the bolt depth
+        door = q[self.scalar_dyn_body]
+        tau.append(self.seal_force * sm.sigmoid((0.35 - door) / 0.1))
+        tau.append(sm.zeros_like(q[self._latch]))
+        return tuple(tau)
+
+    def scalar_project(self, m, q_prev, q, qd):
+        """The bolt as a kinematic clamp: with the latch not pressed past
+        the unlock angle and the door within bolt reach at the step's start
+        (``q_prev``), the door stops at the bolt depth and its opening
+        velocity is zeroed. Comparisons are 0/1 flags, so one program
+        drives the eager version and the kernel body."""
+        del m
+        door = self.scalar_dyn_body
+        bolted = sm.gt(q[self._latch], self.latch_unlock_angle)
+        inside = sm.lt(q_prev[door], self.bolt_depth + 1e-3)
+        clamp = sm.logical_and(sm.logical_and(bolted, inside),
+                               sm.gt(q[door], self.bolt_depth))
+        q, qd = list(q), list(qd)
+        q[door] = sm.where(clamp, self.bolt_depth, q[door])
+        qd[door] = sm.where(clamp, sm.minimum(qd[door], 0.0), qd[door])
+        return tuple(q), tuple(qd)
+
+    def scalar_reward(self, m, q, qd):
+        # door-v0's reward shape: approach + staged opening bonuses +
+        # velocity regularization
+        rots, poss, _, _ = fk_soa(m, q)
+        palm = geom_point_soa(m, rots, poss, self._palm_geom)
+        ha = geom_point_soa(m, rots, poss, self._handle_geoms[0])
+        hb = geom_point_soa(m, rots, poss, self._handle_geoms[1])
+        dx = palm[0] - 0.5 * (ha[0] + hb[0])
+        dy = palm[1] - 0.5 * (ha[1] + hb[1])
+        dz = palm[2] - 0.5 * (ha[2] + hb[2])
+        dist = sm.sqrt(dx * dx + dy * dy + dz * dz)
+        door = q[self.scalar_dyn_body]
+        vel2 = sum(v * v for v in qd)
+        return (-0.5 * dist
+                + 2.0 * door
+                - 1e-3 * vel2
+                + 2.0 * sm.gt(door, 0.2)
+                + 8.0 * sm.gt(door, 1.0)
+                + 10.0 * sm.gt(door, 1.35))
+
+    # ---- the env ---------------------------------------------------------
+
+    def step(self, state: DoorHandState, action):
+        """(state, action (..., d_a)) -> (next state, reward (...)): one
+        launch of the rollout kernel on a CUDA state, ``plain_step`` on a
+        CPU state."""
+        if state.physics.qpos.device.type == "cpu":
+            return self.plain_step(state, action)
+        qpos, qvel, reward = kernel_step(self, state, action)
+        return dataclasses.replace(state, physics=PhysicsState(
+            qpos=qpos, qvel=qvel), t=state.t + 1), reward
+
+    def plain_step(self, state: DoorHandState, action):
+        """The eager scalar program over whatever batch shape the state
+        has: torque, the substeps, the bolt clamp on the pre-step door
+        angle, the reward."""
+        m = self._soa.with_body_offset(self.scalar_dyn_body,
+                                       state.frame.unbind(-1))
+        q = state.physics.qpos.unbind(-1)
+        qd = state.physics.qvel.unbind(-1)
+        tau = self.scalar_torque(m, q, qd, action.unbind(-1))
+        q_prev, h = q, self.dt / self.substeps
+        for _ in range(self.substeps):
+            q, qd = substep_soa(m, q, qd, tau, h)
+        q, qd = self.scalar_project(m, q_prev, q, qd)
+        reward = self.scalar_reward(m, q, qd)
+        phys = PhysicsState(qpos=torch.stack(q, -1), qvel=torch.stack(qd, -1))
+        return dataclasses.replace(state, physics=phys, t=state.t + 1), reward
+
+    def _sites(self, qpos, frame):
+        pts = self._sites_soa(qpos, frame)
+        palm = pts[..., self._palm_geom, :]
+        handle = 0.5 * (pts[..., self._handle_geoms[0], :]
+                        + pts[..., self._handle_geoms[1], :])
+        return palm, handle
+
+    def observe(self, state: DoorHandState):
+        """Observation of a single (unbatched) state."""
+        palm, handle = self._sites(state.physics.qpos, state.frame)
+        q, n, door = state.physics.qpos, self.action_dim, self.scalar_dyn_body
+        return torch.cat([
+            q[:n], state.physics.qvel[:n], q[door:door + 1],
+            q[self._latch:self._latch + 1], palm, handle, palm - handle,
+            state.frame, 1.0 * (q[door:door + 1] > 1.0)])
+
+    def success(self, state: DoorHandState):
+        return state.physics.qpos[..., self.scalar_dyn_body] > 1.35

@@ -8,7 +8,9 @@ CUDA skeleton (``ppi_tpu_torch/csrc/rollout.cu``):
   * ``env_torque``  -- the env's ``scalar_torque``;
   * ``env_substep`` -- one ``engine_soa.substep_soa``;
   * ``env_reward``  -- the env's ``scalar_reward``, which may take the
-    step's raw action and per-episode reward constants.
+    step's raw action and per-episode reward constants;
+  * ``env_project`` -- the env's ``scalar_project``, only for an env that
+    has one (the header then defines ``PPI_PROJECT``).
 
 The kernel is built with ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/<hash of sources and flags>/`` and bound with ``ctypes``
@@ -28,9 +30,12 @@ Env contract (duck-typed, as ``ppi_tpu``'s): ``env._model``, ``env.dt``,
   * ``env.scalar_reward_consts(state) -> (k,)``, the per-episode reward
     constants (pen-v0's and relocate-v0's sampled goal);
   * ``env.scalar_reward_takes_action = True``: the reward takes the step's
-    raw action, before any clip (cheetah's control cost).
+    raw action, before any clip (cheetah's control cost);
+  * ``env.scalar_project(m, q_prev, q, qd) -> (q, qd)``: a kinematic
+    projection after each control step's substeps, with ``q_prev`` the
+    whole pre-step coordinate tuple (the hand door scenes' bolt clamp).
 
-Per-step projections (``scalar_project``) are not ported yet.
+``kernel_step`` runs one real env step as one launch (H=1).
 """
 
 import functools
@@ -61,34 +66,37 @@ def call_reward(reward_fn, m, q, qd, act, consts, reward_takes_action):
 
 def generate_env_header(model, dt: float, substeps: int, action_dim: int,
                         torque_fn, reward_fn, dyn_body=None,
-                        n_consts: int = 0,
-                        reward_takes_action: bool = False) -> str:
+                        n_consts: int = 0, reward_takes_action: bool = False,
+                        project_fn=None) -> str:
     """C source of the per-env body (``env_body.h``) for the skeleton.
 
     Runs the scalar program over symbols; every model constant is folded
     and written as an exact f32 literal, the sampled body offset (when
     ``dyn_body`` is set) is read from ``dyn[0..2]`` and the reward
-    constants from ``consts[0..n_consts-1]``. Deterministic: the same
-    inputs give the same text, which keys the build cache."""
+    constants from ``consts[0..n_consts-1]``. Only with ``project_fn``
+    does the header define ``PPI_PROJECT`` and ``env_project``.
+    Deterministic: the same inputs give the same text, which keys the
+    build cache."""
     return _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
-                     dyn_body, n_consts, reward_takes_action)[0]
+                     dyn_body, n_consts, reward_takes_action, project_fn)[0]
 
 
 def ops_per_lane_step(model, dt: float, substeps: int, action_dim: int,
                       torque_fn, reward_fn, dyn_body=None, n_consts: int = 0,
-                      reward_takes_action: bool = False) -> int:
+                      reward_takes_action: bool = False,
+                      project_fn=None) -> int:
     """f32 operations one lane's control step emits (``Emitter.ops``):
-    torque + ``substeps`` x substep + reward, plus the NaN latch's 2 nq
-    finiteness tests. Times N x H, it is the work the rollout kernel must
-    do, which bounds its time from below."""
+    torque + ``substeps`` x substep + projection + reward, plus the NaN
+    latch's 2 nq finiteness tests. Times N x H, it is the work the rollout
+    kernel must do, which bounds its time from below."""
     ops = _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
-                    dyn_body, n_consts, reward_takes_action)[1]
-    return (ops["torque"] + substeps * ops["substep"] + ops["reward"]
-            + 2 * model.nq)
+                    dyn_body, n_consts, reward_takes_action, project_fn)[1]
+    return (ops["torque"] + substeps * ops["substep"] + ops["project"]
+            + ops["reward"] + 2 * model.nq)
 
 
 def _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
-              dyn_body, n_consts, reward_takes_action):
+              dyn_body, n_consts, reward_takes_action, project_fn):
     """(header text, {function: emitted f32 ops})."""
     m = SoaModel(model)
     nq, h = m.nq, dt / substeps
@@ -139,17 +147,35 @@ def _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
         "float env_reward(const float* q, const float* qd, const float* act, "
         "const float* dyn, const float* consts)", em, [])
 
+    defines = [f"#define PPI_NQ {nq}", f"#define PPI_DA {action_dim}",
+               f"#define PPI_SUBSTEPS {substeps}",
+               f"#define PPI_NCONSTS {n_consts}"]
+    functions = [torque, substep, reward]
+    ops["project"] = 0
+    if project_fn is not None:
+        em = sm.Emitter()
+        mm, q, qd, _ = prologue(em)
+        q_prev = tuple(em.input(f"qp_{j}", f"q_prev[{j}]")
+                       for j in range(nq))
+        q2, qd2 = project_fn(mm, q_prev, q, qd)
+        ops["project"] = em.ops
+        # only the coordinates the projection changed are written back
+        functions.append(_function(
+            "void env_project(const float* q_prev, float* q, float* qd, "
+            "const float* dyn)", em,
+            [(f"q[{j}]", q2[j]) for j in range(nq) if q2[j] is not q[j]]
+            + [(f"qd[{j}]", qd2[j]) for j in range(nq)
+               if qd2[j] is not qd[j]]))
+        defines.append("#define PPI_PROJECT 1")
+
     text = "\n".join([
         "/* Per-env body of ppi_tpu_torch/csrc/rollout.cu, generated by",
         "   ppi_tpu_torch/envs/physics/rollout_kernel.py from the scalar",
         "   physics program. Do not edit. */",
-        f"#define PPI_NQ {nq}",
-        f"#define PPI_DA {action_dim}",
-        f"#define PPI_SUBSTEPS {substeps}",
-        f"#define PPI_NCONSTS {n_consts}",
+        *defines,
         "",
         sm.C_HELPERS,
-        torque, substep, reward])
+        *functions])
     return text, ops
 
 
@@ -160,9 +186,12 @@ _env_header = functools.lru_cache(maxsize=8)(generate_env_header)
 
 # ---- build -------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=16)
 def _library(header: str, host: bool = False) -> Path:
     """``csrc/rollout.cu`` with ``header`` as ``env_body.h``, built (once
-    per distinct header) by ``ppi_tpu_torch.build``."""
+    per distinct header) by ``ppi_tpu_torch.build``. Memoized: the MPC
+    loop makes a wrapper per control step and per real step, and keying
+    the build re-hashes the header (1-3 MB for the hand scenes)."""
     return build_library("rollout.cu", {"env_body.h": header}, host=host)
 
 
@@ -179,12 +208,13 @@ def load_host_rollout(header: str):
 
 def plain_rollout(model, dt: float, substeps: int, torque_fn, reward_fn,
                   q0, qd0, actions, dyn_body=None, dyn=None, consts=None,
-                  reward_takes_action: bool = False):
+                  reward_takes_action: bool = False, project_fn=None):
     """What the kernel computes, eagerly over ``(N,)`` torch lanes:
     ``(q0 (N,nq), qd0 (N,nq), actions (N,H,d_a)) -> (rewards (N,H),
     qf (N,nq), qdf (N,nq))`` with the sticky NaN latch. ``consts`` (k,)
     are the reward constants; with ``reward_takes_action`` the reward gets
-    the step's raw action."""
+    the step's raw action; ``project_fn`` runs after each step's substeps
+    with the step's initial coordinates."""
     m = SoaModel(model)
     if dyn_body is not None:
         m = m.with_body_offset(dyn_body, dyn.unbind(-1))
@@ -196,8 +226,11 @@ def plain_rollout(model, dt: float, substeps: int, torque_fn, reward_fn,
     for t in range(actions.shape[1]):
         act = actions[:, t].unbind(-1)
         tau = torque_fn(m, q, qd, act)
+        q_prev = q
         for _ in range(substeps):
             q, qd = substep_soa(m, q, qd, tau, h)
+        if project_fn is not None:
+            q, qd = project_fn(m, q_prev, q, qd)
         fin = torch.stack([sm.isfinite(x) for x in q + qd]).amin(0)
         bad = torch.maximum(bad, 1.0 - fin)
         r = call_reward(reward_fn, m, q, qd, act, c, reward_takes_action)
@@ -218,10 +251,8 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
     threads (lanes) per CUDA block. ``horizon`` is only checked: the kernel
     takes it at run time, so one build serves every H. With ``n_consts``
     the run takes the (n_consts,) f32 reward constants ``consts`` on the
-    actions' device."""
-    if project_fn is not None:
-        raise NotImplementedError(
-            "per-step projections are ROADMAP queue 2 item 1c")
+    actions' device; ``project_fn(m, q_prev, q, qd)`` is the per-step
+    projection."""
     nq = model.nq
     fn = None
 
@@ -253,7 +284,7 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
         if fn is None:
             fn = load_function(_library(_env_header(
                 model, dt, substeps, action_dim, torque_fn, reward_fn,
-                dyn_body, n_consts, reward_takes_action)),
+                dyn_body, n_consts, reward_takes_action, project_fn)),
                 "ppi_rollout_launch", 8, 3, stream=True)
         # the kernel's lane-major layout (the Pallas layout)
         q0_t = q0.t().contiguous()
@@ -287,7 +318,7 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
         if actions.device.type == "cpu":
             return plain_rollout(model, dt, substeps, torque_fn, reward_fn,
                                  q0, qd0, actions, dyn_body, dyn, consts,
-                                 reward_takes_action)
+                                 reward_takes_action, project_fn)
         if actions.device.type != "cuda":
             raise TypeError(f"no rollout kernel for {actions.device}")
         return launch(q0, qd0, actions, dyn, consts)
@@ -320,17 +351,48 @@ def body_args(env, state):
     return (env._model, env.dt, env.substeps, env.action_dim,
             env.scalar_torque, env.scalar_reward, dyn_body,
             0 if consts is None else consts.shape[0],
-            getattr(env, "scalar_reward_takes_action", False))
+            getattr(env, "scalar_reward_takes_action", False),
+            getattr(env, "scalar_project", None))
 
 
 def env_rollout(env, state, horizon: int, block: int = 128):
     """``make_rollout`` with ``env``'s kernel options."""
     model, dt, substeps, action_dim, torque_fn, reward_fn, dyn_body, \
-        n_consts, takes_action = body_args(env, state)
+        n_consts, takes_action, project_fn = body_args(env, state)
     return make_rollout(model, dt, substeps, horizon, action_dim, torque_fn,
-                        reward_fn, n_consts=n_consts,
+                        reward_fn, project_fn=project_fn, n_consts=n_consts,
                         reward_takes_action=takes_action, dyn_body=dyn_body,
                         block=block)
+
+
+def env_plain_rollout(env, state, q0, qd0, actions):
+    """``plain_rollout`` with ``env``'s kernel options and ``state``'s
+    per-episode inputs: the kernel's plain version for any env, on any
+    device."""
+    consts, dyn_body, dyn = kernel_operands(env, state)
+    return plain_rollout(env._model, env.dt, env.substeps, env.scalar_torque,
+                         env.scalar_reward, q0, qd0, actions, dyn_body, dyn,
+                         consts,
+                         getattr(env, "scalar_reward_takes_action", False),
+                         getattr(env, "scalar_project", None))
+
+
+def kernel_step(env, state, action):
+    """One control step of ``env`` as one launch of its rollout kernel:
+    a lane per state of the batch, H=1, the state's per-episode inputs.
+    ``(state (..., nq), action (..., d_a)) -> (qpos, qvel, reward (...))``.
+    The same build as the objective's; on a CPU state it runs the plain
+    version. A lane whose state goes non-finite gets a NaN reward (the
+    kernel's latch)."""
+    consts, _, dyn = kernel_operands(env, state)
+    qpos, qvel = state.physics.qpos, state.physics.qvel
+    nq = qpos.shape[-1]
+    run = env_rollout(env, state, 1)
+    rew, qf, qdf = run(qpos.reshape(-1, nq), qvel.reshape(-1, nq),
+                       action.reshape(-1, 1, env.action_dim), consts=consts,
+                       dyn=dyn)
+    return (qf.reshape(qpos.shape), qdf.reshape(qvel.shape),
+            rew.reshape(qpos.shape[:-1]))
 
 
 def kernel_mpc_objective(env, state0, horizon: int, horizon_mask=None,

@@ -9,14 +9,19 @@ priors use, with the same positional layout plus ``--device``:
     python -m ppi_tpu_torch.runners.run_mpc Mppi relocate-v0 \\
         ColouredNoise --beta 2 --alpha 10 --anneal 0.9 --timesteps 140 \\
         --horizon 20 MonteCarlo --n-samples 256
+    python -m ppi_tpu_torch.runners.run_mpc Lbps door-v0-hand \\
+        SquaredExponentialKernel --delta 0.9 --n-iters 2 --anneal 0.5 \\
+        --lengthscale 0.08 MonteCarlo --n-samples 64
 
-Envs: door-v0, pen-v0, relocate-v0, cheetah. ``--alpha``, ``--epsilon``,
-``--n-elites``, ``--delta`` and ``--beta`` go to the solver and the prior as
-in the JAX runner; iCem samples with particle reuse and acts on the MAP
-sequence. ``--device cuda`` (the default) needs a CUDA card and rolls out
-through the hand-written kernel; ``--device cpu`` runs the eager plain
-version. Plots, rendering, checkpoints and model selection are not ported
-yet.
+Envs: door-v0, door-v0-hand, door-v0-adroit, pen-v0, relocate-v0,
+cheetah; ``--lengthscale 0.08`` is the hand scenes' canonical "4dt".
+``--alpha``, ``--epsilon``, ``--n-elites``, ``--delta`` and ``--beta`` go
+to the solver and the prior as in the JAX runner; iCem samples with
+particle reuse and acts on the MAP sequence. ``--device cuda`` (the
+default) needs a CUDA card and rolls out through the hand-written kernel
+(the hand scenes' real env step too); ``--device cpu`` runs the eager
+plain version. Plots, rendering, checkpoints and model selection are not
+ported yet.
 """
 
 import argparse
@@ -28,12 +33,15 @@ import torch
 from ppi_tpu_torch.algorithms import ALGORITHMS, make_solver
 from ppi_tpu_torch.envs.cheetah import Cheetah
 from ppi_tpu_torch.envs.door import Door
+from ppi_tpu_torch.envs.door_adroit import DoorAdroit
+from ppi_tpu_torch.envs.door_hand import DoorHand
 from ppi_tpu_torch.envs.pen import Pen
 from ppi_tpu_torch.envs.relocate import Relocate
 from ppi_tpu_torch.mpc import Mpc
 from ppi_tpu_torch.policies import POLICY_NAMES, design_moments, make_policy
 
-ENVS = {"door-v0": Door, "pen-v0": Pen, "relocate-v0": Relocate,
+ENVS = {"door-v0": Door, "door-v0-hand": DoorHand,
+        "door-v0-adroit": DoorAdroit, "pen-v0": Pen, "relocate-v0": Relocate,
         "cheetah": Cheetah}
 
 

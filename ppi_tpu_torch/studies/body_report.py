@@ -24,7 +24,7 @@ from ppi_tpu_torch.envs.physics import rollout_kernel as rk
 from ppi_tpu_torch.runners.run_mpc import ENVS
 
 SCALE = {"door-v0": 0.4, "pen-v0": 0.12, "relocate-v0": 0.3,
-         "cheetah": 25.0}
+         "cheetah": 25.0, "door-v0-hand": 0.3, "door-v0-adroit": 0.3}
 
 
 def rel_err(a, b):
@@ -40,7 +40,6 @@ def main():
         for name, cls in ENVS.items():
             env = cls()
             state = env.reset(torch.Generator().manual_seed(1), "cpu")
-            consts, dyn_body, dyn = rk.kernel_operands(env, state)
             args = rk.body_args(env, state)
             header = rk.generate_env_header(*args)
             line = (f"{name}: {len(header.splitlines())} lines, "
@@ -55,10 +54,8 @@ def main():
                     (n, h, env.action_dim))).astype(np.float32))
                 q0 = state.physics.qpos.expand(n, -1)
                 qd0 = state.physics.qvel.expand(n, -1)
-                run = lambda q, qd: rk.plain_rollout(
-                    env._model, env.dt, env.substeps, env.scalar_torque,
-                    env.scalar_reward, q, qd, acts, dyn_body, dyn, consts,
-                    args[-1])
+                run = lambda q, qd: rk.env_plain_rollout(env, state, q, qd,
+                                                         acts)
                 base = run(q0, qd0)
                 moved = run(q0 * (1.0 + 1e-7 * torch.randn(q0.shape)),
                             qd0 + 1e-7)

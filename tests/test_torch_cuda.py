@@ -320,3 +320,105 @@ def test_coloured_noise_control_step_never_waits_for_the_card():
     torch.cuda.synchronize()
     assert rk.LAUNCHES["rollout"] == before + 1
     assert bool(torch.isfinite(state.physics.qpos).all())
+
+
+# ---- variants (c) and (d): the projection and the hand door scenes ------------
+
+HAND_ENVS = ["door-v0-hand", "door-v0-adroit"]
+
+
+def _hand_lanes(env, dev, n, h):
+    """From a sampled frame: the reset posture in the first half of the
+    lanes, the door opening from 0.02 rad in the rest, with the latch up
+    (the clamp fires) and, in the last quarter, pressed (it does not)."""
+    s0 = env.reset(torch.Generator(dev).manual_seed(1), dev)
+    q0 = s0.physics.qpos.expand(n, -1).clone()
+    qd0 = torch.zeros_like(q0)
+    door, latch = env.scalar_dyn_body, env._latch
+    q0[n // 2:, door] = 0.02
+    qd0[n // 2:, door] = 1.0
+    q0[3 * n // 4:, latch] = -1.0
+    rng = np.random.default_rng(2)
+    acts = q0[:, None, :env.action_dim] + torch.from_numpy(
+        (0.3 * rng.standard_normal((n, h, env.action_dim))).astype(
+            np.float32)).to(dev)
+    return s0, q0, qd0, acts
+
+
+@pytest.mark.parametrize("name", HAND_ENVS)
+def test_hand_kernel_matches_plain(name):
+    """Each body at N=257 (ragged), H=4, from a sampled frame, clamped and
+    free lanes: rewards and final state within 1e-4 of the plain version,
+    and the clamp holds the same lanes at the bolt depth."""
+    dev = _device()
+    env = _variant_b_env(name)
+    n, h = 257, 4
+    s0, q0, qd0, acts = _hand_lanes(env, dev, n, h)
+    run = rk.env_rollout(env, s0, h)
+    before = rk.LAUNCHES["rollout"]
+    rew, qf, qdf = run(q0, qd0, acts, dyn=s0.frame)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rollout"] == before + 1
+    rew_p, qf_p, qdf_p = rk.env_plain_rollout(env, s0, q0, qd0, acts)
+    assert _rel(rew, rew_p) <= 1e-4
+    assert _rel(qf, qf_p) <= 1e-4
+    assert _rel(qdf, qdf_p) <= 1e-4
+    door = env.scalar_dyn_body
+    held = qf_p[:, door] == env.bolt_depth
+    assert bool(held[n // 2:3 * n // 4].all()) and not bool(
+        held[3 * n // 4:].any())
+    assert torch.equal(qf[:, door] == env.bolt_depth, held)
+
+
+@pytest.mark.parametrize("name", HAND_ENVS)
+def test_hand_real_step_is_one_kernel_launch(name):
+    """The real env step on the card: one launch at N=1, H=1, within 1e-4
+    of the eager step (``plain_step``)."""
+    dev = _device()
+    env = _variant_b_env(name)
+    s0 = env.reset(torch.Generator(dev).manual_seed(0), dev)
+    action = s0.physics.qpos[:env.action_dim] + 0.2
+    before = rk.LAUNCHES["rollout"]
+    s1, r1 = env.step(s0, action)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rollout"] == before + 1
+    s2, r2 = env.plain_step(s0, action)
+    assert r1.shape == () and int(s1.t) == 1
+    assert _rel(s1.physics.qpos, s2.physics.qpos) <= 1e-4
+    assert _rel(s1.physics.qvel, s2.physics.qvel) <= 1e-4
+    assert _rel(r1, r2) <= 1e-4
+
+
+@pytest.mark.parametrize("name", HAND_ENVS)
+def test_hand_control_step_never_waits_for_the_card(name):
+    """One Lbps control step (2 iterations) and the real env step through
+    the kernel: three launches, no operation that synchronizes with the
+    host."""
+    dev = _device()
+    from ppi_tpu_torch.algorithms import make_solver
+    from ppi_tpu_torch.mpc import Mpc
+    from ppi_tpu_torch.policies import design_moments, make_policy
+    env = _variant_b_env(name)
+    mean, ci, co = design_moments(env.action_low, env.action_high, 1000.0)
+    fam, pol = make_policy("SquaredExponentialKernel",
+                           env.dt * torch.arange(H), env.action_dim, mean,
+                           ci, co, lengthscale=0.08, lower=env.action_low,
+                           upper=env.action_high, device=dev)
+    agent = Mpc(env=env, solver=make_solver("Lbps", delta=0.9), family=fam,
+                timesteps=20, horizon=H, n_samples=64, n_iters=2, anneal=0.5,
+                device=dev)
+    state = env.reset(torch.Generator(dev).manual_seed(0), dev)
+    carry = agent.init(pol, torch.Generator(dev).manual_seed(0))
+    carry, _ = agent.warm_start(carry, state, 1)  # builds and loads first
+    env.step(state, agent.action(carry))
+    torch.cuda.synchronize()
+    before = rk.LAUNCHES["rollout"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        action, carry, _ = agent.control_step(carry, state, 1)
+        state, _ = env.step(state, action)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rollout"] == before + 3
+    assert bool(torch.isfinite(state.physics.qpos).all())

@@ -6,6 +6,7 @@ ctypes against the plain version, which checks the generator before any
 GPU run.
 """
 
+import hashlib
 import math
 import re
 import shutil
@@ -14,17 +15,56 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import door_q0, to_np, to_torch
+from torch_helpers import door_clamp, door_q0, to_np, to_torch
 from ppi_tpu_torch.envs.door import DOOR, Door
 from ppi_tpu_torch.envs.physics import scalar_math as sm
 from ppi_tpu_torch.envs.physics.rollout_kernel import (
-    generate_env_header, load_host_rollout, plain_rollout)
+    body_args, generate_env_header, load_host_rollout, ops_per_lane_step,
+    plain_rollout)
+from ppi_tpu_torch.runners.run_mpc import ENVS
 
 
-def _header(door):
+def _header(door, project_fn=None):
     return generate_env_header(door._model, door.dt, door.substeps,
                                door.action_dim, door.scalar_torque,
-                               door.scalar_reward, door.scalar_dyn_body)
+                               door.scalar_reward, door.scalar_dyn_body,
+                               project_fn=project_fn)
+
+
+# sha256 of each body without a projection, as generated before the
+# projection hook existed: an env without ``scalar_project`` gets the same
+# text (only the skeleton's build hash changes)
+HEADER_SHA256 = {
+    "door-v0": "b62f952e40ddbc029f3f12d0b0aa80511a849ddf2c4d920644e618fc3d59be45",
+    "pen-v0": "c95274b997773768c720bd5cba16d5332f6f749e1ff78f34f232ebe1ed78fe0f",
+    "relocate-v0":
+        "bfb0f6b063543a54597a9d5d730cfb18dc52318407ce312a1a7561e61ff108d9",
+    "cheetah": "fdab3b100229171aa3c47584dac0833a894a9b0d36a5b37ff6de8ebefb0809df",
+}
+
+
+@pytest.mark.parametrize("name", sorted(HEADER_SHA256))
+def test_bodies_without_a_projection_are_unchanged(name):
+    env = ENVS[name]()
+    state = env.reset(torch.Generator().manual_seed(0), "cpu")
+    header = generate_env_header(*body_args(env, state))
+    assert "PPI_PROJECT" not in header and "env_project" not in header
+    assert hashlib.sha256(header.encode()).hexdigest() == HEADER_SHA256[name]
+
+
+def test_projection_emits_its_hook_and_counts_its_ops():
+    door = Door()
+    header = _header(door, door_clamp)
+    assert "#define PPI_PROJECT 1" in header
+    body = header.split("void env_project(", 1)[1]
+    # only the clamped coordinate and its velocity are written back
+    assert re.findall(r"^  (q|qd)\[(\d+)\] =", body, re.M) == [
+        ("q", "4"), ("qd", "4")]
+    args = (door._model, door.dt, door.substeps, door.action_dim,
+            door.scalar_torque, door.scalar_reward, DOOR)
+    # two comparisons, their product, a min, two selects
+    assert ops_per_lane_step(*args, project_fn=door_clamp) \
+        == ops_per_lane_step(*args) + 6
 
 
 def test_emitted_source_is_deterministic():
@@ -86,7 +126,8 @@ def test_namespace_propagates_nan_like_xla():
                                   [np.nan, 1.0])
 
 
-@pytest.mark.parametrize("case", ["nominal", "sampled_frame_nan_lane"])
+@pytest.mark.parametrize("case", ["nominal", "sampled_frame_nan_lane",
+                                  "projection"])
 def test_host_c_build_matches_plain(case):
     if shutil.which("cc") is None:
         pytest.skip("no host C compiler")
@@ -100,12 +141,24 @@ def test_host_c_build_matches_plain(case):
         frame = np.array([0.53, 0.39, 0.95], np.float32)
         q0[7] = np.nan
     qd0 = (0.1 * rng.standard_normal(q0.shape)).astype(np.float32)
+    project = None
+    if case == "projection":
+        # half the doors open at 2 rad/s from closed: door_clamp holds them
+        qd0[::2, 4] = 2.0
+        project = door_clamp
     rew_p, qf_p, qdf_p = (to_np(x) for x in plain_rollout(
         door._model, door.dt, door.substeps, door.scalar_torque,
         door.scalar_reward, to_torch(q0), to_torch(qd0), to_torch(acts),
-        DOOR, to_torch(frame)))
+        DOOR, to_torch(frame), project_fn=project))
+    if case == "projection":
+        _, qf_free, _ = plain_rollout(
+            door._model, door.dt, door.substeps, door.scalar_torque,
+            door.scalar_reward, to_torch(q0), to_torch(qd0), to_torch(acts),
+            DOOR, to_torch(frame))
+        assert np.all(qf_p[::2, 4] <= 0.02)
+        assert np.all(to_np(qf_free)[::2, 4] > 0.04)
 
-    fn = load_host_rollout(_header(door))
+    fn = load_host_rollout(_header(door, project))
     q0_t, qd0_t = np.ascontiguousarray(q0.T), np.ascontiguousarray(qd0.T)
     act_t = np.ascontiguousarray(acts.transpose(1, 2, 0))
     rew = np.empty((h, n), np.float32)

@@ -18,6 +18,9 @@ SLICE_MODULES = [
     "ppi_tpu_torch.samplers",
     "ppi_tpu_torch.envs.base",
     "ppi_tpu_torch.envs.door",
+    "ppi_tpu_torch.envs.hand",
+    "ppi_tpu_torch.envs.door_hand",
+    "ppi_tpu_torch.envs.door_adroit",
     "ppi_tpu_torch.envs.pen",
     "ppi_tpu_torch.envs.relocate",
     "ppi_tpu_torch.envs.cheetah",

@@ -13,8 +13,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
-from torch_helpers import door_q0, to_np, to_torch
+from torch_helpers import (
+    CLAMP_AT, DOOR_Q, door_clamp, door_q0, to_np, to_torch)
 from ppi_tpu.envs.base import batch_rollout as jax_batch_rollout
 from ppi_tpu.envs.base import mpc_objective as jax_mpc_objective
 from ppi_tpu.envs.door import Door as JaxDoor
@@ -178,19 +180,24 @@ def test_supports_kernel_contract():
 
 
 def test_unported_variants_raise():
-    """Per-step projections (variant c) are not ported; reward constants
-    and action rewards (variant b) are."""
+    """Variants (b) and (c) are ported: an identity projection changes
+    nothing, reward constants and action rewards reach the reward, and
+    missing or misshapen constants raise."""
     door = Door()
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        make_rollout(door._model, door.dt, door.substeps, H, 4,
-                     door.scalar_torque, door.scalar_reward,
-                     project_fn=lambda m, q_prev, q, qd: (q, qd))
+    q0 = to_torch(door_q0(3))
+    acts = to_torch(np.full((3, H, 4), 0.3, np.float32))
+    runs = [make_rollout(door._model, door.dt, door.substeps, H, 4,
+                         door.scalar_torque, door.scalar_reward,
+                         project_fn=project, dyn_body=DOOR)
+            for project in (None, lambda m, q_prev, q, qd: (q, qd))]
+    plain, same = (run(q0, q0 * 0.0, acts, dyn=to_torch(FRAME))
+                   for run in runs)
+    assert all(torch.equal(a, b) for a, b in zip(plain, same))
     run = make_rollout(door._model, door.dt, door.substeps, H, 4,
                        door.scalar_torque,
                        lambda m, q, qd, act, consts: consts[0] * act[0],
                        n_consts=2, reward_takes_action=True, dyn_body=DOOR)
     acts = to_torch(np.ones((3, H, 4), np.float32))
-    q0 = to_torch(door_q0(3))
     rew, _, _ = run(q0, q0 * 0.0, acts, consts=to_torch([2.5, 0.0]),
                     dyn=to_torch(FRAME))
     np.testing.assert_array_equal(to_np(rew), np.full((3, H), 2.5))
@@ -199,3 +206,62 @@ def test_unported_variants_raise():
     with pytest.raises(ValueError, match="consts"):
         run(q0, q0 * 0.0, acts, consts=to_torch([1.0, 2.0, 3.0]),
             dyn=to_torch(FRAME))
+
+
+# ---- variant (c): the per-step projection against the Pallas kernel -------
+
+def _jax_door_clamp(m, q_prev, q, qd):
+    """``torch_helpers.door_clamp`` in jnp, for the Pallas kernel."""
+    del m
+    q, qd = list(q), list(qd)
+    hit = (q[DOOR_Q] > CLAMP_AT) & (q_prev[DOOR_Q] < CLAMP_AT + 1e-3)
+    qd[DOOR_Q] = jnp.where(hit, jnp.minimum(qd[DOOR_Q], 0.0), qd[DOOR_Q])
+    q[DOOR_Q] = jnp.where(hit, CLAMP_AT, q[DOOR_Q])
+    return tuple(q), tuple(qd)
+
+
+@pytest.fixture(scope="module")
+def clamp_inputs():
+    """Every door opening at 2 rad/s: lanes 0-3 from closed (the clamp
+    fires), lanes 4-7 from 0.05 rad, past the clamp's reach; the fixed
+    nominal frame, so the kernels take no dyn row."""
+    rng = np.random.default_rng(5)
+    n = 8
+    q0 = door_q0(n)
+    q0[4:, DOOR_Q] = 0.05
+    qd0 = np.zeros_like(q0)
+    qd0[:, DOOR_Q] = 2.0
+    acts = (q0[:, None, :4] + 0.4 * rng.standard_normal((n, H, 4))).astype(
+        np.float32)
+    return acts, q0, qd0
+
+
+def test_projection_matches_pallas(clamp_inputs):
+    """The port's plain rollout with ``project_fn`` against the JAX
+    package's Pallas kernel with the same projection (interpret mode):
+    tests/test_door_hand.py's project-hook test, with a clamp that reads
+    the pre-step coordinates."""
+    acts, q0, qd0 = clamp_inputs
+    jdoor, door = JaxDoor(fixed_scene=True), Door(fixed_scene=True)
+    ref = jax.jit(make_pallas_rollout(
+        jdoor._model, jdoor.dt, jdoor.substeps, H, 4, jdoor.scalar_torque,
+        jdoor.scalar_reward, project_fn=_jax_door_clamp, block=128,
+        interpret=True))(jnp.asarray(q0), jnp.asarray(qd0),
+                         jnp.asarray(acts))
+    runs = [make_rollout(door._model, door.dt, door.substeps, H, 4,
+                         door.scalar_torque, door.scalar_reward,
+                         project_fn=project)
+            for project in (door_clamp, None)]
+    (rew, qf, qdf), (_, qf_free, _) = (
+        tuple(to_np(x) for x in run(to_torch(q0), to_torch(qd0),
+                                    to_torch(acts))) for run in runs)
+    np.testing.assert_allclose(rew, np.asarray(ref[0]), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(qf, np.asarray(ref[1]), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(qdf, np.asarray(ref[2]), rtol=1e-5,
+                               atol=1e-5)
+    # the clamp held the doors that started closed, which open without it,
+    # and let the others pass
+    assert np.all(qf[:4, DOOR_Q] <= CLAMP_AT)
+    assert np.all(qf_free[:4, DOOR_Q] > CLAMP_AT + 0.02)
+    np.testing.assert_array_equal(qf[4:], qf_free[4:])

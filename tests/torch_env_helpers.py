@@ -1,11 +1,12 @@
 """Shared pieces of the per-env comparison tests of the torch port
-(tests/test_torch_{pen,relocate,cheetah}.py).
+(tests/test_torch_{pen,relocate,cheetah,door_hand,door_adroit}.py).
 
 The JAX reference is ``ppi_tpu.envs.base.batch_rollout`` (the scan path
 that tests/test_pallas_rollout.py holds the Pallas kernel to), jitted once
 per env; the env's state is a traced argument, so each further goal or
-start reuses the compiled program. The port's state is the JAX state
-carried across as numpy (``convert.env_state_from_numpy``).
+start reuses the compiled program. ``jax_lane_rollout_fn`` is the same
+scan from a different initial state in each lane. The port's state is the
+JAX state carried across as numpy (``convert.env_state_from_numpy``).
 """
 
 import shutil
@@ -14,14 +15,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from torch_helpers import to_np, to_torch
 from ppi_tpu.envs.base import batch_rollout as jax_batch_rollout
+from ppi_tpu.envs.base import rollout as jax_rollout
+from ppi_tpu.envs.physics import PhysicsState as JaxPhysicsState
 from ppi_tpu_torch.convert import env_state_from_numpy
 from ppi_tpu_torch.envs.physics.engine import MODEL_FIELDS
 from ppi_tpu_torch.envs.physics.rollout_kernel import (
-    body_args, env_rollout, generate_env_header, kernel_operands,
-    load_host_rollout, plain_rollout)
+    body_args, env_plain_rollout, env_rollout, generate_env_header,
+    kernel_operands, load_host_rollout)
 
 # tests/test_torch_rollout.py's tolerances: rewards and velocities 1e-5
 # relative and absolute, positions 1e-6 absolute
@@ -36,6 +40,24 @@ def jax_rollout_fn(jenv):
 
     def run(jstate, acts):
         final, rew = fn(jstate, jnp.asarray(acts))
+        return (np.asarray(rew), np.asarray(final.physics.qpos),
+                np.asarray(final.physics.qvel))
+
+    return run
+
+
+def jax_lane_rollout_fn(jenv):
+    """``run(jax state, q0 (N,nq), qd0 (N,nq), actions (N,H,d_a)) ->
+    (rewards, qf, qdf)`` as numpy: lane i starts from (q0[i], qd0[i]) and
+    the state's other fields (the frame); one jit."""
+    fn = jax.jit(jax.vmap(
+        lambda q, qd, a, s: jax_rollout(
+            jenv, s.replace(physics=JaxPhysicsState(qpos=q, qvel=qd)), a),
+        in_axes=(0, 0, 0, None)))
+
+    def run(jstate, q0, qd0, acts):
+        final, rew = fn(jnp.asarray(q0), jnp.asarray(qd0), jnp.asarray(acts),
+                        jstate)
         return (np.asarray(rew), np.asarray(final.physics.qpos),
                 np.asarray(final.physics.qvel))
 
@@ -93,23 +115,98 @@ def assert_host_c_matches_plain(env, state, acts, q0, qd0):
     if shutil.which("cc") is None:
         pytest.skip("no host C compiler")
     n, h = acts.shape[0], acts.shape[1]
-    consts, _, _ = kernel_operands(env, state)
-    args = body_args(env, state)
-    rew_p, qf_p, qdf_p = (to_np(x) for x in plain_rollout(
-        env._model, env.dt, env.substeps, env.scalar_torque,
-        env.scalar_reward, to_torch(q0), to_torch(qd0), to_torch(acts),
-        consts=consts, reward_takes_action=args[-1]))
-    fn = load_host_rollout(generate_env_header(*args))
+    consts, _, dyn = kernel_operands(env, state)
+    rew_p, qf_p, qdf_p = (to_np(x) for x in env_plain_rollout(
+        env, state, to_torch(q0), to_torch(qd0), to_torch(acts)))
+    fn = load_host_rollout(generate_env_header(*body_args(env, state)))
     nq = q0.shape[1]
     q0_t, qd0_t = np.ascontiguousarray(q0.T), np.ascontiguousarray(qd0.T)
     act_t = np.ascontiguousarray(acts.transpose(1, 2, 0))
     c = None if consts is None else np.ascontiguousarray(to_np(consts))
+    d = None if dyn is None else np.ascontiguousarray(to_np(dyn))
     rew = np.empty((h, n), np.float32)
     qf, qdf = np.empty((nq, n), np.float32), np.empty((nq, n), np.float32)
     ptr = lambda a: None if a is None else a.ctypes.data
-    assert fn(ptr(q0_t), ptr(qd0_t), ptr(act_t), None, ptr(c), ptr(rew),
+    assert fn(ptr(q0_t), ptr(qd0_t), ptr(act_t), ptr(d), ptr(c), ptr(rew),
               ptr(qf), ptr(qdf), n, h) == 0
     np.testing.assert_allclose(rew.T, rew_p, **REW_TOL)
     np.testing.assert_allclose(qf.T, qf_p, **REW_TOL)
     np.testing.assert_allclose(qdf.T, qdf_p, **REW_TOL)
     assert np.array_equal(np.isnan(rew.T), np.isnan(rew_p))
+
+
+# ---- the hand door scenes (tests/test_torch_door_{hand,adroit}.py) --------
+
+def hand_door_lanes(jenv, env, n: int, h: int):
+    """(JAX reset state with a sampled frame, q0 (n,nq), qd0, actions
+    (n,h,d_a), clamped lanes, free lanes). The first 3/8 of the lanes
+    start from the reset posture; the rest with the door at 0.02 rad
+    opening at 1 rad/s, the latch up in the clamped lanes (the bolt holds
+    the door at its depth) and pressed to -1.0 in the free lanes. Actions:
+    the initial posture plus 0.3 z."""
+    js = jenv.reset(jax.random.key(0))
+    door, latch = env.scalar_dyn_body, env._latch
+    q0 = np.tile(np.asarray(js.physics.qpos), (n, 1))
+    qd0 = np.zeros_like(q0)
+    first, last = n * 3 // 8, n * 6 // 8
+    q0[first:, door] = 0.02
+    qd0[first:, door] = 1.0
+    q0[last:, latch] = -1.0
+    rng = np.random.default_rng(0)
+    acts = (q0[:, None, :env.action_dim] + 0.3 * rng.standard_normal(
+        (n, h, env.action_dim))).astype(np.float32)
+    return js, q0, qd0, acts, np.arange(first, last), np.arange(last, n)
+
+
+def _scalars(x):
+    return tuple(torch.tensor(float(v)) for v in x)
+
+
+def assert_hand_torque_matches(jenv, env):
+    """``scalar_torque`` against the JAX env's, with targets inside and
+    past the action box."""
+    from ppi_tpu.envs.physics.engine_soa import SoaModel as JaxSoaModel
+    from ppi_tpu_torch.envs.physics.engine_soa import SoaModel
+    q = np.asarray(jenv.reset(jax.random.key(0)).physics.qpos) + 0.05
+    qd = 0.1 * np.ones_like(q)
+    act = np.linspace(-2.5, 2.5, env.action_dim).astype(np.float32)
+    ref = jenv.scalar_torque(JaxSoaModel(jenv._model),
+                             tuple(jnp.asarray(q)), tuple(jnp.asarray(qd)),
+                             tuple(jnp.asarray(act)))
+    got = env.scalar_torque(SoaModel(env._model), _scalars(q), _scalars(qd),
+                            _scalars(act))
+    np.testing.assert_allclose(np.array([float(v) for v in got]),
+                               np.array([float(v) for v in ref]), rtol=1e-6,
+                               atol=1e-6)
+
+
+def assert_hand_projection_matches(jenv, env, case: str):
+    """``scalar_project`` against the JAX env's ``scalar_project`` and
+    ``_bolt_project`` on tests/test_door_hand.py's cases: the door swung to
+    0.5 at 2 rad/s from closed with the latch up ("bolted": clamped to the
+    bolt depth, velocity zeroed), with the latch pressed past the unlock
+    angle ("unlatched") or from ajar ("ajar"): untouched."""
+    door, latch = env.scalar_dyn_body, env._latch
+    nq = env._model.nq
+    q, qd, q_prev = np.zeros(nq, np.float32), np.zeros(nq, np.float32), \
+        np.zeros(nq, np.float32)
+    q[door], qd[door] = 0.5, 2.0
+    if case == "unlatched":
+        q[latch] = env.latch_unlock_angle - 0.1
+    elif case == "ajar":
+        q_prev[door] = 0.4
+    qp_v, qv_v = jenv._bolt_project(jnp.asarray(q_prev[door]),
+                                    jnp.asarray(q), jnp.asarray(qd))
+    qp_s, qv_s = jenv.scalar_project(None, tuple(jnp.asarray(q_prev)),
+                                     tuple(jnp.asarray(q)),
+                                     tuple(jnp.asarray(qd)))
+    qp, qv = env.scalar_project(None, _scalars(q_prev), _scalars(q),
+                                _scalars(qd))
+    qp = np.array([float(v) for v in qp], np.float32)
+    qv = np.array([float(v) for v in qv], np.float32)
+    for ref_q, ref_qd in ((qp_v, qv_v), (jnp.stack(qp_s), jnp.stack(qv_s))):
+        np.testing.assert_array_equal(qp, np.asarray(ref_q))
+        np.testing.assert_array_equal(qv, np.asarray(ref_qd))
+    clamped = case == "bolted"
+    assert qp[door] == (np.float32(env.bolt_depth) if clamped else 0.5)
+    assert qv[door] == (0.0 if clamped else 2.0)
