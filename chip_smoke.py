@@ -72,13 +72,43 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 kernel, one eager real step and one observation;
  16. episodes -- the canonical config (Lbps, SE, delta 0.9, 2 iters, anneal
                 0.5, lengthscale 0.08 = "4dt", N=64, H=30, T=250, 50
-                warm-start iterations) on door-v0-hand at seeds 0-4 (door
-                open at >= 3) and door-v0-adroit at seeds 0-2 (>= 1): finite
+                warm-start iterations) on door-v0-hand at seeds 0-2 (door
+                open at >= 2) and door-v0-adroit at seeds 0-1 (>= 1): finite
                 returns, exactly 800 kernel launches at seed 0 (50 + 250 x 2
-                iterations + 250 real steps).
+                iterations + 250 real steps);
+ 17. build   -- generate the hammer-v0 (5 DoF), pen-v0-hand (11),
+                relocate-v0-hand (13) and hammer-v0-hand (10) bodies and
+                build them with nvcc beside all the others; print each
+                body's line count, nvcc seconds and -Xptxas -v summary;
+ 18. check   -- each of those bodies against its plain version on the card
+                at N=1000 (ragged), H=20 (relocate-v0-hand H=10): rewards
+                and final state bit-identical or within 1e-6, from lanes in
+                which the object is in contact (the nail under the head, the
+                hammer dropped on the nail, the digits on the pen and over
+                the ball; the lanes where it moved are counted and must not
+                be none), a pre-poisoned NaN lane, the horizon mask in the
+                objective and a second board or goal (H=5), and the real
+                step through the kernel (N=1, H=1) against the eager step;
+ 19. timings -- each body's kernel time and plain rollout at its canonical
+                shape (hammer-v0 N=64/H=30, pen-v0-hand N=96/H=15,
+                relocate-v0-hand N=256/H=20, hammer-v0-hand N=128/H=30),
+                ops per lane step and the bound, one synced PPI iteration
+                with the canonical solver and prior, one real step through
+                the kernel, one eager real step and one observation;
+ 20. episodes -- make mpc-essps (Essps, hammer-v0, RffFeatures, 10 elites,
+                lengthscale 0.15, N=64, H=30, T=250) at seeds 0-2: exactly
+                550 launches each, the nail seated at >= 2; pen-v0-hand
+                (Lbps, SE, T=100, H=15, N=96) and relocate-v0-hand (Mppi,
+                ColouredNoise, T=140, H=20, N=256) at seed 0 to success with
+                exactly 350 and 330 launches; hammer-v0-hand (Lbps, SE,
+                T=400, H=30, N=128) at seeds 0-1 with exactly 1250 launches
+                each and finite returns (nail depth, lifted and success
+                printed, success not required); and one T=20 door-v0
+                episode with each prior no other phase runs (Lbps; 70
+                launches, finite return).
 Then one JSON line with the kernels' numbers and, last, the device line.
 All numbers go to chiprun_out/chip_smoke.json as well. The whole run takes
-about ten minutes on an H100, the kernels' builds included.
+about twelve minutes on an H100, the kernels' builds included.
 """
 
 import dataclasses
@@ -148,13 +178,59 @@ DOOR_CEM = dict(episode=["Cem", "door-v0", "WhiteNoiseIid", "--n-elites",
 # episode runs the canonical config (``goal_success.py:63-66,74-77``); seed
 # 0 launches the kernel 50 + 250 x 2 + 250 times (its real step is one
 # launch too).
-HAND = {"door-v0-hand": dict(h_check=20, seeds=range(5), successes=3),
-        "door-v0-adroit": dict(h_check=10, seeds=range(3), successes=1)}
+HAND = {"door-v0-hand": dict(h_check=20, seeds=range(3), successes=2),
+        "door-v0-adroit": dict(h_check=10, seeds=range(2), successes=1)}
 HAND_EPISODE = ["Lbps", "SquaredExponentialKernel", "--delta", "0.9",
                 "--n-iters", "2", "--anneal", "0.5", "--lengthscale", "0.08",
                 "--timesteps", "250", "--horizon", "30"]
 HAND_LAUNCHES = 50 + 250 * 2 + 250
 H_FRAME = 5  # horizon of the mask and second-frame checks
+
+# phases 17-20: hammer-v0 (make mpc-essps) and the three 3-digit hand
+# scenes at their canonical configs (``goal_success.py:29-31,38-40,57-58,
+# 67-70``). Per env: the check horizon and the scale of its random actions
+# about the initial posture, the coordinates of the object that the check's
+# contacts must move in some lanes, the canonical kernel shape, the solver
+# and prior of the timed PPI iteration, the runner's arguments, the seeds,
+# the launches of each episode (warm start + iterations + real steps, which
+# are launches too) and how many episodes must succeed.
+SCENE_TOL = 1e-6  # max of |kernel - plain| / (1 + |plain|), elementwise
+_LBPS_SE = ["SquaredExponentialKernel", "--delta", "0.9", "--n-iters", "2",
+            "--anneal", "0.5", "--lengthscale", "0.08"]
+SCENES = {
+    "hammer-v0": dict(
+        h_check=20, scale=0.4, moved=(4,), shape=(64, 30),
+        family=("Essps", "RffFeatures", {"lengthscale": 0.15}),
+        episode=["Essps", "hammer-v0", "RffFeatures", "--n-elites", "10",
+                 "--lengthscale", "0.15"],
+        seeds=range(3), launches=50 + 250 + 250, successes=2),
+    "pen-v0-hand": dict(
+        h_check=20, scale=0.5, moved=(3, 4), shape=(96, 15),
+        family=("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08}),
+        episode=["Lbps", "pen-v0-hand", *_LBPS_SE, "--timesteps", "100",
+                 "--horizon", "15"],
+        seeds=range(1), launches=50 + 100 * 2 + 100, successes=1),
+    "relocate-v0-hand": dict(
+        h_check=10, scale=0.3, moved=(10, 11), shape=(256, 20),
+        family=("Mppi", "ColouredNoise", {"beta": 2.0}),
+        episode=["Mppi", "relocate-v0-hand", "ColouredNoise", "--beta", "2",
+                 "--alpha", "10", "--anneal", "0.9", "--timesteps", "140",
+                 "--horizon", "20"],
+        seeds=range(1), launches=50 + 140 + 140, successes=1),
+    "hammer-v0-hand": dict(
+        h_check=20, scale=0.3, moved=(9,), shape=(128, 30),
+        family=("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08}),
+        episode=["Lbps", "hammer-v0-hand", *_LBPS_SE, "--timesteps", "400",
+                 "--horizon", "30"],
+        seeds=range(2), launches=50 + 400 * 2 + 400, successes=0),
+}
+# phase 20's short episodes: the priors that no other phase runs (with
+# --beta 0.5, the smoothing coefficient of the two smoothed-noise priors)
+OTHER_PRIORS = ("RbfFeatures", "Matern12Kernel", "Matern32Kernel",
+                "Matern52Kernel", "PeriodicKernel", "WhiteNoiseKernel",
+                "LinearGaussianDynamicalSystemKernel", "SmoothActionNoise",
+                "SmoothExplorationNoise")
+T_SHORT = 20
 
 
 def check(cond, msg):
@@ -529,18 +605,205 @@ def time_hand(name, env, dev):
     return out
 
 
-def run_episode(args_list, n_samples, seed=0):
+def scene_state(env, name, dev, index=0):
+    """Phase 18's initial state: its second board or goal with ``index``
+    1. hammer-v0's first board puts the nail just under the head's reset
+    position, so that arms swinging down drive it; hammer-v0-hand's boards
+    are sampled; the goals are pen-v0's and relocate-v0's pinned ones."""
+    if name == "hammer-v0":
+        if index:
+            return env.reset(torch.Generator(dev).manual_seed(1), dev)
+        s = env.reset(None, dev, board=(0.0, 0.0, 0.0))
+        head, nail = env._sites(s.physics.qpos, s.board)
+        drop = torch.tensor([0.0, 0.0, 0.065], device=dev)
+        return env.reset(None, dev, board=head - nail - drop)
+    if name == "hammer-v0-hand":
+        return env.reset(torch.Generator(dev).manual_seed(1 + index), dev)
+    base = name.replace("-hand", "")
+    goal = VARIANT_B[base]["goals"][index]
+    if base == "pen-v0":
+        from ppi_tpu_torch.envs.pen import axis_from_angles
+        goal = axis_from_angles(*goal)
+        return env.reset(None, dev, goal=goal)
+    return env.reset(None, dev, goal=goal, start=(0.02, -0.03))
+
+
+def scene_lanes(env, name, dev, n, h, seed=1):
+    """Phase 18's lanes: the state's posture in every lane and actions
+    about it (``scale`` x z). In the second half of hammer-v0-hand's lanes
+    the free hammer starts with its head over the nail, falling at 2 m/s
+    (the strike contact and the nail's friction clip)."""
+    cfg = SCENES[name]
+    s0 = scene_state(env, name, dev)
+    q0, qd0 = (x.clone() for x in lanes(s0, n))
+    if name == "hammer-v0-hand":
+        from ppi_tpu_torch.envs import hammer_hand as hh
+        top = s0.board[2] + 0.06 + 0.018 + 0.045 + 0.01   # head centre z
+        q0[n // 2:, hh.HAM_X] = hh.NAIL_X - hh.HEAD_LOCAL[0] \
+            - hh.GRIP_START[0]
+        q0[n // 2:, hh.HAM_Z] = top - hh.HEAD_LOCAL[2] - hh.GRIP_START[1]
+        qd0[n // 2:, hh.HAM_Z] = -2.0
+    rng = np.random.default_rng(seed)
+    acts = q0[:, None, :env.action_dim] + torch.from_numpy(
+        (cfg["scale"] * rng.standard_normal((n, h, env.action_dim))).astype(
+            np.float32)).to(dev)
+    return s0, q0, qd0, acts
+
+
+def check_scene(name, env, dev):
+    """Phase 18 for one env: (errors, max abs error, lanes that moved the
+    object)."""
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    cfg = SCENES[name]
+    h = cfg["h_check"]
+    s0, q0, qd0, acts = scene_lanes(env, name, dev, N_CHECK, h)
+    consts, _, dyn = rk.kernel_operands(env, s0)
+    run = rk.env_rollout(env, s0, h)
+    rew, qf, qdf = run(q0, qd0, acts, consts=consts, dyn=dyn)
+    rew_p, qf_p, qdf_p = rk.env_plain_rollout(env, s0, q0, qd0, acts)
+    torch.cuda.synchronize()
+    errs = {"rewards": rel_err(rew, rew_p), "qf": rel_err(qf, qf_p),
+            "qdf": rel_err(qdf, qdf_p)}
+    max_abs = max(float((a - b).abs().max())
+                  for a, b in ((rew, rew_p), (qf, qf_p), (qdf, qdf_p)))
+    check(bool(torch.isfinite(rew_p).all()), f"{name}: plain rewards not "
+          "finite")
+    check(max(errs.values()) <= SCENE_TOL,
+          f"{name}: kernel vs plain {errs} > {SCENE_TOL}")
+    errs["bit_identical"] = bool(torch.equal(rew, rew_p)
+                                 and torch.equal(qf, qf_p)
+                                 and torch.equal(qdf, qdf_p))
+    idx = list(cfg["moved"])
+    moved = int(((qf_p[:, idx] - q0[:, idx]).abs().amax(1) > 1e-3).sum())
+    check(moved > 0, f"{name}: no lane moved coordinates {idx}: the check "
+          "exercises no contact")
+
+    q0_bad = q0.clone()
+    q0_bad[3] = torch.nan
+    rew_bad, _, _ = run(q0_bad, qd0, acts, consts=consts, dyn=dyn)
+    others = torch.cat([rew_bad[:3], rew_bad[4:]])
+    check(bool(torch.isnan(rew_bad[3]).all())
+          and bool(torch.isfinite(others).all())
+          and bool(torch.equal(others, torch.cat([rew[:3], rew[4:]]))),
+          f"{name}: a NaN lane must go NaN alone")
+
+    # the objective from the state: the mask, and a second board or goal
+    a = acts[:, :H_FRAME].contiguous()
+    mask = (torch.arange(H_FRAME, device=dev) < H_FRAME - 2).float()
+    c_k = rk.kernel_mpc_objective(env, s0, H_FRAME, mask)(None, a)
+    c_full = rk.kernel_mpc_objective(env, s0, H_FRAME)(None, a)
+    q_r, qd_r = lanes(s0, N_CHECK)
+    r_p = rk.env_plain_rollout(env, s0, q_r, qd_r, a)[0]
+    errs["masked_costs"] = rel_err(c_k, -(r_p * mask).sum(1))
+    check(errs["masked_costs"] <= SCENE_TOL
+          and not bool(torch.allclose(c_k, c_full)),
+          f"{name}: horizon mask {errs['masked_costs']}")
+    s1 = scene_state(env, name, dev, 1)
+    c_k1 = rk.kernel_mpc_objective(env, s1, H_FRAME)(None, a)
+    q_1, qd_1 = lanes(s1, N_CHECK)
+    r_p1 = rk.env_plain_rollout(env, s1, q_1, qd_1, a)[0]
+    errs["second_costs"] = rel_err(c_k1, -r_p1.sum(1))
+    check(errs["second_costs"] <= SCENE_TOL
+          and not bool(torch.allclose(c_k1, c_full)),
+          f"{name}: second board or goal {errs['second_costs']}, or it "
+          "changes no cost")
+
+    # the real step: one launch at N=1, H=1 against the eager step
+    action = acts[N_CHECK // 2, 0]
+    (s_k, r_k), (s_e, r_e) = env.step(s0, action), env.plain_step(s0, action)
+    errs["real_step"] = max(rel_err(s_k.physics.qpos, s_e.physics.qpos),
+                            rel_err(s_k.physics.qvel, s_e.physics.qvel),
+                            rel_err(r_k, r_e))
+    check(errs["real_step"] <= SCENE_TOL and int(s_k.t) == 1,
+          f"{name}: real step {errs['real_step']}")
+    return errs, max_abs, moved
+
+
+def time_scene(name, env, dev):
+    """Phase 19 for one env."""
+    from ppi_tpu_torch.algorithms import make_solver
+    from ppi_tpu_torch.algorithms.base import _one_iteration
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    from ppi_tpu_torch.policies import design_moments, make_policy
+    cfg = SCENES[name]
+    n, h = cfg["shape"]
+    out = {"ops_per_lane_step": rk.ops_per_lane_step(*rk.body_args(
+        env, env.reset(torch.Generator().manual_seed(0), "cpu")))}
+    s0, qn, qdn, a = scene_lanes(env, name, dev, n, h)
+    consts, _, dyn = rk.kernel_operands(env, s0)
+    r = rk.env_rollout(env, s0, h)
+    out[f"kernel_ms_N{n}_H{h}"] = cuda_ms(
+        lambda: r(qn, qdn, a, consts=consts, dyn=dyn), 20)
+    out[f"bound_ms_N{n}_H{h}"], out["bound_by"] = rollout_bound(env, n, h)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rk.env_plain_rollout(env, s0, qn, qdn, a)
+    torch.cuda.synchronize()
+    out[f"plain_ms_N{n}_H{h}"] = 1e3 * (time.perf_counter() - t0)
+
+    alg, policy, kwargs = cfg["family"]
+    mean, cov_in, cov_out = design_moments(env.action_low, env.action_high,
+                                           ratio=1000.0)
+    family, state = make_policy(
+        policy, env.dt * torch.arange(h), env.action_dim, mean, cov_in,
+        cov_out, lower=env.action_low, upper=env.action_high, device=dev,
+        **kwargs)
+    step = _one_iteration(
+        make_solver(alg, delta=0.9, alpha=10.0, n_elites=10,
+                    dimension=family.dim_features), family,
+        rk.kernel_mpc_objective(env, s0, h), n)
+    gen = torch.Generator(dev).manual_seed(0)
+    for _ in range(3):
+        state, (stats, _, _) = step(state, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state, (stats, _, _) = step(state, gen)
+        torch.cuda.synchronize()
+    out[f"ppi_iter_ms_N{n}_H{h}"] = 1e3 * (time.perf_counter() - t0) / 10
+    check(bool(torch.isfinite(stats["mean"])),
+          f"{name}: PPI iteration cost not finite")
+
+    action = family.predict_mean(state)[0]
+    for label, fn, iters in (("kernel_step_ms", env.step, 20),
+                             ("eager_step_ms", env.plain_step, 1)):
+        fn(s0, action)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            s1, _ = fn(s0, action)
+        torch.cuda.synchronize()
+        out[label] = 1e3 * (time.perf_counter() - t0) / iters
+        check(bool(torch.isfinite(s1.physics.qpos).all()),
+              f"{name}: real env step not finite")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        env.observe(s1)
+    torch.cuda.synchronize()
+    out["observe_ms"] = 1e3 * (time.perf_counter() - t0) / 5
+    return out
+
+
+def run_episode(args_list, n_samples, seed=0, final=None):
     """One episode through the port's run_mpc; (return, success, wall s,
-    kernel launches)."""
+    kernel launches). ``final(env_state, row)`` sees the last control
+    step."""
     from ppi_tpu_torch.build import LAUNCHES
     from ppi_tpu_torch.runners import run_mpc
     args = run_mpc.build_parser().parse_args(
         args_list + ["--n-warmstart-iters", "50", "--seed", str(seed),
                      "--device", "cuda", "MonteCarlo", "--n-samples",
                      str(n_samples)])
+    callback = None
+    if final is not None:
+        def callback(t, env_state, row):
+            if t == args.timesteps - 1:
+                final(env_state, row)
+            return False
     LAUNCHES.clear()
     t0 = time.perf_counter()
-    ret, success, track = run_mpc.main(args)
+    ret, success, track = run_mpc.main(args, callback)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(bool(torch.isfinite(track["action"]).all()),
@@ -549,7 +812,7 @@ def run_episode(args_list, n_samples, seed=0):
 
 
 def main():
-    with ThreadPoolExecutor(max_workers=7) as pool:
+    with ThreadPoolExecutor(max_workers=11) as pool:
         return run(pool)
 
 
@@ -557,6 +820,7 @@ def run(pool):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is false)")
+    t_start = time.perf_counter()
     # f32 everywhere: TF32 matmuls and convolutions off
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -596,8 +860,8 @@ def run(pool):
     mm_build = pool.submit(build_timed, "moment_match.cu")
     # phase 9's bodies build beside phases 1 and 5
     bodies = {name: env_header(ENVS[name]()) for name in VARIANT_B}
-    # ... and phase 13's, all seven builds at once
-    bodies.update({name: env_header(ENVS[name]()) for name in HAND})
+    # ... and phase 13's and phase 17's, all eleven builds at once
+    bodies.update({name: env_header(ENVS[name]()) for name in (*HAND, *SCENES)})
     body_builds = {name: pool.submit(build_timed, "rollout.cu",
                                      {"env_body.h": h})
                    for name, h in bodies.items()}
@@ -870,7 +1134,7 @@ def run(pool):
     # ---- 9. build the variant-(b) bodies -----------------------------------
     body_info = {}
     for name, fut in body_builds.items():
-        if name in HAND:
+        if name not in VARIANT_B:
             continue
         body_lib, secs = fut.result()
         info = {"lines": len(bodies[name].splitlines()), "nvcc_s": secs,
@@ -972,15 +1236,91 @@ def run(pool):
         hand_episodes[name] = runs
     out.update(hand_episodes=hand_episodes)
 
+    # ---- 17. build the hammer-v0 and 3-digit hand bodies ----------------------
+    for name in SCENES:
+        body_lib, secs = body_builds[name].result()
+        info = {"lines": len(bodies[name].splitlines()), "nvcc_s": secs,
+                "ptxas": ptxas_summary(body_lib)}
+        body_info[name] = info
+        print(f"body build {name}: {info['lines']} generated lines, nvcc "
+              f"{secs:.1f} s (in parallel with phases 1-16); ptxas: "
+              f"{' | '.join(info['ptxas'])}", flush=True)
+
+    # ---- 18. those bodies: kernel vs plain ------------------------------------
+    scene_errs, scene_max_abs = {}, {}
+    for name, cfg in SCENES.items():
+        scene_errs[name], scene_max_abs[name], moved = check_scene(
+            name, ENVS[name](), dev)
+        print(f"check {name}: N={N_CHECK} H={cfg['h_check']} errors "
+              f"{json.dumps(scene_errs[name])} (tol {SCENE_TOL}); max abs err "
+              f"{scene_max_abs[name]:.3g}; contact moved the object in {moved} "
+              f"lanes; NaN lane isolated; mask and second board or goal "
+              f"applied; real step matches", flush=True)
+    out.update(scene_check=scene_errs, scene_max_abs_err=scene_max_abs)
+
+    # ---- 19. those bodies: timings --------------------------------------------
+    scene_times = {}
+    for name in SCENES:
+        scene_times[name] = time_scene(name, ENVS[name](), dev)
+        print(f"timings {name}: {json.dumps(scene_times[name])}", flush=True)
+    out.update(scene_timings=scene_times)
+
+    # ---- 20. episodes -------------------------------------------------------------
+    scene_episodes = {}
+    for name, cfg in SCENES.items():
+        n_samples, last = cfg["shape"][0], {}
+
+        def final(env_state, row, last=last):
+            last["qpos"] = env_state.physics.qpos
+
+        runs = []
+        for seed in cfg["seeds"]:
+            ret, success, wall, got = run_episode(cfg["episode"], n_samples,
+                                                  seed, final)
+            run_ = {"seed": seed, "return": ret, "success": success,
+                    "wall_s": wall, "launches": got}
+            if name.startswith("hammer"):
+                # the nail's slide is the last coordinate of both scenes
+                run_["nail_depth"] = float(last["qpos"][-1])
+            if name == "hammer-v0-hand":
+                from ppi_tpu_torch.envs.hammer_hand import HAM_Z
+                run_["lifted"] = bool(last["qpos"][HAM_Z] > 0.03)
+            runs.append(run_)
+            print(f"episode {name} seed {seed}: {json.dumps(run_)}",
+                  flush=True)
+            check(np.isfinite(ret), f"{name} seed {seed}: return {ret}")
+            check(got == cfg["launches"], f"{name} seed {seed}: {got} kernel "
+                  f"launches, expected {cfg['launches']}")
+        done = sum(r["success"] for r in runs)
+        check(done >= cfg["successes"], f"{name}: success at {done} of "
+              f"{len(runs)} seeds, expected >= {cfg['successes']}")
+        scene_episodes[name] = runs
+    short = {}
+    for prior in OTHER_PRIORS:
+        ret, success, wall, got = run_episode(
+            ["Lbps", "door-v0", prior, "--delta", "0.9", "--lengthscale",
+             "0.08", "--beta", "0.5", "--timesteps", str(T_SHORT)], 64)
+        short[prior] = {"return": ret, "wall_s": wall, "launches": got}
+        print(f"episode door-v0 T={T_SHORT} {prior}: return {ret:.2f}, {got} "
+              f"kernel launches, wall {wall:.1f} s", flush=True)
+        check(np.isfinite(ret), f"{prior}: return {ret}")
+        check(got == 50 + T_SHORT, f"{prior}: {got} kernel launches, "
+              f"expected {50 + T_SHORT}")
+    out.update(scene_episodes=scene_episodes, short_episodes=short,
+               total_s=time.perf_counter() - t_start)
+    print(f"total: {out['total_s']:.0f} s, the kernels' builds included",
+          flush=True)
+
     Path("chiprun_out").mkdir(exist_ok=True)
     Path("chiprun_out/chip_smoke.json").write_text(json.dumps(out, indent=1))
-    # door-v0's body ran on two paths: phase 4's Lbps episode and make
-    # mpc-cem's episode in phase 12
+    # door-v0's body ran on three paths: phase 4's Lbps episode, make
+    # mpc-cem's episode in phase 12 and phase 20's short episodes
     kernels = [
         {"name": "door_rollout", "route": "cuda",
          "source": "ppi_tpu_torch/csrc/rollout.cu",
          "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
-         "launches": launches + episodes["door-v0 cem"]["launches"],
+         "launches": launches + episodes["door-v0 cem"]["launches"]
+         + sum(r["launches"] for r in short.values()),
          "max_abs_err": max_abs, "ms": timings["kernel_ms_N1024_H160"],
          "plain_ms": timings["plain_ms_N1024_H160"],
          "bound_ms": timings["bound_ms_N1024_H160"],
@@ -1016,6 +1356,20 @@ def run(pool):
              "max_abs_err": hand_max_abs[env_name],
              "ms": t["kernel_ms_N64_H30"], "plain_ms": t["plain_ms_N64_H30"],
              "bound_ms": t["bound_ms_N64_H30"], "bound_by": t["bound_by"],
+             "library_ms": None})
+    for env_name, cfg in SCENES.items():
+        n, h = cfg["shape"]
+        t = scene_times[env_name]
+        kernels.append(
+            {"name": f"{env_name.replace('-v0', '').replace('-', '_')}"
+                     "_rollout",
+             "route": "cuda", "source": "ppi_tpu_torch/csrc/rollout.cu",
+             "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
+             "launches": sum(r["launches"] for r in scene_episodes[env_name]),
+             "max_abs_err": scene_max_abs[env_name],
+             "ms": t[f"kernel_ms_N{n}_H{h}"],
+             "plain_ms": t[f"plain_ms_N{n}_H{h}"],
+             "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
              "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@ import torch
 
 from ppi_tpu_torch.envs.physics.engine import (
     MODEL_FIELDS, ArticulatedModel, PhysicsState)
+from ppi_tpu_torch.policies.features import FeatureState
 from ppi_tpu_torch.policies.gaussian import GaussianState
 from ppi_tpu_torch.policies.kernels import KernelState
 from ppi_tpu_torch.policies.noise import NoiseState
@@ -37,8 +38,14 @@ def _tensors(fields: dict, device) -> dict:
 
 
 def kernel_state_from_numpy(fields: dict, device) -> KernelState:
-    """A KernelState on ``device`` from each field as a numpy array."""
+    """A KernelState on ``device`` from each field as a numpy array;
+    ``hyper`` holds the kernel's 1-3 hyperparameters."""
     return KernelState(**_tensors(fields, device))
+
+
+def feature_state_from_numpy(fields: dict, device) -> FeatureState:
+    """A FeatureState on ``device`` from each field as a numpy array."""
+    return FeatureState(**_tensors(fields, device))
 
 
 def gaussian_state_from_numpy(fields: dict, device) -> GaussianState:
@@ -52,11 +59,11 @@ def noise_state_from_numpy(fields: dict, device) -> NoiseState:
 
 
 def env_state_from_numpy(state_cls, fields: dict, device):
-    """An env state (``PenState``, ``RelocateState``, ``CheetahState``,
-    ``DoorState``) on ``device``: ``fields`` holds ``qpos`` and ``qvel``
-    (the JAX state's physics), optionally ``t``, and the state's other
-    fields (the goal or the frame) as numpy arrays. The ball start of
-    relocate-v0 is part of ``qpos``."""
+    """An env state (``DoorState``, ``PenState``, ``HammerState``,
+    ``RelocateHandState``, ...) on ``device``: ``fields`` holds ``qpos``
+    and ``qvel`` (the JAX state's physics), optionally ``t``, and the
+    state's other fields (the goal, the frame or the board) as numpy
+    arrays. The ball start of the relocate scenes is part of ``qpos``."""
     fields = dict(fields)
     physics = PhysicsState(
         qpos=torch.tensor(np.asarray(fields.pop("qpos"), np.float32),

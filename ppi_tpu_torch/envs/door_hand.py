@@ -27,8 +27,8 @@ from ppi_tpu_torch.envs.hand import add_digit
 from ppi_tpu_torch.envs.physics import scalar_math as sm
 from ppi_tpu_torch.envs.physics.engine import HINGE, ModelBuilder, PhysicsState
 from ppi_tpu_torch.envs.physics.engine_soa import (
-    SoaModel, fk_soa, geom_point_soa, make_sites_soa, substep_soa)
-from ppi_tpu_torch.envs.physics.rollout_kernel import kernel_step
+    SoaModel, fk_soa, geom_point_soa, make_sites_soa)
+from ppi_tpu_torch.envs.physics.rollout_kernel import env_step
 
 # dof indices
 (YAW, SHOULDER, ELBOW, WRIST,
@@ -264,28 +264,13 @@ class DoorHand:
         """(state, action (..., d_a)) -> (next state, reward (...)): one
         launch of the rollout kernel on a CUDA state, ``plain_step`` on a
         CPU state."""
-        if state.physics.qpos.device.type == "cpu":
-            return self.plain_step(state, action)
-        qpos, qvel, reward = kernel_step(self, state, action)
-        return dataclasses.replace(state, physics=PhysicsState(
-            qpos=qpos, qvel=qvel), t=state.t + 1), reward
+        return env_step(self, state, action)
 
     def plain_step(self, state: DoorHandState, action):
         """The eager scalar program over whatever batch shape the state
         has: torque, the substeps, the bolt clamp on the pre-step door
         angle, the reward."""
-        m = self._soa.with_body_offset(self.scalar_dyn_body,
-                                       state.frame.unbind(-1))
-        q = state.physics.qpos.unbind(-1)
-        qd = state.physics.qvel.unbind(-1)
-        tau = self.scalar_torque(m, q, qd, action.unbind(-1))
-        q_prev, h = q, self.dt / self.substeps
-        for _ in range(self.substeps):
-            q, qd = substep_soa(m, q, qd, tau, h)
-        q, qd = self.scalar_project(m, q_prev, q, qd)
-        reward = self.scalar_reward(m, q, qd)
-        phys = PhysicsState(qpos=torch.stack(q, -1), qvel=torch.stack(qd, -1))
-        return dataclasses.replace(state, physics=phys, t=state.t + 1), reward
+        return env_step(self, state, action, plain=True)
 
     def _sites(self, qpos, frame):
         pts = self._sites_soa(qpos, frame)

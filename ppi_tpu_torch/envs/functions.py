@@ -93,7 +93,8 @@ class NoisySphere:
     noise_std: float = 0.01
     f_opt = 0.0
 
-    def quadratic(self, device="cpu") -> torch.Tensor:
+    def quadratic(self, device) -> torch.Tensor:
+        """The PSD matrix on ``device`` (the caller's: the samples')."""
         return _sphere_quadratic(self.dim, self.seed, torch.device(device))
 
     @property

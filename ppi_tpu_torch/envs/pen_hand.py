@@ -1,0 +1,227 @@
+"""In-hand pen reorientation with three articulated digits (pen-v0-hand).
+
+Port of ``ppi_tpu/envs/pen_hand.py``: pen-v0's compliant free pen is
+turned by three two-hinge digits of ``envs.hand.add_digit``, index and
+ring mounted below the pen ends pointing up, an opposing thumb above
+mid-rod pointing down, through sphere-segment penalty contacts. 6 actuated
+joints, 11 DoF. Digits hinge about x, so each fingertip sweeps the local
+y-z plane. The reward shape, the compliant hold, the sampled goal
+(yaw/pitch ~ U(-1, 1) rad) and the success test are pen-v0's.
+
+``step`` on a CUDA state is one launch of the env's rollout kernel
+(``rollout_kernel.kernel_step``); on a CPU state it is the eager scalar
+program. The goal axis is the reward's per-episode constants. The scripted
+expert of the JAX module is not ported.
+"""
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ppi_tpu_torch.envs.base import as_f32
+from ppi_tpu_torch.envs.hand import add_digit, digit_spheres
+from ppi_tpu_torch.envs.pen import (
+    GOAL_RANGE, HOLD_POS, PEN_HALF, axis_from_angles, offset,
+    scalar_pen_pose, target_axis)
+from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+from ppi_tpu_torch.envs.physics import scalar_math as sm
+from ppi_tpu_torch.envs.physics.engine import (
+    HINGE, SLIDE, ModelBuilder, PhysicsState)
+from ppi_tpu_torch.envs.physics.engine_soa import SoaModel, make_sites_soa
+
+# dof order: pen x,y,z slides, yaw, pitch; then digit A (mcp, pip) under
+# the +x pen end, digit B under the -x end, thumb (mcp, pip) above mid-rod
+(PEN_X, PEN_Y, PEN_Z, PEN_YAW, PEN_PITCH,
+ A_MCP, A_PIP, B_MCP, B_PIP, TH_MCP, TH_PIP) = range(11)
+
+N_ACT = 6
+L1, L2 = 0.055, 0.05          # digit link lengths (reach 0.105)
+DIGIT_DROP = 0.06             # finger mounts this far below the rod centre
+THUMB_RISE = 0.07             # thumb mount this far above
+
+_LOW = (-1.3, -2.2, -1.3, -2.2, -1.3, -2.2)
+_HIGH = (1.3, 2.2, 1.3, 2.2, 1.3, 2.2)
+
+
+def _build_model():
+    b = ModelBuilder()
+    # --- pen: pen-v0's compliant free body ---
+    p = b.add_body(parent=-1, joint_type=SLIDE, axis=(1, 0, 0),
+                   offset_pos=HOLD_POS, mass=1e-3, armature=1e-4,
+                   damping=0.0, spring_k=50.0, spring_ref=0.0)
+    p = b.add_body(parent=p, joint_type=SLIDE, axis=(0, 1, 0),
+                   offset_pos=(0, 0, 0), mass=1e-3, armature=1e-4,
+                   damping=0.5, spring_k=50.0, spring_ref=0.0)
+    p = b.add_body(parent=p, joint_type=SLIDE, axis=(0, 0, 1),
+                   offset_pos=(0, 0, 0), mass=1e-3, armature=1e-4,
+                   damping=1.0, spring_k=50.0, spring_ref=0.0)
+    p = b.add_body(parent=p, joint_type=HINGE, axis=(0, 0, 1),
+                   offset_pos=(0, 0, 0), mass=1e-3, armature=1e-3,
+                   damping=0.05)
+    b.add_body(parent=p, joint_type=HINGE, axis=(0, 1, 0),
+               offset_pos=(0, 0, 0), mass=0.05,
+               inertia=np.diag([1e-4, 3e-4, 3e-4]), armature=1e-3,
+               damping=0.05)
+    # --- digits (world-mounted: the palm is the frozen forearm frame) ---
+    digit_cfg = dict(axis=(1, 0, 0), link1=L1, link2=L2,
+                     damping1=0.35, damping2=0.3)
+    up, down = (0.0, 0.0, 1.0), (0.0, 0.0, -1.0)
+    a_ids = add_digit(b, -1, (HOLD_POS[0] + 0.06, 0.0,
+                              HOLD_POS[2] - DIGIT_DROP),
+                      mcp_limits=(_LOW[0], _HIGH[0]),
+                      pip_limits=(_LOW[1], _HIGH[1]),
+                      direction=up, **digit_cfg)
+    b_ids = add_digit(b, -1, (HOLD_POS[0] - 0.06, 0.0,
+                              HOLD_POS[2] - DIGIT_DROP),
+                      mcp_limits=(_LOW[2], _HIGH[2]),
+                      pip_limits=(_LOW[3], _HIGH[3]),
+                      direction=up, **digit_cfg)
+    th_ids = add_digit(b, -1, (HOLD_POS[0], 0.0,
+                               HOLD_POS[2] + THUMB_RISE),
+                       mcp_limits=(_LOW[4], _HIGH[4]),
+                       pip_limits=(_LOW[5], _HIGH[5]),
+                       direction=down, **digit_cfg)
+
+    # geoms: pen end spheres define the rod segment; digit prox+tip spheres
+    end_a = b.add_sphere(PEN_PITCH, (PEN_HALF, 0, 0), 0.012)
+    end_b = b.add_sphere(PEN_PITCH, (-PEN_HALF, 0, 0), 0.012)
+    tip_geoms = []
+    for ids, direction in ((a_ids, up), (b_ids, up), (th_ids, down)):
+        prox, tip = digit_spheres(b, *ids, link1=L1, link2=L2,
+                                  prox_radius=0.015, tip_radius=0.015,
+                                  direction=direction)
+        b.add_contact_sphere_segment(prox, end_a, end_b)
+        b.add_contact_sphere_segment(tip, end_a, end_b)
+        tip_geoms.append(tip)
+    # pen-v0's contact material
+    b.contact_stiffness = 2e3
+    b.contact_damping = 5.0
+    b.friction_mu = 0.8
+    b.friction_vel_k = 30.0
+    return b.finalize(), (end_a, end_b), tuple(tip_geoms)
+
+
+@dataclasses.dataclass(frozen=True)
+class PenHandState:
+    physics: PhysicsState
+    target_axis: torch.Tensor  # (3,) sampled goal orientation (unit)
+    t: torch.Tensor            # () int32 step count
+
+
+@dataclasses.dataclass(frozen=True)
+class PenHand:
+    """pen-v0-class task on the three-digit hand; actions are PD position
+    targets for the 6 digit joints."""
+
+    action_dim: int = N_ACT
+    dt: float = 0.02
+    substeps: int = 8
+    kp: float = 3.0
+    kd: float = 0.25
+    fixed_goal: bool = False  # True: pin the fixed target
+
+    name = "pen-v0-hand"
+
+    def __post_init__(self):
+        model, ends, tips = _build_model()
+        object.__setattr__(self, "_model", model)
+        object.__setattr__(self, "_soa", SoaModel(model))
+        object.__setattr__(self, "_end_geoms", ends)
+        object.__setattr__(self, "_tip_geoms", tips)
+        object.__setattr__(self, "_sites_soa", make_sites_soa(model))
+
+    @property
+    def action_low(self):
+        return torch.tensor(_LOW)
+
+    @property
+    def action_high(self):
+        return torch.tensor(_HIGH)
+
+    def sample_goal(self, generator: torch.Generator, device):
+        """pen-v0's distribution: yaw/pitch ~ U(-1, 1) rad."""
+        if self.fixed_goal:
+            return target_axis().to(device)
+        u = torch.rand(2, generator=generator, device=device)
+        yaw, pitch = ((2.0 * u - 1.0) * GOAL_RANGE).unbind()
+        return axis_from_angles(yaw, pitch)
+
+    def reset(self, generator: torch.Generator, device, goal=None):
+        """Digits poised just clear of the rod (fingers slightly curled
+        outward, thumb lifted); ``goal`` pins the goal axis instead of
+        sampling it."""
+        qpos = torch.zeros(11, device=device)
+        qpos[A_MCP], qpos[B_MCP], qpos[TH_MCP] = 0.35, -0.35, 0.3
+        if goal is None:
+            goal = self.sample_goal(generator, device)
+        return PenHandState(
+            physics=PhysicsState(qpos=qpos,
+                                 qvel=torch.zeros(11, device=device)),
+            target_axis=as_f32(goal, device),
+            t=torch.zeros((), dtype=torch.int32, device=device))
+
+    # ---- the scalar contract (shared by step() and the rollout kernel) ----
+
+    def scalar_torque(self, m, q, qd, act):
+        tau = [sm.zeros_like(q[0]) for _ in range(A_MCP)]
+        for j in range(N_ACT):
+            tgt = sm.clip(act[j], _LOW[j], _HIGH[j])
+            tau.append(self.kp * (tgt - q[A_MCP + j])
+                       - self.kd * qd[A_MCP + j])
+        return tuple(tau)
+
+    def scalar_reward_consts(self, state):
+        return state.target_axis
+
+    def scalar_reward(self, m, q, qd, consts):
+        # pen-v0's reward shape (mj_envs pen-v0 structure)
+        tx, ty, tz = consts
+        (cx, cy, cz), (ax, ay, az) = scalar_pen_pose(m, q, self._end_geoms)
+        hx, hy, hz = HOLD_POS
+        ex, ey, ez = cx - hx, cy - hy, cz - hz
+        dist = sm.sqrt(ex * ex + ey * ey + ez * ez)
+        similarity = ax * tx + ay * ty + az * tz
+        dropped = sm.lt(cz, hz - 0.15)
+        vel2 = sum(qd[j] * qd[j] for j in range(5))
+        near = sm.lt(dist, 0.075)
+        return (-1.0 * dist
+                + similarity
+                - 1e-3 * vel2
+                + 10.0 * sm.logical_and(sm.gt(similarity, 0.90), near)
+                + 50.0 * sm.logical_and(sm.gt(similarity, 0.95), near)
+                - 5.0 * dropped)
+
+    # ---- the env ---------------------------------------------------------
+
+    def step(self, state: PenHandState, action):
+        """(state, action (..., 6)) -> (next state, reward (...)): one
+        launch of the rollout kernel on a CUDA state, the eager scalar
+        program on a CPU state."""
+        return rk.env_step(self, state, action)
+
+    def plain_step(self, state: PenHandState, action):
+        """The eager step, on any device."""
+        return rk.env_step(self, state, action, plain=True)
+
+    def _pen_pose(self, qpos):
+        """(centre, unit axis) of the rod from the end-sphere sites."""
+        pts = self._sites_soa(qpos)
+        ea = pts[..., self._end_geoms[0], :]
+        eb = pts[..., self._end_geoms[1], :]
+        centre = 0.5 * (ea + eb)
+        axis = (ea - eb) / (torch.linalg.norm(ea - eb, dim=-1,
+                                              keepdim=True) + 1e-9)
+        return centre, axis
+
+    def observe(self, state: PenHandState):
+        """Observation of a single (unbatched) state."""
+        q, qd = state.physics.qpos, state.physics.qvel
+        centre, axis = self._pen_pose(q)
+        return torch.cat([q, qd, centre, axis, state.target_axis,
+                          axis - state.target_axis, offset(centre, HOLD_POS)])
+
+    def success(self, state: PenHandState):
+        centre, axis = self._pen_pose(state.physics.qpos)
+        dist = torch.linalg.norm(offset(centre, HOLD_POS), dim=-1)
+        return ((axis * state.target_axis).sum(-1) > 0.95) & (dist < 0.075)

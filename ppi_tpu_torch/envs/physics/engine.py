@@ -113,6 +113,19 @@ class ModelBuilder:
             limit_k=float(limit_k)))
         return len(self._bodies) - 1
 
+    def add_planar_base(self, offset_pos, mass=1e-3, axis_forward=(1, 0, 0),
+                        axis_up=(0, 0, 1)) -> int:
+        """A planar free base: a slide along ``axis_forward`` carrying a
+        slide along ``axis_up``, both near-massless proxy bodies. Returns
+        the second slide's id; the caller adds the pitch hinge with the real
+        mass and geometry as its child."""
+        x = self.add_body(parent=-1, joint_type=SLIDE, axis=axis_forward,
+                          offset_pos=offset_pos, mass=mass, damping=0.0,
+                          armature=1e-4)
+        return self.add_body(parent=x, joint_type=SLIDE, axis=axis_up,
+                             offset_pos=(0, 0, 0), mass=mass, damping=0.0,
+                             armature=1e-4)
+
     def add_sphere(self, body: int, pos, radius: float) -> int:
         self._spheres.append((body, np.asarray(pos, np.float32),
                               float(radius)))

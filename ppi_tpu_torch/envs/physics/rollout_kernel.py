@@ -35,9 +35,12 @@ Env contract (duck-typed, as ``ppi_tpu``'s): ``env._model``, ``env.dt``,
     projection after each control step's substeps, with ``q_prev`` the
     whole pre-step coordinate tuple (the hand door scenes' bolt clamp).
 
-``kernel_step`` runs one real env step as one launch (H=1).
+``kernel_step`` runs one real env step as one launch (H=1); ``plain_step``
+is its eager version and ``env_step`` chooses between them by the state's
+device (the env also carries ``env._soa``, its ``SoaModel``).
 """
 
+import dataclasses
 import functools
 from pathlib import Path
 
@@ -393,6 +396,45 @@ def kernel_step(env, state, action):
                        dyn=dyn)
     return (qf.reshape(qpos.shape), qdf.reshape(qvel.shape),
             rew.reshape(qpos.shape[:-1]))
+
+
+def plain_step(env, state, action):
+    """One control step of ``env``'s scalar program, eagerly, over whatever
+    batch shape the state has: torque, the substeps, the projection (for an
+    env that has one), the reward. ``(state (..., nq), action (..., d_a))
+    -> (qpos, qvel, reward (...))``."""
+    consts, dyn_body, dyn = kernel_operands(env, state)
+    m = env._soa
+    if dyn_body is not None:
+        m = m.with_body_offset(dyn_body, dyn.unbind(-1))
+    q = state.physics.qpos.unbind(-1)
+    qd = state.physics.qvel.unbind(-1)
+    act = action.unbind(-1)
+    tau = env.scalar_torque(m, q, qd, act)
+    q_prev, h = q, env.dt / env.substeps
+    for _ in range(env.substeps):
+        q, qd = substep_soa(m, q, qd, tau, h)
+    project = getattr(env, "scalar_project", None)
+    if project is not None:
+        q, qd = project(m, q_prev, q, qd)
+    reward = call_reward(
+        env.scalar_reward, m, q, qd, act,
+        None if consts is None else consts.unbind(-1),
+        getattr(env, "scalar_reward_takes_action", False))
+    return torch.stack(q, -1), torch.stack(qd, -1), reward
+
+
+def env_step(env, state, action, plain: bool = False):
+    """``env.step`` for an env whose real step runs through its rollout
+    kernel: one launch (``kernel_step``) on a CUDA state, ``plain_step`` on
+    a CPU state or when ``plain`` is set. Returns (next state, reward)."""
+    step = plain_step if plain or state.physics.qpos.device.type == "cpu" \
+        else kernel_step
+    qpos, qvel, reward = step(env, state, action)
+    return dataclasses.replace(
+        state, physics=dataclasses.replace(state.physics, qpos=qpos,
+                                           qvel=qvel),
+        t=state.t + 1), reward
 
 
 def kernel_mpc_objective(env, state0, horizon: int, horizon_mask=None,

@@ -1,7 +1,8 @@
 """Numerical primitives of the PPI update (torch)."""
 
 from ppi_tpu_torch.ops.divergences import (
-    multivariate_gaussian_entropy, multivariate_gaussian_kl)
+    matrix_gaussian_kl, matrix_normal_entropy, multivariate_gaussian_entropy,
+    multivariate_gaussian_kl, vec)
 from ppi_tpu_torch.ops.moment_match import (
     KERNEL_MIN_ELEMENTS, m_projection, m_projection_mavn)
 from ppi_tpu_torch.ops.psd import (
@@ -14,7 +15,8 @@ from ppi_tpu_torch.ops.weighting import (
     select_row, weight_entropy)
 
 __all__ = [
-    "multivariate_gaussian_entropy", "multivariate_gaussian_kl",
+    "matrix_gaussian_kl", "matrix_normal_entropy",
+    "multivariate_gaussian_entropy", "multivariate_gaussian_kl", "vec",
     "KERNEL_MIN_ELEMENTS", "m_projection", "m_projection_mavn",
     "default_jitter", "factorized", "safe_cholesky", "symmetric",
     "ALPHA_LOWER", "ALPHA_UPPER", "grid_zoom_min",

@@ -1,24 +1,28 @@
-"""Policy/prior library: the squared-exponential GP kernel prior, the
-noise priors and the vector Gaussian of black-box optimization.
+"""Policy/prior library: Gaussian, feature, kernel and noise families.
 
-``make_policy`` keeps the JAX package's name-based factory for the
-trajectory priors; the other kernel and the feature families are ROADMAP
-queue 1 item 11.
+``make_policy`` is the JAX package's name-based factory: it accepts the
+union of all hyperparameters and each family takes what it needs.
 """
 
 import torch
 
 from ppi_tpu_torch.policies.design import (
     clip_actions, design_moments, unbounded_like)
+from ppi_tpu_torch.policies.features import (
+    BaseFeatures, FeatureState, RbfFeatures, RffFeatures)
 from ppi_tpu_torch.policies.gaussian import Gaussian, GaussianState
-from ppi_tpu_torch.policies.kernels import BaseKernel, KernelState
+from ppi_tpu_torch.policies.kernels import (
+    KERNELS, LGDS, BaseKernel, KernelState, LgdsKernelPolicy,
+    WhiteNoiseKernelPolicy)
 from ppi_tpu_torch.policies.noise import (
     ColouredNoise, NoiseState, SmoothActionNoise, SmoothExplorationNoise,
     WhiteNoiseIid)
 from ppi_tpu_torch.samplers import BY_NAME as SAMPLERS_BY_NAME
 from ppi_tpu_torch.samplers import SamplerKind
 
-__all__ = ["BaseKernel", "KernelState", "Gaussian", "GaussianState",
+__all__ = ["BaseFeatures", "FeatureState", "RbfFeatures", "RffFeatures",
+           "BaseKernel", "KernelState", "LgdsKernelPolicy",
+           "WhiteNoiseKernelPolicy", "KERNELS", "Gaussian", "GaussianState",
            "NoiseState", "WhiteNoiseIid", "ColouredNoise",
            "SmoothExplorationNoise", "SmoothActionNoise", "clip_actions",
            "design_moments", "unbounded_like", "make_policy", "POLICY_NAMES"]
@@ -29,20 +33,28 @@ NOISE_FAMILIES = {
     "SmoothExplorationNoise": SmoothExplorationNoise,
     "SmoothActionNoise": SmoothActionNoise,
 }
-POLICY_NAMES = ["SquaredExponentialKernel", *NOISE_FAMILIES]
+POLICY_NAMES = [
+    "RbfFeatures", "RffFeatures", "SquaredExponentialKernel",
+    "WhiteNoiseKernel", "WhiteNoiseIid", "ColouredNoise", "SmoothActionNoise",
+    "SmoothExplorationNoise", "Matern12Kernel", "Matern32Kernel",
+    "Matern52Kernel", "PeriodicKernel", LGDS,
+]
 
 
 def make_policy(name: str, time_sequence, action_dimension: int, mean,
                 covariance_in, covariance_out, lengthscale: float = 1.0,
-                sampler="MonteCarlo", beta: float = 2.0, lower=None,
-                upper=None, max_particles: int = 1, device="cuda"):
+                period: float = 1.0, n_features: int = 10, order: int = 10,
+                sampler="MonteCarlo", beta: float = 2.0,
+                use_derivatives: bool = False, add_bias: bool = False,
+                lower=None, upper=None, max_particles: int = 1,
+                lgds_order: int = 2, track_entropy: bool = False,
+                device="cuda"):
     """Build (family, state) for a policy family by reference-compatible
     name, with every state tensor on ``device`` (the card unless the caller
     names another). ``beta`` is the noise families' colour exponent or
     smoothing coefficient; WhiteNoiseIid ignores it."""
     if name not in POLICY_NAMES:
-        raise ValueError(f"policy family {name!r} is not ported yet "
-                         "(ROADMAP queue 1 item 11); ported: "
+        raise ValueError(f"Unknown policy family: {name!r}; expected one of "
                          f"{POLICY_NAMES}")
     sampler_kind = (sampler if isinstance(sampler, SamplerKind)
                     else SAMPLERS_BY_NAME[sampler])
@@ -51,14 +63,29 @@ def make_policy(name: str, time_sequence, action_dimension: int, mean,
     t = as_dev(time_sequence)
     common = dict(horizon=int(t.shape[0]), action_dim=int(action_dimension),
                   sampler=sampler_kind, max_particles=max_particles)
+    moments = (as_dev(mean), as_dev(covariance_in), as_dev(covariance_out))
+    bounds = dict(lower=as_dev(lower), upper=as_dev(upper))
     if name in NOISE_FAMILIES:
         if name != "WhiteNoiseIid":
             common["beta"] = beta
         fam = NOISE_FAMILIES[name](**common)
-        return fam, fam.init(t, as_dev(mean), as_dev(covariance_in),
-                             as_dev(covariance_out), lower=as_dev(lower),
-                             upper=as_dev(upper))
-    fam = BaseKernel(kernel=name, **common)
-    return fam, fam.init(t, as_dev(mean), as_dev(covariance_in),
-                         as_dev(covariance_out), lengthscale=lengthscale,
-                         lower=as_dev(lower), upper=as_dev(upper))
+        return fam, fam.init(t, *moments, **bounds)
+    common.update(use_derivatives=use_derivatives,
+                  track_entropy=track_entropy)
+    if name in ("RbfFeatures", "RffFeatures"):
+        if name == "RbfFeatures":
+            fam = RbfFeatures(n_features=n_features, lengthscale=lengthscale,
+                              add_bias=add_bias, t_min=float(t[0]),
+                              t_max=float(t[-1]), **common)
+        else:
+            fam = RffFeatures(order=order, lengthscale=lengthscale,
+                              add_bias=add_bias, **common)
+        return fam, fam.init(t, *moments, **bounds)
+    if name == "WhiteNoiseKernel":
+        fam = WhiteNoiseKernelPolicy(**common)
+    elif name == LGDS:
+        fam = LgdsKernelPolicy(lgds_order=lgds_order, **common)
+    else:
+        fam = BaseKernel(kernel=name, **common)
+    return fam, fam.init(t, *moments, lengthscale=lengthscale, period=period,
+                         **bounds)

@@ -1,14 +1,18 @@
-"""Function-space (GP kernel) trajectory prior, squared-exponential kernel.
+"""Function-space (GP kernel) trajectory priors.
 
-Port of ``KernelState``, ``k_squared_exponential`` and the SE path of
-``BaseKernel`` from ``ppi_tpu/policies/kernels.py``. The prior over an
-action sequence is a GP on the H planning timesteps, so U = K(t, t) is
-(H, H); the receding-horizon shift conditions through the cached prior
-Cholesky with triangular solves. The other kernels are ROADMAP queue 1
-item 11.
+Port of ``ppi_tpu/policies/kernels.py``: squared-exponential, Matern
+1/2, 3/2 and 5/2, periodic, white-noise and the linear-Gaussian dynamical
+system (integrator chain) kernel. The prior over an action sequence is a
+GP on the H planning timesteps, so U = K(t, t) is (H, H); the
+receding-horizon shift conditions through the cached prior Cholesky with
+triangular solves. The LGDS Gram is closed form: one masked (H, H) product
+of the chain's impulse responses. The marginal-likelihood fit of the
+hyperparameters (``optimize_hyper``, ``hyper_nll``, ``param_bounds``) is
+not ported yet.
 """
 
 import dataclasses
+import math
 
 import torch
 
@@ -20,7 +24,7 @@ from ppi_tpu_torch.policies.primitives import (
 
 @dataclasses.dataclass(frozen=True)
 class KernelState(MatrixNormalState):
-    hyper: torch.Tensor = None       # (sigma, lengthscale)
+    hyper: torch.Tensor = None       # (sigma[, lengthscale[, period]])
     cov_prior: torch.Tensor = None   # K(t, t) prior on the current window
     chol_prior: torch.Tensor = None
 
@@ -37,6 +41,101 @@ def k_squared_exponential(hyper, t1, t2):
     return k
 
 
+SQRT3, SQRT5 = math.sqrt(3.0), math.sqrt(5.0)
+
+
+def _abs_diff_safe(t1, t2, eps):
+    ad = torch.abs(t1[:, None] - t2[None, :])
+    return torch.where(ad == 0.0, eps, ad)
+
+
+def k_matern12(hyper, t1, t2, eps=1e-8):
+    sigma, ls = hyper[0], hyper[1]
+    return sigma * torch.exp(-_abs_diff_safe(t1, t2, eps) / ls)
+
+
+def k_matern32(hyper, t1, t2, eps=1e-8):
+    sigma, ls = hyper[0], hyper[1]
+    d = SQRT3 * _abs_diff_safe(t1, t2, eps) / ls
+    return sigma * (1.0 + d) * torch.exp(-d)
+
+
+def k_matern52(hyper, t1, t2, eps=1e-8):
+    sigma, ls = hyper[0], hyper[1]
+    d = SQRT5 * _abs_diff_safe(t1, t2, eps) / ls
+    return sigma * (1.0 + d + d * d / 3.0) * torch.exp(-d)
+
+
+def k_periodic(hyper, t1, t2, eps=1e-8):
+    sigma, ls, period = hyper[0], hyper[1], hyper[2]
+    ad = _abs_diff_safe(t1, t2, eps)
+    s = torch.sin(math.pi * ad / period)
+    k = sigma * torch.exp(-2.0 * s * s / ls)
+    if t1.shape[0] == t2.shape[0]:
+        k = k + 1e-3 * sigma * torch.eye(t1.shape[0], device=t1.device)
+    return k
+
+
+def k_white(hyper, t1, t2):
+    """sigma where the two times are equal, bit for bit, else 0."""
+    return hyper[0] * time_remap_matrix(t1, t2)
+
+
+def lgds_phi(order: int, j_dt):
+    """First row of the integrator chain's transition matrix A^j as a
+    function of the elapsed time j dt: [1, j dt, (j dt)^2 / 2][:order]. A is
+    unipotent, so A^j is the exact flow over j dt."""
+    cols = [torch.ones_like(j_dt)]
+    if order >= 2:
+        cols.append(j_dt)
+    if order >= 3:
+        cols.append(0.5 * j_dt * j_dt)
+    return torch.stack(cols, dim=-1)  # (..., order)
+
+
+def k_lgds(hyper, t1, t2, order: int = 2, q0_scale: float = 1e-3,
+           disturbance: float = 1e-6):
+    """Gram matrix of the position component of an integrator-chain GP.
+
+    The chain x_{k+1} = A x_k + w_k with process noise only on the highest
+    derivative gives, for the position at steps r, c of a uniform grid,
+
+      K[r, c] = q0 phi(r) . phi(c)                          (initial cov.)
+              + sigma sum_{k=1..min(r,c)} g(r - k) g(c - k)   (process noise)
+              + disturbance delta_rc
+
+    with phi(j) the first row of A^j and g(j) its last entry. The sum over
+    k is a masked outer product of lower-triangular impulse-response
+    matrices. Defined on one uniform time grid only (``t1`` is ``t2``)."""
+    del t2
+    sigma = hyper[0]
+    n = t1.shape[0]
+    dt = t1[1] - t1[0] if n > 1 else torch.ones((), dtype=t1.dtype,
+                                                device=t1.device)
+    idx = torch.arange(n, device=t1.device)
+    phi = lgds_phi(order, idx.to(t1.dtype) * dt)          # (n, order)
+    # g[r, k] = g(r - k) for 1 <= k <= r, else 0: the response at step r to
+    # noise injected at step k
+    rr, kk = idx[:, None], idx[None, :]
+    lag = (rr - kk).to(t1.dtype) * dt
+    g = lgds_phi(order, lag)[..., order - 1]
+    g = torch.where((rr >= kk) & (kk >= 1), g, 0.0)
+    return (q0_scale * (phi @ phi.T) + sigma * (g @ g.T)
+            + disturbance * torch.eye(n, dtype=t1.dtype, device=t1.device))
+
+
+# name -> (Gram function, number of hyperparameters)
+KERNELS = {
+    "SquaredExponentialKernel": (k_squared_exponential, 2),
+    "Matern12Kernel": (k_matern12, 2),
+    "Matern32Kernel": (k_matern32, 2),
+    "Matern52Kernel": (k_matern52, 2),
+    "PeriodicKernel": (k_periodic, 3),
+    "WhiteNoiseKernel": (k_white, 1),
+}
+LGDS = "LinearGaussianDynamicalSystemKernel"
+
+
 def time_remap_matrix(t_new, t_old):
     """(H, H) 0/1 matrix R with R[i, j] = 1 iff t_new[i] == t_old[j]: the
     index remap of delta-correlated priors on a shifted window."""
@@ -51,24 +150,27 @@ def _cho_solve(chol, b):
 
 @dataclasses.dataclass(frozen=True)
 class BaseKernel(MatrixPolicyBase):
-    """GP trajectory prior with receding-horizon conditioning (SE kernel)."""
+    """GP trajectory prior with receding-horizon conditioning."""
 
     kernel: str = "SquaredExponentialKernel"
+    lgds_order: int = 2  # only used by the LGDS family
     shift_eps: float = 1e-5
 
     name = "BaseKernel"
 
     def __post_init__(self):
-        if self.kernel != "SquaredExponentialKernel":
-            raise ValueError(f"kernel {self.kernel!r} is not ported yet "
-                             "(ROADMAP queue 1 item 11)")
+        if self.kernel not in KERNELS and self.kernel != LGDS:
+            raise ValueError(f"unknown kernel {self.kernel!r}; expected one "
+                             f"of {[*KERNELS, LGDS]}")
 
     @property
     def dim_features(self) -> int:
         return self.horizon
 
     def k(self, state: KernelState, t1, t2):
-        return k_squared_exponential(state.hyper, t1, t2)
+        if self.kernel == LGDS:
+            return k_lgds(state.hyper, t1, t2, order=self.lgds_order)
+        return KERNELS[self.kernel][0](state.hyper, t1, t2)
 
     def _eye(self, like):
         return torch.eye(self.horizon, dtype=like.dtype, device=like.device)
@@ -76,7 +178,8 @@ class BaseKernel(MatrixPolicyBase):
     # ---- construction -----------------------------------------------------
 
     def init(self, time_sequence, mean, covariance_in, covariance_out,
-             lengthscale=1.0, lower=None, upper=None) -> KernelState:
+             lengthscale=1.0, period=1.0, lower=None,
+             upper=None) -> KernelState:
         """``covariance_in`` is the scalar kernel variance (shape (1,)). All
         tensors live on ``time_sequence.device``."""
         d_a, h = self.action_dim, self.horizon
@@ -88,7 +191,9 @@ class BaseKernel(MatrixPolicyBase):
             lower = torch.full((d_a,), -torch.inf, device=dev)
             upper = torch.full((d_a,), torch.inf, device=dev)
         sigma = covariance_in.reshape(())
-        hyper = torch.stack([sigma, torch.full_like(sigma, lengthscale)])
+        n_hyper = 1 if self.kernel == LGDS else KERNELS[self.kernel][1]
+        hyper = torch.stack([sigma, torch.full_like(sigma, lengthscale),
+                             torch.full_like(sigma, period)][:n_hyper])
         chol_out, _ = ops.safe_cholesky(covariance_out, jitter=0.0)
         particles, n_particles = init_particle_buffer(
             self.max_particles, h, d_a, dev)
@@ -128,6 +233,14 @@ class BaseKernel(MatrixPolicyBase):
     def predict_mean(self, state: KernelState):
         mu = state.mean_fn[None, :] + state.mean
         return clip_actions(mu, state.lower, state.upper)
+
+    def predict(self, state: KernelState):
+        """(mean (H, d_a), sigma_in (H, H), sigma_out (d_a, d_a), std (H,
+        d_a))."""
+        mu = state.mean_fn[None, :] + state.mean
+        std = torch.sqrt(torch.outer(torch.diagonal(state.cov_in),
+                                     torch.diagonal(state.cov_out)))
+        return mu, state.cov_in, state.cov_out, std
 
     def map_action_sequence(self, state: KernelState):
         return state.mean_fn[None, :] + state.map_sequence
@@ -175,3 +288,76 @@ class BaseKernel(MatrixPolicyBase):
         chol_new = torch.where(pd_ok, chol_new, prior_chol)
         return state.replace(t=t, mean=mean_new, cov_in=cov_new,
                              chol_in=chol_new)
+
+    # ---- conditioning / likelihood ---------------------------------------
+
+    def _conditioned(self, state: KernelState, cov_p, cov_tp, action):
+        """The posterior given ``action`` at points with Gram ``cov_p``
+        (q, q) and cross-covariance ``cov_tp`` (H, q) to the window."""
+        sol = torch.linalg.solve_ex(cov_p, cov_tp.T)[0]      # (q, H)
+        mean = sol.T @ (action - state.mean_fn[None, :])
+        cov = ops.symmetric(state.cov_in - cov_tp @ sol)
+        chol, _ = ops.safe_cholesky(cov)
+        return state.replace(mean=mean, cov_in=chol @ chol.T, chol_in=chol)
+
+    def condition(self, state: KernelState, t, action):
+        """Exact GP conditioning of the prior on (t, action) observations."""
+        return self._conditioned(state, self.k(state, t, t),
+                                 self.k(state, state.t, t), action)
+
+    def loglikelihood(self, state: KernelState, x):
+        """Average matrix-normal log-likelihood of (n, H, d_a) samples."""
+        n, h, d_a = x.shape[0], self.horizon, self.action_dim
+        diff = x - state.mean[None] - state.mean_fn[None, None, :]
+        u_inv_diff = _cho_solve(
+            state.chol_in, diff.permute(1, 0, 2).reshape(h, -1))
+        u_inv_diff = u_inv_diff.reshape(h, n, d_a).permute(1, 0, 2)
+        v_inv = _cho_solve(state.chol_out, torch.eye(
+            d_a, dtype=x.dtype, device=x.device))
+        quad = torch.einsum("bij,bik,kj->", diff, u_inv_diff, v_inv)
+        logdet = lambda chol: 2.0 * torch.sum(torch.log(torch.diagonal(chol)))
+        return (-0.5 * quad / n
+                - 0.5 * self.dim_sample * math.log(2.0 * math.pi)
+                - 0.5 * d_a * logdet(state.chol_in)
+                - 0.5 * h * logdet(state.chol_out))
+
+
+@dataclasses.dataclass(frozen=True)
+class WhiteNoiseKernelPolicy(BaseKernel):
+    """Delta-correlated GP prior: the horizon shift is an index remap, not
+    a conditioning solve."""
+
+    kernel: str = "WhiteNoiseKernel"
+    name = "WhiteNoiseKernel"
+
+    def update_timesteps(self, state: KernelState, t, anneal=1.0, same=None):
+        if same is None:
+            same = torch.equal(t, state.t)
+        if same:
+            return state.replace(t=t)
+        eye = self._eye(state.cov_in)
+        remap = time_remap_matrix(t, state.t)
+        cov_new = self.k(state, t, t)
+        cov = remap @ state.cov_in @ remap.T
+        cov = ops.symmetric(cov + (eye - remap @ remap.T) @ cov_new)
+        chol, pd_ok = ops.safe_cholesky(cov)
+        fallback, _ = ops.safe_cholesky(cov_new, jitter=1e-6)
+        return state.replace(t=t, mean=remap @ state.mean,
+                             cov_in=torch.where(pd_ok, cov, cov_new),
+                             chol_in=torch.where(pd_ok, chol, fallback))
+
+
+@dataclasses.dataclass(frozen=True)
+class LgdsKernelPolicy(BaseKernel):
+    """Integrator-chain (GP-prior-linear) kernel policy."""
+
+    kernel: str = LGDS
+    name = LGDS
+
+    def condition(self, state: KernelState, t, action):
+        """Condition on actions at timesteps of the current grid: the LGDS
+        Gram is only defined there, so conditioning selects sub-blocks of
+        the covariance by time match."""
+        sel = time_remap_matrix(t, state.t)          # (q, H)
+        return self._conditioned(state, sel @ state.cov_in @ sel.T,
+                                 state.cov_in @ sel.T, action)

@@ -44,7 +44,10 @@ class MatrixPolicyBase:
     horizon: int
     action_dim: int
     sampler: SamplerKind = SamplerKind.MONTE_CARLO
+    use_derivatives: bool = False
     max_particles: int = 1
+    track_entropy: bool = False  # matrix-normal entropy is O(m^3)
+    track_kl: bool = False
     mavn_iterations: int = 1
 
     @property
@@ -98,7 +101,13 @@ class MatrixPolicyBase:
         else:
             mean_sel = mean_new
         ess = torch.where(pd_ok, ess, float(samples.shape[0]))
-        kl = torch.zeros((), device=ess.device)
+        if self.track_kl:
+            kl = ops.matrix_gaussian_kl(
+                mean_sel, cov_in_sel, state.cov_out,
+                state.mean, state.cov_in, state.cov_out)
+            kl = torch.where(pd_ok, kl, 0.0)
+        else:
+            kl = torch.zeros((), device=ess.device)
         new_state = state.replace(mean=mean_sel, cov_in=cov_in_sel,
                                   chol_in=chol_sel)
         return new_state, ess, kl
@@ -112,12 +121,28 @@ class MatrixPolicyBase:
     # ---- diagnostics ------------------------------------------------------
 
     def entropy(self, state: MatrixNormalState):
-        """Entropy tracking is off on this path (the JAX default)."""
-        return torch.zeros((), device=state.mean.device)
+        """The matrix-normal entropy with ``track_entropy``, else 0."""
+        if not self.track_entropy:
+            return torch.zeros((), device=state.mean.device)
+        return ops.matrix_normal_entropy(
+            state.cov_in, state.cov_out, self.dim_features, self.action_dim)
 
     def reset_covariance(self, state: MatrixNormalState):
         chol, _ = ops.safe_cholesky(state.cov_in_init, jitter=0.0)
         return state.replace(cov_in=state.cov_in_init, chol_in=chol)
+
+    def set_map_sequence(self, state: MatrixNormalState, seq):
+        return state.replace(map_sequence=seq)
+
+    def set_particles(self, state: MatrixNormalState, particles, n_live: int):
+        """Store reuse particles (elite params) in the fixed-size buffer."""
+        k = state.particles.shape[0]
+        take = min(k, particles.shape[0])
+        buf = torch.cat([particles[:take],
+                         torch.zeros_like(state.particles[take:])])
+        n = torch.full((), min(n_live, k), dtype=torch.int32,
+                       device=state.particles.device)
+        return state.replace(particles=buf, n_particles=n)
 
     def compute_prior(self, state: MatrixNormalState, t):
         return state.replace(t=t)

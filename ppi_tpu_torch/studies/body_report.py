@@ -24,7 +24,9 @@ from ppi_tpu_torch.envs.physics import rollout_kernel as rk
 from ppi_tpu_torch.runners.run_mpc import ENVS
 
 SCALE = {"door-v0": 0.4, "pen-v0": 0.12, "relocate-v0": 0.3,
-         "cheetah": 25.0, "door-v0-hand": 0.3, "door-v0-adroit": 0.3}
+         "cheetah": 25.0, "door-v0-hand": 0.3, "door-v0-adroit": 0.3,
+         "hammer-v0": 0.4, "pen-v0-hand": 0.5, "relocate-v0-hand": 0.3,
+         "hammer-v0-hand": 0.3}
 
 
 def rel_err(a, b):

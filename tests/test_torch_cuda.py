@@ -422,3 +422,100 @@ def test_hand_control_step_never_waits_for_the_card(name):
     torch.cuda.synchronize()
     assert rk.LAUNCHES["rollout"] == before + 3
     assert bool(torch.isfinite(state.physics.qpos).all())
+
+
+# ---- hammer-v0 and the 3-digit hand scenes --------------------------------------
+
+SCENE_ENVS = {"hammer-v0": 0.4, "pen-v0-hand": 0.5, "relocate-v0-hand": 0.3,
+            "hammer-v0-hand": 0.3}   # env -> scale of the random actions
+
+
+def _scene_lanes(env, dev, n, h, scale):
+    """From a sampled board or goal: the reset posture in every lane and
+    actions about it."""
+    s0 = env.reset(torch.Generator(dev).manual_seed(1), dev)
+    q0 = s0.physics.qpos.expand(n, -1).contiguous()
+    rng = np.random.default_rng(2)
+    acts = q0[:, None, -env.action_dim:] if env.name == "pen-v0-hand" \
+        else q0[:, None, :env.action_dim]
+    acts = acts + torch.from_numpy((scale * rng.standard_normal(
+        (n, h, env.action_dim))).astype(np.float32)).to(dev)
+    return s0, q0, torch.zeros_like(q0), acts
+
+
+@pytest.mark.parametrize("name", sorted(SCENE_ENVS))
+def test_scene_kernel_matches_plain(name):
+    """Each body at N=257 (ragged), H=4, from a sampled board or goal:
+    rewards and final state within 1e-6 of the plain version."""
+    dev = _device()
+    env = _variant_b_env(name)
+    n, h = 257, 4
+    s0, q0, qd0, acts = _scene_lanes(env, dev, n, h, SCENE_ENVS[name])
+    consts, _, dyn = rk.kernel_operands(env, s0)
+    run = rk.env_rollout(env, s0, h)
+    before = rk.LAUNCHES["rollout"]
+    rew, qf, qdf = run(q0, qd0, acts, consts=consts, dyn=dyn)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rollout"] == before + 1
+    rew_p, qf_p, qdf_p = rk.env_plain_rollout(env, s0, q0, qd0, acts)
+    assert bool(torch.isfinite(rew_p).all())
+    assert _rel(rew, rew_p) <= 1e-6
+    assert _rel(qf, qf_p) <= 1e-6
+    assert _rel(qdf, qdf_p) <= 1e-6
+
+
+@pytest.mark.parametrize("name", sorted(SCENE_ENVS))
+def test_scene_real_step_is_one_kernel_launch(name):
+    """The real env step on the card: one launch at N=1, H=1, within 1e-6
+    of the eager step (``plain_step``)."""
+    dev = _device()
+    env = _variant_b_env(name)
+    s0, _, _, acts = _scene_lanes(env, dev, 1, 1, 0.2)
+    before = rk.LAUNCHES["rollout"]
+    s1, r1 = env.step(s0, acts[0, 0])
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rollout"] == before + 1
+    s2, r2 = env.plain_step(s0, acts[0, 0])
+    assert r1.shape == () and int(s1.t) == 1
+    assert _rel(s1.physics.qpos, s2.physics.qpos) <= 1e-6
+    assert _rel(s1.physics.qvel, s2.physics.qvel) <= 1e-6
+    assert _rel(r1, r2) <= 1e-6
+
+
+@pytest.mark.parametrize("policy", ["RffFeatures", "RbfFeatures",
+                                    "Matern32Kernel", "WhiteNoiseKernel"])
+def test_essps_control_step_never_waits_for_the_card(policy):
+    """One Essps control step on hammer-v0 with a feature or kernel prior
+    (the basis constants are cached on the card, the window shift is
+    decided on the host) and the real env step through the kernel: two
+    launches, no operation that synchronizes with the host."""
+    dev = _device()
+    from ppi_tpu_torch.algorithms import make_solver
+    from ppi_tpu_torch.mpc import Mpc
+    from ppi_tpu_torch.policies import design_moments, make_policy
+    env = _variant_b_env("hammer-v0")
+    mean, ci, co = design_moments(env.action_low, env.action_high, 1000.0)
+    span = 20 if policy == "RbfFeatures" else H
+    fam, pol = make_policy(policy, env.dt * torch.arange(span),
+                           env.action_dim, mean, ci, co, lengthscale=0.15,
+                           lower=env.action_low, upper=env.action_high,
+                           device=dev)
+    agent = Mpc(env=env, solver=make_solver(
+        "Essps", n_elites=10, dimension=fam.dim_features), family=fam,
+        timesteps=20, horizon=H, n_samples=64, device=dev)
+    state = env.reset(torch.Generator(dev).manual_seed(0), dev)
+    carry = agent.init(pol, torch.Generator(dev).manual_seed(0))
+    carry, _ = agent.warm_start(carry, state, 2)  # builds and loads first
+    action, carry, _ = agent.control_step(carry, state, 0)
+    state, _ = env.step(state, action)
+    torch.cuda.synchronize()
+    before = rk.LAUNCHES["rollout"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        action, carry, _ = agent.control_step(carry, state, 1)
+        state, _ = env.step(state, action)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rollout"] == before + 2
+    assert bool(torch.isfinite(state.physics.qpos).all())

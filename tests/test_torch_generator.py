@@ -52,6 +52,26 @@ def test_bodies_without_a_projection_are_unchanged(name):
     assert hashlib.sha256(header.encode()).hexdigest() == HEADER_SHA256[name]
 
 
+# ... and of the two bodies with the projection, as first generated: a new
+# env adds its own body and changes no other
+PROJECTED_SHA256 = {
+    "door-v0-hand":
+        "9de049e5cddac6722b1761ba97f2d4d99cd6785df28d177259f8e8addd02023d",
+    "door-v0-adroit":
+        "4c513149720388b3c6b2868c862765da0b95a419de74bcc3413d1455ac6de4fb",
+}
+
+
+@pytest.mark.parametrize("name", sorted(PROJECTED_SHA256))
+def test_bodies_with_a_projection_are_unchanged(name):
+    env = ENVS[name]()
+    state = env.reset(torch.Generator().manual_seed(0), "cpu")
+    header = generate_env_header(*body_args(env, state))
+    assert "#define PPI_PROJECT 1" in header
+    assert hashlib.sha256(header.encode()).hexdigest() == \
+        PROJECTED_SHA256[name]
+
+
 def test_projection_emits_its_hook_and_counts_its_ops():
     door = Door()
     header = _header(door, door_clamp)

@@ -24,6 +24,10 @@ SLICE_MODULES = [
     "ppi_tpu_torch.envs.pen",
     "ppi_tpu_torch.envs.relocate",
     "ppi_tpu_torch.envs.cheetah",
+    "ppi_tpu_torch.envs.hammer",
+    "ppi_tpu_torch.envs.pen_hand",
+    "ppi_tpu_torch.envs.relocate_hand",
+    "ppi_tpu_torch.envs.hammer_hand",
     "ppi_tpu_torch.envs.physics",
     "ppi_tpu_torch.envs.physics.engine",
     "ppi_tpu_torch.envs.physics.engine_soa",
@@ -36,6 +40,8 @@ SLICE_MODULES = [
     "ppi_tpu_torch.ops.fftnoise",
     "ppi_tpu_torch.ops.qmc",
     "ppi_tpu_torch.policies",
+    "ppi_tpu_torch.policies.features",
+    "ppi_tpu_torch.policies.kernels",
     "ppi_tpu_torch.policies.gaussian",
     "ppi_tpu_torch.policies.noise",
     "ppi_tpu_torch.algorithms",
@@ -46,6 +52,8 @@ SLICE_MODULES = [
     "ppi_tpu_torch.studies.body_report",
     "ppi_tpu_torch.studies.episode_trace",
     "ppi_tpu_torch.studies.fma_contraction",
+    "ppi_tpu_torch.studies.replan_trace",
+    "ppi_tpu_torch.studies.seed_sweep",
 ]
 
 
@@ -74,6 +82,30 @@ def test_entry_points_default_to_the_card():
     assert fields["device"] == "cuda"
     assert inspect.signature(make_policy).parameters["device"].default \
         == "cuda"
+    # a helper that makes a tensor takes its device from the caller: no
+    # default names the CPU
+    from ppi_tpu_torch.envs.functions import NoisySphere
+    device = inspect.signature(NoisySphere.quadratic).parameters["device"]
+    assert device.default is inspect.Parameter.empty
+    assert NoisySphere(dim=3).quadratic("cpu").shape == (3, 3)
+
+
+def test_make_policy_accepts_every_name_of_the_registry():
+    """All 13 names build on the CPU and draw samples of the right shape;
+    the feature families' weights have their own width."""
+    from ppi_tpu_torch.policies import POLICY_NAMES, make_policy
+    assert len(POLICY_NAMES) == 13
+    h, d = 6, 2
+    for name in POLICY_NAMES:
+        fam, state = make_policy(
+            name, 0.02 * torch.arange(h), d, torch.zeros(d),
+            torch.full((1,), 10.0), 0.1 * torch.eye(d), lengthscale=0.05,
+            period=0.02, n_features=4, order=2, beta=0.5, device="cpu")
+        xs, params = fam.sample(state, torch.Generator().manual_seed(0), 5)
+        assert xs.shape == (5, h, d), name
+        assert params.shape == (5, fam.dim_features, d), name
+        assert bool(torch.isfinite(xs).all()), name
+        assert fam.predict_mean(state).shape == (h, d), name
 
 
 def test_runner_cuda_without_a_card_raises():

@@ -210,7 +210,7 @@ def test_functions_match_reference(name):
 def test_noisy_sphere_matrix_and_noise():
     jfn = jax_make_function("NoisySphere", 7, seed=3)
     fn = make_function("NoisySphere", 7, seed=3)
-    np.testing.assert_array_equal(to_np(fn.quadratic()),
+    np.testing.assert_array_equal(to_np(fn.quadratic("cpu")),
                                   np.asarray(jfn.quadratic))
     x = torch.randn(32, 7, generator=torch.Generator().manual_seed(0))
     quiet = make_function("NoisySphere", 7, seed=3, noise_std=0.0)

@@ -1,5 +1,6 @@
 """Shared pieces of the per-env comparison tests of the torch port
-(tests/test_torch_{pen,relocate,cheetah,door_hand,door_adroit}.py).
+(tests/test_torch_{pen,relocate,cheetah,door_hand,door_adroit,hammer,
+pen_hand,relocate_hand,hammer_hand}.py).
 
 The JAX reference is ``ppi_tpu.envs.base.batch_rollout`` (the scan path
 that tests/test_pallas_rollout.py holds the Pallas kernel to), jitted once
@@ -9,6 +10,7 @@ scan from a different initial state in each lane. The port's state is the
 JAX state carried across as numpy (``convert.env_state_from_numpy``).
 """
 
+import dataclasses
 import shutil
 
 import jax
@@ -109,9 +111,11 @@ def assert_model_equals_reference(jenv, env):
     assert env._model.joint_types == jenv._model.joint_types
 
 
-def assert_host_c_matches_plain(env, state, acts, q0, qd0):
+def assert_host_c_matches_plain(env, state, acts, q0, qd0, tol=None):
     """The skeleton plus the env's generated body, built as host C, against
-    the plain version on the same lanes (NaN lanes included)."""
+    the plain version on the same lanes (NaN lanes included), within
+    ``tol`` (REW_TOL unless given)."""
+    tol = REW_TOL if tol is None else tol
     if shutil.which("cc") is None:
         pytest.skip("no host C compiler")
     n, h = acts.shape[0], acts.shape[1]
@@ -129,10 +133,153 @@ def assert_host_c_matches_plain(env, state, acts, q0, qd0):
     ptr = lambda a: None if a is None else a.ctypes.data
     assert fn(ptr(q0_t), ptr(qd0_t), ptr(act_t), ptr(d), ptr(c), ptr(rew),
               ptr(qf), ptr(qdf), n, h) == 0
-    np.testing.assert_allclose(rew.T, rew_p, **REW_TOL)
-    np.testing.assert_allclose(qf.T, qf_p, **REW_TOL)
-    np.testing.assert_allclose(qdf.T, qdf_p, **REW_TOL)
+    np.testing.assert_allclose(rew.T, rew_p, **tol)
+    np.testing.assert_allclose(qf.T, qf_p, **tol)
+    np.testing.assert_allclose(qdf.T, qdf_p, **tol)
     assert np.array_equal(np.isnan(rew.T), np.isnan(rew_p))
+
+
+def assert_nan_lane_goes_nan_alone(env, state, acts, q0=None, qd0=None,
+                                   lane: int = 2):
+    """A lane that starts from a NaN coordinate gets NaN rewards at every
+    step; every other lane's rewards are bit for bit those of the clean
+    run."""
+    n = acts.shape[0]
+    if q0 is None:
+        q0 = np.tile(to_np(state.physics.qpos), (n, 1))
+    bad = q0.copy()
+    bad[lane, 1] = np.nan
+    rew, _, _ = wrapper_run(env, state, acts, bad, qd0)
+    clean, _, _ = wrapper_run(env, state, acts, q0, qd0)
+    assert np.isnan(rew[lane]).all()
+    keep = np.arange(n) != lane
+    assert np.isfinite(clean).all()
+    np.testing.assert_array_equal(rew[keep], clean[keep])
+
+
+def mpc_episode_pair(jenv, env, algorithm, policy, policy_kwargs,
+                     solver_kwargs, n_samples, horizon, timesteps, n_iters,
+                     anneal, warm_iters: int = 2):
+    """The same short MPC episode through the JAX agent and the port's, on
+    the CPU, from the same base draws (``draw_base`` of both packages
+    returns one numpy sample): ((JAX track, JAX final state), (track, final
+    state)). Both envs must pin their scene (``fixed_scene`` /
+    ``fixed_goal``), so both resets give the same state."""
+    import ppi_tpu.policies.primitives as jax_primitives
+    import ppi_tpu_torch.policies.primitives as primitives
+    from ppi_tpu.algorithms import make_solver as jax_make_solver
+    from ppi_tpu.mpc import Mpc as JaxMpc
+    from ppi_tpu.policies import design_moments as jax_design_moments
+    from ppi_tpu.policies import make_policy as jax_make_policy
+    from ppi_tpu_torch.algorithms import make_solver
+    from ppi_tpu_torch.mpc import Mpc
+    from ppi_tpu_torch.policies import design_moments, make_policy
+    d_a = env.action_dim
+    jm, jci, jco = jax_design_moments(jenv.action_low, jenv.action_high,
+                                      1000.0)
+    jfam, jpol = jax_make_policy(
+        policy, jenv.dt * jnp.arange(horizon), d_a, jm, jci, jco,
+        lower=jenv.action_low, upper=jenv.action_high, **policy_kwargs)
+    jagent = JaxMpc(env=jenv, solver=jax_make_solver(
+        algorithm, dimension=jfam.dim_features, **solver_kwargs),
+        family=jfam, timesteps=timesteps, horizon=horizon,
+        n_samples=n_samples, n_iters=n_iters, anneal=anneal,
+        use_pallas=False)
+    m, ci, co = design_moments(env.action_low, env.action_high, 1000.0)
+    fam, pol = make_policy(
+        policy, env.dt * torch.arange(horizon), d_a, m, ci, co,
+        lower=env.action_low, upper=env.action_high, device="cpu",
+        **policy_kwargs)
+    agent = Mpc(env=env, solver=make_solver(
+        algorithm, dimension=fam.dim_features, **solver_kwargs), family=fam,
+        timesteps=timesteps, horizon=horizon, n_samples=n_samples,
+        n_iters=n_iters, anneal=anneal, device="cpu")
+    z = np.random.default_rng(0).standard_normal(
+        (n_samples, fam.dim_sample)).astype(np.float32)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_primitives, "draw_base",
+                   lambda kind, key, n, dim: jnp.asarray(z))
+        mp.setattr(primitives, "draw_base",
+                   lambda kind, gen, n, dim, device: to_torch(z))
+        jcarry = jagent.init(jpol, jax.random.key(0))
+        js = jenv.reset(jax.random.key(0))
+        jcarry, _ = jagent.warm_start(jcarry, js, warm_iters)
+        _, jfinal, jtrack = jagent.run_episode(jcarry, js)
+        carry = agent.init(pol, torch.Generator().manual_seed(0))
+        s = env.reset(None, "cpu")
+        carry, _ = agent.warm_start(carry, s, warm_iters)
+        _, final, track = agent.run_episode(carry, s)
+    return (jtrack, jfinal), (track, final)
+
+
+# ---- the 3-digit hand scenes (tests/test_torch_{pen,relocate,hammer}_hand.py)
+
+def lane_states(state, q0, qd0):
+    """``state`` with the physics of every lane: the batched state that the
+    port's eager ``step`` runs over."""
+    return dataclasses.replace(state, physics=dataclasses.replace(
+        state.physics, qpos=to_torch(q0), qvel=to_torch(qd0)))
+
+
+def assert_step_rollout_matches(env, state, q0, qd0, acts, reference):
+    """The port's env step over N lanes (on the CPU, the eager step)
+    against the reference rollout; the step count advances."""
+    from ppi_tpu_torch.envs.base import rollout
+    final, rew = rollout(env, lane_states(state, q0, qd0), to_torch(acts))
+    assert_rollout_close((to_np(rew), to_np(final.physics.qpos),
+                          to_np(final.physics.qvel)), reference)
+    assert int(final.t) == acts.shape[1]
+
+
+def assert_kernel_step_is_the_eager_step(env, state, q, action):
+    """On the CPU ``step``, ``kernel_step`` and ``plain_step`` are one
+    program."""
+    from ppi_tpu_torch.envs.physics.rollout_kernel import kernel_step
+    s = lane_states(state, q, np.zeros_like(q))
+    s1, r1 = env.step(s, to_torch(action))
+    qn, qdn, r2 = kernel_step(env, s, to_torch(action))
+    s3, r3 = env.plain_step(s, to_torch(action))
+    assert r2.shape == () and int(s1.t) == 1
+    assert torch.equal(qn, s1.physics.qpos) and torch.equal(qdn, s1.physics.qvel)
+    assert torch.equal(r1, r2) and torch.equal(r1, r3)
+    assert torch.equal(s3.physics.qpos, s1.physics.qpos)
+
+
+def assert_objective_costs_match(env, state, acts, rew_ref):
+    """``kernel_mpc_objective`` from ``state`` (all lanes at its posture)
+    against the reference rewards, whole and with the last step masked."""
+    from ppi_tpu_torch.envs.physics.rollout_kernel import kernel_mpc_objective
+    h = acts.shape[1]
+    mask = np.array([1.0] * (h - 1) + [0.0], np.float32)
+    costs = kernel_mpc_objective(env, state, h)(None, to_torch(acts))
+    masked = kernel_mpc_objective(env, state, h, to_torch(mask))(
+        None, to_torch(acts))
+    np.testing.assert_allclose(to_np(costs), -rew_ref.sum(1), **REW_TOL)
+    np.testing.assert_allclose(to_np(masked), -(rew_ref * mask).sum(1),
+                               **REW_TOL)
+
+
+def assert_observe_and_success_match(jenv, env, state_cls, cases):
+    """``cases``: (JAX state, expected success) pairs."""
+    for jst, want in cases:
+        st = port_state(state_cls, jst)
+        np.testing.assert_allclose(to_np(env.observe(st)),
+                                   np.asarray(jenv.observe(jst)), rtol=1e-5,
+                                   atol=1e-6)
+        assert bool(env.success(st)) == bool(jenv.success(jst)) == want
+
+
+def run_on_cpu(argv, action_dim, timesteps=2):
+    """The port's runner on the CPU at a tiny size."""
+    from ppi_tpu_torch.runners import run_mpc
+    args = run_mpc.build_parser().parse_args(
+        argv + ["--horizon", "3", "--timesteps", str(timesteps),
+                "--n-warmstart-iters", "1", "--device", "cpu", "MonteCarlo",
+                "--n-samples", "6"])
+    ret, success, track = run_mpc.main(args)
+    assert np.isfinite(ret) and success in (True, False)
+    assert track["action"].shape == (timesteps, action_dim)
+    assert bool(torch.isfinite(track["obs"]).all())
 
 
 # ---- the hand door scenes (tests/test_torch_door_{hand,adroit}.py) --------
