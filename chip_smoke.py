@@ -38,8 +38,9 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 body's line count, nvcc seconds and -Xptxas -v summary;
  10. check   -- each body against the plain version on the card at N=1000
                 (ragged), H=20: rewards and final state, a pre-poisoned NaN
-                lane, the horizon mask, two goals (pen-v0, relocate-v0) and
-                actions past the torque box (cheetah);
+                lane, the horizon mask and two goals (pen-v0, relocate-v0)
+                over the first 5 steps, and actions past the torque box
+                (cheetah);
  11. timings -- each body's kernel time (CUDA events) and the plain
                 rollout's at its canonical shape (pen-v0 N=96/H=15,
                 relocate-v0 N=256/H=20, cheetah N=256/H=30; pen-v0 also at
@@ -50,15 +51,15 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 N=96) and relocate-v0 (Mppi, ColouredNoise, T=140, H=20,
                 N=256) to success, cheetah (Mppi, ColouredNoise, T=150,
                 N=256) to a positive return, and make mpc-cem's door-v0
-                (Cem, WhiteNoiseIid, N=64, T=250); exactly 250, 190, 200
-                and 300 kernel launches;
+                (Cem, WhiteNoiseIid, N=64, T=100); exactly 250, 190, 200
+                and 150 kernel launches;
  13. build   -- generate the door-v0-hand (12 DoF) and door-v0-adroit (23
                 DoF) bodies (variants c and d: the bolt projection) and
                 build them with nvcc in parallel with phases 1, 5 and 9;
                 print each body's line count, nvcc seconds and -Xptxas -v
                 summary;
  14. check   -- each body against its plain version on the card at N=1000
-                (ragged), H=20 (door-v0-adroit H=10: its plain rollout is
+                (ragged), H=20 (door-v0-adroit H=5: its plain rollout is
                 ~200k eager launches a step): rewards and final state from
                 a sampled frame, with lanes where the bolt clamp holds the
                 door and lanes where the latch is pressed and it does not
@@ -66,15 +67,16 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 the horizon mask in the objective and a second sampled
                 frame (H=5), and the real step through the kernel (N=1,
                 H=1) against the eager step;
- 15. timings -- each body's kernel time at N=64/H=30 (canonical) and
-                N=1024/H=30, the plain rollout at N=64/H=30, one synced PPI
-                iteration at the canonical shape, one real step through the
-                kernel, one eager real step and one observation;
+ 15. timings -- each body's kernel time at N=64 and N=1024, H=30
+                (door-v0-adroit H=10), the plain rollout at N=64 there, one
+                synced PPI iteration at the canonical shape (H=30), one real
+                step through the kernel, one eager real step and one
+                observation;
  16. episodes -- the canonical config (Lbps, SE, delta 0.9, 2 iters, anneal
                 0.5, lengthscale 0.08 = "4dt", N=64, H=30, T=250, 50
-                warm-start iterations) on door-v0-hand at seeds 0-2 (door
-                open at >= 2) and door-v0-adroit at seeds 0-1 (>= 1): finite
-                returns, exactly 800 kernel launches at seed 0 (50 + 250 x 2
+                warm-start iterations) on door-v0-hand at seeds 0-1 (door
+                open at >= 1) and door-v0-adroit at seed 0: finite returns,
+                exactly 800 kernel launches at seed 0 (50 + 250 x 2
                 iterations + 250 real steps);
  17. build   -- generate the hammer-v0 (5 DoF), pen-v0-hand (11),
                 relocate-v0-hand (13) and hammer-v0-hand (10) bodies and
@@ -101,14 +103,46 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 (Lbps, SE, T=100, H=15, N=96) and relocate-v0-hand (Mppi,
                 ColouredNoise, T=140, H=20, N=256) at seed 0 to success with
                 exactly 350 and 330 launches; hammer-v0-hand (Lbps, SE,
-                T=400, H=30, N=128) at seeds 0-1 with exactly 1250 launches
-                each and finite returns (nail depth, lifted and success
+                T=400, H=30, N=128) at seed 0 with exactly 1250 launches
+                and a finite return (nail depth, lifted and success
                 printed, success not required); and one T=20 door-v0
                 episode with each prior no other phase runs (Lbps; 70
-                launches, finite return).
+                launches, finite return);
+ 21. build   -- generate the reacher, finger~spin, fetch-push, fetch-pick,
+                hopper, walker2d, walker~walk and humanoid-standup bodies
+                (variant b) and build them with nvcc beside all the others;
+                print each body's line count, nvcc seconds and -Xptxas -v
+                summary;
+ 22. check   -- each of those bodies against its plain version on the card
+                at N=1000 (ragged), H=20: rewards and final state
+                bit-identical or within TOL, from lanes in contact (the
+                fingertip on the paddle, the paddle against the box, a
+                fingertip against the ball; the lanes where the object
+                moved, or that end with a foot on the ground, are counted
+                and must not be none), a pre-poisoned NaN lane, the horizon
+                mask in the objective, a second target or goal (reacher,
+                fetch-push, fetch-pick; H=5), actions past the torque or
+                action box, and the real step through the kernel (N=1,
+                H=1) against the eager step;
+ 23. timings -- each body's kernel time and plain rollout at its canonical
+                shape, ops per lane step and the bound, one synced PPI
+                iteration with the canonical solver and prior, one real
+                step through the kernel and one observation;
+ 24. episodes -- the eight envs through the port's run_mpc at the JAX
+                repo's configs (Mppi; seed 0 unless stated; 50
+                warm-start iterations) with exact launch counts (warm start
+                + T iterations + T real steps) and a gate each: reacher's
+                fingertip within 0.08 of the target at >= 3 of seeds 0-9,
+                finger~spin >= 0.5 a step, fetch-push success at >= 3 of
+                seeds 0-4, fetch-pick success at >= 2 of 3,
+                hopper and walker2d a finite return above 0, walker~walk
+                >= 0.3 a step, humanoid-standup a finite return above 110
+                (what lying still earns).
 Then one JSON line with the kernels' numbers and, last, the device line.
-All numbers go to chiprun_out/chip_smoke.json as well. The whole run takes
-about twelve minutes on an H100, the kernels' builds included.
+All numbers go to chiprun_out/chip_smoke.json as well. The whole run took
+18 minutes on an H100 whose host ran eager PyTorch ~1.6x slower than the
+hosts of earlier runs (the kernels' builds included), before phases 10,
+12, 14-16 and 20 were cut to the depth above.
 """
 
 import dataclasses
@@ -171,15 +205,18 @@ VARIANT_B = {
         n_samples=256, launches=50 + 150),
 }
 DOOR_CEM = dict(episode=["Cem", "door-v0", "WhiteNoiseIid", "--n-elites",
-                         "10"], n_samples=64, launches=50 + 250)
+                         "10", "--timesteps", "100"], n_samples=64,
+                launches=50 + 100)
 
 # phases 13-16: the hand door scenes (variants c and d). Per env: the check
 # horizon, the seeds of phase 16 and how many must open the door. Every
 # episode runs the canonical config (``goal_success.py:63-66,74-77``); seed
 # 0 launches the kernel 50 + 250 x 2 + 250 times (its real step is one
 # launch too).
-HAND = {"door-v0-hand": dict(h_check=20, seeds=range(3), successes=2),
-        "door-v0-adroit": dict(h_check=10, seeds=range(2), successes=1)}
+HAND = {"door-v0-hand": dict(h_check=20, seeds=range(2), successes=1,
+                             h_time=30),
+        "door-v0-adroit": dict(h_check=5, seeds=range(1), successes=1,
+                               h_time=10)}
 HAND_EPISODE = ["Lbps", "SquaredExponentialKernel", "--delta", "0.9",
                 "--n-iters", "2", "--anneal", "0.5", "--lengthscale", "0.08",
                 "--timesteps", "250", "--horizon", "30"]
@@ -222,7 +259,7 @@ SCENES = {
         family=("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08}),
         episode=["Lbps", "hammer-v0-hand", *_LBPS_SE, "--timesteps", "400",
                  "--horizon", "30"],
-        seeds=range(2), launches=50 + 400 * 2 + 400, successes=0),
+        seeds=range(1), launches=50 + 400 * 2 + 400, successes=0),
 }
 # phase 20's short episodes: the priors that no other phase runs (with
 # --beta 0.5, the smoothing coefficient of the two smoothed-noise priors)
@@ -231,6 +268,77 @@ OTHER_PRIORS = ("RbfFeatures", "Matern12Kernel", "Matern32Kernel",
                 "LinearGaussianDynamicalSystemKernel", "SmoothActionNoise",
                 "SmoothExplorationNoise")
 T_SHORT = 20
+
+# phases 21-24: the remaining variant-(b) bodies at the JAX repo's configs
+# (``tests/test_envs.py:16-48`` for reacher, ``studies/reset_parity.py:
+# 24-29`` for finger~spin and walker~walk, ``goal_success.py:41-50`` for
+# fetch-push and fetch-pick, the goal_success Mppi config at 256 samples for
+# hopper, walker2d and humanoid-standup). Per env: the check's start
+# ("contact": a pinned posture in contact, see ``rest_state``) and the scale
+# of its random actions (about the arm's posture where the actions are PD
+# targets), the coordinates that only the contact moves (or the foot
+# spheres that end on the ground), a second target or goal, the canonical
+# kernel shape, the prior and solver, the runner's arguments, the seeds and
+# how many of them must pass the episode gate. reacher and fetch-push take
+# more seeds than one: the JAX package's reacher reaches 0.08 at 5 of 10
+# sampled targets at this config, and its fetch-push fails the port's seed-0
+# scene (box at (0.540, 0.167), goal (0.682, 0.189)) at 1 of 3 agent seeds.
+_MPPI_COLOURED = ["ColouredNoise", "--beta", "2", "--alpha", "10",
+                  "--anneal", "0.9"]
+REST = {
+    "reacher": dict(
+        scale=1.5, moved=None, feet=None, second=(-0.12, 0.1),
+        shape=(64, 20), family=("Mppi", "WhiteNoiseIid", {}, 5.0),
+        episode=["Mppi", "reacher", "WhiteNoiseIid", "--alpha", "5",
+                 "--timesteps", "80", "--horizon", "20"], seeds=range(10),
+        need=3),
+    "finger~spin": dict(
+        scale=5.0, moved=(2,), feet=None, second=None, shape=(128, 20),
+        family=("Mppi", "ColouredNoise", {"beta": 2.0}, 10.0),
+        episode=["Mppi", "finger~spin", *_MPPI_COLOURED, "--timesteps",
+                 "120", "--horizon", "20"], seeds=(0,), need=1),
+    "fetch-push": dict(
+        scale=1.2, moved=(4, 5), feet=None, second=(0.67, 0.0),
+        shape=(256, 20),
+        family=("Mppi", "ColouredNoise", {"beta": 2.0}, 10.0),
+        episode=["Mppi", "fetch-push", *_MPPI_COLOURED, "--timesteps", "120",
+                 "--horizon", "20"], seeds=range(5), need=3),
+    "fetch-pick": dict(
+        scale=0.4, moved=(6, 7), feet=None, second=(0.60, 0.07, 0.64),
+        shape=(384, 20),
+        family=("Mppi", "ColouredNoise", {"beta": 2.0}, 10.0),
+        episode=["Mppi", "fetch-pick", *_MPPI_COLOURED, "--timesteps", "180",
+                 "--horizon", "20"], seeds=range(3), need=2),
+    "hopper": dict(
+        scale=0.75, moved=None, feet=(0, 1), second=None, shape=(256, 30),
+        family=("Mppi", "ColouredNoise", {"beta": 2.0}, 10.0),
+        episode=["Mppi", "hopper", *_MPPI_COLOURED, "--timesteps", "150",
+                 "--horizon", "30"], seeds=(0,), need=1),
+    "walker2d": dict(
+        scale=0.75, moved=None, feet=(0, 1, 2, 3), second=None,
+        shape=(256, 30),
+        family=("Mppi", "ColouredNoise", {"beta": 2.0}, 10.0),
+        episode=["Mppi", "walker2d", *_MPPI_COLOURED, "--timesteps", "150",
+                 "--horizon", "30"], seeds=(0,), need=1),
+    "walker~walk": dict(
+        scale=0.75, moved=None, feet=(0, 1, 2, 3), second=None,
+        shape=(128, 25),
+        family=("Mppi", "ColouredNoise", {"beta": 2.0}, 10.0),
+        episode=["Mppi", "walker~walk", *_MPPI_COLOURED, "--timesteps",
+                 "150", "--horizon", "25"], seeds=(0,), need=1),
+    "humanoid-standup": dict(
+        scale=0.75, moved=None, feet=(5, 6), second=None, shape=(256, 30),
+        family=("Mppi", "ColouredNoise", {"beta": 2.0}, 10.0),
+        episode=["Mppi", "humanoid-standup", *_MPPI_COLOURED, "--timesteps",
+                 "150", "--horizon", "30"], seeds=(0,), need=1),
+}
+# contact starts: finger~spin's tip 5 mm into the paddle's pad; fetch-push's
+# box under the paddle (8 mm overlap); fetch-pick's ball against a fingertip
+# of the open gripper (5 mm)
+FINGER_CONTACT_Q = (-0.25, -0.5, 0.0)
+PUSH_CONTACT_START = (0.15, -0.1)
+PICK_CONTACT_START = (0.0, 0.07)
+STANDUP_LYING = 150 * 0.22 / 0.3   # what lying still earns in 150 steps
 
 
 def check(cond, msg):
@@ -361,22 +469,25 @@ def check_variant_b(name, env, dev):
           and bool(torch.equal(others, torch.cat([rew[:3], rew[4:]]))),
           f"{name}: a NaN lane must go NaN alone")
 
-    mask = (torch.arange(H_CHECK, device=dev) < H_CHECK - 5).float()
-    c_k = rk.kernel_mpc_objective(env, s0, H_CHECK, mask)(None, acts)
-    c_full = rk.kernel_mpc_objective(env, s0, H_CHECK)(None, acts)
-    errs["masked_costs"] = rel_err(c_k, -(rew_p * mask).sum(1))
+    # the objective over the first H_FRAME steps (their plain rewards are
+    # the first H_FRAME columns): the mask, and a second goal
+    a = acts[:, :H_FRAME].contiguous()
+    mask = (torch.arange(H_FRAME, device=dev) < H_FRAME - 2).float()
+    c_k = rk.kernel_mpc_objective(env, s0, H_FRAME, mask)(None, a)
+    c_full = rk.kernel_mpc_objective(env, s0, H_FRAME)(None, a)
+    errs["masked_costs"] = rel_err(c_k, -(rew_p[:, :H_FRAME] * mask).sum(1))
     check(errs["masked_costs"] <= TOL
-          and bool(torch.allclose(c_k, -(rew * mask).sum(1)))
+          and bool(torch.allclose(c_k, -(rew[:, :H_FRAME] * mask).sum(1)))
           and not bool(torch.allclose(c_k, c_full)),
           f"{name}: horizon mask {errs['masked_costs']}")
 
     if cfg["goals"] is not None:
         s1 = variant_b_state(env, name, dev, 1)
-        c_k1 = rk.kernel_mpc_objective(env, s1, H_CHECK)(None, acts)
-        _, rew_p1 = batch_rollout(env, s1, acts)
+        c_k1 = rk.kernel_mpc_objective(env, s1, H_FRAME)(None, a)
+        _, rew_p1 = batch_rollout(env, s1, a)
         errs["second_goal_costs"] = rel_err(c_k1, -rew_p1.sum(1))
         check(errs["second_goal_costs"] <= TOL
-              and float((c_k1 - c_full).abs().min()) > 1e-3,
+              and float((c_k1 - c_full).abs().min()) > 1e-4,
               f"{name}: second goal {errs['second_goal_costs']}, or the "
               "goal does not change every cost")
     else:
@@ -549,19 +660,20 @@ def time_hand(name, env, dev):
     from ppi_tpu_torch.envs.physics import rollout_kernel as rk
     from ppi_tpu_torch.policies import design_moments, make_policy
     out = {}
+    h = HAND[name]["h_time"]
     s0 = env.reset(torch.Generator(dev).manual_seed(0), dev)
     for n, iters in ((64, 20), (1024, 5)):
-        _, qn, qdn, a = hand_lanes(env, dev, n, 30)
-        r = rk.env_rollout(env, s0, 30)
-        out[f"kernel_ms_N{n}_H30"] = cuda_ms(
+        _, qn, qdn, a = hand_lanes(env, dev, n, h)
+        r = rk.env_rollout(env, s0, h)
+        out[f"kernel_ms_N{n}_H{h}"] = cuda_ms(
             lambda: r(qn, qdn, a, dyn=s0.frame), iters)
-    out["bound_ms_N64_H30"], out["bound_by"] = rollout_bound(env, 64, 30)
-    _, qn, qdn, a = hand_lanes(env, dev, 64, 30)
+    out[f"bound_ms_N64_H{h}"], out["bound_by"] = rollout_bound(env, 64, h)
+    _, qn, qdn, a = hand_lanes(env, dev, 64, h)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rk.env_plain_rollout(env, s0, qn, qdn, a)
     torch.cuda.synchronize()
-    out["plain_ms_N64_H30"] = 1e3 * (time.perf_counter() - t0)
+    out[f"plain_ms_N64_H{h}"] = 1e3 * (time.perf_counter() - t0)
 
     mean, cov_in, cov_out = design_moments(env.action_low, env.action_high,
                                            ratio=1000.0)
@@ -785,6 +897,222 @@ def time_scene(name, env, dev):
     return out
 
 
+def rest_state(env, name, dev, second=False):
+    """Phase 22's initial state: a reset at seed 0 (the locomotion envs and
+    reacher), or a contact start; with ``second`` the second target or
+    goal pinned instead of the sampled one."""
+    from ppi_tpu_torch.envs.physics.engine import PhysicsState
+    gen = torch.Generator(dev).manual_seed(0)
+    pin = REST[name]["second"] if second else None
+    if name == "reacher":
+        return env.reset(gen, dev, target=pin)
+    if name == "fetch-push":
+        return env.reset(gen, dev, target=pin, start=PUSH_CONTACT_START)
+    if name == "fetch-pick":
+        return env.reset(gen, dev, target=pin, start=PICK_CONTACT_START)
+    s = env.reset(gen, dev)
+    if name == "finger~spin":
+        s = dataclasses.replace(s, physics=PhysicsState(
+            qpos=torch.tensor(FINGER_CONTACT_Q, device=dev),
+            qvel=torch.zeros(3, device=dev)))
+    return s
+
+
+def rest_actions(env, name, q0, n, h, seed=1):
+    """Random actions of the check's scale: torques (x the box for the
+    locomotion envs), or PD targets about the arm's posture."""
+    scale = REST[name]["scale"]
+    if name in ("hopper", "walker2d", "walker~walk", "humanoid-standup"):
+        scale *= env.max_torque
+    z = torch.from_numpy((scale * np.random.default_rng(seed).standard_normal(
+        (n, h, env.action_dim))).astype(np.float32)).to(q0.device)
+    if name in ("fetch-push", "fetch-pick"):
+        return q0[:, None, :env.action_dim] + z
+    return z
+
+
+def check_rest(name, env, dev):
+    """Phase 22 for one env: (errors, max abs error, lanes in contact)."""
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    from ppi_tpu_torch.envs.physics.engine_soa import make_sites_soa
+    cfg = REST[name]
+    s0 = rest_state(env, name, dev)
+    q0, qd0 = lanes(s0, N_CHECK)
+    acts = rest_actions(env, name, q0, N_CHECK, H_CHECK)
+    consts, _, _ = rk.kernel_operands(env, s0)
+    run = rk.env_rollout(env, s0, H_CHECK)
+    rew, qf, qdf = run(q0, qd0, acts, consts=consts)
+    rew_p, qf_p, qdf_p = rk.env_plain_rollout(env, s0, q0, qd0, acts)
+    torch.cuda.synchronize()
+    errs = {"rewards": rel_err(rew, rew_p), "qf": rel_err(qf, qf_p),
+            "qdf": rel_err(qdf, qdf_p)}
+    max_abs = max(float((a - b).abs().max())
+                  for a, b in ((rew, rew_p), (qf, qf_p), (qdf, qdf_p)))
+    check(bool(torch.isfinite(rew_p).all()), f"{name}: plain rewards not "
+          "finite")
+    check(max(errs.values()) <= TOL, f"{name}: kernel vs plain {errs} > {TOL}")
+    errs["bit_identical"] = bool(torch.equal(rew, rew_p)
+                                 and torch.equal(qf, qf_p)
+                                 and torch.equal(qdf, qdf_p))
+
+    # the lanes in contact: the object moved, or a foot ends on the ground
+    contact = None
+    if cfg["moved"] is not None:
+        idx = list(cfg["moved"])
+        contact = int(((qf_p[:, idx] - q0[:, idx]).abs().amax(1)
+                       > 1e-3).sum())
+    elif cfg["feet"] is not None:
+        pts = make_sites_soa(env._model)(qf_p)
+        radius = torch.tensor(env._model.sphere_radius, device=dev)
+        bottom = pts[:, list(cfg["feet"]), 2] - radius[list(cfg["feet"])]
+        contact = int((bottom.amin(1) < 0.0).sum())
+    if contact is not None:
+        check(contact > 0, f"{name}: no lane in contact: the check "
+              "exercises no contact")
+
+    q0_bad = q0.clone()
+    q0_bad[3] = torch.nan
+    rew_bad, _, _ = run(q0_bad, qd0, acts, consts=consts)
+    others = torch.cat([rew_bad[:3], rew_bad[4:]])
+    check(bool(torch.isnan(rew_bad[3]).all())
+          and bool(torch.isfinite(others).all())
+          and bool(torch.equal(others, torch.cat([rew[:3], rew[4:]]))),
+          f"{name}: a NaN lane must go NaN alone")
+
+    # actions past the box: the torque (and a reward that clips) sees the
+    # clipped action; reacher's control cost is on the raw action
+    lo = env.action_low.to(dev)
+    hi = env.action_high.to(dev)
+    past = float(((acts < lo) | (acts > hi)).float().mean())
+    rew_c, qf_c, qdf_c = run(q0, qd0, torch.maximum(torch.minimum(acts, hi),
+                                                    lo), consts=consts)
+    same_state = bool(torch.equal(qf_c, qf) and torch.equal(qdf_c, qdf))
+    if name == "reacher":
+        clipped = torch.maximum(torch.minimum(acts, hi), lo)
+        extra = 0.01 * ((acts * acts).sum(-1) - (clipped * clipped).sum(-1))
+        same_reward = bool(torch.allclose(rew_c - rew, extra, rtol=1e-4,
+                                          atol=1e-6))
+    else:
+        same_reward = bool(torch.equal(rew_c, rew))
+    check(past > 0.02 and same_state and same_reward,
+          f"{name}: actions past the box ({past:.3f} of them) change the "
+          "result of the clip")
+    errs["past_box_share"] = past
+
+    # the objective from the state: the mask, and a second target or goal
+    a = acts[:, :H_FRAME].contiguous()
+    mask = (torch.arange(H_FRAME, device=dev) < H_FRAME - 2).float()
+    c_k = rk.kernel_mpc_objective(env, s0, H_FRAME, mask)(None, a)
+    c_full = rk.kernel_mpc_objective(env, s0, H_FRAME)(None, a)
+    r_p = rk.env_plain_rollout(env, s0, q0, qd0, a)[0]
+    errs["masked_costs"] = rel_err(c_k, -(r_p * mask).sum(1))
+    check(errs["masked_costs"] <= TOL
+          and not bool(torch.allclose(c_k, c_full)),
+          f"{name}: horizon mask {errs['masked_costs']}")
+    if cfg["second"] is not None:
+        s1 = rest_state(env, name, dev, second=True)
+        c_k1 = rk.kernel_mpc_objective(env, s1, H_FRAME)(None, a)
+        r_p1 = rk.env_plain_rollout(env, s1, q0, qd0, a)[0]
+        errs["second_costs"] = rel_err(c_k1, -r_p1.sum(1))
+        check(errs["second_costs"] <= TOL
+              and float((c_k1 - c_full).abs().min()) > 1e-4,
+              f"{name}: second target or goal {errs['second_costs']}, or "
+              "it does not change every cost")
+
+    # the real step: one launch at N=1, H=1 against the eager step
+    action = acts[N_CHECK // 2, 0]
+    (s_k, r_k), (s_e, r_e) = env.step(s0, action), env.plain_step(s0, action)
+    errs["real_step"] = max(rel_err(s_k.physics.qpos, s_e.physics.qpos),
+                            rel_err(s_k.physics.qvel, s_e.physics.qvel),
+                            rel_err(r_k, r_e))
+    check(errs["real_step"] <= TOL and int(s_k.t) == 1,
+          f"{name}: real step {errs['real_step']}")
+    return errs, max_abs, contact
+
+
+def time_rest(name, env, dev):
+    """Phase 23 for one env."""
+    from ppi_tpu_torch.algorithms import make_solver
+    from ppi_tpu_torch.algorithms.base import _one_iteration
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    from ppi_tpu_torch.policies import design_moments, make_policy
+    cfg = REST[name]
+    n, h = cfg["shape"]
+    s0 = rest_state(env, name, dev)
+    out = {"ops_per_lane_step": rk.ops_per_lane_step(*rk.body_args(env, s0))}
+    qn, qdn = lanes(s0, n)
+    a = rest_actions(env, name, qn, n, h, seed=3)
+    consts, _, _ = rk.kernel_operands(env, s0)
+    r = rk.env_rollout(env, s0, h)
+    out[f"kernel_ms_N{n}_H{h}"] = cuda_ms(
+        lambda: r(qn, qdn, a, consts=consts), 20)
+    out[f"bound_ms_N{n}_H{h}"], out["bound_by"] = rollout_bound(env, n, h)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rk.env_plain_rollout(env, s0, qn, qdn, a)
+    torch.cuda.synchronize()
+    out[f"plain_ms_N{n}_H{h}"] = 1e3 * (time.perf_counter() - t0)
+
+    alg, policy, kwargs, alpha = cfg["family"]
+    mean, cov_in, cov_out = design_moments(env.action_low, env.action_high,
+                                           ratio=1000.0)
+    family, state = make_policy(
+        policy, env.dt * torch.arange(h), env.action_dim, mean, cov_in,
+        cov_out, lower=env.action_low, upper=env.action_high, device=dev,
+        **kwargs)
+    step = _one_iteration(make_solver(alg, alpha=alpha), family,
+                          rk.kernel_mpc_objective(env, s0, h), n)
+    gen = torch.Generator(dev).manual_seed(0)
+    for _ in range(3):
+        state, (stats, _, _) = step(state, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state, (stats, _, _) = step(state, gen)
+        torch.cuda.synchronize()
+    out[f"ppi_iter_ms_N{n}_H{h}"] = 1e3 * (time.perf_counter() - t0) / 10
+    check(bool(torch.isfinite(stats["mean"])),
+          f"{name}: PPI iteration cost not finite")
+
+    action = family.predict_mean(state)[0]
+    env.step(s0, action)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        s1, _ = env.step(s0, action)
+    torch.cuda.synchronize()
+    out["kernel_step_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+    check(bool(torch.isfinite(s1.physics.qpos).all()),
+          f"{name}: real env step not finite")
+    env.observe(s1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        env.observe(s1)
+    torch.cuda.synchronize()
+    out["observe_ms"] = 1e3 * (time.perf_counter() - t0) / 5
+    return out
+
+
+def rest_gate(name, env, ret, success, state, timesteps):
+    """(passed, what is reported) of phase 24's episode gate, from the
+    episode's return, success and final state."""
+    if name == "reacher":
+        tip = env.fingertip(state.physics.qpos)
+        dist = float(torch.linalg.norm(tip - state.target))
+        return dist < 0.08, {"fingertip_to_target": dist}
+    if name in ("finger~spin", "walker~walk"):
+        per_step = ret / timesteps
+        return per_step >= (0.5 if name == "finger~spin" else 0.3), {
+            "reward_per_step": per_step}
+    if name in ("fetch-push", "fetch-pick"):
+        return bool(success), {}
+    if name == "humanoid-standup":
+        head = float(env.head_height(state.physics.qpos))
+        return np.isfinite(ret) and ret > STANDUP_LYING, {"head_height": head}
+    return np.isfinite(ret) and ret > 0.0, {}
+
+
 def run_episode(args_list, n_samples, seed=0, final=None):
     """One episode through the port's run_mpc; (return, success, wall s,
     kernel launches). ``final(env_state, row)`` sees the last control
@@ -812,7 +1140,8 @@ def run_episode(args_list, n_samples, seed=0, final=None):
 
 
 def main():
-    with ThreadPoolExecutor(max_workers=11) as pool:
+    # one nvcc for each source, all started together
+    with ThreadPoolExecutor(max_workers=19) as pool:
         return run(pool)
 
 
@@ -860,8 +1189,9 @@ def run(pool):
     mm_build = pool.submit(build_timed, "moment_match.cu")
     # phase 9's bodies build beside phases 1 and 5
     bodies = {name: env_header(ENVS[name]()) for name in VARIANT_B}
-    # ... and phase 13's and phase 17's, all eleven builds at once
-    bodies.update({name: env_header(ENVS[name]()) for name in (*HAND, *SCENES)})
+    # ... and phase 13's, 17's and 21's, all nineteen builds at once
+    bodies.update({name: env_header(ENVS[name]())
+                   for name in (*HAND, *SCENES, *REST)})
     body_builds = {name: pool.submit(build_timed, "rollout.cu",
                                      {"env_body.h": h})
                    for name, h in bodies.items()}
@@ -1306,7 +1636,70 @@ def run(pool):
         check(np.isfinite(ret), f"{prior}: return {ret}")
         check(got == 50 + T_SHORT, f"{prior}: {got} kernel launches, "
               f"expected {50 + T_SHORT}")
-    out.update(scene_episodes=scene_episodes, short_episodes=short,
+    out.update(scene_episodes=scene_episodes, short_episodes=short)
+
+    # ---- 21. build the remaining variant-(b) bodies ---------------------------
+    for name in REST:
+        body_lib, secs = body_builds[name].result()
+        info = {"lines": len(bodies[name].splitlines()), "nvcc_s": secs,
+                "ptxas": ptxas_summary(body_lib)}
+        body_info[name] = info
+        print(f"body build {name}: {info['lines']} generated lines, nvcc "
+              f"{secs:.1f} s (in parallel with phases 1-20); ptxas: "
+              f"{' | '.join(info['ptxas'])}", flush=True)
+
+    # ---- 22. those bodies: kernel vs plain --------------------------------------
+    rest_errs, rest_max_abs, rest_contact = {}, {}, {}
+    for name in REST:
+        rest_errs[name], rest_max_abs[name], rest_contact[name] = check_rest(
+            name, ENVS[name](), dev)
+        print(f"check {name}: N={N_CHECK} H={H_CHECK} errors "
+              f"{json.dumps(rest_errs[name])} (tol {TOL}); max abs err "
+              f"{rest_max_abs[name]:.3g}; lanes in contact "
+              f"{rest_contact[name]}; NaN lane isolated; mask applied; "
+              f"actions past the box clipped; real step matches", flush=True)
+    out.update(rest_check=rest_errs, rest_max_abs_err=rest_max_abs,
+               rest_contact_lanes=rest_contact)
+
+    # ---- 23. those bodies: timings ----------------------------------------------
+    rest_times = {}
+    for name in REST:
+        rest_times[name] = time_rest(name, ENVS[name](), dev)
+        print(f"timings {name}: {json.dumps(rest_times[name])}", flush=True)
+    out.update(rest_timings=rest_times)
+
+    # ---- 24. episodes -------------------------------------------------------------
+    rest_episodes = {}
+    for name, cfg in REST.items():
+        env, last = ENVS[name](), {}
+        timesteps = int(cfg["episode"][cfg["episode"].index("--timesteps")
+                                       + 1])
+        expected = 50 + 2 * timesteps
+
+        def final(env_state, row, last=last):
+            last["state"] = env_state
+
+        runs = []
+        for seed in cfg["seeds"]:
+            ret, success, wall, got = run_episode(
+                cfg["episode"], cfg["shape"][0], seed, final)
+            passed, extra = rest_gate(name, env, ret, success,
+                                      last["state"], timesteps)
+            run_ = {"seed": seed, "return": ret, "success": success,
+                    "wall_s": wall, "launches": got, "gate": bool(passed),
+                    **extra}
+            runs.append(run_)
+            print(f"episode {name} seed {seed}: {json.dumps(run_)}",
+                  flush=True)
+            check(np.isfinite(ret), f"{name} seed {seed}: return {ret}")
+            check(got == expected, f"{name} seed {seed}: {got} kernel "
+                  f"launches, expected {expected}")
+        need = cfg["need"]
+        done = sum(r["gate"] for r in runs)
+        check(done >= need, f"{name}: gate passed at {done} of {len(runs)} "
+              f"seeds, expected >= {need}: {runs}")
+        rest_episodes[name] = runs
+    out.update(rest_episodes=rest_episodes,
                total_s=time.perf_counter() - t_start)
     print(f"total: {out['total_s']:.0f} s, the kernels' builds included",
           flush=True)
@@ -1346,16 +1739,17 @@ def run(pool):
              "plain_ms": t[f"plain_ms_N{n}_H{h}"],
              "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
              "library_ms": None})
-    for env_name in HAND:
-        t = hand_times[env_name]
+    for env_name, cfg in HAND.items():
+        t, h = hand_times[env_name], cfg["h_time"]
         kernels.append(
             {"name": f"{env_name.replace('-v0-', '_')}_rollout",
              "route": "cuda", "source": "ppi_tpu_torch/csrc/rollout.cu",
              "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
              "launches": sum(r["launches"] for r in hand_episodes[env_name]),
              "max_abs_err": hand_max_abs[env_name],
-             "ms": t["kernel_ms_N64_H30"], "plain_ms": t["plain_ms_N64_H30"],
-             "bound_ms": t["bound_ms_N64_H30"], "bound_by": t["bound_by"],
+             "ms": t[f"kernel_ms_N64_H{h}"],
+             "plain_ms": t[f"plain_ms_N64_H{h}"],
+             "bound_ms": t[f"bound_ms_N64_H{h}"], "bound_by": t["bound_by"],
              "library_ms": None})
     for env_name, cfg in SCENES.items():
         n, h = cfg["shape"]
@@ -1367,6 +1761,20 @@ def run(pool):
              "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
              "launches": sum(r["launches"] for r in scene_episodes[env_name]),
              "max_abs_err": scene_max_abs[env_name],
+             "ms": t[f"kernel_ms_N{n}_H{h}"],
+             "plain_ms": t[f"plain_ms_N{n}_H{h}"],
+             "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
+             "library_ms": None})
+    for env_name, cfg in REST.items():
+        n, h = cfg["shape"]
+        t = rest_times[env_name]
+        kernels.append(
+            {"name": f"{env_name.replace('~', '_').replace('-', '_')}"
+                     "_rollout",
+             "route": "cuda", "source": "ppi_tpu_torch/csrc/rollout.cu",
+             "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
+             "launches": sum(r["launches"] for r in rest_episodes[env_name]),
+             "max_abs_err": rest_max_abs[env_name],
              "ms": t[f"kernel_ms_N{n}_H{h}"],
              "plain_ms": t[f"plain_ms_N{n}_H{h}"],
              "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],

@@ -23,6 +23,13 @@ def as_f32(x, device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.float32)
 
 
+def first_accept(draws: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """The first row of ``draws`` (k, ...) whose ``ok`` is set, else row 0
+    (``jnp.argmax`` of the flags): a resample-until loop as a fixed number
+    of draws (the reacher's target, fetch-push's goal)."""
+    return draws[torch.argmax(ok.to(torch.int32))]
+
+
 def _finite_lanes(state, n: int) -> torch.Tensor:
     """(n,) bool: every float tensor of ``state`` finite in that lane.
 

@@ -47,6 +47,7 @@ from pathlib import Path
 import torch
 
 from ppi_tpu_torch.build import LAUNCHES, build_library, load_function
+from ppi_tpu_torch.envs.base import risk_aggregate
 from ppi_tpu_torch.envs.physics import scalar_math as sm
 from ppi_tpu_torch.envs.physics.engine_soa import SoaModel, substep_soa
 
@@ -183,13 +184,14 @@ def _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
 
 
 # the MPC agent builds an objective per control step: generate each env's
-# body once (model and bound methods hash by identity and value)
-_env_header = functools.lru_cache(maxsize=8)(generate_env_header)
+# body once (model and bound methods hash by identity and value). Unbounded:
+# one entry per env of the registry a process touches, none ever evicted
+_env_header = functools.cache(generate_env_header)
 
 
 # ---- build -------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=16)
+@functools.cache
 def _library(header: str, host: bool = False) -> Path:
     """``csrc/rollout.cu`` with ``header`` as ``env_body.h``, built (once
     per distinct header) by ``ppi_tpu_torch.build``. Memoized: the MPC
@@ -438,9 +440,12 @@ def env_step(env, state, action, plain: bool = False):
 
 
 def kernel_mpc_objective(env, state0, horizon: int, horizon_mask=None,
-                         block: int = 128):
+                         block: int = 128, risk_quantile: float = 1.0,
+                         risk_weight: float = 0.0):
     """Counterpart of ``pallas_mpc_objective``: ``f(generator, actions
-    (N,H,da)) -> costs (N,)`` with the whole rollout in one kernel launch."""
+    (N,H,da)) -> costs (N,)`` with the whole rollout in one kernel launch.
+    The kernel returns the (N, H) rewards, which ``risk_aggregate`` reduces
+    as the eager objective does (at ``risk_weight`` 0, ``-sum``)."""
     if not supports_kernel(env):
         raise ValueError(f"{env!r} does not implement the scalar kernel "
                          "contract (scalar_torque/scalar_reward)")
@@ -453,9 +458,8 @@ def kernel_mpc_objective(env, state0, horizon: int, horizon_mask=None,
         n = action_sequences.shape[0]
         rewards, _, _ = run(q0.expand(n, -1), qd0.expand(n, -1),
                             action_sequences, consts=consts, dyn=dyn)
-        if horizon_mask is not None:
-            rewards = rewards * horizon_mask[None, :]
-        return -torch.sum(rewards, dim=1)
+        return risk_aggregate(rewards, horizon_mask, risk_quantile,
+                              risk_weight)
 
     return f
 

@@ -144,6 +144,23 @@ def cos(x):
     return math.cos(x)
 
 
+def abs(x):
+    """``|x|`` (``jnp.abs``)."""
+    if isinstance(x, Sym):
+        return _call("fabsf", x)
+    if isinstance(x, torch.Tensor):
+        return torch.abs(x)
+    return math.fabs(x)
+
+
+def exp(x):
+    if isinstance(x, Sym):
+        return _call("expf", x)
+    if isinstance(x, torch.Tensor):
+        return torch.exp(x)
+    return math.exp(x)
+
+
 def maximum(a, b):
     """NaN-propagating elementwise max (``jnp.maximum``)."""
     if _sym_of(a, b) is not None:
@@ -229,9 +246,11 @@ def zeros_like(x):
     return 0.0
 
 
-# The C definitions behind the helper calls above. ``ppi_max``/``ppi_min``
-# propagate NaN like XLA's max/min (CUDA's fmaxf does not). ``x - x == 0``
-# is false exactly for inf and NaN, without fast-math.
+# The C definitions behind the helper calls above; ``sqrtf``, ``sinf``,
+# ``cosf``, ``fabsf`` and ``expf`` are the C library's (``math.h``, CUDA's
+# device functions). ``ppi_max``/``ppi_min`` propagate NaN like XLA's
+# max/min (CUDA's fmaxf does not). ``x - x == 0`` is false exactly for inf
+# and NaN, without fast-math.
 C_HELPERS = """\
 PPI_QUAL float ppi_max(float a, float b) {
   return (a != a || b != b) ? a + b : (a > b ? a : b);

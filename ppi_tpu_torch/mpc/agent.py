@@ -5,10 +5,13 @@ GP prior onto the current window, runs ``n_iters`` x (sample -> N rollouts
 -> posterior update) and returns the first action of the posterior mean.
 The window is always H steps; a reward mask zeroes steps past the episode.
 
-On a CUDA device every rollout is one launch of the hand-written kernel
-(``kernel_mpc_objective``); on the CPU the eager plain version runs
-(``mpc_objective``). The loop reads nothing back from the device: the
-no-op window shift is decided from the integer time index in the carry.
+On a CUDA device every rollout of an env with the scalar kernel contract
+is one launch of the hand-written kernel (``kernel_mpc_objective``), as
+the reference routes by ``use_pallas``; on the CPU, and for an env without
+the contract (which has no kernel in either package), the eager objective
+runs (``mpc_objective``). Both reduce the (N, H) rewards with
+``risk_aggregate``. The loop reads nothing back from the device: the no-op
+window shift is decided from the integer time index in the carry.
 """
 
 import dataclasses
@@ -18,7 +21,8 @@ import torch
 
 from ppi_tpu_torch.algorithms.base import _one_iteration
 from ppi_tpu_torch.envs.base import mpc_objective
-from ppi_tpu_torch.envs.physics.rollout_kernel import kernel_mpc_objective
+from ppi_tpu_torch.envs.physics.rollout_kernel import (
+    kernel_mpc_objective, supports_kernel)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +48,9 @@ class Mpc:
     anneal: float = 1.0
     use_map: bool = False     # return the MAP first action
     device: Any = "cuda"      # the card, unless the caller names the CPU
+    risk_quantile: float = 1.0  # CVaR quantile over per-step costs
+    risk_weight: float = 0.0    # blend weight of the CVaR term; 0 = plain
+                                # -sum(rewards) (envs.base.risk_aggregate)
 
     @property
     def dt(self) -> float:
@@ -66,10 +73,13 @@ class Mpc:
 
     def objective(self, env_state, time_index: int):
         mask = self.horizon_mask(time_index)
-        if torch.device(self.device).type == "cuda":
+        risk = dict(risk_quantile=self.risk_quantile,
+                    risk_weight=self.risk_weight)
+        if torch.device(self.device).type == "cuda" \
+                and supports_kernel(self.env):
             return kernel_mpc_objective(self.env, env_state, self.horizon,
-                                        mask)
-        return mpc_objective(self.env, env_state, mask)
+                                        mask, **risk)
+        return mpc_objective(self.env, env_state, mask, **risk)
 
     def optimize(self, carry: MpcCarry, env_state, time_index: int,
                  n_iters: int):
@@ -110,13 +120,16 @@ class Mpc:
 
     def run_episode(self, carry: MpcCarry, env_state, callback=None):
         """The closed-loop episode; returns (carry, env_state, track) with
-        the per-step action, reward, ess, alpha and observation stacked."""
+        the per-step action, reward, ess, alpha, observation and (for an
+        env with physics) the coordinates ``qpos`` stacked."""
         track = []
         for t in range(self.timesteps):
             action, carry, stats = self.control_step(carry, env_state, t)
             env_state, reward = self.env.step(env_state, action)
             row = dict(action=action, reward=reward, ess=stats["ess"],
                        alpha=stats["alpha"], obs=self.env.observe(env_state))
+            if hasattr(env_state, "physics"):
+                row["qpos"] = env_state.physics.qpos
             track.append(row)
             if callback is not None and callback(t, env_state, row):
                 break

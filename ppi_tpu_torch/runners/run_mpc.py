@@ -16,24 +16,32 @@ priors use, with the same positional layout plus ``--device``:
         --n-elites 10 --lengthscale 0.15 MonteCarlo --n-samples 64
 
 Envs: door-v0, door-v0-hand, door-v0-adroit, pen-v0, pen-v0-hand,
-relocate-v0, relocate-v0-hand, hammer-v0, hammer-v0-hand, cheetah;
-``--lengthscale 0.08`` is the hand scenes' canonical "4dt". Every prior of
-the JAX package's registry runs; ``--n-features`` and ``--order`` size the
-RBF and RFF bases, and RBF features span the episode while every other
-prior spans the horizon. ``--alpha``, ``--epsilon``, ``--n-elites``,
-``--delta`` and ``--beta`` go to the solver and the prior as in the JAX
-runner; iCem samples with particle reuse and acts on the MAP sequence.
-``--device cuda`` (the default) needs a CUDA card and rolls out through
-the hand-written kernel (the real env step of the hand and hammer scenes
-too); ``--device cpu`` runs the eager plain version. Plots, rendering,
-checkpoints, model selection, ``--optimize-prior`` and the risk flags are
-not ported yet.
+relocate-v0, relocate-v0-hand, hammer-v0, hammer-v0-hand, cheetah,
+reacher, finger~spin, fetch-push, fetch-pick, hopper, walker2d,
+walker~walk, humanoid-standup; ``--lengthscale 0.08`` is the hand scenes'
+canonical "4dt". Every prior of the JAX package's registry runs;
+``--n-features`` and ``--order`` size the RBF and RFF bases, and RBF
+features span the episode while every other prior spans the horizon.
+``--alpha``, ``--epsilon``, ``--n-elites``, ``--delta`` and ``--beta`` go
+to the solver and the prior as in the JAX runner; iCem samples with
+particle reuse and acts on the MAP sequence. ``--risk-weight`` blends the
+CVaR of the per-step costs at ``--risk-quantile`` into each plan's cost
+(``envs.base.risk_aggregate``). ``--device cuda`` (the default) needs a
+CUDA card and rolls out through the hand-written kernel (the real env step
+of every env but door-v0, pen-v0, relocate-v0 and cheetah too); ``--device
+cpu`` runs the eager plain version. With ``--dir`` the run writes
+``args.json``, its ``log`` and ``data.npz`` (the JAX runner's keys) under
+``<dir>/<algorithm>_<env>_<policy>_<sampling>_<n>_<seed>_<name>``, and a
+second run there stops unless ``--force``. Plots, rendering, checkpoints,
+model selection and ``--optimize-prior`` are not ported yet.
 """
 
 import argparse
 import logging
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
 from ppi_tpu_torch.algorithms import ALGORITHMS, make_solver
@@ -41,21 +49,34 @@ from ppi_tpu_torch.envs.cheetah import Cheetah
 from ppi_tpu_torch.envs.door import Door
 from ppi_tpu_torch.envs.door_adroit import DoorAdroit
 from ppi_tpu_torch.envs.door_hand import DoorHand
+from ppi_tpu_torch.envs.fetch_pick import FetchPickAndPlace
+from ppi_tpu_torch.envs.finger import FingerSpin
 from ppi_tpu_torch.envs.hammer import Hammer
 from ppi_tpu_torch.envs.hammer_hand import HammerHand
+from ppi_tpu_torch.envs.hopper import Hopper
 from ppi_tpu_torch.envs.pen import Pen
 from ppi_tpu_torch.envs.pen_hand import PenHand
+from ppi_tpu_torch.envs.push import FetchPush
+from ppi_tpu_torch.envs.reacher import Reacher
 from ppi_tpu_torch.envs.relocate import Relocate
 from ppi_tpu_torch.envs.relocate_hand import RelocateHand
-from ppi_tpu_torch.mpc import Mpc
+from ppi_tpu_torch.envs.standup import HumanoidStandup
+from ppi_tpu_torch.envs.walker import Walker, WalkerWalk
+from ppi_tpu_torch.mpc import Mpc, fft_smoothness, signal_power
 from ppi_tpu_torch.policies import POLICY_NAMES, design_moments, make_policy
 from ppi_tpu_torch.samplers import BY_NAME as SAMPLER_NAMES
+from ppi_tpu_torch.utils import (
+    experiment_dir, save_results, setup_logging, write_args)
 
-ENVS = {"door-v0": Door, "door-v0-hand": DoorHand,
-        "door-v0-adroit": DoorAdroit, "pen-v0": Pen, "pen-v0-hand": PenHand,
-        "relocate-v0": Relocate, "relocate-v0-hand": RelocateHand,
-        "hammer-v0": Hammer, "hammer-v0-hand": HammerHand,
-        "cheetah": Cheetah}
+ENVS = {"reacher": Reacher, "door-v0": Door, "door-v0-hand": DoorHand,
+        "door-v0-adroit": DoorAdroit, "cheetah": Cheetah,
+        "finger~spin": FingerSpin, "hammer-v0": Hammer,
+        "hammer-v0-hand": HammerHand, "hopper": Hopper, "pen-v0": Pen,
+        "pen-v0-hand": PenHand, "relocate-v0": Relocate,
+        "relocate-v0-hand": RelocateHand,
+        "humanoid-standup": HumanoidStandup, "fetch-push": FetchPush,
+        "fetch-pick": FetchPickAndPlace, "walker2d": Walker,
+        "walker~walk": WalkerWalk}
 
 
 def build_parser():
@@ -68,7 +89,18 @@ def build_parser():
     parser.add_argument("--n-warmstart-iters", type=int, default=50)
     parser.add_argument("--n-iters", type=int, default=1)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--dir", type=str, default=None)
+    parser.add_argument("--name", type=str, default="")
+    parser.add_argument("--force", action="store_true",
+                        help="rerun even if results exist")
     parser.add_argument("--anneal", type=float, default=1.0)
+    parser.add_argument("--risk-quantile", type=float, default=0.25,
+                        help="CVaR quantile over per-step plan costs "
+                             "(active only with --risk-weight > 0)")
+    parser.add_argument("--risk-weight", type=float, default=0.0,
+                        help="risk-averse planning: blend weight of the "
+                             "CVaR of per-step costs (envs.base."
+                             "risk_aggregate); 0 = plain -sum(rewards)")
     # algorithm hyperparameters (the JAX runner's defaults)
     parser.add_argument("--n-elites", type=int, default=10)
     parser.add_argument("--alpha", type=float, default=10.0)
@@ -130,7 +162,9 @@ def setup(args):
     agent = Mpc(env=env, solver=solver, family=family,
                 timesteps=args.timesteps, horizon=args.horizon,
                 n_samples=args.n_samples, n_iters=args.n_iters,
-                anneal=args.anneal, use_map=use_particles, device=device)
+                anneal=args.anneal, use_map=use_particles, device=device,
+                risk_quantile=args.risk_quantile,
+                risk_weight=args.risk_weight)
     carry = agent.init(policy,
                        torch.Generator(device).manual_seed(args.seed))
     env_state = env.reset(torch.Generator(device).manual_seed(args.seed),
@@ -139,14 +173,20 @@ def setup(args):
 
 
 def main(args, callback=None):
-    """Run one episode; returns (return, success, track); success is None
-    for an env without a success test (cheetah). ``callback(t, env_state,
-    row)`` sees every control step (``Mpc.run_episode``)."""
-    logging.basicConfig(
-        format="%(asctime)s,%(msecs)d %(name)s %(levelname)s %(message)s",
-        datefmt="%H:%M:%S", level=logging.INFO, force=True)
-    for k, v in sorted(vars(args).items()):
-        logging.info("%s: %s", k, v)
+    """Run one episode; returns (return, success, track), or None when the
+    result directory already holds results; success is None for an env
+    without a success test (cheetah). ``callback(t, env_state, row)`` sees
+    every control step (``Mpc.run_episode``)."""
+    filepath = None
+    if args.dir is not None:
+        name = (f"{args.algorithm}_{args.env}_{args.policy}_{args.sampling}_"
+                f"{args.n_samples}_{args.seed}_{args.name}")
+        filepath = experiment_dir(Path(args.dir), name, args.force)
+        if filepath is None:
+            print("experiment done!")
+            return None
+        write_args(args, filepath)
+    setup_logging(filepath, args)
     agent, carry, env_state = setup(args)
     env, device = agent.env, agent.device
 
@@ -165,6 +205,18 @@ def main(args, callback=None):
         logging.info("Success: %s", success)
     logging.info("Episode wall time: %.2f s (%s)", time.perf_counter() - t0,
                  device)
+    acts = track["action"]
+    power = float(signal_power(acts))
+    sm, sm_max, _, _, act_norm = fft_smoothness(acts, env.dt)
+    logging.info("Smoothness: %.3f, Max: %.3f, Power: %.3f", float(sm),
+                 float(sm_max), power)
+    if filepath is not None:
+        save_results(filepath, obs=track["obs"], actions=acts,
+                     rewards=track["reward"], ess=track["ess"],
+                     alphas=track["alpha"], sm=float(sm),
+                     sm_max=float(sm_max), power=power,
+                     success=np.nan if success is None else float(success),
+                     action_signal=act_norm)
     return ret, success, track
 
 

@@ -7,8 +7,9 @@
 
 Takes ``run_mpc``'s arguments after ``--seeds FIRST-LAST``; the seed sets
 the agent's draws and the sampled scene (board, goal or frame). Prints,
-per seed, the return, the success flag, the episode's wall time and the
-final and the per-coordinate largest ``qpos`` (for hammer-v0-hand:
+per seed, the return, the success flag, the episode's wall time, the
+sampled target or goal (for an env with one) and the final and the
+per-coordinate largest ``qpos`` (for hammer-v0-hand:
 coordinates 6-8 are the free hammer's x, z and pitch, 9 the nail's depth;
 a hammer that was lifted shows in the largest z, one that was knocked away
 in the final x), then the success count. The rows also go to
@@ -33,12 +34,13 @@ def main(argv):
     for seed in range(first, last + 1):
         args = run_mpc.build_parser().parse_args(
             ["--seed", str(seed)] + argv[2:])
-        peak, final = [], []
+        peak, final, target = [], [], []
 
         def track(t, state, row):
             q = state.physics.qpos
             peak[:] = [q if not peak else torch.maximum(peak[0], q)]
             final[:] = [q]
+            target[:] = [getattr(state, "target", None)]
             return False
 
         t0 = time.perf_counter()
@@ -47,6 +49,8 @@ def main(argv):
                      "wall_s": time.perf_counter() - t0,
                      "final_qpos": [round(float(x), 4) for x in final[0]],
                      "max_qpos": [round(float(x), 4) for x in peak[0]]})
+        if target[0] is not None:
+            rows[-1]["target"] = [round(float(x), 4) for x in target[0]]
         print(f"{args.env} {json.dumps(rows[-1])}", flush=True)
     done = sum(bool(r["success"]) for r in rows)
     print(f"{args.env}: success at {done} of {len(rows)} seeds "

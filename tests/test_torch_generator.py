@@ -72,6 +72,52 @@ def test_bodies_with_a_projection_are_unchanged(name):
         PROJECTED_SHA256[name]
 
 
+# ... and of the variant-(b) bodies as first generated, with the sha256 of
+# the hand-written skeleton they all build into: a new env adds a body and
+# changes neither the skeleton nor another body
+SKELETON_SHA256 = \
+    "734122d28245ef80132f6d5bb094d450140a4a081e5dd8d86b7195a81b80a18d"
+VARIANT_B_SHA256 = {
+    "reacher":
+        "76f23b5f229f67609beb0b55d18a270bf1b79ca211a342a34b08e6e1f4b29b93",
+    "finger~spin":
+        "ea2338f030a6ab55c0b1672a7ca60e5ac2f61e387d2d8c0794d33e5690267bb9",
+    "fetch-push":
+        "0395b34a0039df0a6cc3cfc1bec6340331c7caec15005cecd08e640a588d13a1",
+    "fetch-pick":
+        "768bc67b786da18e94d666c89d53501bebd90848524314cc7b19bc9162be6a3a",
+    "hopper":
+        "fa3e33da08acc153ae9bdb65218458892474d52eb9ffb0500e6b2f45e1b8b4c8",
+    "walker2d":
+        "1b0a48cc6720399e0e5380e77e20434845094fb701ce6ed91312505c2b93705b",
+    "walker~walk":
+        "b78f601c8dc7bb4a090c895ac5656d741c0a5c695d8cc5523ede357708a3277a",
+    "humanoid-standup":
+        "a826189e4a07dd7db2d980a3224f7cbcafd2f92ee1ac12658bebb2db661985fb",
+}
+
+
+def test_the_skeleton_is_unchanged():
+    from ppi_tpu_torch.build import CSRC
+    text = (CSRC / "rollout.cu").read_bytes()
+    assert hashlib.sha256(text).hexdigest() == SKELETON_SHA256
+
+
+@pytest.mark.parametrize("name", sorted(VARIANT_B_SHA256))
+def test_variant_b_bodies_are_unchanged(name):
+    env = ENVS[name]()
+    state = env.reset(torch.Generator().manual_seed(0), "cpu")
+    header = generate_env_header(*body_args(env, state))
+    assert "PPI_PROJECT" not in header
+    assert hashlib.sha256(header.encode()).hexdigest() == \
+        VARIANT_B_SHA256[name]
+    # walker~walk's tolerance is the first exp in a body, hopper's and the
+    # walker's healthy gate the first fabs
+    calls = set(re.findall(r"= ([a-z_]+)\(", header))
+    assert ("expf" in calls) == (name == "walker~walk")
+    assert ("fabsf" in calls) == (name in ("hopper", "walker2d"))
+
+
 def test_projection_emits_its_hook_and_counts_its_ops():
     door = Door()
     header = _header(door, door_clamp)
@@ -131,10 +177,31 @@ def test_sym_folds_constants_in_float64_and_keeps_zero_products():
 @pytest.mark.parametrize("fn, x, ref", [
     (sm.sqrt, 2.25, 1.5), (sm.sigmoid, 0.0, 0.5), (sm.sin, 0.0, 0.0),
     (sm.cos, 0.0, 1.0), (lambda v: sm.gt(v, 0.5), 1.0, 1.0),
-    (lambda v: sm.gt(v, 0.5), 0.0, 0.0)])
+    (lambda v: sm.gt(v, 0.5), 0.0, 0.0), (sm.abs, -0.75, 0.75),
+    (sm.exp, 0.0, 1.0)])
 def test_namespace_on_floats_and_tensors(fn, x, ref):
     assert fn(x) == pytest.approx(ref)
     np.testing.assert_allclose(to_np(fn(torch.tensor([x]))), [ref])
+
+
+@pytest.mark.parametrize("name, c_fn", [("abs", "fabsf"), ("exp", "expf")])
+def test_abs_and_exp_emit_their_c_and_match_jnp(name, c_fn):
+    """The Sym emits one f-suffixed C call (one op); the float and tensor
+    paths match ``jnp.abs`` / ``jnp.exp`` on f32."""
+    import jax.numpy as jnp
+    fn = getattr(sm, name)
+    em = sm.Emitter()
+    y = fn(em.input("x", "x_in"))
+    assert em.lines[-1] == f"  const float {y.name} = {c_fn}(x);"
+    assert em.ops == 1
+    x = np.array([-3.5, -1e-3, -0.0, 0.0, 0.7, 2.0, 20.0, np.nan],
+                 np.float32)
+    ref = np.asarray(getattr(jnp, name)(jnp.asarray(x)))
+    np.testing.assert_allclose(to_np(fn(torch.from_numpy(x))), ref,
+                               rtol=2e-7, equal_nan=True)
+    for v, r in zip(x[:-1], ref[:-1]):
+        assert fn(float(v)) == pytest.approx(float(r), rel=1e-6)
+    assert isinstance(fn(float(x[0])), float)
 
 
 def test_namespace_propagates_nan_like_xla():

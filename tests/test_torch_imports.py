@@ -28,6 +28,13 @@ SLICE_MODULES = [
     "ppi_tpu_torch.envs.pen_hand",
     "ppi_tpu_torch.envs.relocate_hand",
     "ppi_tpu_torch.envs.hammer_hand",
+    "ppi_tpu_torch.envs.reacher",
+    "ppi_tpu_torch.envs.finger",
+    "ppi_tpu_torch.envs.push",
+    "ppi_tpu_torch.envs.fetch_pick",
+    "ppi_tpu_torch.envs.hopper",
+    "ppi_tpu_torch.envs.walker",
+    "ppi_tpu_torch.envs.standup",
     "ppi_tpu_torch.envs.physics",
     "ppi_tpu_torch.envs.physics.engine",
     "ppi_tpu_torch.envs.physics.engine_soa",
@@ -46,6 +53,7 @@ SLICE_MODULES = [
     "ppi_tpu_torch.policies.noise",
     "ppi_tpu_torch.algorithms",
     "ppi_tpu_torch.mpc",
+    "ppi_tpu_torch.mpc.metrics",
     "ppi_tpu_torch.utils",
     "ppi_tpu_torch.runners.run_mpc",
     "ppi_tpu_torch.runners.run_opt",
