@@ -16,8 +16,8 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
   4. episode -- the canonical door-v0 episode through the port's runner
                 (Lbps, SE kernel, delta 0.9, 2 iters, anneal 0.5,
                 lengthscale 0.08, 64 samples, H=30, T=250, 50 warm-start
-                iterations, seed 0): finite return, exactly 550 kernel
-                launches, the door open;
+                iterations, seed 0): finite return, exactly 800 kernel
+                launches (each real step is one), the door open;
   5. build   -- the moment-match kernel's build time and -Xptxas -v summary;
   6. check   -- the moment-match kernel against its plain version and both
                 against a float64 oracle on the card: (4096, 64) with
@@ -39,20 +39,23 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
  10. check   -- each body against the plain version on the card at N=1000
                 (ragged), H=20: rewards and final state, a pre-poisoned NaN
                 lane, the horizon mask and two goals (pen-v0, relocate-v0)
-                over the first 5 steps, and actions past the torque box
-                (cheetah);
+                over the first 5 steps, actions past the torque box
+                (cheetah), and the real step through the kernel (N=1, H=1)
+                against the eager step;
  11. timings -- each body's kernel time (CUDA events) and the plain
                 rollout's at its canonical shape (pen-v0 N=96/H=15,
                 relocate-v0 N=256/H=20, cheetah N=256/H=30; pen-v0 also at
                 N=1024/H=160), one synced PPI iteration at each canonical
-                shape and one real env step of each env;
+                shape and one real env step of each env through the kernel
+                and one eager;
  12. episodes -- four MPC episodes through the port's run_mpc (seed 0, 50
                 warm-start iterations): pen-v0 (Lbps, SE, T=100, H=15,
                 N=96) and relocate-v0 (Mppi, ColouredNoise, T=140, H=20,
                 N=256) to success, cheetah (Mppi, ColouredNoise, T=150,
                 N=256) to a positive return, and make mpc-cem's door-v0
-                (Cem, WhiteNoiseIid, N=64, T=100); exactly 250, 190, 200
-                and 150 kernel launches;
+                (Cem, WhiteNoiseIid, N=64, T=100); exactly 350, 330, 350
+                and 250 kernel launches (warm start + iterations + real
+                steps);
  13. build   -- generate the door-v0-hand (12 DoF) and door-v0-adroit (23
                 DoF) bodies (variants c and d: the bolt projection) and
                 build them with nvcc in parallel with phases 1, 5 and 9;
@@ -106,7 +109,7 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 T=400, H=30, N=128) at seed 0 with exactly 1250 launches
                 and a finite return (nail depth, lifted and success
                 printed, success not required); and one T=20 door-v0
-                episode with each prior no other phase runs (Lbps; 70
+                episode with each prior no other phase runs (Lbps; 90
                 launches, finite return);
  21. build   -- generate the reacher, finger~spin, fetch-push, fetch-pick,
                 hopper, walker2d, walker~walk and humanoid-standup bodies
@@ -137,12 +140,37 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 seeds 0-4, fetch-pick success at >= 2 of 3,
                 hopper and walker2d a finite return above 0, walker~walk
                 >= 0.3 a step, humanoid-standup a finite return above 110
-                (what lying still earns).
+                (what lying still earns);
+ 25. build   -- generate the pen-v0-adroit (20 DoF), relocate-v0-adroit
+                (24) and hammer-v0-adroit (25) bodies and build them with
+                nvcc first of all twenty-two builds; print each body's line
+                count, nvcc seconds and -Xptxas -v summary;
+ 26. check   -- each of those bodies against its plain version on the card
+                at N=1000 (ragged), H=3 (the plain version is 191k-465k
+                eager ops a lane step): rewards and final state
+                bit-identical or within 1e-6, from lanes in contact (the pen
+                on the fingers, the ball under the digits, the hammer
+                dropped on the nail; the lanes where the object moved are
+                counted and must not be none), a pre-poisoned NaN lane, the
+                horizon mask in the objective and a second goal or board
+                (H=2), and the real step through the kernel (N=1, H=1)
+                against the eager step;
+ 27. timings -- each body's kernel time at its canonical shape
+                (pen-v0-adroit N=96/H=15, relocate-v0-adroit N=256/H=20,
+                hammer-v0-adroit N=128/H=30) and at N=64/H=2, the plain
+                rollout at N=64/H=2, ops per lane step and the bound, one
+                synced PPI iteration with the canonical solver and prior,
+                one real step through the kernel and one observation;
+ 28. episodes -- the canonical configs (``goal_success.py:78-92``) at seed
+                0: pen-v0-adroit (Lbps, SE, T=100, H=15, N=96) and
+                relocate-v0-adroit (Mppi, ColouredNoise, T=140, H=20,
+                N=256) to success with exactly 350 and 330 launches,
+                hammer-v0-adroit (Lbps, SE, T=400, H=30, N=128) with
+                exactly 1250 launches and a finite return (nail depth,
+                lifted and success printed, success not required: the JAX
+                package's rate is 0).
 Then one JSON line with the kernels' numbers and, last, the device line.
-All numbers go to chiprun_out/chip_smoke.json as well. The whole run took
-18 minutes on an H100 whose host ran eager PyTorch ~1.6x slower than the
-hosts of earlier runs (the kernels' builds included), before phases 10,
-12, 14-16 and 20 were cut to the depth above.
+All numbers also go to chip_smoke.json in the output directory.
 """
 
 import dataclasses
@@ -180,7 +208,8 @@ PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 # relocate-v0: goals more than 0.25 from the ball, which falls freely from
 # 0.9 above the table, clear of the gripper, and stays 0.1 above the lift
 # gate), the canonical kernel shape, and the runner's arguments for the
-# episode with its expected launches; the solver and prior of the
+# episode with its expected launches (warm start + iterations + real steps,
+# each real step one launch at N=1, H=1); the solver and prior of the
 # canonical config, for the timed PPI iteration.
 VARIANT_B = {
     "pen-v0": dict(
@@ -189,24 +218,24 @@ VARIANT_B = {
         episode=["Lbps", "pen-v0", "SquaredExponentialKernel", "--delta",
                  "0.9", "--n-iters", "2", "--anneal", "0.5", "--lengthscale",
                  "0.08", "--timesteps", "100", "--horizon", "15"],
-        n_samples=96, launches=50 + 100 * 2),
+        n_samples=96, launches=50 + 100 * 2 + 100),
     "relocate-v0": dict(
         scale=0.3, goals=((0.55, 0.15, 0.85), (0.65, 0.10, 0.88)),
         shape=(256, 20), family=("Mppi", "ColouredNoise", {"beta": 2.0}),
         episode=["Mppi", "relocate-v0", "ColouredNoise", "--beta", "2",
                  "--alpha", "10", "--anneal", "0.9", "--timesteps", "140",
                  "--horizon", "20"],
-        n_samples=256, launches=50 + 140),
+        n_samples=256, launches=50 + 140 + 140),
     "cheetah": dict(
         scale=25.0, goals=None, shape=(256, 30),
         family=("Mppi", "ColouredNoise", {"beta": 2.0}),
         episode=["Mppi", "cheetah", "ColouredNoise", "--beta", "2",
                  "--timesteps", "150"],
-        n_samples=256, launches=50 + 150),
+        n_samples=256, launches=50 + 150 + 150),
 }
 DOOR_CEM = dict(episode=["Cem", "door-v0", "WhiteNoiseIid", "--n-elites",
                          "10", "--timesteps", "100"], n_samples=64,
-                launches=50 + 100)
+                launches=50 + 100 + 100)
 
 # phases 13-16: the hand door scenes (variants c and d). Per env: the check
 # horizon, the seeds of phase 16 and how many must open the door. Every
@@ -340,6 +369,42 @@ PUSH_CONTACT_START = (0.15, -0.1)
 PICK_CONTACT_START = (0.0, 0.07)
 STANDUP_LYING = 150 * 0.22 / 0.3   # what lying still earns in 150 steps
 
+# phases 25-28: the three Adroit-class scenes (20-25 DoF) at their
+# canonical configs (``goal_success.py:78-92``). Per env: the check
+# horizon and the scale of its random actions about the actuated joints'
+# posture, the first actuated coordinate, the coordinates that only a
+# contact moves, the canonical kernel shape, the plain rollout's timed
+# shape, the prior and solver, the runner's arguments, the launches of the
+# seed-0 episode (warm start + iterations + real steps) and whether it must
+# succeed. The plain version runs one eager op per scalar op, 191k-465k
+# of them a lane step (1-6 s a step on the card's host): the check runs
+# at H=3 and its mask and second goal or board at H=2, not at H=20 and 5,
+# and the real step is timed through the kernel only.
+ADROIT = {
+    "pen-v0-adroit": dict(
+        h_check=3, h_frame=2, scale=0.5, act0=5, moved=(3, 4),
+        shape=(96, 15), plain_shape=(64, 2), eager_step=False,
+        family=("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08}),
+        episode=["Lbps", "pen-v0-adroit", *_LBPS_SE, "--timesteps", "100",
+                 "--horizon", "15"],
+        launches=50 + 100 * 2 + 100, success=True),
+    "relocate-v0-adroit": dict(
+        h_check=3, h_frame=2, scale=0.3, act0=0, moved=(21, 22),
+        shape=(256, 20), plain_shape=(64, 2), eager_step=False,
+        family=("Mppi", "ColouredNoise", {"beta": 2.0}),
+        episode=["Mppi", "relocate-v0-adroit", "ColouredNoise", "--beta",
+                 "2", "--alpha", "10", "--anneal", "0.9", "--timesteps",
+                 "140", "--horizon", "20"],
+        launches=50 + 140 + 140, success=True),
+    "hammer-v0-adroit": dict(
+        h_check=3, h_frame=2, scale=0.3, act0=0, moved=(24,),
+        shape=(128, 30), plain_shape=(64, 2), eager_step=False,
+        family=("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08}),
+        episode=["Lbps", "hammer-v0-adroit", *_LBPS_SE, "--timesteps",
+                 "400", "--horizon", "30"],
+        launches=50 + 400 * 2 + 400, success=False),
+}
+
 
 def check(cond, msg):
     if not cond:
@@ -439,7 +504,6 @@ def lanes(state, n):
 
 def check_variant_b(name, env, dev):
     """Phase 10 for one env: (errors, max abs error)."""
-    from ppi_tpu_torch.envs.base import batch_rollout
     from ppi_tpu_torch.envs.physics import rollout_kernel as rk
     cfg = VARIANT_B[name]
     rng = np.random.default_rng(1)
@@ -450,14 +514,12 @@ def check_variant_b(name, env, dev):
     run = rk.env_rollout(env, s0, H_CHECK)
     q0, qd0 = lanes(s0, N_CHECK)
     rew, qf, qdf = run(q0, qd0, acts, consts=consts)
-    fin, rew_p = batch_rollout(env, s0, acts)
+    rew_p, qf_p, qdf_p = rk.env_plain_rollout(env, s0, q0, qd0, acts)
     torch.cuda.synchronize()
-    errs = {"rewards": rel_err(rew, rew_p),
-            "qf": rel_err(qf, fin.physics.qpos),
-            "qdf": rel_err(qdf, fin.physics.qvel)}
-    max_abs = max(float((rew - rew_p).abs().max()),
-                  float((qf - fin.physics.qpos).abs().max()),
-                  float((qdf - fin.physics.qvel).abs().max()))
+    errs = {"rewards": rel_err(rew, rew_p), "qf": rel_err(qf, qf_p),
+            "qdf": rel_err(qdf, qdf_p)}
+    max_abs = max(float((a - b).abs().max())
+                  for a, b in ((rew, rew_p), (qf, qf_p), (qdf, qdf_p)))
     check(max(errs.values()) <= TOL, f"{name}: kernel vs plain {errs} > {TOL}")
 
     q0_bad = q0.clone()
@@ -484,7 +546,8 @@ def check_variant_b(name, env, dev):
     if cfg["goals"] is not None:
         s1 = variant_b_state(env, name, dev, 1)
         c_k1 = rk.kernel_mpc_objective(env, s1, H_FRAME)(None, a)
-        _, rew_p1 = batch_rollout(env, s1, a)
+        q1, qd1 = lanes(s1, N_CHECK)
+        rew_p1 = rk.env_plain_rollout(env, s1, q1, qd1, a)[0]
         errs["second_goal_costs"] = rel_err(c_k1, -rew_p1.sum(1))
         check(errs["second_goal_costs"] <= TOL
               and float((c_k1 - c_full).abs().min()) > 1e-4,
@@ -500,15 +563,24 @@ def check_variant_b(name, env, dev):
               f"{name}: actions past the box ({past:.2f} of them) change "
               "the result of the clip")
         errs["past_box_share"] = past
+
+    # the real step: one launch at N=1, H=1 against the eager step
+    action = acts[N_CHECK // 2, 0]
+    (s_k, r_k), (s_e, r_e) = env.step(s0, action), env.plain_step(s0, action)
+    errs["real_step"] = max(rel_err(s_k.physics.qpos, s_e.physics.qpos),
+                            rel_err(s_k.physics.qvel, s_e.physics.qvel),
+                            rel_err(r_k, r_e))
+    check(errs["real_step"] <= TOL and int(s_k.t) == 1,
+          f"{name}: real step {errs['real_step']}")
     return errs, max_abs
 
 
 def time_variant_b(name, env, dev):
     """Phase 11 for one env: kernel and plain rollout at the canonical
-    shape, one synced PPI iteration there, one real env step."""
+    shape, one synced PPI iteration there, one real env step through the
+    kernel and one eager."""
     from ppi_tpu_torch.algorithms import make_solver
     from ppi_tpu_torch.algorithms.base import _one_iteration
-    from ppi_tpu_torch.envs.base import batch_rollout
     from ppi_tpu_torch.envs.physics import rollout_kernel as rk
     from ppi_tpu_torch.policies import design_moments, make_policy
     cfg = VARIANT_B[name]
@@ -529,9 +601,10 @@ def time_variant_b(name, env, dev):
     n, h = cfg["shape"]
     a = torch.from_numpy((cfg["scale"] * rng.standard_normal(
         (n, h, env.action_dim))).astype(np.float32)).to(dev)
+    qn, qdn = lanes(s0, n)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    batch_rollout(env, s0, a)
+    rk.env_plain_rollout(env, s0, qn, qdn, a)
     torch.cuda.synchronize()
     out[f"plain_ms_N{n}_H{h}"] = 1e3 * (time.perf_counter() - t0)
 
@@ -557,15 +630,17 @@ def time_variant_b(name, env, dev):
           f"{name}: PPI iteration cost not finite")
 
     action = family.predict_mean(state)[0]
-    env.step(s0, action)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        s1, _ = env.step(s0, action)
-    torch.cuda.synchronize()
-    out["env_step_ms"] = 1e3 * (time.perf_counter() - t0) / 3
-    check(bool(torch.isfinite(s1.physics.qpos).all()),
-          f"{name}: real env step not finite")
+    for label, fn, iters in (("kernel_step_ms", env.step, 20),
+                             ("eager_step_ms", env.plain_step, 1)):
+        fn(s0, action)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            s1, _ = fn(s0, action)
+        torch.cuda.synchronize()
+        out[label] = 1e3 * (time.perf_counter() - t0) / iters
+        check(bool(torch.isfinite(s1.physics.qpos).all()),
+              f"{name}: real env step not finite")
     return out
 
 
@@ -762,13 +837,71 @@ def scene_lanes(env, name, dev, n, h, seed=1):
     return s0, q0, qd0, acts
 
 
-def check_scene(name, env, dev):
-    """Phase 18 for one env: (errors, max abs error, lanes that moved the
-    object)."""
+def adroit_state(env, name, dev, index=0):
+    """Phase 26's initial state: pen-v0's and relocate-v0's pinned goals, a
+    sampled board for hammer-v0-adroit; ``index`` 1 the second. The
+    relocate ball starts 0.1 m up beside the fingers, where it falls clear
+    of the hand and above the lift gate for H=3, so the goal enters every
+    lane's reward."""
+    from ppi_tpu_torch.envs.physics.engine import PhysicsState
+    if name == "hammer-v0-adroit":
+        return env.reset(torch.Generator(dev).manual_seed(1 + index), dev)
+    goal = VARIANT_B[name.replace("-adroit", "")]["goals"][index]
+    if name == "pen-v0-adroit":
+        from ppi_tpu_torch.envs.pen import axis_from_angles
+        return env.reset(None, dev, goal=axis_from_angles(*goal))
+    from ppi_tpu_torch.envs.relocate_adroit import BALL_Z
+    s = env.reset(None, dev, goal=goal, start=(0.02, 0.2))
+    qpos = s.physics.qpos.clone()
+    qpos[BALL_Z] = 0.1
+    return dataclasses.replace(s, physics=PhysicsState(
+        qpos=qpos, qvel=s.physics.qvel))
+
+
+def adroit_lanes(env, name, dev, n, h, seed=1):
+    """Phase 26's lanes: the state's posture in every lane and PD targets
+    about the actuated joints' posture (``scale`` x z). The second half of
+    pen-v0-adroit's lanes starts with the pen 2 cm low, on the four
+    fingers' proximal spheres; in the second half of hammer-v0-adroit's
+    the free hammer starts with its head over the nail, falling at 2 m/s;
+    in the first half of relocate-v0-adroit's the ball rests on the table
+    under the open hand, where only the digits move it sideways."""
+    cfg = ADROIT[name]
+    s0 = adroit_state(env, name, dev)
+    q0, qd0 = (x.clone() for x in lanes(s0, n))
+    if name == "pen-v0-adroit":
+        from ppi_tpu_torch.envs.pen_adroit import PEN_Z
+        q0[n // 2:, PEN_Z] = -0.02
+    if name == "relocate-v0-adroit":
+        from ppi_tpu_torch.envs.relocate_adroit import BALL_Y, BALL_Z
+        q0[:n // 2, BALL_Y], q0[:n // 2, BALL_Z] = -0.03, 0.0
+    if name == "hammer-v0-adroit":
+        from ppi_tpu_torch.envs import hammer_hand as hh
+        from ppi_tpu_torch.envs.hammer_adroit import HAM_X, HAM_Z
+        top = s0.board[2] + 0.06 + 0.018 + 0.045 + 0.01   # head centre z
+        q0[n // 2:, HAM_X] = hh.NAIL_X - hh.HEAD_LOCAL[0] - hh.GRIP_START[0]
+        q0[n // 2:, HAM_Z] = top - hh.HEAD_LOCAL[2] - hh.GRIP_START[1]
+        qd0[n // 2:, HAM_Z] = -2.0
+    a0 = cfg["act0"]
+    rng = np.random.default_rng(seed)
+    acts = q0[:, None, a0:a0 + env.action_dim] + torch.from_numpy(
+        (cfg["scale"] * rng.standard_normal((n, h, env.action_dim))).astype(
+            np.float32)).to(dev)
+    return s0, q0, qd0, acts
+
+
+def check_scene(name, env, dev, table=None, lanes_fn=None, state_fn=None):
+    """Phase 18 (and 26) for one env: (errors, max abs error, lanes that
+    moved the object). ``table``, ``lanes_fn`` and ``state_fn`` are the
+    phase's config, lanes and states (phase 18's by default); the mask and
+    the second board or goal run at the config's ``h_frame``."""
     from ppi_tpu_torch.envs.physics import rollout_kernel as rk
-    cfg = SCENES[name]
-    h = cfg["h_check"]
-    s0, q0, qd0, acts = scene_lanes(env, name, dev, N_CHECK, h)
+    table = SCENES if table is None else table
+    lanes_fn = scene_lanes if lanes_fn is None else lanes_fn
+    state_fn = scene_state if state_fn is None else state_fn
+    cfg = table[name]
+    h, h_frame = cfg["h_check"], cfg.get("h_frame", H_FRAME)
+    s0, q0, qd0, acts = lanes_fn(env, name, dev, N_CHECK, h)
     consts, _, dyn = rk.kernel_operands(env, s0)
     run = rk.env_rollout(env, s0, h)
     rew, qf, qdf = run(q0, qd0, acts, consts=consts, dyn=dyn)
@@ -800,18 +933,18 @@ def check_scene(name, env, dev):
           f"{name}: a NaN lane must go NaN alone")
 
     # the objective from the state: the mask, and a second board or goal
-    a = acts[:, :H_FRAME].contiguous()
-    mask = (torch.arange(H_FRAME, device=dev) < H_FRAME - 2).float()
-    c_k = rk.kernel_mpc_objective(env, s0, H_FRAME, mask)(None, a)
-    c_full = rk.kernel_mpc_objective(env, s0, H_FRAME)(None, a)
+    a = acts[:, :h_frame].contiguous()
+    mask = (torch.arange(h_frame, device=dev) < max(h_frame - 2, 1)).float()
+    c_k = rk.kernel_mpc_objective(env, s0, h_frame, mask)(None, a)
+    c_full = rk.kernel_mpc_objective(env, s0, h_frame)(None, a)
     q_r, qd_r = lanes(s0, N_CHECK)
     r_p = rk.env_plain_rollout(env, s0, q_r, qd_r, a)[0]
     errs["masked_costs"] = rel_err(c_k, -(r_p * mask).sum(1))
     check(errs["masked_costs"] <= SCENE_TOL
           and not bool(torch.allclose(c_k, c_full)),
           f"{name}: horizon mask {errs['masked_costs']}")
-    s1 = scene_state(env, name, dev, 1)
-    c_k1 = rk.kernel_mpc_objective(env, s1, H_FRAME)(None, a)
+    s1 = state_fn(env, name, dev, 1)
+    c_k1 = rk.kernel_mpc_objective(env, s1, h_frame)(None, a)
     q_1, qd_1 = lanes(s1, N_CHECK)
     r_p1 = rk.env_plain_rollout(env, s1, q_1, qd_1, a)[0]
     errs["second_costs"] = rel_err(c_k1, -r_p1.sum(1))
@@ -831,27 +964,36 @@ def check_scene(name, env, dev):
     return errs, max_abs, moved
 
 
-def time_scene(name, env, dev):
-    """Phase 19 for one env."""
+def time_scene(name, env, dev, table=None, lanes_fn=None):
+    """Phase 19 (and 27) for one env; the plain rollout at the config's
+    ``plain_shape`` (the kernel's canonical shape by default), the eager
+    real step unless ``eager_step`` is false."""
     from ppi_tpu_torch.algorithms import make_solver
     from ppi_tpu_torch.algorithms.base import _one_iteration
     from ppi_tpu_torch.envs.physics import rollout_kernel as rk
     from ppi_tpu_torch.policies import design_moments, make_policy
-    cfg = SCENES[name]
+    table = SCENES if table is None else table
+    lanes_fn = scene_lanes if lanes_fn is None else lanes_fn
+    cfg = table[name]
     n, h = cfg["shape"]
     out = {"ops_per_lane_step": rk.ops_per_lane_step(*rk.body_args(
         env, env.reset(torch.Generator().manual_seed(0), "cpu")))}
-    s0, qn, qdn, a = scene_lanes(env, name, dev, n, h)
+    s0, qn, qdn, a = lanes_fn(env, name, dev, n, h)
     consts, _, dyn = rk.kernel_operands(env, s0)
     r = rk.env_rollout(env, s0, h)
     out[f"kernel_ms_N{n}_H{h}"] = cuda_ms(
         lambda: r(qn, qdn, a, consts=consts, dyn=dyn), 20)
     out[f"bound_ms_N{n}_H{h}"], out["bound_by"] = rollout_bound(env, n, h)
+    pn, ph = cfg.get("plain_shape", (n, h))
+    if (pn, ph) != (n, h):   # the kernel at the plain rollout's shape too
+        r2, a2 = rk.env_rollout(env, s0, ph), a[:pn, :ph].contiguous()
+        out[f"kernel_ms_N{pn}_H{ph}"] = cuda_ms(
+            lambda: r2(qn[:pn], qdn[:pn], a2, consts=consts, dyn=dyn), 20)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rk.env_plain_rollout(env, s0, qn, qdn, a)
+    rk.env_plain_rollout(env, s0, qn[:pn], qdn[:pn], a[:pn, :ph])
     torch.cuda.synchronize()
-    out[f"plain_ms_N{n}_H{h}"] = 1e3 * (time.perf_counter() - t0)
+    out[f"plain_ms_N{pn}_H{ph}"] = 1e3 * (time.perf_counter() - t0)
 
     alg, policy, kwargs = cfg["family"]
     mean, cov_in, cov_out = design_moments(env.action_low, env.action_high,
@@ -877,8 +1019,10 @@ def time_scene(name, env, dev):
           f"{name}: PPI iteration cost not finite")
 
     action = family.predict_mean(state)[0]
-    for label, fn, iters in (("kernel_step_ms", env.step, 20),
-                             ("eager_step_ms", env.plain_step, 1)):
+    steps = [("kernel_step_ms", env.step, 20)]
+    if cfg.get("eager_step", True):
+        steps.append(("eager_step_ms", env.plain_step, 1))
+    for label, fn, iters in steps:
         fn(s0, action)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1141,7 +1285,7 @@ def run_episode(args_list, n_samples, seed=0, final=None):
 
 def main():
     # one nvcc for each source, all started together
-    with ThreadPoolExecutor(max_workers=19) as pool:
+    with ThreadPoolExecutor(max_workers=22) as pool:
         return run(pool)
 
 
@@ -1166,7 +1310,7 @@ def run(pool):
     from ppi_tpu_torch.algorithms import make_solver
     from ppi_tpu_torch.algorithms.base import _one_iteration
     from ppi_tpu_torch.build import LAUNCHES
-    from ppi_tpu_torch.envs.base import batch_rollout, mpc_objective
+    from ppi_tpu_torch.envs.base import risk_aggregate
     from ppi_tpu_torch.envs.door import DOOR, Door
     from ppi_tpu_torch.envs.functions import make_function
     from ppi_tpu_torch.envs.physics import rollout_kernel as rk
@@ -1181,20 +1325,26 @@ def run(pool):
     # ---- 1. build (both kernels, in parallel) ------------------------------
     door = Door(fixed_scene=True)
     t0 = time.perf_counter()
+    # phase 25's three bodies are the largest (nvcc ~1 min each): they
+    # start first
+    bodies = {name: env_header(ENVS[name]()) for name in ADROIT}
+    body_builds = {name: pool.submit(build_timed, "rollout.cu",
+                                     {"env_body.h": h})
+                   for name, h in bodies.items()}
     header = rk.generate_env_header(
         door._model, door.dt, door.substeps, door.action_dim,
         door.scalar_torque, door.scalar_reward, door.scalar_dyn_body)
     rollout_build = pool.submit(build_timed, "rollout.cu",
                                 {"env_body.h": header})
     mm_build = pool.submit(build_timed, "moment_match.cu")
-    # phase 9's bodies build beside phases 1 and 5
-    bodies = {name: env_header(ENVS[name]()) for name in VARIANT_B}
-    # ... and phase 13's, 17's and 21's, all nineteen builds at once
-    bodies.update({name: env_header(ENVS[name]())
-                   for name in (*HAND, *SCENES, *REST)})
-    body_builds = {name: pool.submit(build_timed, "rollout.cu",
-                                     {"env_body.h": h})
-                   for name, h in bodies.items()}
+    # phase 9's bodies build beside phases 1 and 5, and phase 13's, 17's
+    # and 21's: all twenty-two builds at once
+    rest = {name: env_header(ENVS[name]())
+            for name in (*VARIANT_B, *HAND, *SCENES, *REST)}
+    body_builds.update({name: pool.submit(build_timed, "rollout.cu",
+                                          {"env_body.h": h})
+                        for name, h in rest.items()})
+    bodies.update(rest)
     lib, _ = rollout_build.result()
     build_s = time.perf_counter() - t0
     ptxas = ptxas_summary(lib)
@@ -1215,16 +1365,14 @@ def run(pool):
     q0, qd0 = lanes(s0, N_CHECK)
     run = make_run(H_CHECK)
     rew, qf, qdf = run(q0, qd0, acts, dyn=s0.frame)
-    fin, rew_p = batch_rollout(door, s0, acts)
+    rew_p, qf_p, qdf_p = rk.env_plain_rollout(door, s0, q0, qd0, acts)
     torch.cuda.synchronize()
     check(rew.shape == (N_CHECK, H_CHECK) and qf.shape == (N_CHECK, 6),
           f"output shapes {tuple(rew.shape)}, {tuple(qf.shape)}")
-    errs = {"rewards": rel_err(rew, rew_p),
-            "qf": rel_err(qf, fin.physics.qpos),
-            "qdf": rel_err(qdf, fin.physics.qvel)}
-    max_abs = max(float((rew - rew_p).abs().max()),
-                  float((qf - fin.physics.qpos).abs().max()),
-                  float((qdf - fin.physics.qvel).abs().max()))
+    errs = {"rewards": rel_err(rew, rew_p), "qf": rel_err(qf, qf_p),
+            "qdf": rel_err(qdf, qdf_p)}
+    max_abs = max(float((a - b).abs().max())
+                  for a, b in ((rew, rew_p), (qf, qf_p), (qdf, qdf_p)))
     check(max(errs.values()) <= TOL, f"kernel vs plain {errs} > {TOL}")
 
     q0_bad = q0.clone()
@@ -1238,7 +1386,7 @@ def run(pool):
 
     mask = (torch.arange(H_CHECK, device=dev) < H_CHECK - 5).float()
     c_k = rk.kernel_mpc_objective(door, s0, H_CHECK, mask)(None, acts)
-    c_p = mpc_objective(door, s0, mask)(None, acts)
+    c_p = risk_aggregate(rew_p, mask)
     c_full = rk.kernel_mpc_objective(door, s0, H_CHECK)(None, acts)
     errs["masked_costs"] = rel_err(c_k, c_p)
     check(errs["masked_costs"] <= TOL
@@ -1250,7 +1398,8 @@ def run(pool):
     s1 = sampled.reset(torch.Generator(dev).manual_seed(1), dev)
     check(not bool(torch.equal(s1.frame, s0.frame)), "frame not sampled")
     c_k1 = rk.kernel_mpc_objective(sampled, s1, H_CHECK)(None, acts)
-    c_p1 = mpc_objective(sampled, s1)(None, acts)
+    c_p1 = risk_aggregate(rk.env_plain_rollout(
+        sampled, s1, *lanes(s1, N_CHECK), acts)[0])
     errs["sampled_frame_costs"] = rel_err(c_k1, c_p1)
     check(errs["sampled_frame_costs"] <= TOL
           and not bool(torch.allclose(c_k1, c_full)),
@@ -1271,9 +1420,10 @@ def run(pool):
             lambda: r(qn, qdn, a, dyn=s0.frame), iters)
     a = torch.from_numpy((0.4 * rng.standard_normal(
         (1024, 160, door.action_dim))).astype(np.float32)).to(dev)
+    qn, qdn = lanes(s0, 1024)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    batch_rollout(door, s0, a)
+    rk.env_plain_rollout(door, s0, qn, qdn, a)
     torch.cuda.synchronize()
     timings["plain_ms_N1024_H160"] = 1e3 * (time.perf_counter() - t0)
 
@@ -1313,7 +1463,7 @@ def run(pool):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = LAUNCHES["rollout"]
-    expected = 50 + 250 * 2
+    expected = 50 + 250 * 2 + 250   # each real step is a launch too
     check(np.isfinite(ret), f"episode return {ret}")
     check(track["action"].shape == (250, door.action_dim)
           and bool(torch.isfinite(track["action"]).all()),
@@ -1634,8 +1784,8 @@ def run(pool):
         print(f"episode door-v0 T={T_SHORT} {prior}: return {ret:.2f}, {got} "
               f"kernel launches, wall {wall:.1f} s", flush=True)
         check(np.isfinite(ret), f"{prior}: return {ret}")
-        check(got == 50 + T_SHORT, f"{prior}: {got} kernel launches, "
-              f"expected {50 + T_SHORT}")
+        check(got == 50 + 2 * T_SHORT, f"{prior}: {got} kernel launches, "
+              f"expected {50 + 2 * T_SHORT}")
     out.update(scene_episodes=scene_episodes, short_episodes=short)
 
     # ---- 21. build the remaining variant-(b) bodies ---------------------------
@@ -1699,7 +1849,65 @@ def run(pool):
         check(done >= need, f"{name}: gate passed at {done} of {len(runs)} "
               f"seeds, expected >= {need}: {runs}")
         rest_episodes[name] = runs
-    out.update(rest_episodes=rest_episodes,
+    out.update(rest_episodes=rest_episodes)
+
+    # ---- 25. build the Adroit-class bodies ----------------------------------
+    for name in ADROIT:
+        body_lib, secs = body_builds[name].result()
+        info = {"lines": len(bodies[name].splitlines()), "nvcc_s": secs,
+                "ptxas": ptxas_summary(body_lib)}
+        body_info[name] = info
+        print(f"body build {name}: {info['lines']} generated lines, nvcc "
+              f"{secs:.1f} s (in parallel with phases 1-24); ptxas: "
+              f"{' | '.join(info['ptxas'])}", flush=True)
+
+    # ---- 26. those bodies: kernel vs plain ----------------------------------
+    adroit_errs, adroit_max_abs = {}, {}
+    for name, cfg in ADROIT.items():
+        adroit_errs[name], adroit_max_abs[name], moved = check_scene(
+            name, ENVS[name](), dev, ADROIT, adroit_lanes, adroit_state)
+        print(f"check {name}: N={N_CHECK} H={cfg['h_check']} errors "
+              f"{json.dumps(adroit_errs[name])} (tol {SCENE_TOL}); max abs "
+              f"err {adroit_max_abs[name]:.3g}; contact moved the object in "
+              f"{moved} lanes; NaN lane isolated; mask and second board or "
+              f"goal applied (H={cfg['h_frame']}); real step matches",
+              flush=True)
+    out.update(adroit_check=adroit_errs, adroit_max_abs_err=adroit_max_abs)
+
+    # ---- 27. those bodies: timings ------------------------------------------
+    adroit_times = {}
+    for name in ADROIT:
+        adroit_times[name] = time_scene(name, ENVS[name](), dev, ADROIT,
+                                        adroit_lanes)
+        print(f"timings {name}: {json.dumps(adroit_times[name])}",
+              flush=True)
+    out.update(adroit_timings=adroit_times)
+
+    # ---- 28. episodes -------------------------------------------------------
+    adroit_episodes = {}
+    for name, cfg in ADROIT.items():
+        env, last = ENVS[name](), {}
+
+        def final(env_state, row, last=last):
+            last["state"] = env_state
+
+        ret, success, wall, got = run_episode(cfg["episode"],
+                                              cfg["shape"][0], 0, final)
+        run_ = {"seed": 0, "return": ret, "success": success,
+                "wall_s": wall, "launches": got}
+        if name == "hammer-v0-adroit":
+            from ppi_tpu_torch.envs.hammer_adroit import NAIL
+            run_["nail_depth"] = float(last["state"].physics.qpos[NAIL])
+            run_["lifted"] = bool(env.lifted(last["state"]))
+        adroit_episodes[name] = run_
+        print(f"episode {name} seed 0: {json.dumps(run_)}", flush=True)
+        check(np.isfinite(ret), f"{name}: return {ret}")
+        check(got == cfg["launches"], f"{name}: {got} kernel launches, "
+              f"expected {cfg['launches']}")
+        if cfg["success"]:
+            check(success, f"{name}: no success at seed 0 (return "
+                  f"{ret:.2f})")
+    out.update(adroit_episodes=adroit_episodes,
                total_s=time.perf_counter() - t_start)
     print(f"total: {out['total_s']:.0f} s, the kernels' builds included",
           flush=True)
@@ -1763,6 +1971,20 @@ def run(pool):
              "max_abs_err": scene_max_abs[env_name],
              "ms": t[f"kernel_ms_N{n}_H{h}"],
              "plain_ms": t[f"plain_ms_N{n}_H{h}"],
+             "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
+             "library_ms": None})
+    for env_name, cfg in ADROIT.items():
+        n, h = cfg["shape"]
+        pn, ph = cfg["plain_shape"]
+        t = adroit_times[env_name]
+        kernels.append(
+            {"name": f"{env_name.replace('-v0-', '_')}_rollout",
+             "route": "cuda", "source": "ppi_tpu_torch/csrc/rollout.cu",
+             "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
+             "launches": adroit_episodes[env_name]["launches"],
+             "max_abs_err": adroit_max_abs[env_name],
+             "ms": t[f"kernel_ms_N{n}_H{h}"],
+             "plain_ms": t[f"plain_ms_N{pn}_H{ph}"],
              "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
              "library_ms": None})
     for env_name, cfg in REST.items():

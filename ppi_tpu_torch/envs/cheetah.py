@@ -6,9 +6,10 @@ contacts; rewarded for forward velocity minus the control cost (the gym
 HalfCheetah shape). The scene and the reward are the JAX env's.
 
 The reward takes the step's raw action (``scalar_reward_takes_action``):
-its control cost clips it to the torque box, as the torque does. The eager
-``step`` and the rollout kernel both take the reward from
-``scalar_reward``.
+its control cost clips it to the torque box, as the torque does. ``step``
+on a CUDA state is one launch of the env's rollout kernel (N lanes, H=1;
+``rollout_kernel.env_step``); on a CPU state it is ``plain_step``, the
+eager scalar program. Both take the reward from ``scalar_reward``.
 """
 
 import dataclasses
@@ -16,10 +17,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from ppi_tpu_torch.envs.physics import rollout_kernel as rk
 from ppi_tpu_torch.envs.physics import scalar_math as sm
 from ppi_tpu_torch.envs.physics.engine import (
     HINGE, SLIDE, ModelBuilder, PhysicsState)
-from ppi_tpu_torch.envs.physics.engine_soa import SoaModel, substep_soa
+from ppi_tpu_torch.envs.physics.engine_soa import SoaModel
 
 # dof order: 0 slide-x, 1 slide-z, 2 torso pitch, 3-5 back leg, 6-8 front leg
 NQ = 9
@@ -137,21 +139,17 @@ class Cheetah:
         ctrl = sum(c * c for c in clipped) / (self.action_dim * lim * lim)
         return qd[0] - 0.1 * ctrl
 
-    # ---- the eager env ---------------------------------------------------
+    # ---- the env ---------------------------------------------------------
 
     def step(self, state: CheetahState, action):
-        """(state, action (..., 6)) -> (next state, reward (...))."""
-        m = self._soa
-        q = state.physics.qpos.unbind(-1)
-        qd = state.physics.qvel.unbind(-1)
-        act = action.unbind(-1)
-        tau = self.scalar_torque(m, q, qd, act)
-        h = self.dt / self.substeps
-        for _ in range(self.substeps):
-            q, qd = substep_soa(m, q, qd, tau, h)
-        reward = self.scalar_reward(m, q, qd, act)
-        phys = PhysicsState(qpos=torch.stack(q, -1), qvel=torch.stack(qd, -1))
-        return dataclasses.replace(state, physics=phys, t=state.t + 1), reward
+        """(state, action (..., 6)) -> (next state, reward (...)): one
+        launch of the rollout kernel on a CUDA state, the eager scalar
+        program on a CPU state."""
+        return rk.env_step(self, state, action)
+
+    def plain_step(self, state: CheetahState, action):
+        """The eager step, on any device."""
+        return rk.env_step(self, state, action, plain=True)
 
     def observe(self, state: CheetahState):
         """Observation of a single (unbatched) state: x position left out

@@ -4,10 +4,12 @@ Port of ``ppi_tpu/envs/door.py``: a 4-joint arm with a palm sphere must
 press a spring-loaded latch down and pull a hinged door open. The scene,
 the reward shape and the per-episode door-frame sampling are the JAX env's.
 
-``step`` is the eager scalar program (``scalar_torque``, the SoA substeps,
-``scalar_reward``) over whatever batch shape the state has: a single state
-``(nq,)`` for the real env, ``(N, nq)`` for the plain batched rollout. The
-same three callbacks, run over symbols, become the rollout kernel's body.
+The scalar program (``scalar_torque``, the SoA substeps, ``scalar_reward``)
+runs eagerly over torch lanes as the kernel's plain version and, over
+symbols, becomes the rollout kernel's body. ``step`` on a CUDA state is one
+launch of that kernel (N lanes, H=1; ``rollout_kernel.env_step``); on a CPU
+state it is ``plain_step``, the eager program over whatever batch shape the
+state has.
 """
 
 import dataclasses
@@ -15,10 +17,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from ppi_tpu_torch.envs.physics import rollout_kernel as rk
 from ppi_tpu_torch.envs.physics import scalar_math as sm
 from ppi_tpu_torch.envs.physics.engine import HINGE, ModelBuilder, PhysicsState
 from ppi_tpu_torch.envs.physics.engine_soa import (
-    SoaModel, fk_soa, geom_point_soa, make_sites_soa, substep_soa)
+    SoaModel, fk_soa, geom_point_soa, make_sites_soa)
 
 # dof indices
 YAW, SHOULDER, ELBOW, WRIST, DOOR, LATCH = range(6)
@@ -179,20 +182,17 @@ class Door:
                 + 8.0 * sm.gt(door, 1.0)
                 + 10.0 * sm.gt(door, 1.35))
 
-    # ---- the eager env ---------------------------------------------------
+    # ---- the env ---------------------------------------------------------
 
     def step(self, state: DoorState, action):
-        """(state, action (..., 4)) -> (next state, reward (...))."""
-        m = self._soa.with_body_offset(DOOR, state.frame.unbind(-1))
-        q = state.physics.qpos.unbind(-1)
-        qd = state.physics.qvel.unbind(-1)
-        tau = self.scalar_torque(m, q, qd, action.unbind(-1))
-        h = self.dt / self.substeps
-        for _ in range(self.substeps):
-            q, qd = substep_soa(m, q, qd, tau, h)
-        reward = self.scalar_reward(m, q, qd)
-        phys = PhysicsState(qpos=torch.stack(q, -1), qvel=torch.stack(qd, -1))
-        return dataclasses.replace(state, physics=phys, t=state.t + 1), reward
+        """(state, action (..., 4)) -> (next state, reward (...)): one
+        launch of the rollout kernel on a CUDA state, the eager scalar
+        program on a CPU state."""
+        return rk.env_step(self, state, action)
+
+    def plain_step(self, state: DoorState, action):
+        """The eager step, on any device."""
+        return rk.env_step(self, state, action, plain=True)
 
     def _sites(self, qpos, frame):
         pts = self._sites_soa(qpos, frame)

@@ -170,25 +170,29 @@ class HammerHand:
     # the sampled board overrides the nail body's joint-origin offset (a
     # runtime input of the rollout kernel)
     scalar_dyn_body = NAIL
+    _ham_x, _ham_z = HAM_X, HAM_Z
+    _low, _high = _LOW, _HIGH
+    _qpos0_act = _RESET_ARM   # the actuated joints' initial posture
+    _build = staticmethod(_build_model)
 
     def __post_init__(self):
-        model, palm, grips, head, nails = _build_model()
+        model, palm, grips, head, nails = self._build()
         object.__setattr__(self, "_model", model)
         object.__setattr__(self, "_soa", SoaModel(model))
         object.__setattr__(self, "_palm_geom", palm)
         object.__setattr__(self, "_grip_geoms", grips)
         object.__setattr__(self, "_head_geom", head)
         object.__setattr__(self, "_nail_geoms", nails)
-        object.__setattr__(self, "_sites_soa",
-                           make_sites_soa(model, dyn_body=NAIL))
+        object.__setattr__(self, "_sites_soa", make_sites_soa(
+            model, dyn_body=self.scalar_dyn_body))
 
     @property
     def action_low(self):
-        return torch.tensor(_LOW)
+        return torch.tensor(self._low)
 
     @property
     def action_high(self):
-        return torch.tensor(_HIGH)
+        return torch.tensor(self._high)
 
     def sample_board(self, generator: torch.Generator, device):
         """Per-episode nail-board position: z = bench + U(0,
@@ -200,14 +204,13 @@ class HammerHand:
         """The gripper hovering over the grip point, fingers open, the free
         hammer resting on the bench; ``board`` pins the board instead of
         sampling it."""
-        qpos = torch.zeros(10, device=device)
-        qpos[:N_ACT] = torch.tensor(_RESET_ARM, device=device)
-        qpos[HAM_Z] = -0.025
+        qpos = torch.zeros(self._model.nq, device=device)
+        qpos[:self.action_dim] = torch.tensor(self._qpos0_act, device=device)
+        qpos[self._ham_z] = -0.025
         if board is None:
             board = self.sample_board(generator, device)
         return HammerHandState(
-            physics=PhysicsState(qpos=qpos,
-                                 qvel=torch.zeros(10, device=device)),
+            physics=PhysicsState(qpos=qpos, qvel=torch.zeros_like(qpos)),
             board=as_f32(board, device),
             t=torch.zeros((), dtype=torch.int32, device=device))
 
@@ -216,12 +219,16 @@ class HammerHand:
     def scalar_dyn_consts(self, state):
         return state.board
 
+    def _gains(self):
+        return ([self.kp] * 4 + [self.kp_finger] * 2,
+                [self.kd] * 4 + [self.kd_finger] * 2)
+
     def scalar_torque(self, m, q, qd, act):
-        kps = [self.kp] * 4 + [self.kp_finger] * 2
-        kds = [self.kd] * 4 + [self.kd_finger] * 2
-        tau = [kps[j] * (sm.clip(act[j], _LOW[j], _HIGH[j]) - q[j])
-               - kds[j] * qd[j] for j in range(N_ACT)]
-        tau += [sm.zeros_like(q[0]) for _ in range(N_ACT, 10)]
+        kps, kds = self._gains()
+        n = self.action_dim
+        tau = [kps[j] * (sm.clip(act[j], self._low[j], self._high[j]) - q[j])
+               - kds[j] * qd[j] for j in range(n)]
+        tau += [sm.zeros_like(q[0]) for _ in range(n, len(q))]
         return tuple(tau)
 
     def scalar_reward(self, m, q, qd):
@@ -235,9 +242,9 @@ class HammerHand:
         grip = tuple(0.5 * (ga[i] + gb[i]) for i in range(3))
         head = pt(self._head_geom)
         nail = pt(self._nail_geoms[0])
-        depth = q[NAIL]
-        vel2 = sum(qd[j] * qd[j] for j in range(N_ACT))
-        grip_x = GRIP_START[0] + q[HAM_X]
+        depth = q[self.scalar_dyn_body]
+        vel2 = sum(qd[j] * qd[j] for j in range(self.action_dim))
+        grip_x = GRIP_START[0] + q[self._ham_x]
         oob = (sm.maximum(grip_x - WS_GRIP_X[1], 0.0)
                + sm.maximum(WS_GRIP_X[0] - grip_x, 0.0))
         return (-0.5 * _dist(palm, grip)
@@ -273,13 +280,14 @@ class HammerHand:
         the sampled board."""
         q, qd = state.physics.qpos, state.physics.qvel
         palm, grip, head, nail = self._sites(q, state.board)
-        return torch.cat([q[:N_ACT], qd[:N_ACT], q[NAIL:NAIL + 1],
-                          qd[NAIL:NAIL + 1], palm, grip, head, nail,
-                          palm - grip, head - nail])
+        n, k = self.action_dim, self.scalar_dyn_body
+        return torch.cat([q[:n], qd[:n], q[k:k + 1], qd[k:k + 1], palm,
+                          grip, head, nail, palm - grip, head - nail])
 
     def success(self, state: HammerHandState):
-        return state.physics.qpos[..., NAIL] > 0.95 * NAIL_DEPTH
+        return state.physics.qpos[..., self.scalar_dyn_body] \
+            > 0.95 * NAIL_DEPTH
 
     def lifted(self, state: HammerHandState):
         """The hammer held off the bench (the proof of the grasp)."""
-        return state.physics.qpos[..., HAM_Z] > 0.03
+        return state.physics.qpos[..., self._ham_z] > 0.03

@@ -6,10 +6,12 @@ its long axis matches a goal axis sampled per episode (mj_envs pen-v0:
 desired yaw and pitch ~ U(-1, 1) rad), without dropping it. The scene and
 the reward shape are the JAX env's.
 
-``step`` is the eager scalar program (``scalar_torque``, the SoA substeps,
-``scalar_reward``) over whatever batch shape the state has. The goal axis
-is the reward's per-episode constants (``scalar_reward_consts``), which
-the rollout kernel reads from a device pointer.
+``step`` on a CUDA state is one launch of the env's rollout kernel (N
+lanes, H=1; ``rollout_kernel.env_step``); on a CPU state it is
+``plain_step``, the eager scalar program (``scalar_torque``, the SoA
+substeps, ``scalar_reward``) over whatever batch shape the state has. The
+goal axis is the reward's per-episode constants (``scalar_reward_consts``),
+which the rollout kernel reads from a device pointer.
 """
 
 import dataclasses
@@ -18,11 +20,12 @@ import numpy as np
 import torch
 
 from ppi_tpu_torch.envs.base import as_f32
+from ppi_tpu_torch.envs.physics import rollout_kernel as rk
 from ppi_tpu_torch.envs.physics import scalar_math as sm
 from ppi_tpu_torch.envs.physics.engine import (
     HINGE, SLIDE, ModelBuilder, PhysicsState)
 from ppi_tpu_torch.envs.physics.engine_soa import (
-    SoaModel, fk_soa, geom_point_soa, make_sites_soa, substep_soa)
+    SoaModel, fk_soa, geom_point_soa, make_sites_soa)
 
 # dof order: pen x,y,z slides, yaw (about z), pitch (about y), then
 # fingertip A (y, z) and fingertip B (y, z)
@@ -198,20 +201,17 @@ class Pen:
                 + 50.0 * sm.logical_and(sm.gt(similarity, 0.95), near)
                 - 5.0 * dropped)
 
-    # ---- the eager env ---------------------------------------------------
+    # ---- the env ---------------------------------------------------------
 
     def step(self, state: PenState, action):
-        """(state, action (..., 4)) -> (next state, reward (...))."""
-        m = self._soa
-        q = state.physics.qpos.unbind(-1)
-        qd = state.physics.qvel.unbind(-1)
-        tau = self.scalar_torque(m, q, qd, action.unbind(-1))
-        h = self.dt / self.substeps
-        for _ in range(self.substeps):
-            q, qd = substep_soa(m, q, qd, tau, h)
-        reward = self.scalar_reward(m, q, qd, state.target_axis.unbind(-1))
-        phys = PhysicsState(qpos=torch.stack(q, -1), qvel=torch.stack(qd, -1))
-        return dataclasses.replace(state, physics=phys, t=state.t + 1), reward
+        """(state, action (..., 4)) -> (next state, reward (...)): one
+        launch of the rollout kernel on a CUDA state, the eager scalar
+        program on a CPU state."""
+        return rk.env_step(self, state, action)
+
+    def plain_step(self, state: PenState, action):
+        """The eager step, on any device."""
+        return rk.env_step(self, state, action, plain=True)
 
     def _pen_pose(self, qpos):
         """(centre, unit axis) of the rod from the end-sphere sites."""

@@ -123,8 +123,14 @@ class PenHand:
 
     name = "pen-v0-hand"
 
+    _low, _high = _LOW, _HIGH
+    # digits poised just clear of the rod (fingers slightly curled outward,
+    # thumb lifted)
+    _qpos0 = (0.0,) * A_MCP + (0.35, 0.0, -0.35, 0.0, 0.3, 0.0)
+    _build = staticmethod(_build_model)
+
     def __post_init__(self):
-        model, ends, tips = _build_model()
+        model, ends, tips = self._build()
         object.__setattr__(self, "_model", model)
         object.__setattr__(self, "_soa", SoaModel(model))
         object.__setattr__(self, "_end_geoms", ends)
@@ -133,11 +139,11 @@ class PenHand:
 
     @property
     def action_low(self):
-        return torch.tensor(_LOW)
+        return torch.tensor(self._low)
 
     @property
     def action_high(self):
-        return torch.tensor(_HIGH)
+        return torch.tensor(self._high)
 
     def sample_goal(self, generator: torch.Generator, device):
         """pen-v0's distribution: yaw/pitch ~ U(-1, 1) rad."""
@@ -148,27 +154,31 @@ class PenHand:
         return axis_from_angles(yaw, pitch)
 
     def reset(self, generator: torch.Generator, device, goal=None):
-        """Digits poised just clear of the rod (fingers slightly curled
-        outward, thumb lifted); ``goal`` pins the goal axis instead of
-        sampling it."""
-        qpos = torch.zeros(11, device=device)
-        qpos[A_MCP], qpos[B_MCP], qpos[TH_MCP] = 0.35, -0.35, 0.3
+        """The pen level in the hold, the digits at their initial posture;
+        ``goal`` pins the goal axis instead of sampling it."""
+        nq = len(self._qpos0)
         if goal is None:
             goal = self.sample_goal(generator, device)
         return PenHandState(
-            physics=PhysicsState(qpos=qpos,
-                                 qvel=torch.zeros(11, device=device)),
+            physics=PhysicsState(
+                qpos=torch.tensor(self._qpos0, device=device),
+                qvel=torch.zeros(nq, device=device)),
             target_axis=as_f32(goal, device),
             t=torch.zeros((), dtype=torch.int32, device=device))
 
     # ---- the scalar contract (shared by step() and the rollout kernel) ----
 
+    def _gains(self):
+        return [self.kp] * N_ACT, [self.kd] * N_ACT
+
     def scalar_torque(self, m, q, qd, act):
+        # the pen's five coordinates come first, then the digit joints
+        kps, kds = self._gains()
         tau = [sm.zeros_like(q[0]) for _ in range(A_MCP)]
-        for j in range(N_ACT):
-            tgt = sm.clip(act[j], _LOW[j], _HIGH[j])
-            tau.append(self.kp * (tgt - q[A_MCP + j])
-                       - self.kd * qd[A_MCP + j])
+        for j in range(self.action_dim):
+            tgt = sm.clip(act[j], self._low[j], self._high[j])
+            tau.append(kps[j] * (tgt - q[A_MCP + j])
+                       - kds[j] * qd[A_MCP + j])
         return tuple(tau)
 
     def scalar_reward_consts(self, state):

@@ -6,8 +6,10 @@ it to an in-air goal. Both the goal and the ball's start are sampled per
 episode (the reachable subset of the mj_envs relocate-v0 distributions).
 The scene and the reward shape are the JAX env's.
 
-``step`` is the eager scalar program over whatever batch shape the state
-has. The goal is the reward's per-episode constants
+``step`` on a CUDA state is one launch of the env's rollout kernel (N
+lanes, H=1; ``rollout_kernel.env_step``); on a CPU state it is
+``plain_step``, the eager scalar program over whatever batch shape the
+state has. The goal is the reward's per-episode constants
 (``scalar_reward_consts``); the ball's start is part of ``qpos``.
 """
 
@@ -17,11 +19,12 @@ import numpy as np
 import torch
 
 from ppi_tpu_torch.envs.base import as_f32
+from ppi_tpu_torch.envs.physics import rollout_kernel as rk
 from ppi_tpu_torch.envs.physics import scalar_math as sm
 from ppi_tpu_torch.envs.physics.engine import (
     HINGE, SLIDE, ModelBuilder, PhysicsState)
 from ppi_tpu_torch.envs.physics.engine_soa import (
-    SoaModel, fk_soa, geom_point_soa, make_sites_soa, substep_soa)
+    SoaModel, fk_soa, geom_point_soa, make_sites_soa)
 
 YAW, SHOULDER, ELBOW, WRIST, FING_L, FING_R, BALL_X, BALL_Y, BALL_Z = range(9)
 
@@ -223,20 +226,17 @@ class Relocate:
                 + 10.0 * sm.lt(carry, 0.1)
                 + 20.0 * sm.lt(carry, 0.05))
 
-    # ---- the eager env ---------------------------------------------------
+    # ---- the env ---------------------------------------------------------
 
     def step(self, state: RelocateState, action):
-        """(state, action (..., 6)) -> (next state, reward (...))."""
-        m = self._soa
-        q = state.physics.qpos.unbind(-1)
-        qd = state.physics.qvel.unbind(-1)
-        tau = self.scalar_torque(m, q, qd, action.unbind(-1))
-        h = self.dt / self.substeps
-        for _ in range(self.substeps):
-            q, qd = substep_soa(m, q, qd, tau, h)
-        reward = self.scalar_reward(m, q, qd, state.target.unbind(-1))
-        phys = PhysicsState(qpos=torch.stack(q, -1), qvel=torch.stack(qd, -1))
-        return dataclasses.replace(state, physics=phys, t=state.t + 1), reward
+        """(state, action (..., 6)) -> (next state, reward (...)): one
+        launch of the rollout kernel on a CUDA state, the eager scalar
+        program on a CPU state."""
+        return rk.env_step(self, state, action)
+
+    def plain_step(self, state: RelocateState, action):
+        """The eager step, on any device."""
+        return rk.env_step(self, state, action, plain=True)
 
     def _sites(self, qpos):
         pts = self._sites_soa(qpos)

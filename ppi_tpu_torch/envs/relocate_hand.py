@@ -132,8 +132,12 @@ class RelocateHand(Relocate):
 
     name = "relocate-v0-hand"
 
+    _low, _high = _LOW, _HIGH
+    _qpos0_act = _QPOS0_ARM   # the actuated joints' initial posture
+    _build = staticmethod(_build_model)
+
     def __post_init__(self):
-        model, palm, tips, ball = _build_model()
+        model, palm, tips, ball = self._build()
         object.__setattr__(self, "_model", model)
         object.__setattr__(self, "_soa", SoaModel(model))
         object.__setattr__(self, "_palm_geom", palm)
@@ -143,11 +147,11 @@ class RelocateHand(Relocate):
 
     @property
     def action_low(self):
-        return torch.tensor(_LOW)
+        return torch.tensor(self._low)
 
     @property
     def action_high(self):
-        return torch.tensor(_HIGH)
+        return torch.tensor(self._high)
 
     def reset(self, generator: torch.Generator, device, goal=None,
               start=None):
@@ -158,22 +162,25 @@ class RelocateHand(Relocate):
             goal = self.sample_goal(generator, device)
         if start is None:
             start = self.sample_start(generator, device)
-        qpos = torch.cat([torch.tensor(_QPOS0_ARM, device=device),
+        qpos = torch.cat([torch.tensor(self._qpos0_act, device=device),
                           as_f32(start, device),
                           torch.zeros(1, device=device)])
         return RelocateHandState(
             physics=PhysicsState(qpos=qpos,
-                                 qvel=torch.zeros(13, device=device)),
+                                 qvel=torch.zeros_like(qpos)),
             target=as_f32(goal, device),
             t=torch.zeros((), dtype=torch.int32, device=device))
 
     # ---- the scalar contract (shared by step() and the rollout kernel) ----
 
+    def _gains(self):
+        return ([self.kp] * 4 + [self.kp_digit] * 4 + [self.kp_thumb] * 2,
+                [self.kd] * 4 + [self.kd_digit] * 4 + [self.kd_thumb] * 2)
+
     def scalar_torque(self, m, q, qd, act):
-        kps = [self.kp] * 4 + [self.kp_digit] * 4 + [self.kp_thumb] * 2
-        kds = [self.kd] * 4 + [self.kd_digit] * 4 + [self.kd_thumb] * 2
-        tau = [kps[j] * (sm.clip(act[j], _LOW[j], _HIGH[j]) - q[j])
-               - kds[j] * qd[j] for j in range(N_ACT)]
+        kps, kds = self._gains()
+        tau = [kps[j] * (sm.clip(act[j], self._low[j], self._high[j]) - q[j])
+               - kds[j] * qd[j] for j in range(self.action_dim)]
         tau += [sm.zeros_like(q[0])] * 3  # free ball
         return tuple(tau)
 
@@ -185,7 +192,7 @@ class RelocateHand(Relocate):
         carry = _norm3(ball, consts)
         g2t = _norm3(grasp, consts)
         lifted = sm.gt(ball[2], LIFT_Z)
-        vel2 = sum(qd[j] * qd[j] for j in range(N_ACT))
+        vel2 = sum(qd[j] * qd[j] for j in range(self.action_dim))
         return (-0.1 * reach
                 + lifted * (1.0 - 0.5 * g2t - 0.5 * carry)
                 - 1e-4 * vel2
@@ -209,5 +216,6 @@ class RelocateHand(Relocate):
         q, qd = state.physics.qpos, state.physics.qvel
         palm, grasp, ball = self._sites(q)
         tgt = state.target
-        return torch.cat([q[:N_ACT], qd[:N_ACT], palm, grasp, ball,
+        n = self.action_dim
+        return torch.cat([q[:n], qd[:n], palm, grasp, ball,
                           grasp - ball, ball - tgt, grasp - tgt])

@@ -16,10 +16,11 @@ priors use, with the same positional layout plus ``--device``:
         --n-elites 10 --lengthscale 0.15 MonteCarlo --n-samples 64
 
 Envs: door-v0, door-v0-hand, door-v0-adroit, pen-v0, pen-v0-hand,
-relocate-v0, relocate-v0-hand, hammer-v0, hammer-v0-hand, cheetah,
-reacher, finger~spin, fetch-push, fetch-pick, hopper, walker2d,
-walker~walk, humanoid-standup; ``--lengthscale 0.08`` is the hand scenes'
-canonical "4dt". Every prior of the JAX package's registry runs;
+pen-v0-adroit, relocate-v0, relocate-v0-hand, relocate-v0-adroit,
+hammer-v0, hammer-v0-hand, hammer-v0-adroit, cheetah, reacher,
+finger~spin, fetch-push, fetch-pick, hopper, walker2d, walker~walk,
+humanoid-standup; ``--lengthscale 0.08`` is the hand scenes' canonical
+"4dt". Every prior of the JAX package's registry runs;
 ``--n-features`` and ``--order`` size the RBF and RFF bases, and RBF
 features span the episode while every other prior spans the horizon.
 ``--alpha``, ``--epsilon``, ``--n-elites``, ``--delta`` and ``--beta`` go
@@ -28,8 +29,8 @@ particle reuse and acts on the MAP sequence. ``--risk-weight`` blends the
 CVaR of the per-step costs at ``--risk-quantile`` into each plan's cost
 (``envs.base.risk_aggregate``). ``--device cuda`` (the default) needs a
 CUDA card and rolls out through the hand-written kernel (the real env step
-of every env but door-v0, pen-v0, relocate-v0 and cheetah too); ``--device
-cpu`` runs the eager plain version. With ``--dir`` the run writes
+of every env too: one launch at N=1, H=1); ``--device cpu`` runs the eager
+plain version. With ``--dir`` the run writes
 ``args.json``, its ``log`` and ``data.npz`` (the JAX runner's keys) under
 ``<dir>/<algorithm>_<env>_<policy>_<sampling>_<n>_<seed>_<name>``, and a
 second run there stops unless ``--force``. Plots, rendering, checkpoints,
@@ -52,13 +53,16 @@ from ppi_tpu_torch.envs.door_hand import DoorHand
 from ppi_tpu_torch.envs.fetch_pick import FetchPickAndPlace
 from ppi_tpu_torch.envs.finger import FingerSpin
 from ppi_tpu_torch.envs.hammer import Hammer
+from ppi_tpu_torch.envs.hammer_adroit import HammerAdroit
 from ppi_tpu_torch.envs.hammer_hand import HammerHand
 from ppi_tpu_torch.envs.hopper import Hopper
 from ppi_tpu_torch.envs.pen import Pen
+from ppi_tpu_torch.envs.pen_adroit import PenAdroit
 from ppi_tpu_torch.envs.pen_hand import PenHand
 from ppi_tpu_torch.envs.push import FetchPush
 from ppi_tpu_torch.envs.reacher import Reacher
 from ppi_tpu_torch.envs.relocate import Relocate
+from ppi_tpu_torch.envs.relocate_adroit import RelocateAdroit
 from ppi_tpu_torch.envs.relocate_hand import RelocateHand
 from ppi_tpu_torch.envs.standup import HumanoidStandup
 from ppi_tpu_torch.envs.walker import Walker, WalkerWalk
@@ -71,9 +75,11 @@ from ppi_tpu_torch.utils import (
 ENVS = {"reacher": Reacher, "door-v0": Door, "door-v0-hand": DoorHand,
         "door-v0-adroit": DoorAdroit, "cheetah": Cheetah,
         "finger~spin": FingerSpin, "hammer-v0": Hammer,
-        "hammer-v0-hand": HammerHand, "hopper": Hopper, "pen-v0": Pen,
-        "pen-v0-hand": PenHand, "relocate-v0": Relocate,
+        "hammer-v0-hand": HammerHand, "hammer-v0-adroit": HammerAdroit,
+        "hopper": Hopper, "pen-v0": Pen, "pen-v0-hand": PenHand,
+        "pen-v0-adroit": PenAdroit, "relocate-v0": Relocate,
         "relocate-v0-hand": RelocateHand,
+        "relocate-v0-adroit": RelocateAdroit,
         "humanoid-standup": HumanoidStandup, "fetch-push": FetchPush,
         "fetch-pick": FetchPickAndPlace, "walker2d": Walker,
         "walker~walk": WalkerWalk}

@@ -1,17 +1,22 @@
 """The rollout kernel's generated bodies, measured on the CPU.
 
-    python -m ppi_tpu_torch.studies.body_report
+    python -m ppi_tpu_torch.studies.body_report [ENV ...]
 
-For each env of ``run_mpc``: the body's generated lines and emitted f32
-operations per lane step (``ops_per_lane_step``), the host-C build time of
-the skeleton plus the body (where ``cc`` exists; a fresh build directory
-under ``build/kernels/``), and how far the env's dynamics carry a rounding
-difference: the plain rollout from q0 (1 + 1e-7 z) and qd0 + 1e-7 against
-the unperturbed one, as max |a-b| / (1+|b|) at N=257/H=5 and N=1000/H=20
-(the chip checks' shapes), with the chip checks' action scales.
+For each env of ``run_mpc`` (or each one named): the body's generated
+lines and emitted f32 operations per lane step (``ops_per_lane_step``),
+the host-C build time of the skeleton plus the body (where ``cc`` exists;
+a fresh build directory under ``build/kernels/``), and how far the env's
+dynamics carry a rounding difference: the plain rollout from q0 (1 + 1e-7
+z) and qd0 + 1e-7 against the unperturbed one, as max |a-b| / (1+|b|) at
+N=257/H=5 and N=1000/H=20 (the chip checks' shapes), with the chip
+checks' action scales (0.3 for an env not listed in ``SCALE``). A body of
+more than ``LONG_OPS`` operations per lane step (the 20-25-DoF Adroit
+scenes) is perturbed at H=2 and H=3 instead: its plain rollout runs one
+eager op per scalar op, and at H=20 would take minutes.
 """
 
 import shutil
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -26,7 +31,8 @@ from ppi_tpu_torch.runners.run_mpc import ENVS
 SCALE = {"door-v0": 0.4, "pen-v0": 0.12, "relocate-v0": 0.3,
          "cheetah": 25.0, "door-v0-hand": 0.3, "door-v0-adroit": 0.3,
          "hammer-v0": 0.4, "pen-v0-hand": 0.5, "relocate-v0-hand": 0.3,
-         "hammer-v0-hand": 0.3}
+         "hammer-v0-hand": 0.3, "pen-v0-adroit": 0.5}
+LONG_OPS = 150_000
 
 
 def rel_err(a, b):
@@ -34,26 +40,30 @@ def rel_err(a, b):
     return float(((a - b).abs() / (1.0 + b.abs())).max())
 
 
-def main():
+def main(names):
     torch.manual_seed(0)
     rng = np.random.default_rng(2)
     build.BUILD_ROOT = Path(tempfile.mkdtemp(prefix="body_report_"))
     try:
-        for name, cls in ENVS.items():
-            env = cls()
+        for name in names or ENVS:
+            env = ENVS[name]()
             state = env.reset(torch.Generator().manual_seed(1), "cpu")
             args = rk.body_args(env, state)
             header = rk.generate_env_header(*args)
+            ops = rk.ops_per_lane_step(*args)
             line = (f"{name}: {len(header.splitlines())} lines, "
-                    f"{rk.ops_per_lane_step(*args)} ops per lane step")
+                    f"{ops} ops per lane step")
             if shutil.which("cc"):
                 t0 = time.perf_counter()
                 rk.load_host_rollout(header)
                 line += f", host-C build {time.perf_counter() - t0:.2f} s"
             print(line, flush=True)
-            for n, h in ((257, 5), (1000, 20)):
-                acts = torch.from_numpy((SCALE[name] * rng.standard_normal(
-                    (n, h, env.action_dim))).astype(np.float32))
+            shapes = ((257, 2), (1000, 3)) if ops > LONG_OPS else \
+                ((257, 5), (1000, 20))
+            for n, h in shapes:
+                z = rng.standard_normal((n, h, env.action_dim))
+                acts = torch.from_numpy(
+                    (SCALE.get(name, 0.3) * z).astype(np.float32))
                 q0 = state.physics.qpos.expand(n, -1)
                 qd0 = state.physics.qvel.expand(n, -1)
                 run = lambda q, qd: rk.env_plain_rollout(env, state, q, qd,
@@ -70,4 +80,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -14,7 +14,8 @@ import torch
 
 from torch_env_helpers import (
     REW_TOL, assert_host_c_matches_plain, assert_model_equals_reference,
-    assert_rollout_close, jax_rollout_fn, port_state, wrapper_run)
+    assert_rollout_close, assert_steps_through_env_step, jax_rollout_fn,
+    port_state, wrapper_run)
 from torch_helpers import to_np, to_torch
 from ppi_tpu.envs.cheetah import Cheetah as JaxCheetah
 from ppi_tpu_torch.envs.base import batch_rollout
@@ -78,6 +79,17 @@ def test_batch_rollout_matches_reference(reference, acts, start):
                                to_torch(acts))
     assert_rollout_close((to_np(rew), to_np(final.physics.qpos),
                           to_np(final.physics.qvel)), ref)
+
+
+def test_real_step_goes_through_env_step(reference, acts):
+    """``step`` is ``rollout_kernel.env_step``: one launch of the kernel
+    on a CUDA state, the raw action passed to the reward; on the CPU the
+    eager step that the batch rollout above holds to the JAX env's
+    step."""
+    js, _ = reference[STARTS[1]]
+    assert_steps_through_env_step(
+        Cheetah(), port_state(CheetahState, js),
+        np.asarray(js.physics.qpos), acts[5, 0])
 
 
 @pytest.mark.parametrize("start", STARTS)

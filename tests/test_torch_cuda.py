@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from torch_helpers import door_q0
-from ppi_tpu_torch.envs.base import batch_rollout, mpc_objective
+from ppi_tpu_torch.envs.base import risk_aggregate
 from ppi_tpu_torch.envs.door import DOOR, Door
 from ppi_tpu_torch.envs.physics import rollout_kernel as rk
 
@@ -49,10 +49,11 @@ def test_kernel_matches_plain_and_counts_its_launch():
     rew, qf, qdf = run(q0, torch.zeros_like(q0), acts, dyn=s0.frame)
     torch.cuda.synchronize()
     assert rk.LAUNCHES["rollout"] == before + 1
-    final, rew_p = batch_rollout(door, s0, acts)
+    rew_p, qf_p, qdf_p = rk.env_plain_rollout(door, s0, q0,
+                                              torch.zeros_like(q0), acts)
     assert _rel(rew, rew_p) <= 1e-4
-    assert _rel(qf, final.physics.qpos) <= 1e-4
-    assert _rel(qdf, final.physics.qvel) <= 1e-4
+    assert _rel(qf, qf_p) <= 1e-4
+    assert _rel(qdf, qdf_p) <= 1e-4
 
 
 def test_kernel_isolates_a_nan_lane_and_masks_the_ragged_edge():
@@ -78,8 +79,11 @@ def test_kernel_objective_with_sampled_frame_matches_plain():
     acts = _acts(dev)
     mask = (torch.arange(H, device=dev) < H - 2).float()
     c_k = rk.kernel_mpc_objective(door, s0, H, mask)(None, acts)
-    c_p = mpc_objective(door, s0, mask)(None, acts)
-    assert _rel(c_k, c_p) <= 1e-4
+    n = acts.shape[0]
+    rew_p, _, _ = rk.env_plain_rollout(door, s0,
+                                       s0.physics.qpos.expand(n, -1),
+                                       s0.physics.qvel.expand(n, -1), acts)
+    assert _rel(c_k, risk_aggregate(rew_p, mask)) <= 1e-4
 
 
 def test_kernel_rejects_bad_inputs():
@@ -268,10 +272,10 @@ def test_variant_b_kernel_matches_plain(name):
     rew, qf, qdf = run(q0, qd0, acts, consts=consts)
     torch.cuda.synchronize()
     assert rk.LAUNCHES["rollout"] == before + 1
-    final, rew_p = batch_rollout(env, s0, acts)
+    rew_p, qf_p, qdf_p = rk.env_plain_rollout(env, s0, q0, qd0, acts)
     assert _rel(rew, rew_p) <= 1e-4
-    assert _rel(qf, final.physics.qpos) <= 1e-4
-    assert _rel(qdf, final.physics.qvel) <= 1e-4
+    assert _rel(qf, qf_p) <= 1e-4
+    assert _rel(qdf, qdf_p) <= 1e-4
 
 
 def test_consts_are_checked_for_device_and_dtype():
@@ -293,7 +297,7 @@ def test_consts_are_checked_for_device_and_dtype():
 def test_coloured_noise_control_step_never_waits_for_the_card():
     """One Mppi control step with the ColouredNoise prior on relocate-v0,
     and the real env step, run no operation that synchronizes with the
-    host."""
+    host; each is one launch."""
     dev = _device()
     from ppi_tpu_torch.algorithms import make_solver
     from ppi_tpu_torch.mpc import Mpc
@@ -318,7 +322,7 @@ def test_coloured_noise_control_step_never_waits_for_the_card():
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert rk.LAUNCHES["rollout"] == before + 1
+    assert rk.LAUNCHES["rollout"] == before + 2
     assert bool(torch.isfinite(state.physics.qpos).all())
 
 

@@ -28,6 +28,9 @@ SLICE_MODULES = [
     "ppi_tpu_torch.envs.pen_hand",
     "ppi_tpu_torch.envs.relocate_hand",
     "ppi_tpu_torch.envs.hammer_hand",
+    "ppi_tpu_torch.envs.pen_adroit",
+    "ppi_tpu_torch.envs.relocate_adroit",
+    "ppi_tpu_torch.envs.hammer_adroit",
     "ppi_tpu_torch.envs.reacher",
     "ppi_tpu_torch.envs.finger",
     "ppi_tpu_torch.envs.push",

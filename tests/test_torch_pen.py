@@ -16,7 +16,8 @@ import torch
 
 from torch_env_helpers import (
     REW_TOL, assert_host_c_matches_plain, assert_model_equals_reference,
-    assert_rollout_close, jax_rollout_fn, port_state, wrapper_run)
+    assert_rollout_close, assert_steps_through_env_step, jax_rollout_fn,
+    port_state, wrapper_run)
 from torch_helpers import to_np, to_torch
 import ppi_tpu.policies.primitives as jax_primitives
 import ppi_tpu_torch.policies.primitives as primitives
@@ -103,6 +104,15 @@ def test_batch_rollout_matches_reference(reference, acts, goal):
     assert_rollout_close((to_np(rew), to_np(final.physics.qpos),
                           to_np(final.physics.qvel)), ref)
     assert int(final.t) == H
+
+
+def test_real_step_goes_through_env_step(reference, acts):
+    """``step`` is ``rollout_kernel.env_step``: one launch of the kernel
+    on a CUDA state; on the CPU the eager step that the batch rollout above
+    holds to the JAX env's step."""
+    js, _ = reference["b"]
+    assert_steps_through_env_step(Pen(), port_state(PenState, js),
+                                  np.asarray(js.physics.qpos), acts[5, 0])
 
 
 @pytest.mark.parametrize("goal", sorted(GOALS))

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_env_helpers import assert_steps_through_env_step
 from torch_helpers import (
     CLAMP_AT, DOOR_Q, door_clamp, door_q0, to_np, to_torch)
 from ppi_tpu.envs.base import batch_rollout as jax_batch_rollout
@@ -137,6 +138,15 @@ def test_batch_rollout_matches_reference(jax_rollouts, inputs, frame_name):
     np.testing.assert_allclose(to_np(final.physics.qvel), ref_qd, rtol=1e-5,
                                atol=1e-5)
     assert int(final.t) == H
+
+
+def test_real_step_goes_through_env_step(inputs):
+    """``step`` is ``rollout_kernel.env_step``: one launch of the kernel
+    on a CUDA state; on the CPU the eager step that the batch rollout above
+    holds to the JAX env's step."""
+    door = Door()
+    s0 = door.reset(None, "cpu", frame=SAMPLED_FRAME)
+    assert_steps_through_env_step(door, s0, door_q0(1)[0], inputs[0][5, 0])
 
 
 def test_plain_kernel_path_matches_batch_rollout(port_run, inputs):

@@ -102,7 +102,7 @@ def test_the_header_cache_holds_every_registered_body():
         assert rk.supports_kernel(env), name
         state = env.reset(torch.Generator().manual_seed(0), "cpu")
         bodies.append(rk.body_args(env, state))
-    assert len(bodies) == 18
+    assert len(bodies) == 21
     rk._env_header.cache_clear()
     for _ in range(2):
         for args in bodies:

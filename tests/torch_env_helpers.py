@@ -1,7 +1,7 @@
 """Shared pieces of the per-env comparison tests of the torch port
 (tests/test_torch_{pen,relocate,cheetah,door_hand,door_adroit,hammer,
 pen_hand,relocate_hand,hammer_hand,reacher,finger,push,fetch_pick,
-locomotion}.py).
+locomotion,pen_adroit,relocate_adroit,hammer_adroit}.py).
 
 The JAX reference is ``ppi_tpu.envs.base.batch_rollout`` (the scan path
 that tests/test_pallas_rollout.py holds the Pallas kernel to), jitted once
@@ -247,6 +247,24 @@ def assert_kernel_step_is_the_eager_step(env, state, q, action):
     assert torch.equal(s3.physics.qpos, s1.physics.qpos)
 
 
+def assert_steps_through_env_step(env, state, q, action):
+    """``env.step`` is ``rollout_kernel.env_step`` (one launch on a CUDA
+    state) and ``env.plain_step`` its eager version, called once each per
+    step; on the CPU both are ``kernel_step``'s program."""
+    import ppi_tpu_torch.envs.physics.rollout_kernel as rk
+    calls = []
+    real = rk.env_step
+
+    def spy(env_, state_, action_, plain=False):
+        calls.append(plain)
+        return real(env_, state_, action_, plain)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(rk, "env_step", spy)
+        assert_kernel_step_is_the_eager_step(env, state, q, action)
+    assert calls == [False, True]
+
+
 def assert_objective_costs_match(env, state, acts, rew_ref):
     """``kernel_mpc_objective`` from ``state`` (all lanes at its posture)
     against the reference rewards, whole and with the last step masked."""
@@ -271,12 +289,13 @@ def assert_observe_and_success_match(jenv, env, state_cls, cases):
         assert bool(env.success(st)) == bool(jenv.success(jst)) == want
 
 
-def run_on_cpu(argv, action_dim, timesteps=2, success_test=True):
+def run_on_cpu(argv, action_dim, timesteps=2, success_test=True,
+               horizon=3):
     """The port's runner on the CPU at a tiny size; ``success_test``: the
     env has one (else the runner reports None)."""
     from ppi_tpu_torch.runners import run_mpc
     args = run_mpc.build_parser().parse_args(
-        argv + ["--horizon", "3", "--timesteps", str(timesteps),
+        argv + ["--horizon", str(horizon), "--timesteps", str(timesteps),
                 "--n-warmstart-iters", "1", "--device", "cpu", "MonteCarlo",
                 "--n-samples", "6"])
     ret, success, track = run_mpc.main(args)
