@@ -169,6 +169,33 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 exactly 1250 launches and a finite return (nail depth,
                 lifted and success printed, success not required: the JAX
                 package's rate is 0).
+ 29. check   -- the sharded entry (``sharded_pallas_mpc_objective``): one
+                spawned group of 4 ranks sharing the card over gloo (the
+                counterpart of the JAX package's virtual devices), started
+                once for phases 29-31, and a 1-rank nccl group; door-v0's
+                body is built here before either starts. At N=1000 (250
+                lanes a rank, ragged), H=20: the sharded kernel objective
+                bit-identical to the unsharded launch, within TOL of the
+                plain version, a NaN lane in rank 2's shard alone, the
+                horizon mask, N=1002 raising "divide", exactly one launch
+                a rank per call, every rank's costs identical;
+ 30. timings -- ``studies/mesh_megakernel_bench.py``'s configuration
+                (door-v0, SE with lengthscale 4 dt, Lbps delta 0.9, H=160,
+                N=16384): ms per synced PPI iteration unsharded, on the 4
+                gloo ranks and on the 1 nccl rank; each rank's kernel ms on
+                its 4096 lanes (CUDA events, one rank at a time); the
+                all_reduce ms of the (N,) costs; the plain sharded
+                objective at H=20. Four processes time-slice one card (no
+                MPS): the 4-rank time measures overhead, not scale-out;
+ 31. episodes -- phase 4's canonical door-v0 episode through
+                ``Mpc(mesh=make_mesh(4))``: phase 4's return to the last
+                printed digit, the door open, exactly 800 launches a rank
+                (550 planning + 250 real steps, each rank stepping its own
+                replica), every rank's final policy state bit-identical to
+                rank 0's; two T=20 door-v0 episodes on
+                ``make_multislice_mesh(2, 2)`` (``mesh_axis=("slices",
+                "samples")`` and ``"samples"``), each the unsharded T=20
+                return with exactly 110 launches a rank.
 Then one JSON line with the kernels' numbers and, last, the device line.
 All numbers also go to chip_smoke.json in the output directory.
 """
@@ -404,6 +431,25 @@ ADROIT = {
                  "400", "--horizon", "30"],
         launches=50 + 400 * 2 + 400, success=False),
 }
+
+
+# phases 29-31: the sharded entry. The check's NaN lane lies in rank 2's
+# shard (lanes 500-749 of N_CHECK); the timing runs the configuration of
+# ``studies/mesh_megakernel_bench.py`` ("the 16k+-sample sweep"); its plain
+# version is timed at H=20 (one eager op per scalar op: ~13 s at H=160).
+MESH_RANKS = 4
+MESH_NAN_LANE = 600
+N_MESH, H_MESH, H_MESH_PLAIN, MESH_ITERS = 16384, 160, 20, 10
+# phase 4's canonical door-v0 episode (``make mpc-lbps``) at T timesteps
+DOOR_ARGS = ["Lbps", "door-v0", "SquaredExponentialKernel", "--delta", "0.9",
+             "--n-iters", "2", "--anneal", "0.5", "--lengthscale", "0.08",
+             "--horizon", "30"]
+
+
+def door_args(timesteps, device="cuda"):
+    return DOOR_ARGS + ["--timesteps", str(timesteps),
+                        "--n-warmstart-iters", "50", "--seed", "0",
+                        "--device", device, "MonteCarlo", "--n-samples", "64"]
 
 
 def check(cond, msg):
@@ -1283,6 +1329,276 @@ def run_episode(args_list, n_samples, seed=0, final=None):
     return ret, success, wall, LAUNCHES["rollout"]
 
 
+def same_bits(a, b):
+    """Bit-identical float32 tensors (NaN lanes included)."""
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def time_ppi(door, s0, objective, n, horizon, iters):
+    """ms per synced PPI iteration (sample -> rollout -> LBPS update) with
+    the SE prior (lengthscale 4 dt) and ``objective`` on ``s0``'s device;
+    returns (ms, last stats)."""
+    from ppi_tpu_torch.algorithms import make_solver
+    from ppi_tpu_torch.algorithms.base import _one_iteration
+    from ppi_tpu_torch.policies import design_moments, make_policy
+    dev = s0.physics.qpos.device
+    mean, cov_in, cov_out = design_moments(door.action_low, door.action_high,
+                                           ratio=1000.0)
+    family, policy = make_policy(
+        "SquaredExponentialKernel", door.dt * torch.arange(horizon),
+        door.action_dim, mean, cov_in, cov_out, lengthscale=4 * door.dt,
+        lower=door.action_low, upper=door.action_high, device=dev)
+    step = _one_iteration(make_solver("Lbps", delta=0.9), family, objective,
+                          n)
+    gen = torch.Generator(dev).manual_seed(0)
+    state = policy
+    for _ in range(3):
+        state, (stats, _, _) = step(state, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, (stats, _, _) = step(state, gen)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters, stats
+
+
+def plain_sharded_costs(door, s0, mesh, acts, mask=None):
+    """The plain version of the sharded kernel objective: this rank's shard
+    through the eager rollout, gathered as the kernel objective gathers."""
+    from ppi_tpu_torch.envs.base import risk_aggregate
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    from ppi_tpu_torch.parallel import gather_costs, shard_bounds
+    n = acts.shape[0]
+    lo, hi = shard_bounds(n, mesh)
+    rew = rk.env_plain_rollout(door, s0, *lanes(s0, hi - lo), acts[lo:hi])[0]
+    return gather_costs(risk_aggregate(rew, mask), n, mesh)
+
+
+def mesh_phases(rank, cfg):
+    """Phases 29-31 on one rank of a spawned group
+    (``ppi_tpu_torch.parallel.spawn``); rank 0 returns what the parent
+    checks and prints. ``cfg``: the check's actions and mask, the episodes'
+    runner arguments, and whether to run phase 31 (the 4-rank group) or
+    phases 29-30 only (the 1-rank nccl group)."""
+    import torch.distributed as dist
+    from ppi_tpu_torch.build import LAUNCHES
+    from ppi_tpu_torch.envs.door import Door
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    from ppi_tpu_torch.parallel import (
+        make_mesh, make_multislice_mesh, shard_bounds)
+    from ppi_tpu_torch.parallel.mesh import per_rank, replicas_agree
+    from ppi_tpu_torch.runners import run_mpc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(device=cfg["device"])
+    dev, w = mesh.device, mesh.size()
+    door = Door(fixed_scene=True)
+    s0 = door.reset(None, dev)
+    out = {"backend": mesh.backend, "ranks": w}
+
+    # ---- 29. the sharded objective against the unsharded one -------------
+    acts = torch.from_numpy(cfg["acts"]).to(dev)
+    mask = torch.from_numpy(cfg["mask"]).to(dev)
+    bad = acts.clone()
+    bad[MESH_NAN_LANE, 0, 0] = torch.nan
+    f = rk.sharded_kernel_mpc_objective(door, s0, H_CHECK, mesh)
+    LAUNCHES.clear()
+    costs, nan = f(None, acts), f(None, bad)
+    masked = rk.sharded_kernel_mpc_objective(door, s0, H_CHECK, mesh,
+                                             mask)(None, acts)
+    launches = per_rank(LAUNCHES["rollout"], mesh)
+    divide = None
+    try:
+        f(None, torch.cat([acts, acts[:2]]))
+    except ValueError as e:
+        divide = str(e)
+    plain = plain_sharded_costs(door, s0, mesh, acts)
+    out["check"] = dict(
+        costs=costs.cpu(), nan=nan.cpu(), masked=masked.cpu(),
+        plain=plain.cpu(), launches=launches, divide=divide,
+        agree=replicas_agree([costs, nan, masked, plain], mesh))
+
+    # ---- 30. timings at N=16384, H=160 ------------------------------------
+    lo, hi = shard_bounds(N_MESH, mesh)
+    dist.barrier()
+    ppi_ms, stats = time_ppi(door, s0, rk.sharded_kernel_mpc_objective(
+        door, s0, H_MESH, mesh), N_MESH, H_MESH, MESH_ITERS)
+    a = 0.4 * torch.randn((hi - lo, H_MESH, door.action_dim), device=dev,
+                          generator=torch.Generator(dev).manual_seed(rank))
+    qn, qdn = lanes(s0, hi - lo)
+    run_ = rk.env_rollout(door, s0, H_MESH)
+    kernel_ms = 0.0
+    for r in range(w):  # one rank at a time: the card to itself
+        if r == rank:
+            kernel_ms = cuda_ms(lambda: run_(qn, qdn, a, dyn=s0.frame), 10)
+        dist.barrier()
+    full = torch.zeros(N_MESH, device=dev)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        dist.all_reduce(full, group=mesh.group())
+    torch.cuda.synchronize()
+    all_reduce_ms = 1e3 * (time.perf_counter() - t0) / 20
+    a_plain = 0.4 * torch.randn((N_MESH, H_MESH_PLAIN, door.action_dim),
+                                device=dev,
+                                generator=torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    plain_sharded_costs(door, s0, mesh, a_plain)
+    torch.cuda.synchronize()
+    out["timings"] = dict(
+        ppi_iter_ms=ppi_ms, ppi_cost_finite=bool(torch.isfinite(
+            stats["mean"])), kernel_ms=per_rank(kernel_ms, mesh),
+        all_reduce_ms=all_reduce_ms,
+        plain_ms=1e3 * (time.perf_counter() - t0))
+
+    # ---- 31. episodes -------------------------------------------------------
+    if cfg["episodes"]:
+        ms = make_multislice_mesh(2, 2, device=cfg["device"])
+        out["episodes"] = {}
+        for key, args_list, m, axis in (
+                ("mesh", cfg["episode"], mesh, "samples"),
+                ("slices_samples", cfg["short"], ms, ("slices", "samples")),
+                ("samples", cfg["short"], ms, "samples")):
+            args = run_mpc.build_parser().parse_args(args_list)
+            agent, carry, env_state = run_mpc.setup(args)
+            agent = dataclasses.replace(agent, mesh=m, mesh_axis=axis)
+            LAUNCHES.clear()
+            dist.barrier()
+            t0 = time.perf_counter()
+            carry, _ = agent.warm_start(carry, env_state,
+                                        args.n_warmstart_iters)
+            carry, env_state, track = agent.run_episode(carry, env_state)
+            torch.cuda.synchronize()
+            out["episodes"][key] = dict(
+                ret=float(track["reward"].sum()),
+                success=bool(agent.env.success(env_state)),
+                wall_s=time.perf_counter() - t0,
+                launches=per_rank(LAUNCHES["rollout"], mesh),
+                agree=replicas_agree([carry.policy, track["action"],
+                                      env_state.physics.qpos], mesh))
+    return out if rank == 0 else None
+
+
+def sharded_phases(door, dev, ret4):
+    """Phases 29-31: the unsharded references in this process (which built
+    door-v0's body in phase 1, so no rank runs nvcc), then one spawned
+    group of 4 ranks (gloo where they share the card) and one 1-rank nccl
+    group running ``mesh_phases``. ``ret4`` is phase 4's return. Returns
+    (the numbers for chip_smoke.json, the kernels line's entry)."""
+    from ppi_tpu_torch.envs.base import risk_aggregate
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    from ppi_tpu_torch.parallel import launch, spawn
+    rng = np.random.default_rng(29)
+    acts = torch.from_numpy((0.4 * rng.standard_normal(
+        (N_CHECK, H_CHECK, door.action_dim))).astype(np.float32)).to(dev)
+    mask = (torch.arange(H_CHECK, device=dev) < H_CHECK - 5).float()
+    s0 = door.reset(None, dev)
+    c_full = rk.kernel_mpc_objective(door, s0, H_CHECK)(None, acts).cpu()
+    c_mask = rk.kernel_mpc_objective(door, s0, H_CHECK, mask)(
+        None, acts).cpu()
+    c_plain = risk_aggregate(rk.env_plain_rollout(
+        door, s0, *lanes(s0, N_CHECK), acts)[0]).cpu()
+    ret20, _, _, got20 = run_episode(DOOR_ARGS + ["--timesteps", "20"], 64)
+    check(got20 == 110, f"unsharded T=20 episode: {got20} launches")
+    a = torch.from_numpy((0.4 * rng.standard_normal(
+        (N_MESH, H_MESH, door.action_dim))).astype(np.float32)).to(dev)
+    qn, qdn = lanes(s0, N_MESH)
+    r = rk.env_rollout(door, s0, H_MESH)
+    shard = N_MESH // MESH_RANKS
+    mesh_t = {
+        "unsharded_kernel_ms": cuda_ms(
+            lambda: r(qn, qdn, a, dyn=s0.frame), 10),
+        f"unsharded_kernel_ms_N{shard}": cuda_ms(
+            lambda: r(qn[:shard], qdn[:shard], a[:shard], dyn=s0.frame), 10),
+        "unsharded_ppi_iter_ms": time_ppi(
+            door, s0, rk.kernel_mpc_objective(door, s0, H_MESH), N_MESH,
+            H_MESH, MESH_ITERS)[0]}
+    mesh_t["bound_ms_shard"], mesh_bound_by = rollout_bound(door, shard,
+                                                            H_MESH)
+    mesh_t["bound_ms_batch"] = rollout_bound(door, N_MESH, H_MESH)[0]
+    cfg = dict(device="cuda", acts=acts.cpu().numpy(),
+               mask=mask.cpu().numpy(), episode=door_args(250),
+               short=door_args(20), episodes=True)
+    t0 = time.perf_counter()
+    groups = {"4 ranks": spawn(mesh_phases, MESH_RANKS, cfg)}
+    groups["1 rank"] = spawn(mesh_phases, 1, dict(cfg, episodes=False))
+    mesh_s = time.perf_counter() - t0
+
+    mesh_max_abs = None
+    for label, res in groups.items():
+        c, w = res["check"], res["ranks"]
+        tag = f"{label}, {res['backend']}"
+        check(res["backend"] == launch.backend_for("cuda", w),
+              f"{tag}: backend")
+        others = torch.arange(N_CHECK) != MESH_NAN_LANE
+        errs = {"plain": rel_err(c["costs"], c_plain),
+                "plain_sharded": rel_err(c["plain"], c_plain)}
+        check(same_bits(c["costs"], c_full),
+              f"{tag}: sharded costs differ from the unsharded launch")
+        check(same_bits(c["masked"], c_mask), f"{tag}: masked costs")
+        check(max(errs.values()) <= TOL, f"{tag}: vs plain {errs} > {TOL}")
+        check(bool(torch.isnan(c["nan"][MESH_NAN_LANE]))
+              and same_bits(c["nan"][others], c_full[others]),
+              f"{tag}: a NaN lane must go NaN alone")
+        # N_CHECK + 2 divides over 1 rank, not over 4
+        check((c["divide"] is not None and "divide" in c["divide"])
+              == (w == MESH_RANKS),
+              f"{tag}: N={N_CHECK + 2} raised {c['divide']!r}")
+        check(c["launches"] == [3.0] * w,
+              f"{tag}: launches per rank {c['launches']}, expected 3 each")
+        check(c["agree"], f"{tag}: ranks gathered different costs")
+        if w == MESH_RANKS:
+            mesh_max_abs = float((c["costs"] - c_full).abs().max())
+        print(f"check sharded ({tag}): N={N_CHECK} H={H_CHECK}, "
+              f"{N_CHECK // w} lanes a rank: costs and masked costs "
+              f"bit-identical to the unsharded launch; vs plain "
+              f"{json.dumps(errs)} (tol {TOL}); NaN lane {MESH_NAN_LANE} "
+              f"alone; N={N_CHECK + 2}: {c['divide']!r}; launches per rank "
+              f"{c['launches']}; every rank's costs identical", flush=True)
+
+    for label, res in groups.items():
+        t = res["timings"]
+        check(t["ppi_cost_finite"], f"{label}: PPI iteration cost not finite")
+        mesh_t[f"{label}"] = t
+    print(f"timings sharded (door-v0 N={N_MESH} H={H_MESH}, Lbps + SE 4dt): "
+          f"{json.dumps(mesh_t)}; 4 processes time-slice one card (no MPS): "
+          f"the 4-rank time measures overhead, not scale-out", flush=True)
+
+    episodes_m = groups["4 ranks"]["episodes"]
+    e = episodes_m["mesh"]
+    check(f"{e['ret']:.2f}" == f"{ret4:.2f}",
+          f"mesh episode return {e['ret']!r}, phase 4 {ret4!r}")
+    check(e["success"], "mesh episode: door not open")
+    check(e["launches"] == [800.0] * MESH_RANKS,
+          f"mesh episode launches per rank {e['launches']}, expected 800")
+    check(e["agree"], "mesh episode: the ranks' final policy states differ")
+    for key in ("slices_samples", "samples"):
+        m = episodes_m[key]
+        check(f"{m['ret']:.2f}" == f"{ret20:.2f}",
+              f"multislice {key}: return {m['ret']!r}, unsharded {ret20!r}")
+        check(m["launches"] == [110.0] * MESH_RANKS,
+              f"multislice {key}: launches per rank {m['launches']}")
+        check(m["agree"], f"multislice {key}: the ranks' states differ")
+    print(f"episodes sharded: {json.dumps(episodes_m)}; phase 4 return "
+          f"{ret4!r} (exact: {e['ret'] == ret4}), unsharded T=20 "
+          f"{ret20!r}; both spawned groups {mesh_s:.1f} s", flush=True)
+    kernel = {
+        "name": "door_sharded_rollout", "route": "cuda",
+        "source": "ppi_tpu_torch/csrc/rollout.cu",
+        "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:322",
+        "launches": int(sum(e["launches"])), "max_abs_err": mesh_max_abs,
+        "ms": float(np.mean(mesh_t["4 ranks"]["kernel_ms"])),
+        "plain_ms": mesh_t["4 ranks"]["plain_ms"],
+        "bound_ms": mesh_t["bound_ms_shard"], "bound_by": mesh_bound_by,
+        "library_ms": None}
+    return dict(mesh_timings=mesh_t, mesh_episodes=episodes_m,
+                mesh_max_abs_err=mesh_max_abs, mesh_s=mesh_s), kernel
+
+
 def main():
     # one nvcc for each source, all started together
     with ThreadPoolExecutor(max_workers=22) as pool:
@@ -1317,7 +1633,6 @@ def run(pool):
     from ppi_tpu_torch.ops import m_projection
     from ppi_tpu_torch.ops.cuda_ops import (
         m_projection_cuda, m_projection_plain)
-    from ppi_tpu_torch.policies import design_moments, make_policy
     from ppi_tpu_torch.policies.gaussian import Gaussian
     from ppi_tpu_torch.runners import run_mpc, run_opt
     from ppi_tpu_torch.runners.run_mpc import ENVS
@@ -1427,36 +1742,14 @@ def run(pool):
     torch.cuda.synchronize()
     timings["plain_ms_N1024_H160"] = 1e3 * (time.perf_counter() - t0)
 
-    mean, cov_in, cov_out = design_moments(door.action_low, door.action_high,
-                                           ratio=1000.0)
-    family, policy = make_policy(
-        "SquaredExponentialKernel", door.dt * torch.arange(160),
-        door.action_dim, mean, cov_in, cov_out, lengthscale=4 * door.dt,
-        lower=door.action_low, upper=door.action_high, device=dev)
-    step = _one_iteration(make_solver("Lbps", delta=0.9), family,
-                          rk.kernel_mpc_objective(door, s0, 160), 1024)
-    gen = torch.Generator(dev).manual_seed(0)
-    state = policy
-    for _ in range(3):
-        state, (stats, _, _) = step(state, gen)
-    torch.cuda.synchronize()
-    iters = 20
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        state, (stats, _, _) = step(state, gen)
-    torch.cuda.synchronize()
-    timings["ppi_iter_ms_N1024_H160"] = (1e3 * (time.perf_counter() - t0)
-                                         / iters)
+    timings["ppi_iter_ms_N1024_H160"], stats = time_ppi(
+        door, s0, rk.kernel_mpc_objective(door, s0, 160), 1024, 160, 20)
     check(bool(torch.isfinite(stats["mean"])), "PPI iteration cost not finite")
     print(f"timings: {json.dumps(timings)}", flush=True)
     out.update(timings=timings)
 
     # ---- 4. the canonical episode ----------------------------------------------
-    args = run_mpc.build_parser().parse_args([
-        "Lbps", "door-v0", "SquaredExponentialKernel", "--delta", "0.9",
-        "--n-iters", "2", "--anneal", "0.5", "--lengthscale", "0.08",
-        "--horizon", "30", "--timesteps", "250", "--n-warmstart-iters", "50",
-        "--seed", "0", "--device", "cuda", "MonteCarlo", "--n-samples", "64"])
+    args = run_mpc.build_parser().parse_args(door_args(250))
     LAUNCHES.clear()
     t0 = time.perf_counter()
     ret, success, track = run_mpc.main(args)
@@ -1907,8 +2200,11 @@ def run(pool):
         if cfg["success"]:
             check(success, f"{name}: no success at seed 0 (return "
                   f"{ret:.2f})")
-    out.update(adroit_episodes=adroit_episodes,
-               total_s=time.perf_counter() - t_start)
+    out.update(adroit_episodes=adroit_episodes)
+
+    # ---- 29-31. the sharded entry: 4 ranks on the card, 1 nccl rank --------
+    mesh_out, mesh_kernel = sharded_phases(door, dev, out["episode_return"])
+    out.update(mesh_out, total_s=time.perf_counter() - t_start)
     print(f"total: {out['total_s']:.0f} s, the kernels' builds included",
           flush=True)
 
@@ -2001,6 +2297,7 @@ def run(pool):
              "plain_ms": t[f"plain_ms_N{n}_H{h}"],
              "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
              "library_ms": None})
+    kernels.append(mesh_kernel)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -50,6 +50,7 @@ from ppi_tpu_torch.build import LAUNCHES, build_library, load_function
 from ppi_tpu_torch.envs.base import risk_aggregate
 from ppi_tpu_torch.envs.physics import scalar_math as sm
 from ppi_tpu_torch.envs.physics.engine_soa import SoaModel, substep_soa
+from ppi_tpu_torch.parallel.mesh import gather_costs, shard_bounds
 
 # ---- code generation -------------------------------------------------------
 
@@ -463,3 +464,34 @@ def kernel_mpc_objective(env, state0, horizon: int, horizon_mask=None,
 
     return f
 
+
+def sharded_kernel_mpc_objective(env, state0, horizon: int, mesh,
+                                 horizon_mask=None, block: int = 128,
+                                 axis="samples", risk_quantile: float = 1.0,
+                                 risk_weight: float = 0.0):
+    """Counterpart of ``sharded_pallas_mpc_objective``: every rank holds
+    the same (N, H, da) actions and launches the rollout kernel once on its
+    shard of the sample axis (``parallel.mesh.shard_bounds``: N/W lanes),
+    reduces the shard's rewards with ``risk_aggregate`` and gathers the
+    full (N,) costs (``parallel.mesh.gather_costs``). The kernel's lanes
+    are independent, so the costs equal ``kernel_mpc_objective``'s bit for
+    bit. On CPU tensors each shard runs the plain rollout. N must divide
+    evenly over the axis."""
+    if not supports_kernel(env):
+        raise ValueError(f"{env!r} does not implement the scalar kernel "
+                         "contract (scalar_torque/scalar_reward)")
+    consts, _, dyn = kernel_operands(env, state0)
+    run = env_rollout(env, state0, horizon, block)
+    q0, qd0 = state0.physics.qpos, state0.physics.qvel
+
+    def f(generator, action_sequences):
+        del generator
+        n = action_sequences.shape[0]
+        lo, hi = shard_bounds(n, mesh, axis)
+        rewards, _, _ = run(q0.expand(hi - lo, -1), qd0.expand(hi - lo, -1),
+                            action_sequences[lo:hi], consts=consts, dyn=dyn)
+        return gather_costs(risk_aggregate(rewards, horizon_mask,
+                                           risk_quantile, risk_weight),
+                            n, mesh, axis)
+
+    return f

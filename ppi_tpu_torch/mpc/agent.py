@@ -12,6 +12,12 @@ the contract (which has no kernel in either package), the eager objective
 runs (``mpc_objective``). Both reduce the (N, H) rewards with
 ``risk_aggregate``. The loop reads nothing back from the device: the no-op
 window shift is decided from the integer time index in the carry.
+
+With a ``mesh`` (``ppi_tpu_torch.parallel``, the reference's ``mesh``),
+each rank runs this agent as a replica and only the rollout is split over
+the mesh axis: ``sharded_kernel_mpc_objective`` on a CUDA device for an env
+with the kernel contract, the eager ``sharded_mpc_objective`` otherwise.
+The port has no ``use_pallas``: it routes by device.
 """
 
 import dataclasses
@@ -22,7 +28,8 @@ import torch
 from ppi_tpu_torch.algorithms.base import _one_iteration
 from ppi_tpu_torch.envs.base import mpc_objective
 from ppi_tpu_torch.envs.physics.rollout_kernel import (
-    kernel_mpc_objective, supports_kernel)
+    kernel_mpc_objective, sharded_kernel_mpc_objective, supports_kernel)
+from ppi_tpu_torch.parallel.mesh import sharded_mpc_objective
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +58,13 @@ class Mpc:
     risk_quantile: float = 1.0  # CVaR quantile over per-step costs
     risk_weight: float = 0.0    # blend weight of the CVaR term; 0 = plain
                                 # -sum(rewards) (envs.base.risk_aggregate)
+    mesh: Any = None          # parallel.Mesh -> shard the sample axis
+    mesh_axis: Any = "samples"  # mesh axis name, or a tuple for hierarchical
+                              # multi-slice sharding (("slices", "samples"))
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            self.mesh.check_device(self.device)
 
     @property
     def dt(self) -> float:
@@ -75,8 +89,16 @@ class Mpc:
         mask = self.horizon_mask(time_index)
         risk = dict(risk_quantile=self.risk_quantile,
                     risk_weight=self.risk_weight)
-        if torch.device(self.device).type == "cuda" \
-                and supports_kernel(self.env):
+        kernel = torch.device(self.device).type == "cuda" \
+            and supports_kernel(self.env)
+        if self.mesh is not None:
+            if kernel:
+                return sharded_kernel_mpc_objective(
+                    self.env, env_state, self.horizon, self.mesh, mask,
+                    axis=self.mesh_axis, **risk)
+            return sharded_mpc_objective(self.env, env_state, self.mesh,
+                                         mask, axis=self.mesh_axis, **risk)
+        if kernel:
             return kernel_mpc_objective(self.env, env_state, self.horizon,
                                         mask, **risk)
         return mpc_objective(self.env, env_state, mask, **risk)

@@ -523,3 +523,26 @@ def test_essps_control_step_never_waits_for_the_card(policy):
     torch.cuda.synchronize()
     assert rk.LAUNCHES["rollout"] == before + 2
     assert bool(torch.isfinite(state.physics.qpos).all())
+
+
+# ---- the sharded entry -----------------------------------------------------------
+
+@pytest.mark.parametrize("n_ranks", [4, 1])
+def test_sharded_kernel_objective_equals_unsharded(n_ranks, tmp_path):
+    """4 ranks (gloo where they share a card) and 1 rank (nccl), 250 and
+    1000 lanes a rank, ragged against the 128-lane block: the gathered
+    costs equal one unsharded launch's bit for bit, one launch a rank."""
+    dev = _device()
+    from ppi_tpu_torch.parallel import launch, spawn
+    import torch_mesh_ranks
+    door = Door(fixed_scene=True)
+    s0 = door.reset(None, dev)
+    acts = _acts(dev, 1000)
+    # builds the body before the ranks start: no rank runs nvcc
+    ref = rk.kernel_mpc_objective(door, s0, H)(None, acts)
+    got = spawn(torch_mesh_ranks.card_objective_case, n_ranks,
+                acts.cpu().numpy(), H, workdir=tmp_path)
+    assert got["backend"] == launch.backend_for("cuda", n_ranks)
+    assert got["launches"] == [1.0] * n_ranks
+    assert got["agree"]
+    assert torch.equal(torch.from_numpy(got["costs"]), ref.cpu())

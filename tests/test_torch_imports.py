@@ -57,6 +57,9 @@ SLICE_MODULES = [
     "ppi_tpu_torch.algorithms",
     "ppi_tpu_torch.mpc",
     "ppi_tpu_torch.mpc.metrics",
+    "ppi_tpu_torch.parallel",
+    "ppi_tpu_torch.parallel.launch",
+    "ppi_tpu_torch.parallel.mesh",
     "ppi_tpu_torch.utils",
     "ppi_tpu_torch.runners.run_mpc",
     "ppi_tpu_torch.runners.run_opt",
@@ -93,6 +96,10 @@ def test_entry_points_default_to_the_card():
     assert fields["device"] == "cuda"
     assert inspect.signature(make_policy).parameters["device"].default \
         == "cuda"
+    from ppi_tpu_torch.parallel import (
+        make_mesh, make_multislice_mesh, spawn)
+    for fn in (make_mesh, make_multislice_mesh, spawn):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     # a helper that makes a tensor takes its device from the caller: no
     # default names the CPU
     from ppi_tpu_torch.envs.functions import NoisySphere
