@@ -60,7 +60,8 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 DoF) bodies (variants c and d: the bolt projection) and
                 build them with nvcc in parallel with phases 1, 5 and 9;
                 print each body's line count, nvcc seconds and -Xptxas -v
-                summary;
+                summary. door-v0-adroit plans and steps through the warp
+                layout (phase 32's build) in phases 14-16;
  14. check   -- each body against its plain version on the card at N=1000
                 (ragged), H=20 (door-v0-adroit H=5: its plain rollout is
                 ~200k eager launches a step): rewards and final state from
@@ -143,8 +144,10 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 (what lying still earns);
  25. build   -- generate the pen-v0-adroit (20 DoF), relocate-v0-adroit
                 (24) and hammer-v0-adroit (25) bodies and build them with
-                nvcc first of all twenty-two builds; print each body's line
-                count, nvcc seconds and -Xptxas -v summary;
+                nvcc first of all twenty-two builds (with phase 32's two);
+                print each body's line count, nvcc seconds and -Xptxas -v
+                summary. hammer-v0-adroit plans and steps through the warp
+                layout in phases 26-28;
  26. check   -- each of those bodies against its plain version on the card
                 at N=1000 (ragged), H=3 (the plain version is 191k-465k
                 eager ops a lane step): rewards and final state
@@ -196,12 +199,34 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 ``make_multislice_mesh(2, 2)`` (``mesh_axis=("slices",
                 "samples")`` and ``"samples"``), each the unsharded T=20
                 return with exactly 110 launches a rank.
+ 32. build   -- the warp layout (``csrc/rollout_warp.cu``: one rollout a
+                warp, the mass matrix and the solve spread over its lanes)
+                of door-v0-adroit and hammer-v0-adroit, built with nvcc
+                beside phase 25's bodies; print each body's line count,
+                nvcc seconds, shared memory a rollout and -Xptxas -v
+                summary next to its lane layout's;
+ 33. check   -- on phase 14's and 26's lanes (N=1000, H=5 and H=3): the
+                warp layout bit for bit the plain version and the lane
+                kernel; a NaN lane, a second frame or board with the mask
+                on its costs, bit for bit the lane kernel's; N=1000 in
+                blocks of 3 rollouts (ragged) into outputs padded with a
+                sentinel past N that must stay; the real step (N=1, H=1)
+                bit for bit ``plain_step`` and the lane kernel;
+ 34. timings -- CUDA events at N=64/H=30 (door-v0-adroit), N=128/H=30
+                (hammer-v0-adroit) and N=1024: the lane layout at 128, 32,
+                8 and 1 threads a block, the warp layout; the real step
+                and a synced PPI iteration (Lbps, SE 4dt) in both layouts;
+                then phase 16's and 28's seed-0 episodes once more through
+                the lane layout: exactly 800 and 1250 launches of it, the
+                returns equal the warp layout's, the door open.
 Then one JSON line with the kernels' numbers and, last, the device line.
 All numbers also go to chip_smoke.json in the output directory.
 """
 
+import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -432,6 +457,19 @@ ADROIT = {
         launches=50 + 400 * 2 + 400, success=False),
 }
 
+
+# phases 32-34: the warp layout (csrc/rollout_warp.cu), through which
+# door-v0-adroit and hammer-v0-adroit plan and step (phases 13-16 and
+# 25-28 run it). Per env: the canonical kernel shape, phase 16's or 28's
+# return and launches come from, the env's class (whose layout phase 34
+# sets to "lane" for its second episode). The lane layout is timed at each
+# of LANE_BLOCKS threads a block; SENTINEL_WARPS rollouts a block leave
+# N_CHECK ragged for the sentinel check.
+WARP = {"door-v0-adroit": dict(shape=(64, 30)),
+        "hammer-v0-adroit": dict(shape=(128, 30))}
+LANE_BLOCKS = (128, 32, 8, 1)
+SENTINEL, SENTINEL_WARPS, SENTINEL_PAD = -12345.0, 3, 64
+CHECKED = {}   # phases 14 and 26 keep their inputs and outputs here
 
 # phases 29-31: the sharded entry. The check's NaN lane lies in rank 2's
 # shard (lanes 500-749 of N_CHECK); the timing runs the configuration of
@@ -718,6 +756,10 @@ def check_hand(name, env, dev):
     rew, qf, qdf = run(q0, qd0, acts, dyn=s0.frame)
     rew_p, qf_p, qdf_p = rk.env_plain_rollout(env, s0, q0, qd0, acts)
     torch.cuda.synchronize()
+    CHECKED[name] = dict(s0=s0, q0=q0, qd0=qd0, acts=acts, h_frame=H_FRAME,
+                         s1=env.reset(torch.Generator(dev).manual_seed(2),
+                                      dev),
+                         out=(rew, qf, qdf), plain=(rew_p, qf_p, qdf_p))
     errs = {"rewards": rel_err(rew, rew_p), "qf": rel_err(qf, qf_p),
             "qdf": rel_err(qdf, qdf_p)}
     max_abs = max(float((a - b).abs().max())
@@ -953,6 +995,9 @@ def check_scene(name, env, dev, table=None, lanes_fn=None, state_fn=None):
     rew, qf, qdf = run(q0, qd0, acts, consts=consts, dyn=dyn)
     rew_p, qf_p, qdf_p = rk.env_plain_rollout(env, s0, q0, qd0, acts)
     torch.cuda.synchronize()
+    CHECKED[name] = dict(s0=s0, q0=q0, qd0=qd0, acts=acts, h_frame=h_frame,
+                         s1=state_fn(env, name, dev, 1), out=(rew, qf, qdf),
+                         plain=(rew_p, qf_p, qdf_p))
     errs = {"rewards": rel_err(rew, rew_p), "qf": rel_err(qf, qf_p),
             "qdf": rel_err(qdf, qdf_p)}
     max_abs = max(float((a - b).abs().max())
@@ -1303,10 +1348,11 @@ def rest_gate(name, env, ret, success, state, timesteps):
     return np.isfinite(ret) and ret > 0.0, {}
 
 
-def run_episode(args_list, n_samples, seed=0, final=None):
+def run_episode(args_list, n_samples, seed=0, final=None, key="rollout"):
     """One episode through the port's run_mpc; (return, success, wall s,
     kernel launches). ``final(env_state, row)`` sees the last control
-    step."""
+    step. ``key`` is the layout's launch counter (``rk.LAUNCH_KEYS``): the
+    episode must launch the other layout's kernel no time."""
     from ppi_tpu_torch.build import LAUNCHES
     from ppi_tpu_torch.runners import run_mpc
     args = run_mpc.build_parser().parse_args(
@@ -1326,7 +1372,10 @@ def run_episode(args_list, n_samples, seed=0, final=None):
     wall = time.perf_counter() - t0
     check(bool(torch.isfinite(track["action"]).all()),
           f"{args.env}: episode actions not finite")
-    return ret, success, wall, LAUNCHES["rollout"]
+    other = sum(v for k, v in LAUNCHES.items()
+                if k.startswith("rollout") and k != key)
+    check(other == 0, f"{args.env}: {other} launches of the other layout")
+    return ret, success, wall, LAUNCHES[key]
 
 
 def same_bits(a, b):
@@ -1599,9 +1648,193 @@ def sharded_phases(door, dev, ret4):
                 mesh_max_abs_err=mesh_max_abs, mesh_s=mesh_s), kernel
 
 
+def warp_header(env):
+    """The warp layout's generated body for ``env``."""
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    state = env.reset(torch.Generator().manual_seed(0), "cpu")
+    return rk.generate_warp_header(*rk.body_args(env, state))
+
+
+@contextlib.contextmanager
+def layout_of(env_cls, layout):
+    """``env_cls`` plans and steps through ``layout`` inside the block."""
+    saved = env_cls.__dict__.get("scalar_kernel_layout")
+    env_cls.scalar_kernel_layout = layout
+    try:
+        yield
+    finally:
+        if saved is None:
+            del env_cls.scalar_kernel_layout
+        else:
+            env_cls.scalar_kernel_layout = saved
+
+
+def padded_launch(run, q0, qd0, acts, consts, dyn, size):
+    """One launch of ``run``'s kernel (``run.load()``) with ``size``
+    threads (lane) or rollouts (warp) a block, into output buffers
+    SENTINEL_PAD floats longer than the N rollouts fill, prefilled with
+    SENTINEL: (rewards, qf, qdf, whether every pad kept its sentinel)."""
+    fn = run.load()
+    n, h = acts.shape[0], acts.shape[1]
+    nq = q0.shape[1]
+    dev = acts.device
+    ins = [q0.t().contiguous(), qd0.t().contiguous(),
+           acts.permute(1, 2, 0).contiguous()]
+    outs = [torch.full((k * n + SENTINEL_PAD,), SENTINEL, device=dev)
+            for k in (h, nq, nq)]
+    ptr = lambda x: None if x is None else x.data_ptr()
+    err = fn(*[x.data_ptr() for x in ins], ptr(dyn), ptr(consts),
+             *[x.data_ptr() for x in outs], n, h, size,
+             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    check(err == 0, f"padded launch: CUDA error {err}")
+    kept = all(bool((x[-SENTINEL_PAD:] == SENTINEL).all()) for x in outs)
+    return (outs[0][:h * n].view(h, n).t(), outs[1][:nq * n].view(nq, n).t(),
+            outs[2][:nq * n].view(nq, n).t(), kept)
+
+
+def check_warp(name, env, dev):
+    """Phase 33 for one env, on phase 14's or 26's lanes and plain results:
+    the warp layout bit for bit the plain version and the lane layout; a
+    NaN lane, a second frame or board (and the mask on its costs), the
+    sentinels past N, the real step. Returns (report, max abs error of the
+    warp and of the lane layout against plain)."""
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    c = CHECKED[name]
+    s0, q0, qd0, acts = c["s0"], c["q0"], c["qd0"], c["acts"]
+    h = acts.shape[1]
+    consts, _, dyn = rk.kernel_operands(env, s0)
+    lane_run = rk.env_rollout(env, s0, h, layout="lane")
+    warp_run = rk.env_rollout(env, s0, h)
+    check(warp_run.layout == "warp", f"{name}: routed to {warp_run.layout}")
+    lane = lane_run(q0, qd0, acts, consts=consts, dyn=dyn)
+    torch.cuda.synchronize()
+    warp, plain = c["out"], c["plain"]
+    rep = {"warp_equals_plain": all(same_bits(a, b)
+                                    for a, b in zip(warp, plain)),
+           "warp_equals_lane": all(same_bits(a, b)
+                                   for a, b in zip(warp, lane)),
+           "lane_equals_plain": all(same_bits(a, b)
+                                    for a, b in zip(lane, plain))}
+    err = {lay: max(float((a - b).abs().max()) for a, b in zip(out, plain))
+           for lay, out in (("warp", warp), ("lane", lane))}
+    check(rep["warp_equals_lane"], f"{name}: warp layout differs from the "
+          "lane layout")
+    check(err["warp"] <= 1e-6 * (1.0 + max(float(x.abs().max())
+                                            for x in plain)),
+          f"{name}: warp layout vs plain {err['warp']}")
+
+    q0_bad = q0.clone()
+    q0_bad[3] = torch.nan
+    bad = [r(q0_bad, qd0, acts, consts=consts, dyn=dyn)[0]
+           for r in (warp_run, lane_run)]
+    keep = torch.arange(q0.shape[0], device=dev) != 3
+    rep["nan_lane"] = (bool(torch.isnan(bad[0][3]).all())
+                       and same_bits(bad[0][keep], warp[0][keep])
+                       and same_bits(bad[0], bad[1]))
+    check(rep["nan_lane"], f"{name}: a NaN lane must go NaN alone")
+
+    s1, hf = c["s1"], c["h_frame"]
+    a = acts[:, :hf].contiguous()
+    q1, qd1 = lanes(s1, q0.shape[0])
+    c1, _, d1 = rk.kernel_operands(env, s1)
+    r1 = [rk.env_rollout(env, s1, hf, layout=lay)(q1, qd1, a, consts=c1,
+                                                  dyn=d1)[0]
+          for lay in ("warp", "lane")]
+    mask = (torch.arange(hf, device=dev) < max(hf - 2, 1)).float()
+    costs = [rk.risk_aggregate(r, mask) for r in r1]
+    rep["second_frame_and_mask"] = (
+        same_bits(r1[0], r1[1]) and same_bits(costs[0], costs[1])
+        and not bool(torch.equal(costs[0], rk.risk_aggregate(r1[0]))))
+    check(rep["second_frame_and_mask"], f"{name}: second frame or board, "
+          "or the mask")
+
+    rew_s, qf_s, qdf_s, kept = padded_launch(warp_run, q0, qd0, acts,
+                                             consts, dyn, SENTINEL_WARPS)
+    rep["sentinels_kept"] = kept and all(
+        same_bits(x, y) for x, y in zip((rew_s, qf_s, qdf_s), warp))
+    check(rep["sentinels_kept"], f"{name}: {q0.shape[0]} rollouts in "
+          f"blocks of {SENTINEL_WARPS}: a write past N, or other bits")
+
+    action = acts[q0.shape[0] // 2, 0]
+    s_k, r_k = env.step(s0, action)
+    q_e, qd_e, r_e = rk.plain_step(env, s0, action)
+    step_lane = rk.env_rollout(env, s0, 1, layout="lane")(
+        s0.physics.qpos[None], s0.physics.qvel[None], action[None, None],
+        consts=consts, dyn=dyn)
+    rep["real_step"] = (same_bits(s_k.physics.qpos, q_e)
+                        and same_bits(s_k.physics.qvel, qd_e)
+                        and same_bits(r_k, r_e)
+                        and same_bits(s_k.physics.qpos, step_lane[1][0]))
+    check(rep["real_step"], f"{name}: warp real step vs plain_step")
+    return rep, err
+
+
+def time_warp(name, env, dev):
+    """Phase 34's timings for one env: the lane layout at each of
+    LANE_BLOCKS and the warp layout, at the canonical shape and at N=1024
+    (CUDA events); the real step in both layouts; a synced PPI iteration
+    (the canonical Lbps, SE 4dt) in both layouts."""
+    from ppi_tpu_torch.algorithms import make_solver
+    from ppi_tpu_torch.algorithms.base import _one_iteration
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    from ppi_tpu_torch.policies import design_moments, make_policy
+    from ppi_tpu_torch.studies.warp_layout import lanes as study_lanes
+    from ppi_tpu_torch.studies.warp_layout import rollout as study_rollout
+    n, h = WARP[name]["shape"]
+    s0 = env.reset(torch.Generator(dev).manual_seed(0), dev)
+    consts, _, dyn = rk.kernel_operands(env, s0)
+    out = {"ops_per_lane_step": rk.ops_per_lane_step(*rk.body_args(
+        env, env.reset(torch.Generator().manual_seed(0), "cpu")))}
+    out[f"bound_ms_N{n}_H{h}"], out["bound_by"] = rollout_bound(env, n, h)
+    for nn in (n, 1024):
+        q0, qd0, acts = study_lanes(env, s0, nn, h, 0.3)
+        iters = 10 if nn == n else 3
+        for block in LANE_BLOCKS:
+            r = study_rollout(env, s0, h, "lane", block)
+            out[f"lane_{block}_ms_N{nn}_H{h}"] = cuda_ms(
+                lambda: r(q0, qd0, acts, consts=consts, dyn=dyn), iters, 1)
+        r = rk.env_rollout(env, s0, h)
+        out[f"warp_ms_N{nn}_H{h}"] = cuda_ms(
+            lambda: r(q0, qd0, acts, consts=consts, dyn=dyn), iters, 1)
+
+    mean, cov_in, cov_out = design_moments(env.action_low, env.action_high,
+                                           ratio=1000.0)
+    family, state = make_policy(
+        "SquaredExponentialKernel", env.dt * torch.arange(h),
+        env.action_dim, mean, cov_in, cov_out, lengthscale=0.08,
+        lower=env.action_low, upper=env.action_high, device=dev)
+    for layout in ("warp", "lane"):
+        with layout_of(type(env), layout):
+            step = _one_iteration(make_solver("Lbps", delta=0.9), family,
+                                  rk.kernel_mpc_objective(env, s0, h), n)
+            gen = torch.Generator(dev).manual_seed(0)
+            st = state
+            for _ in range(2):
+                st, (stats, _, _) = step(st, gen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                st, (stats, _, _) = step(st, gen)
+                torch.cuda.synchronize()
+            out[f"{layout}_ppi_iter_ms_N{n}_H{h}"] = \
+                1e3 * (time.perf_counter() - t0) / 5
+            check(bool(torch.isfinite(stats["mean"])),
+                  f"{name}: PPI iteration cost not finite ({layout})")
+            action = family.predict_mean(st)[0]
+            env.step(s0, action)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                s1, _ = env.step(s0, action)
+            torch.cuda.synchronize()
+            out[f"{layout}_step_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+    return out
+
+
 def main():
     # one nvcc for each source, all started together
-    with ThreadPoolExecutor(max_workers=22) as pool:
+    with ThreadPoolExecutor(max_workers=24) as pool:
         return run(pool)
 
 
@@ -1641,7 +1874,11 @@ def run(pool):
     door = Door(fixed_scene=True)
     t0 = time.perf_counter()
     # phase 25's three bodies are the largest (nvcc ~1 min each): they
-    # start first
+    # start first, with phase 32's two warp-layout bodies
+    warp_bodies = {name: warp_header(ENVS[name]()) for name in WARP}
+    warp_builds = {name: pool.submit(build_timed, "rollout_warp.cu",
+                                     {"env_warp.h": h})
+                   for name, h in warp_bodies.items()}
     bodies = {name: env_header(ENVS[name]()) for name in ADROIT}
     body_builds = {name: pool.submit(build_timed, "rollout.cu",
                                      {"env_body.h": h})
@@ -1968,6 +2205,8 @@ def run(pool):
               f"{secs:.1f} s (in parallel with phases 1-12); ptxas: "
               f"{' | '.join(info['ptxas'])}", flush=True)
 
+    warp_builds["door-v0-adroit"].result()   # phase 14 launches it
+
     # ---- 14. hand bodies: kernel vs plain --------------------------------------
     hand_errs, hand_max_abs = {}, {}
     for name, cfg in HAND.items():
@@ -1993,7 +2232,8 @@ def run(pool):
         runs = []
         for seed in cfg["seeds"]:
             ret, success, wall, got = run_episode(
-                HAND_EPISODE[:1] + [name] + HAND_EPISODE[1:], 64, seed)
+                HAND_EPISODE[:1] + [name] + HAND_EPISODE[1:], 64, seed,
+                key=rk.launch_key(ENVS[name]()))
             runs.append({"seed": seed, "return": ret, "success": success,
                          "wall_s": wall, "launches": got})
             print(f"episode {name} seed {seed}: return {ret:.2f}, success "
@@ -2154,6 +2394,8 @@ def run(pool):
               f"{secs:.1f} s (in parallel with phases 1-24); ptxas: "
               f"{' | '.join(info['ptxas'])}", flush=True)
 
+    warp_builds["hammer-v0-adroit"].result()   # phase 26 launches it
+
     # ---- 26. those bodies: kernel vs plain ----------------------------------
     adroit_errs, adroit_max_abs = {}, {}
     for name, cfg in ADROIT.items():
@@ -2184,8 +2426,9 @@ def run(pool):
         def final(env_state, row, last=last):
             last["state"] = env_state
 
-        ret, success, wall, got = run_episode(cfg["episode"],
-                                              cfg["shape"][0], 0, final)
+        ret, success, wall, got = run_episode(
+            cfg["episode"], cfg["shape"][0], 0, final,
+            key=rk.launch_key(ENVS[name]()))
         run_ = {"seed": 0, "return": ret, "success": success,
                 "wall_s": wall, "launches": got}
         if name == "hammer-v0-adroit":
@@ -2204,7 +2447,75 @@ def run(pool):
 
     # ---- 29-31. the sharded entry: 4 ranks on the card, 1 nccl rank --------
     mesh_out, mesh_kernel = sharded_phases(door, dev, out["episode_return"])
-    out.update(mesh_out, total_s=time.perf_counter() - t_start)
+    out.update(mesh_out)
+
+    # ---- 32. the warp layout's builds -------------------------------------
+    warp_info = {}
+    for name in WARP:
+        lib, secs = warp_builds[name].result()
+        size = re.search(r"#define PPI_SH_SIZE (\d+)", warp_bodies[name])
+        info = {"lines": len(warp_bodies[name].splitlines()), "nvcc_s": secs,
+                "ptxas": ptxas_summary(lib),
+                "shared_bytes_a_rollout": 4 * int(size.group(1))}
+        warp_info[name] = info
+        print(f"warp build {name}: {info['lines']} generated lines, nvcc "
+              f"{secs:.1f} s (in parallel with phase 1), "
+              f"{info['shared_bytes_a_rollout']} B of shared memory a "
+              f"rollout; ptxas: {' | '.join(info['ptxas'])}; the lane "
+              f"layout's: {' | '.join(body_info[name]['ptxas'])}",
+              flush=True)
+    out.update(warp_builds=warp_info)
+
+    # ---- 33. the warp layout: bits against plain and the lane layout ------
+    warp_check, warp_err = {}, {}
+    for name in WARP:
+        warp_check[name], warp_err[name] = check_warp(name, ENVS[name](),
+                                                      dev)
+        h = CHECKED[name]["acts"].shape[1]
+        print(f"check {name} warp layout: N={N_CHECK} H={h} "
+              f"{json.dumps(warp_check[name])}; max abs err against plain: "
+              f"warp {warp_err[name]['warp']:.3g}, lane "
+              f"{warp_err[name]['lane']:.3g}", flush=True)
+    out.update(warp_check=warp_check, warp_max_abs_err=warp_err)
+
+    # ---- 34. timings, and the episodes once more through the lane layout --
+    warp_times = {}
+    for name in WARP:
+        warp_times[name] = time_warp(name, ENVS[name](), dev)
+        print(f"timings {name} (lane layout at blocks {LANE_BLOCKS}, warp "
+              f"layout): {json.dumps(warp_times[name])}", flush=True)
+    out.update(warp_timings=warp_times)
+    lane_episodes = {}
+    for name in WARP:
+        if name == "door-v0-adroit":
+            args_list, n_samples = (HAND_EPISODE[:1] + [name]
+                                    + HAND_EPISODE[1:]), 64
+            warp_run, expected = hand_episodes[name][0], HAND_LAUNCHES
+        else:
+            args_list, n_samples = ADROIT[name]["episode"], \
+                ADROIT[name]["shape"][0]
+            warp_run, expected = adroit_episodes[name], \
+                ADROIT[name]["launches"]
+        with layout_of(type(ENVS[name]()), "lane"):
+            ret, success, wall, got = run_episode(args_list, n_samples, 0,
+                                                  key="rollout")
+        lane_episodes[name] = {"return": ret, "success": success,
+                               "wall_s": wall, "launches": got}
+        print(f"episode {name} seed 0, lane layout: "
+              f"{json.dumps(lane_episodes[name])}; warp layout (phase "
+              f"{16 if name == 'door-v0-adroit' else 28}): return "
+              f"{warp_run['return']!r}, wall {warp_run['wall_s']:.1f} s",
+              flush=True)
+        check(got == expected and warp_run["launches"] == expected,
+              f"{name}: {got} and {warp_run['launches']} launches, expected "
+              f"{expected}")
+        check(ret == warp_run["return"] and success == warp_run["success"],
+              f"{name}: lane layout's return {ret!r} ({success}), warp "
+              f"layout's {warp_run['return']!r} ({warp_run['success']})")
+    check(lane_episodes["door-v0-adroit"]["success"],
+          "door-v0-adroit: the door did not open at seed 0")
+    out.update(lane_episodes=lane_episodes,
+               total_s=time.perf_counter() - t_start)
     print(f"total: {out['total_s']:.0f} s, the kernels' builds included",
           flush=True)
 
@@ -2244,6 +2555,8 @@ def run(pool):
              "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
              "library_ms": None})
     for env_name, cfg in HAND.items():
+        if env_name in WARP:
+            continue
         t, h = hand_times[env_name], cfg["h_time"]
         kernels.append(
             {"name": f"{env_name.replace('-v0-', '_')}_rollout",
@@ -2270,6 +2583,8 @@ def run(pool):
              "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
              "library_ms": None})
     for env_name, cfg in ADROIT.items():
+        if env_name in WARP:
+            continue
         n, h = cfg["shape"]
         pn, ph = cfg["plain_shape"]
         t = adroit_times[env_name]
@@ -2297,6 +2612,32 @@ def run(pool):
              "plain_ms": t[f"plain_ms_N{n}_H{h}"],
              "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
              "library_ms": None})
+    # the two warp-layout bodies: the lane layout's entry (phase 34's
+    # episodes, block 128) beside the warp layout's (phases 16 and 28)
+    for env_name, cfg in WARP.items():
+        n, h = cfg["shape"]
+        t = warp_times[env_name]
+        plain_ms = (hand_times[env_name]["plain_ms_N64_H10"]
+                    if env_name == "door-v0-adroit"
+                    else adroit_times[env_name]["plain_ms_N64_H2"])
+        warp_launches = (sum(r["launches"] for r in hand_episodes[env_name])
+                         if env_name == "door-v0-adroit"
+                         else adroit_episodes[env_name]["launches"])
+        stem = env_name.replace("-v0-", "_")
+        for layout, source, launches, ms in (
+                ("lane", "rollout.cu", lane_episodes[env_name]["launches"],
+                 t[f"lane_128_ms_N{n}_H{h}"]),
+                ("warp", "rollout_warp.cu", warp_launches,
+                 t[f"warp_ms_N{n}_H{h}"])):
+            kernels.append(
+                {"name": f"{stem}_rollout" if layout == "lane"
+                         else f"{stem}_warp_rollout",
+                 "route": "cuda", "source": f"ppi_tpu_torch/csrc/{source}",
+                 "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
+                 "launches": launches,
+                 "max_abs_err": warp_err[env_name][layout], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": t[f"bound_ms_N{n}_H{h}"],
+                 "bound_by": t["bound_by"], "library_ms": None})
     kernels.append(mesh_kernel)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

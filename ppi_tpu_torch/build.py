@@ -33,7 +33,8 @@ HOST_CC_FLAGS = ("-x", "c", "-std=c99", "-O2", "-ffp-contract=off",
 # contraction. pen-v0's dynamics grow a 1e-7 difference in the state to
 # 1e-2 within 20 control steps, so contraction alone moved the kernel that
 # far from its plain version.
-SOURCE_NVCC_FLAGS = {"rollout.cu": ("-fmad=false",)}
+SOURCE_NVCC_FLAGS = {"rollout.cu": ("-fmad=false",),
+                     "rollout_warp.cu": ("-fmad=false",)}
 
 # kernel name -> launches in this process
 LAUNCHES = collections.Counter()

@@ -103,6 +103,9 @@ class DoorAdroit(DoorHand):
     kd_abd: float = 0.3
 
     name = "door-v0-adroit"
+    # the body is too large for one thread: the rollout kernel runs one
+    # rollout a warp (rollout_kernel.kernel_layout)
+    scalar_kernel_layout = "warp"
 
     scalar_dyn_body = DOOR
     _latch = LATCH

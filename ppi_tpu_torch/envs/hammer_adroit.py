@@ -178,6 +178,9 @@ class HammerAdroit(HammerHand):
     kd_abd: float = 0.3
 
     name = "hammer-v0-adroit"
+    # the body is too large for one thread: the rollout kernel runs one
+    # rollout a warp (rollout_kernel.kernel_layout)
+    scalar_kernel_layout = "warp"
 
     scalar_dyn_body = NAIL
     _ham_x, _ham_z = HAM_X, HAM_Z

@@ -11,6 +11,7 @@ Jacobian and mass-matrix terms while the program runs, as in the JAX trace.
 """
 
 import copy
+import dataclasses
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -159,6 +160,22 @@ class SoaModel:
 
 # ---- kinematics -------------------------------------------------------------
 
+def fk_body_soa(m: SoaModel, b: int, r_p: Mat3, p_p: Vec3, offset: Vec3,
+                q_b):
+    """Body b's world (rot, joint origin, world axis, com) from its
+    parent's rot and origin, its joint-origin ``offset`` and coordinate."""
+    r_joint = m3_mul(r_p, m.offset_rot[b])
+    p_joint = v3_add(p_p, m3_vec(r_p, offset))
+    a_world = m3_vec(r_joint, m.axis[b])
+    if m.joint_types[b] == HINGE:
+        r_b = m3_mul(r_joint, rodrigues_soa(m.axis[b], q_b))
+        p_b = p_joint
+    else:
+        r_b = r_joint
+        p_b = v3_add(p_joint, v3_scale(q_b, a_world))
+    return r_b, p_b, a_world, v3_add(p_b, m3_vec(r_b, m.com[b]))
+
+
 def fk_soa(m: SoaModel, q: Sequence):
     """Per-body world (rot, joint origin, world axis, com). All tuples."""
     rots, poss, axes, coms = [], [], [], []
@@ -166,20 +183,22 @@ def fk_soa(m: SoaModel, q: Sequence):
         p = m.parents[b]
         r_p = rots[p] if p >= 0 else m.identity3
         p_p = poss[p] if p >= 0 else (0.0, 0.0, 0.0)
-        r_joint = m3_mul(r_p, m.offset_rot[b])
-        p_joint = v3_add(p_p, m3_vec(r_p, m.offset_pos[b]))
-        a_world = m3_vec(r_joint, m.axis[b])
-        if m.joint_types[b] == HINGE:
-            r_b = m3_mul(r_joint, rodrigues_soa(m.axis[b], q[b]))
-            p_b = p_joint
-        else:
-            r_b = r_joint
-            p_b = v3_add(p_joint, v3_scale(q[b], a_world))
+        r_b, p_b, a_world, com = fk_body_soa(m, b, r_p, p_p,
+                                             m.offset_pos[b], q[b])
         rots.append(r_b)
         poss.append(p_b)
         axes.append(a_world)
-        coms.append(v3_add(p_b, m3_vec(r_b, m.com[b])))
+        coms.append(com)
     return rots, poss, axes, coms
+
+
+def jacobian_column(m: SoaModel, j: int, axis: Vec3, origin: Vec3,
+                    com: Vec3):
+    """(jv, jw) of joint j (world ``axis`` and ``origin``) at a body's
+    ``com``; jw is None (zero) for a slide."""
+    if m.joint_types[j] == HINGE:
+        return v3_cross(axis, v3_sub(com, origin)), axis
+    return axis, None
 
 
 def _jacobians(m: SoaModel, poss, axes, coms):
@@ -188,12 +207,8 @@ def _jacobians(m: SoaModel, poss, axes, coms):
     jw = [[None] * m.nq for _ in range(m.nq)]
     for b in range(m.nq):
         for j in m.ancestors[b]:
-            if m.joint_types[j] == HINGE:
-                jv[b][j] = v3_cross(axes[j], v3_sub(coms[b], poss[j]))
-                jw[b][j] = axes[j]
-            else:
-                jv[b][j] = axes[j]
-                jw[b][j] = None  # zero
+            jv[b][j], jw[b][j] = jacobian_column(m, j, axes[j], poss[j],
+                                                 coms[b])
     return jv, jw
 
 
@@ -210,44 +225,91 @@ def _contact_force_soa(m: SoaModel, delta, rel_vel: Vec3, normal: Vec3):
     return v3_sub(v3_scale(fn, normal), v3_scale(ft / vt_norm, v_t))
 
 
+def plane_contact_soa(m: SoaModel, si: int, pi: int, p: Vec3, v: Vec3):
+    """The force on sphere si (at ``p``, moving at ``v``) from plane pi."""
+    n = m.plane_normal[pi]
+    dist = v3_dot(p, n) - m.plane_offset[pi]
+    delta = m.sphere_radius[si] - dist
+    return _contact_force_soa(m, delta, v, n)
+
+
+def sphere_contact_soa(m: SoaModel, ai: int, bi: int, pa: Vec3, pb: Vec3,
+                       va: Vec3, vb: Vec3):
+    """The force on sphere ai from sphere bi (bi takes its negative)."""
+    diff = v3_sub(pa, pb)
+    dist = sm.sqrt(v3_dot(diff, diff)) + 1e-9
+    n = v3_scale(1.0 / dist, diff)
+    delta = m.sphere_radius[ai] + m.sphere_radius[bi] - dist
+    rel = v3_sub(va, vb)
+    return _contact_force_soa(m, delta, rel, n)
+
+
+def segment_contact_soa(m: SoaModel, si: int, ea: int, eb: int, a: Vec3,
+                        b: Vec3, p: Vec3, va: Vec3, vb: Vec3, vp: Vec3):
+    """(f, t): the force on sphere si (at ``p``) from the capsule segment
+    between spheres ea and eb (at ``a``, ``b``), and the closest point's
+    parameter t along it (the ends take (1 - t) f and t f)."""
+    ab = v3_sub(b, a)
+    t = sm.clip(v3_dot(v3_sub(p, a), ab) / (v3_dot(ab, ab) + 1e-9),
+                0.0, 1.0)
+    closest = v3_add(a, v3_scale(t, ab))
+    diff = v3_sub(p, closest)
+    dist = sm.sqrt(v3_dot(diff, diff)) + 1e-9
+    n = v3_scale(1.0 / dist, diff)
+    seg_r = 0.5 * (m.sphere_radius[ea] + m.sphere_radius[eb])
+    delta = m.sphere_radius[si] + seg_r - dist
+    v_closest = v3_add(va, v3_scale(t, v3_sub(vb, va)))
+    rel = v3_sub(vp, v_closest)
+    return _contact_force_soa(m, delta, rel, n), t
+
+
+def accumulate_force(force: Vec3, kind: str, f: Vec3, t=None) -> Vec3:
+    """One term of a sphere's contact force: ``force`` plus f ("add"),
+    minus f ("sub"), minus (1 - t) f ("sub_rest"), minus t f ("sub_t")."""
+    if kind == "add":
+        return v3_add(force, f)
+    if kind == "sub":
+        return v3_sub(force, f)
+    return v3_sub(force, v3_scale(1.0 - t if kind == "sub_rest" else t, f))
+
+
+def contact_terms(m: SoaModel):
+    """Per sphere, the terms its force sums in ``contact_forces_soa``'s
+    order: (kind, pair kind, pair index) with the pair kinds "plane",
+    "sphere", "segment"."""
+    terms = [[] for _ in m.sphere_body]
+    for i, (si, _) in enumerate(m.pair_sphere_plane):
+        terms[si].append(("add", "plane", i))
+    for i, (ai, bi) in enumerate(m.pair_sphere_sphere):
+        terms[ai].append(("add", "sphere", i))
+        terms[bi].append(("sub", "sphere", i))
+    for i, (si, ea, eb) in enumerate(m.pair_sphere_segment):
+        terms[si].append(("add", "segment", i))
+        terms[ea].append(("sub_rest", "segment", i))
+        terms[eb].append(("sub_t", "segment", i))
+    return terms
+
+
 def contact_forces_soa(m: SoaModel, pts, vels):
     """Returns a list of vec3 forces per sphere geom."""
     forces = [(0.0, 0.0, 0.0) for _ in pts]
 
     for (si, pi) in m.pair_sphere_plane:
-        n = m.plane_normal[pi]
-        dist = v3_dot(pts[si], n) - m.plane_offset[pi]
-        delta = m.sphere_radius[si] - dist
-        f = _contact_force_soa(m, delta, vels[si], n)
-        forces[si] = v3_add(forces[si], f)
+        f = plane_contact_soa(m, si, pi, pts[si], vels[si])
+        forces[si] = accumulate_force(forces[si], "add", f)
 
     for (ai, bi) in m.pair_sphere_sphere:
-        diff = v3_sub(pts[ai], pts[bi])
-        dist = sm.sqrt(v3_dot(diff, diff)) + 1e-9
-        n = v3_scale(1.0 / dist, diff)
-        delta = m.sphere_radius[ai] + m.sphere_radius[bi] - dist
-        rel = v3_sub(vels[ai], vels[bi])
-        f = _contact_force_soa(m, delta, rel, n)
-        forces[ai] = v3_add(forces[ai], f)
-        forces[bi] = v3_sub(forces[bi], f)
+        f = sphere_contact_soa(m, ai, bi, pts[ai], pts[bi], vels[ai],
+                               vels[bi])
+        forces[ai] = accumulate_force(forces[ai], "add", f)
+        forces[bi] = accumulate_force(forces[bi], "sub", f)
 
     for (si, ea, eb) in m.pair_sphere_segment:
-        a, b, p = pts[ea], pts[eb], pts[si]
-        ab = v3_sub(b, a)
-        t = sm.clip(v3_dot(v3_sub(p, a), ab) / (v3_dot(ab, ab) + 1e-9),
-                    0.0, 1.0)
-        closest = v3_add(a, v3_scale(t, ab))
-        diff = v3_sub(p, closest)
-        dist = sm.sqrt(v3_dot(diff, diff)) + 1e-9
-        n = v3_scale(1.0 / dist, diff)
-        seg_r = 0.5 * (m.sphere_radius[ea] + m.sphere_radius[eb])
-        delta = m.sphere_radius[si] + seg_r - dist
-        v_closest = v3_add(vels[ea], v3_scale(t, v3_sub(vels[eb], vels[ea])))
-        rel = v3_sub(vels[si], v_closest)
-        f = _contact_force_soa(m, delta, rel, n)
-        forces[si] = v3_add(forces[si], f)
-        forces[ea] = v3_sub(forces[ea], v3_scale(1.0 - t, f))
-        forces[eb] = v3_sub(forces[eb], v3_scale(t, f))
+        f, t = segment_contact_soa(m, si, ea, eb, pts[ea], pts[eb], pts[si],
+                                   vels[ea], vels[eb], vels[si])
+        forces[si] = accumulate_force(forces[si], "add", f)
+        forces[ea] = accumulate_force(forces[ea], "sub_rest", f, t)
+        forces[eb] = accumulate_force(forces[eb], "sub_t", f, t)
     return forces
 
 
@@ -269,6 +331,40 @@ def solve_pd_scalar(mass, rhs):
     return tuple(aug[i][n] for i in range(n))
 
 
+def world_inertia_soa(m: SoaModel, b: int, rot: Mat3) -> Mat3:
+    """Body b's inertia in the world frame, ``R I R^T``."""
+    return m3_mul(m3_mul(rot, m.inertia[b]), m3_T(rot))
+
+
+def bias_wrench_soa(m: SoaModel, b: int, i_w: Mat3, omega: Vec3,
+                    alpha: Vec3, a_c: Vec3):
+    """Body b's gravity-minus-inertial force and its gyroscopic plus
+    velocity-product torque, (f, n)."""
+    f = v3_sub(v3_scale(m.mass[b], m.gravity), v3_scale(m.mass[b], a_c))
+    n = v3_add(m3_vec(i_w, alpha), v3_cross(omega, m3_vec(i_w, omega)))
+    return f, n
+
+
+def contact_point_soa(m: SoaModel, s: int, rot: Mat3, pos: Vec3, v_o: Vec3,
+                      omega: Vec3):
+    """World position and velocity of sphere geom s on a body at (``rot``,
+    ``pos``) moving at (``v_o``, ``omega``)."""
+    p_s = v3_add(pos, m3_vec(rot, m.sphere_pos[s]))
+    return p_s, v3_add(v_o, v3_cross(omega, v3_sub(p_s, pos)))
+
+
+def contact_points_soa(m: SoaModel, rots, poss, v_o, omega):
+    """World position and velocity of every sphere geom, and its body."""
+    pts, pt_vels, pt_body = [], [], []
+    for s, sb in enumerate(m.sphere_body):
+        p_s, v_s = contact_point_soa(m, s, rots[sb], poss[sb], v_o[sb],
+                                     omega[sb])
+        pts.append(p_s)
+        pt_vels.append(v_s)
+        pt_body.append(sb)
+    return pts, pt_vels, pt_body
+
+
 def passive_torque_soa(m: SoaModel, q, qd):
     out = []
     for j in range(m.nq):
@@ -283,6 +379,35 @@ def passive_torque_soa(m: SoaModel, q, qd):
     return tuple(out)
 
 
+def velocity_body_soa(m: SoaModel, b: int, qd_b, w_p: Vec3, vo_p: Vec3,
+                      al_p: Vec3, ao_p: Vec3, o_p: Vec3, o_b: Vec3,
+                      a_axis: Vec3, com: Vec3):
+    """Body b's world (omega, v_origin, v_com, alpha, a_origin, a_com)
+    with qdd = 0, from its parent's (omega, v_origin, alpha, a_origin,
+    origin), its own origin, axis and com."""
+    rel = v3_sub(o_b, o_p)
+    if m.joint_types[b] == HINGE:
+        w_b = v3_add(w_p, v3_scale(qd_b, a_axis))
+        vo_b = v3_add(vo_p, v3_cross(w_p, rel))
+        al_b = v3_add(al_p, v3_scale(qd_b, v3_cross(w_p, a_axis)))
+        ao_b = v3_add(v3_add(ao_p, v3_cross(al_p, rel)),
+                      v3_cross(w_p, v3_sub(vo_b, vo_p)))
+    else:
+        w_b = w_p
+        vo_b = v3_add(v3_add(vo_p, v3_cross(w_p, rel)),
+                      v3_scale(qd_b, a_axis))
+        al_b = al_p
+        ao_b = v3_add(
+            v3_add(v3_add(ao_p, v3_cross(al_p, rel)),
+                   v3_cross(w_p, v3_sub(vo_b, vo_p))),
+            v3_scale(qd_b, v3_cross(w_p, a_axis)))
+    c_rel = v3_sub(com, o_b)
+    vc_b = v3_add(vo_b, v3_cross(w_b, c_rel))
+    ac_b = v3_add(v3_add(ao_b, v3_cross(al_b, c_rel)),
+                  v3_cross(w_b, v3_sub(vc_b, vo_b)))
+    return w_b, vo_b, vc_b, al_b, ao_b, ac_b
+
+
 def velocity_kinematics_soa(m: SoaModel, q, qd, rots, poss, axes, coms):
     """Per-body world (omega, v_origin, v_com, alpha, a_origin, a_com) with
     qdd = 0: the velocity-product (Coriolis/centrifugal) accelerations."""
@@ -295,27 +420,9 @@ def velocity_kinematics_soa(m: SoaModel, q, qd, rots, poss, axes, coms):
         al_p = alpha[p] if p >= 0 else zero
         ao_p = a_o[p] if p >= 0 else zero
         o_p = poss[p] if p >= 0 else zero
-        rel = v3_sub(poss[b], o_p)
-        a_axis = axes[b]
-        if m.joint_types[b] == HINGE:
-            w_b = v3_add(w_p, v3_scale(qd[b], a_axis))
-            vo_b = v3_add(vo_p, v3_cross(w_p, rel))
-            al_b = v3_add(al_p, v3_scale(qd[b], v3_cross(w_p, a_axis)))
-            ao_b = v3_add(v3_add(ao_p, v3_cross(al_p, rel)),
-                          v3_cross(w_p, v3_sub(vo_b, vo_p)))
-        else:
-            w_b = w_p
-            vo_b = v3_add(v3_add(vo_p, v3_cross(w_p, rel)),
-                          v3_scale(qd[b], a_axis))
-            al_b = al_p
-            ao_b = v3_add(
-                v3_add(v3_add(ao_p, v3_cross(al_p, rel)),
-                       v3_cross(w_p, v3_sub(vo_b, vo_p))),
-                v3_scale(qd[b], v3_cross(w_p, a_axis)))
-        c_rel = v3_sub(coms[b], poss[b])
-        vc_b = v3_add(vo_b, v3_cross(w_b, c_rel))
-        ac_b = v3_add(v3_add(ao_b, v3_cross(al_b, c_rel)),
-                      v3_cross(w_b, v3_sub(vc_b, vo_b)))
+        w_b, vo_b, vc_b, al_b, ao_b, ac_b = velocity_body_soa(
+            m, b, qd[b], w_p, vo_p, al_p, ao_p, o_p, poss[b], axes[b],
+            coms[b])
         omega.append(w_b)
         v_o.append(vo_b)
         v_c.append(vc_b)
@@ -325,25 +432,51 @@ def velocity_kinematics_soa(m: SoaModel, q, qd, rots, poss, axes, coms):
     return omega, v_o, v_c, alpha, a_o, a_c
 
 
-def forward_dynamics_soa(m: SoaModel, q, qd, tau):
-    """Scalar forward dynamics for one sample (or one (N,) lane vector).
+@dataclasses.dataclass(frozen=True)
+class Assembly:
+    """What ``assemble_soa`` computes for one substep: the mass matrix
+    (nq x nq scalars, armature on the diagonal), the right-hand side, the
+    mass matrix's diagonal, and the per-body and per-contact quantities
+    the entries are summed from. ``jw[b][j]`` is ``axes[j]`` or None;
+    ``iw_jw[b]`` maps each hinge ancestor j of body b to ``I_w jw[b][j]``;
+    ``pt_body[s]`` is the body of contact sphere s."""
+
+    mass: list
+    rhs: tuple
+    mdiag: tuple
+    poss: list
+    axes: list
+    jv: list
+    jw: list
+    iw_jw: list
+    f_bias: list
+    n_bias: list
+    pts: list
+    pt_body: list
+    forces: list
+
+
+def assemble_soa(m: SoaModel, q, qd, tau) -> Assembly:
+    """Everything of one substep before the solve.
 
     Closed-form Newton-Euler: one position FK, one velocity/acceleration
     pass, explicit Jacobian-transpose mapping of gravity, contact and bias
-    wrenches. Returns (qdd, diagonal of the mass matrix)."""
+    wrenches. The warp layout of the rollout kernel computes the same
+    values from the same helpers, spread over a warp's lanes
+    (``warp_layout``)."""
     rots, poss, axes, coms = fk_soa(m, q)
     jv, jw = _jacobians(m, poss, axes, coms)
 
     # mass matrix (ancestor-sparse upper triangle)
     mass = [[0.0] * m.nq for _ in range(m.nq)]
-    i_world = []
+    i_world, iw_jws = [], []
     for b in range(m.nq):
-        r = rots[b]
-        i_w = m3_mul(m3_mul(r, m.inertia[b]), m3_T(r))
+        i_w = world_inertia_soa(m, b, rots[b])
         i_world.append(i_w)
         mb = m.mass[b]
         anc = sorted(m.ancestors[b])
         iw_jw = {j: m3_vec(i_w, jw[b][j]) for j in anc if jw[b][j] is not None}
+        iw_jws.append(iw_jw)
         for ii, k in enumerate(anc):
             for l in anc[ii:]:
                 term = mb * v3_dot(jv[b][k], jv[b][l])
@@ -358,22 +491,15 @@ def forward_dynamics_soa(m: SoaModel, q, qd, tau):
     omega, v_o, v_c, alpha, a_o, a_c = velocity_kinematics_soa(
         m, q, qd, rots, poss, axes, coms)
 
-    pts, pt_vels, pt_body = [], [], []
-    for s, sb in enumerate(m.sphere_body):
-        p_s = v3_add(poss[sb], m3_vec(rots[sb], m.sphere_pos[s]))
-        v_s = v3_add(v_o[sb], v3_cross(omega[sb], v3_sub(p_s, poss[sb])))
-        pts.append(p_s)
-        pt_vels.append(v_s)
-        pt_body.append(sb)
+    pts, pt_vels, pt_body = contact_points_soa(m, rots, poss, v_o, omega)
     forces = contact_forces_soa(m, pts, pt_vels) if pts else []
 
     passive = passive_torque_soa(m, q, qd)
     f_bias, n_bias = [], []
     for b in range(m.nq):
-        f_bias.append(v3_sub(v3_scale(m.mass[b], m.gravity),
-                             v3_scale(m.mass[b], a_c[b])))
-        n_bias.append(v3_add(m3_vec(i_world[b], alpha[b]),
-                             v3_cross(omega[b], m3_vec(i_world[b], omega[b]))))
+        f, n = bias_wrench_soa(m, b, i_world[b], omega[b], alpha[b], a_c[b])
+        f_bias.append(f)
+        n_bias.append(n)
     rhs = []
     for j in range(m.nq):
         t = tau[j] + passive[j]
@@ -391,14 +517,22 @@ def forward_dynamics_soa(m: SoaModel, q, qd, tau):
             col = (v3_cross(a_j, v3_sub(pts[s], o_j)) if hinge else a_j)
             t = t + v3_dot(col, forces[s])
         rhs.append(t)
-    return solve_pd_scalar(mass, tuple(rhs)), tuple(
-        mass[k][k] for k in range(m.nq))
+    mdiag = tuple(mass[k][k] for k in range(m.nq))
+    return Assembly(mass, tuple(rhs), mdiag, poss, axes, jv, jw, iw_jws,
+                    f_bias, n_bias, pts, pt_body, forces)
 
 
-def substep_soa(m: SoaModel, q, qd, tau, h: float):
-    """One semi-implicit Euler substep with the velocity-level Coulomb
-    clip (exact stiction, cap ``friction_loss * h / M_jj``)."""
-    qdd, mdiag = forward_dynamics_soa(m, q, qd, tau)
+def forward_dynamics_soa(m: SoaModel, q, qd, tau):
+    """Scalar forward dynamics for one sample (or one (N,) lane vector):
+    ``assemble_soa`` then ``solve_pd_scalar``. Returns (qdd, diagonal of
+    the mass matrix)."""
+    a = assemble_soa(m, q, qd, tau)
+    return solve_pd_scalar(a.mass, a.rhs), a.mdiag
+
+
+def integrate_soa(m: SoaModel, q, qd, qdd, mdiag, h: float):
+    """The semi-implicit Euler step with the velocity-level Coulomb clip
+    (exact stiction, cap ``friction_loss * h / M_jj``)."""
     qd2 = [qd[j] + h * qdd[j] for j in range(m.nq)]
     for j in range(m.nq):
         if m.friction_loss[j] > 0.0:
@@ -407,6 +541,14 @@ def substep_soa(m: SoaModel, q, qd, tau, h: float):
     qd2 = tuple(qd2)
     q2 = tuple(q[j] + h * qd2[j] for j in range(m.nq))
     return q2, qd2
+
+
+def substep_soa(m: SoaModel, q, qd, tau, h: float):
+    """One semi-implicit Euler substep: ``assemble_soa``,
+    ``solve_pd_scalar``, ``integrate_soa``."""
+    a = assemble_soa(m, q, qd, tau)
+    qdd = solve_pd_scalar(a.mass, a.rhs)
+    return integrate_soa(m, q, qd, qdd, a.mdiag, h)
 
 
 def make_single_step_soa(model: ArticulatedModel, dt: float,

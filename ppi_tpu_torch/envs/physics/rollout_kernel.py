@@ -12,14 +12,23 @@ CUDA skeleton (``ppi_tpu_torch/csrc/rollout.cu``):
   * ``env_project`` -- the env's ``scalar_project``, only for an env that
     has one (the header then defines ``PPI_PROJECT``).
 
+That is the lane layout: one rollout a thread. The warp layout
+(``csrc/rollout_warp.cu``, one rollout a warp) replaces ``env_substep`` by
+lane 0's ``env_assemble`` and ``env_integrate`` around generated stages,
+tables and a Gauss-Jordan solve that spread the rest of the substep over
+the warp's lanes (``warp_layout``); an env with
+``scalar_kernel_layout = "warp"`` (door-v0-adroit, hammer-v0-adroit)
+plans and steps through it. Both give the same values bit for bit.
+
 The kernel is built with ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/<hash of sources and flags>/`` and bound with ``ctypes``
 (``ppi_tpu_torch/build.py``).
 
 The wrapper returned by ``make_rollout`` takes the plain version (the same
 scalar program, eagerly over torch tensors) for CPU tensors only. For CUDA
-tensors it launches the kernel or raises; ``LAUNCHES["rollout"]`` (the
-shared counter of ``ppi_tpu_torch.build``) counts the launches.
+tensors it launches the kernel or raises; ``LAUNCHES["rollout"]`` and
+``LAUNCHES["rollout_warp"]`` (the shared counter of
+``ppi_tpu_torch.build``) count the two layouts' launches.
 
 Env contract (duck-typed, as ``ppi_tpu``'s): ``env._model``, ``env.dt``,
 ``env.substeps``, ``env.action_dim``, ``env.scalar_torque(m, q, qd, act)``,
@@ -49,16 +58,11 @@ import torch
 from ppi_tpu_torch.build import LAUNCHES, build_library, load_function
 from ppi_tpu_torch.envs.base import risk_aggregate
 from ppi_tpu_torch.envs.physics import scalar_math as sm
+from ppi_tpu_torch.envs.physics import warp_layout
 from ppi_tpu_torch.envs.physics.engine_soa import SoaModel, substep_soa
 from ppi_tpu_torch.parallel.mesh import gather_costs, shard_bounds
 
 # ---- code generation -------------------------------------------------------
-
-def _function(signature: str, em: sm.Emitter, outputs) -> str:
-    body = "\n".join(em.lines + [f"  {lhs} = {sm._operand(v)};"
-                                 for lhs, v in outputs])
-    return f"PPI_QUAL {signature} {{\n{body}\n}}\n"
-
 
 def call_reward(reward_fn, m, q, qd, act, consts, reward_takes_action):
     """``reward_fn(m, q, qd[, act][, consts])``, as the Pallas body calls
@@ -100,9 +104,25 @@ def ops_per_lane_step(model, dt: float, substeps: int, action_dim: int,
             + ops["reward"] + 2 * model.nq)
 
 
+def generate_warp_header(model, dt: float, substeps: int, action_dim: int,
+                         torque_fn, reward_fn, dyn_body=None,
+                         n_consts: int = 0, reward_takes_action: bool = False,
+                         project_fn=None) -> str:
+    """C source of the warp layout's per-env body (``env_warp.h``) for
+    ``csrc/rollout_warp.cu``: ``generate_env_header``'s torque, reward and
+    projection, and in place of ``env_substep`` the stages and tables of
+    ``warp_layout.generate_stages``. Deterministic, as the lane header."""
+    return _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
+                     dyn_body, n_consts, reward_takes_action, project_fn,
+                     layout="warp")[0]
+
+
 def _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
-              dyn_body, n_consts, reward_takes_action, project_fn):
-    """(header text, {function: emitted f32 ops})."""
+              dyn_body, n_consts, reward_takes_action, project_fn,
+              layout="lane"):
+    """(header text, {function: emitted f32 ops}) of ``layout``'s body;
+    the ops are counted for the lane layout only (the warp layout does the
+    same work)."""
     m = SoaModel(model)
     nq, h = m.nq, dt / substeps
 
@@ -126,20 +146,25 @@ def _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
     mm, q, qd, act = prologue(em, with_act=True)
     tau = torque_fn(mm, q, qd, act)
     ops = {"torque": em.ops}
-    torque = _function(
+    torque = sm.c_function(
         "void env_torque(const float* q, const float* qd, const float* act, "
         "const float* dyn, float* tau)",
         em, [(f"tau[{j}]", tau[j]) for j in range(nq)])
 
-    em = sm.Emitter()
-    mm, q, qd, tau = prologue(em, with_tau=True)
-    q2, qd2 = substep_soa(mm, q, qd, tau, h)
-    ops["substep"] = em.ops
-    substep = _function(
-        "void env_substep(float* q, float* qd, const float* tau, "
-        "const float* dyn)",
-        em, [(f"q[{j}]", q2[j]) for j in range(nq)]
-        + [(f"qd[{j}]", qd2[j]) for j in range(nq)])
+    if layout == "lane":
+        em = sm.Emitter()
+        mm, q, qd, tau = prologue(em, with_tau=True)
+        q2, qd2 = substep_soa(mm, q, qd, tau, h)
+        ops["substep"] = em.ops
+        stages = [sm.c_function(
+            "void env_substep(float* q, float* qd, const float* tau, "
+            "const float* dyn)",
+            em, [(f"q[{j}]", q2[j]) for j in range(nq)]
+            + [(f"qd[{j}]", qd2[j]) for j in range(nq)])]
+        warp_defines, tables = [], []
+    else:
+        warp_defines, tables, stages = warp_layout.generate_stages(
+            m, prologue, h, action_dim, project_fn is not None)
 
     em = sm.Emitter()
     mm, q, qd, act = prologue(em, with_act=reward_takes_action)
@@ -148,14 +173,14 @@ def _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
     r = call_reward(reward_fn, mm, q, qd, act, consts, reward_takes_action)
     em.lines.append(f"  return {sm._operand(r)};")
     ops["reward"] = em.ops
-    reward = _function(
+    reward = sm.c_function(
         "float env_reward(const float* q, const float* qd, const float* act, "
         "const float* dyn, const float* consts)", em, [])
 
     defines = [f"#define PPI_NQ {nq}", f"#define PPI_DA {action_dim}",
                f"#define PPI_SUBSTEPS {substeps}",
                f"#define PPI_NCONSTS {n_consts}"]
-    functions = [torque, substep, reward]
+    functions = [torque, *stages, reward]
     ops["project"] = 0
     if project_fn is not None:
         em = sm.Emitter()
@@ -165,7 +190,7 @@ def _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
         q2, qd2 = project_fn(mm, q_prev, q, qd)
         ops["project"] = em.ops
         # only the coordinates the projection changed are written back
-        functions.append(_function(
+        functions.append(sm.c_function(
             "void env_project(const float* q_prev, float* q, float* qd, "
             "const float* dyn)", em,
             [(f"q[{j}]", q2[j]) for j in range(nq) if q2[j] is not q[j]]
@@ -173,13 +198,15 @@ def _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
                if qd2[j] is not qd[j]]))
         defines.append("#define PPI_PROJECT 1")
 
+    skeleton = "rollout.cu" if layout == "lane" else "rollout_warp.cu"
     text = "\n".join([
-        "/* Per-env body of ppi_tpu_torch/csrc/rollout.cu, generated by",
+        f"/* Per-env body of ppi_tpu_torch/csrc/{skeleton}, generated by",
         "   ppi_tpu_torch/envs/physics/rollout_kernel.py from the scalar",
         "   physics program. Do not edit. */",
-        *defines,
+        *defines, *warp_defines,
         "",
         sm.C_HELPERS,
+        *tables,
         *functions])
     return text, ops
 
@@ -188,6 +215,7 @@ def _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
 # body once (model and bound methods hash by identity and value). Unbounded:
 # one entry per env of the registry a process touches, none ever evicted
 _env_header = functools.cache(generate_env_header)
+_warp_header = functools.cache(generate_warp_header)
 
 
 # ---- build -------------------------------------------------------------------
@@ -201,6 +229,14 @@ def _library(header: str, host: bool = False) -> Path:
     return build_library("rollout.cu", {"env_body.h": header}, host=host)
 
 
+@functools.cache
+def _warp_library(header: str, host: bool = False) -> Path:
+    """``csrc/rollout_warp.cu`` with ``header`` as ``env_warp.h``, built
+    once per distinct header."""
+    return build_library("rollout_warp.cu", {"env_warp.h": header},
+                         host=host)
+
+
 def load_host_rollout(header: str):
     """The host-C build of the skeleton + ``header``:
     ``fn(q0, qd0, act, dyn, consts, rew, qf, qdf, n, horizon)`` on pointers
@@ -208,6 +244,22 @@ def load_host_rollout(header: str):
     ``consts`` may be null)."""
     return load_function(_library(header, host=True), "ppi_rollout_host",
                          8, 2, stream=False)
+
+
+def load_host_warp_rollout(header: str):
+    """The host-C build of the warp skeleton + ``header`` (a
+    ``generate_warp_header`` text): ``load_host_rollout``'s function, each
+    cooperative stage run lane by lane."""
+    return load_function(_warp_library(header, host=True),
+                         "ppi_rollout_warp_host", 8, 2, stream=False)
+
+
+def load_host_warp_solve(header: str):
+    """``fn(aug)``: the warp skeleton's cooperative Gauss-Jordan solve, as
+    host C, on a C-contiguous f32 (nq, nq + 1) augmented matrix in place
+    (nq is ``header``'s)."""
+    return load_function(_warp_library(header, host=True),
+                         "ppi_warp_solve_host", 1, 0, stream=False)
 
 
 # ---- the plain version ---------------------------------------------------------
@@ -247,20 +299,43 @@ def plain_rollout(model, dt: float, substeps: int, torque_fn, reward_fn,
 
 # ---- the wrapper -----------------------------------------------------------------
 
+# kernel launch counters (``LAUNCHES``) of the two layouts
+LAUNCH_KEYS = {"lane": "rollout", "warp": "rollout_warp"}
+# rollouts (warps) a block of the warp layout holds
+WARPS_PER_BLOCK = 1
+
+
 def make_rollout(model, dt: float, substeps: int, horizon: int,
                  action_dim: int, torque_fn, reward_fn, project_fn=None,
                  n_consts: int = 0, reward_takes_action: bool = False,
-                 dyn_body=None, block: int = 128):
+                 dyn_body=None, block: int = 128, layout: str = "lane",
+                 warps: int = WARPS_PER_BLOCK):
     """Build ``run(q0 (N,nq), qd0 (N,nq), actions (N,H,da), consts=None,
     dyn=None) -> (rewards (N,H), qpos_f (N,nq), qvel_f (N,nq))``, the
-    counterpart of ``make_pallas_rollout``. ``block`` is the number of
-    threads (lanes) per CUDA block. ``horizon`` is only checked: the kernel
-    takes it at run time, so one build serves every H. With ``n_consts``
-    the run takes the (n_consts,) f32 reward constants ``consts`` on the
-    actions' device; ``project_fn(m, q_prev, q, qd)`` is the per-step
-    projection."""
+    counterpart of ``make_pallas_rollout``. ``layout`` "lane" launches
+    ``csrc/rollout.cu`` (one rollout a thread, ``block`` threads a CUDA
+    block), "warp" ``csrc/rollout_warp.cu`` (one rollout a warp,
+    ``warps`` of them a block); both compute the same values bit for bit.
+    ``horizon`` is only checked: the kernel takes it at run time, so one
+    build serves every H. With ``n_consts`` the run takes the (n_consts,)
+    f32 reward constants ``consts`` on the actions' device;
+    ``project_fn(m, q_prev, q, qd)`` is the per-step projection.
+    ``run.load()`` builds and loads the kernel (the first CUDA launch does
+    it otherwise)."""
+    if layout not in LAUNCH_KEYS:
+        raise ValueError(f"layout must be 'lane' or 'warp', not {layout!r}")
     nq = model.nq
     fn = None
+    args = (model, dt, substeps, action_dim, torque_fn, reward_fn, dyn_body,
+            n_consts, reward_takes_action, project_fn)
+
+    def load():
+        if layout == "warp":
+            return load_function(_warp_library(_warp_header(*args)),
+                                 "ppi_rollout_warp_launch", 8, 3,
+                                 stream=True)
+        return load_function(_library(_env_header(*args)),
+                             "ppi_rollout_launch", 8, 3, stream=True)
 
     def launch(q0, qd0, actions, dyn, consts):
         nonlocal fn
@@ -288,10 +363,7 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
             dyn_ptr = dyn.data_ptr()
         consts_ptr = consts.data_ptr() if n_consts else None
         if fn is None:
-            fn = load_function(_library(_env_header(
-                model, dt, substeps, action_dim, torque_fn, reward_fn,
-                dyn_body, n_consts, reward_takes_action, project_fn)),
-                "ppi_rollout_launch", 8, 3, stream=True)
+            fn = load()
         # the kernel's lane-major layout (the Pallas layout)
         q0_t = q0.t().contiguous()
         qd0_t = qd0.t().contiguous()
@@ -303,11 +375,12 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(q0_t.data_ptr(), qd0_t.data_ptr(), act_t.data_ptr(),
                      dyn_ptr, consts_ptr, rew.data_ptr(), qf.data_ptr(),
-                     qdf.data_ptr(), n, horizon, block, stream)
+                     qdf.data_ptr(), n, horizon,
+                     warps if layout == "warp" else block, stream)
         if err != 0:
-            raise RuntimeError(f"rollout kernel launch failed: CUDA error "
-                               f"{err}")
-        LAUNCHES["rollout"] += 1
+            raise RuntimeError(f"rollout kernel ({layout} layout) launch "
+                               f"failed: CUDA error {err}")
+        LAUNCHES[LAUNCH_KEYS[layout]] += 1
         return rew.t(), qf.t(), qdf.t()
 
     def run(q0, qd0, actions, consts=None, dyn=None):
@@ -329,6 +402,8 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
             raise TypeError(f"no rollout kernel for {actions.device}")
         return launch(q0, qd0, actions, dyn, consts)
 
+    run.layout = layout
+    run.load = load
     return run
 
 
@@ -350,9 +425,10 @@ def kernel_operands(env, state0):
 
 
 def body_args(env, state):
-    """The positional arguments of ``generate_env_header`` and
-    ``ops_per_lane_step`` for ``env``; ``state`` gives the number of reward
-    constants."""
+    """The positional arguments of ``generate_env_header``,
+    ``generate_warp_header`` and ``ops_per_lane_step`` for ``env``;
+    ``state`` gives the number of reward constants. ``env_rollout`` adds
+    the env's layout (``kernel_layout``)."""
     consts, dyn_body, _ = kernel_operands(env, state)
     return (env._model, env.dt, env.substeps, env.action_dim,
             env.scalar_torque, env.scalar_reward, dyn_body,
@@ -361,14 +437,27 @@ def body_args(env, state):
             getattr(env, "scalar_project", None))
 
 
-def env_rollout(env, state, horizon: int, block: int = 128):
-    """``make_rollout`` with ``env``'s kernel options."""
+def kernel_layout(env) -> str:
+    """The rollout kernel's layout for ``env``: its
+    ``scalar_kernel_layout`` ("warp" for the bodies too large for one
+    thread), else "lane"."""
+    return getattr(env, "scalar_kernel_layout", "lane")
+
+
+def launch_key(env) -> str:
+    """The ``LAUNCHES`` counter that ``env``'s rollout launches add to."""
+    return LAUNCH_KEYS[kernel_layout(env)]
+
+
+def env_rollout(env, state, horizon: int, block: int = 128, layout=None):
+    """``make_rollout`` with ``env``'s kernel options and layout (or
+    ``layout``)."""
     model, dt, substeps, action_dim, torque_fn, reward_fn, dyn_body, \
         n_consts, takes_action, project_fn = body_args(env, state)
     return make_rollout(model, dt, substeps, horizon, action_dim, torque_fn,
                         reward_fn, project_fn=project_fn, n_consts=n_consts,
                         reward_takes_action=takes_action, dyn_body=dyn_body,
-                        block=block)
+                        block=block, layout=layout or kernel_layout(env))
 
 
 def env_plain_rollout(env, state, q0, qd0, actions):

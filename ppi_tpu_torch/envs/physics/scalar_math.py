@@ -21,6 +21,7 @@ math functions are called, so every emitted operation is single precision.
 """
 
 import math
+import re
 
 import numpy as np
 import torch
@@ -37,11 +38,17 @@ def f32_literal(value: float) -> str:
     return f"({text})" if text.startswith("-") else text
 
 
+# the text of an ``f32_literal``: a negative one is parenthesized
+_LITERAL = re.compile(r"\(-0x[0-9a-f]\.[0-9a-f]+p[+-]\d+f\)"
+                      r"|0x[0-9a-f]\.[0-9a-f]+p[+-]\d+f")
+
+
 class Emitter:
     """Collects the straight-line C body of one generated function.
 
     ``ops`` counts the f32 operations emitted: each arithmetic operator and
-    each math or helper call is one (a literal is none)."""
+    each math or helper call is one, whatever its operands (a bare literal
+    is none)."""
 
     def __init__(self):
         self.lines = []
@@ -52,7 +59,7 @@ class Emitter:
         name = f"t{self._n}"
         self._n += 1
         self.lines.append(f"  const float {name} = {expr};")
-        if not expr.startswith(("0x", "(-0x")):
+        if not _LITERAL.fullmatch(expr):
             self.ops += 1
         return Sym(self, name)
 
@@ -60,6 +67,14 @@ class Emitter:
         """Bind a function argument (``q[0]``) to a local once."""
         self.lines.append(f"  const float {name} = {c_expr};")
         return Sym(self, name)
+
+
+def c_function(signature: str, em: Emitter, outputs) -> str:
+    """The C text of one generated function: ``em``'s lines, then each
+    ``(lvalue, scalar)`` of ``outputs`` assigned."""
+    body = "\n".join(em.lines + [f"  {lhs} = {_operand(v)};"
+                                 for lhs, v in outputs])
+    return f"PPI_QUAL {signature} {{\n{body}\n}}\n"
 
 
 def _operand(x) -> str:

@@ -1,6 +1,14 @@
 """The rollout kernel's generated bodies, measured on the CPU.
 
     python -m ppi_tpu_torch.studies.body_report [ENV ...]
+    python -m ppi_tpu_torch.studies.body_report --stages [ENV ...]
+
+With ``--stages``: the f32 operations (``Emitter.ops``) of a lane step
+(``ops_per_lane_step``, the bound's count) and of one generated substep
+by stage of ``engine_soa`` (``STAGES``, then the mass-matrix entries and
+the right-hand side's sums, the solve and the integration); for a body of
+the warp layout also the operations of its lane-0 function
+``env_assemble``.
 
 For each env of ``run_mpc`` (or each one named): the body's generated
 lines and emitted f32 operations per lane step (``ops_per_lane_step``),
@@ -15,6 +23,7 @@ scenes) is perturbed at H=2 and H=3 instead: its plain rollout runs one
 eager op per scalar op, and at H=20 would take minutes.
 """
 
+import re
 import shutil
 import sys
 import tempfile
@@ -38,6 +47,94 @@ LONG_OPS = 150_000
 def rel_err(a, b):
     a, b = a.double(), b.double()
     return float(((a - b).abs() / (1.0 + b.abs())).max())
+
+
+# engine_soa functions whose emitted ops ``stage_ops`` counts, outermost
+# call only (a helper's ops count towards the stage that called it)
+STAGES = {"fk_soa": "FK", "_jacobians": "Jacobians",
+          "world_inertia_soa": "world inertias", "m3_vec": "I_w jw",
+          "velocity_kinematics_soa": "velocity kinematics",
+          "contact_points_soa": "contact points",
+          "contact_forces_soa": "contacts", "passive_torque_soa": "passive",
+          "bias_wrench_soa": "bias wrenches"}
+
+
+def stage_ops(name):
+    """{stage: emitted f32 ops} of one substep of ``name``'s body, and
+    (for the warp layout) of its lane-0 function ``env_assemble``."""
+    import contextlib
+    from ppi_tpu_torch.envs.physics import engine_soa as es
+    from ppi_tpu_torch.envs.physics import scalar_math as sm
+    env = ENVS[name]()
+    state = env.reset(torch.Generator().manual_seed(0), "cpu")
+    m = es.SoaModel(env._model)
+    _, dyn_body, _ = rk.kernel_operands(env, state)
+    counts = dict.fromkeys(STAGES.values(), 0)
+    em = sm.Emitter()
+    q = tuple(em.input(f"q_{j}", "q") for j in range(m.nq))
+    qd = tuple(em.input(f"qd_{j}", "qd") for j in range(m.nq))
+    tau = tuple(em.input(f"tau_{j}", "tau") for j in range(m.nq))
+    mm = m if dyn_body is None else m.with_body_offset(
+        dyn_body, tuple(em.input(f"dyn_{k}", "dyn") for k in range(3)))
+    depth = [0]
+
+    @contextlib.contextmanager
+    def counted():
+        saved = {k: getattr(es, k) for k in STAGES}
+
+        def wrap(key, fn):
+            def inner(*a, **k):
+                before = em.ops
+                depth[0] += 1
+                try:
+                    return fn(*a, **k)
+                finally:
+                    depth[0] -= 1
+                    if depth[0] == 0:
+                        counts[STAGES[key]] += em.ops - before
+            return inner
+        for key, fn in saved.items():
+            setattr(es, key, wrap(key, fn))
+        try:
+            yield
+        finally:
+            for key, fn in saved.items():
+                setattr(es, key, fn)
+
+    with counted():
+        a = es.assemble_soa(mm, q, qd, tau)
+    counts["entries"] = em.ops - sum(counts[k] for k in STAGES.values())
+    counts["assembly"] = em.ops
+    before = em.ops
+    qdd = es.solve_pd_scalar(a.mass, a.rhs)
+    counts["solve"] = em.ops - before
+    before = em.ops
+    es.integrate_soa(mm, q, qd, qdd, a.mdiag, env.dt / env.substeps)
+    counts["integrate"] = em.ops - before
+    counts["substep"] = em.ops
+    args = rk.body_args(env, state)
+    counts["lane step"] = rk.ops_per_lane_step(*args)
+    if rk.kernel_layout(env) == "warp":
+        body = rk.generate_warp_header(*args).split(
+            "void env_assemble(", 1)[1].split("PPI_QUAL", 1)[0]
+        exprs = re.findall(r"^  const float t\d+ = (.*);$", body, re.M)
+        counts["lane 0"] = sum(not sm._LITERAL.fullmatch(e) for e in exprs)
+    return counts
+
+
+def report_stages(names):
+    for name in names or ENVS:
+        c = stage_ops(name)
+        parts = ", ".join(f"{k} {c[k]}" for k in STAGES.values())
+        line = (f"{name}: {c['lane step']} ops a lane step; a substep "
+                f"{c['substep']}: {parts}, mass-matrix and right-hand-side "
+                f"sums {c['entries']}, solve {c['solve']} "
+                f"({100.0 * c['solve'] / c['substep']:.0f}%), integrate "
+                f"{c['integrate']}")
+        if "lane 0" in c:
+            line += (f"; warp layout: lane 0's env_assemble {c['lane 0']} "
+                     f"(the rest spread over the lanes)")
+        print(line, flush=True)
 
 
 def main(names):
@@ -80,4 +177,7 @@ def main(names):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    if sys.argv[1:2] == ["--stages"]:
+        report_stages(sys.argv[2:])
+    else:
+        main(sys.argv[1:])

@@ -359,10 +359,10 @@ def test_hand_kernel_matches_plain(name):
     n, h = 257, 4
     s0, q0, qd0, acts = _hand_lanes(env, dev, n, h)
     run = rk.env_rollout(env, s0, h)
-    before = rk.LAUNCHES["rollout"]
+    before = rk.LAUNCHES[rk.launch_key(env)]
     rew, qf, qdf = run(q0, qd0, acts, dyn=s0.frame)
     torch.cuda.synchronize()
-    assert rk.LAUNCHES["rollout"] == before + 1
+    assert rk.LAUNCHES[rk.launch_key(env)] == before + 1
     rew_p, qf_p, qdf_p = rk.env_plain_rollout(env, s0, q0, qd0, acts)
     assert _rel(rew, rew_p) <= 1e-4
     assert _rel(qf, qf_p) <= 1e-4
@@ -382,10 +382,10 @@ def test_hand_real_step_is_one_kernel_launch(name):
     env = _variant_b_env(name)
     s0 = env.reset(torch.Generator(dev).manual_seed(0), dev)
     action = s0.physics.qpos[:env.action_dim] + 0.2
-    before = rk.LAUNCHES["rollout"]
+    before = rk.LAUNCHES[rk.launch_key(env)]
     s1, r1 = env.step(s0, action)
     torch.cuda.synchronize()
-    assert rk.LAUNCHES["rollout"] == before + 1
+    assert rk.LAUNCHES[rk.launch_key(env)] == before + 1
     s2, r2 = env.plain_step(s0, action)
     assert r1.shape == () and int(s1.t) == 1
     assert _rel(s1.physics.qpos, s2.physics.qpos) <= 1e-4
@@ -416,7 +416,7 @@ def test_hand_control_step_never_waits_for_the_card(name):
     carry, _ = agent.warm_start(carry, state, 1)  # builds and loads first
     env.step(state, agent.action(carry))
     torch.cuda.synchronize()
-    before = rk.LAUNCHES["rollout"]
+    before = rk.LAUNCHES[rk.launch_key(env)]
     torch.cuda.set_sync_debug_mode("error")
     try:
         action, carry, _ = agent.control_step(carry, state, 1)
@@ -424,7 +424,7 @@ def test_hand_control_step_never_waits_for_the_card(name):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert rk.LAUNCHES["rollout"] == before + 3
+    assert rk.LAUNCHES[rk.launch_key(env)] == before + 3
     assert bool(torch.isfinite(state.physics.qpos).all())
 
 
@@ -523,6 +523,55 @@ def test_essps_control_step_never_waits_for_the_card(policy):
     torch.cuda.synchronize()
     assert rk.LAUNCHES["rollout"] == before + 2
     assert bool(torch.isfinite(state.physics.qpos).all())
+
+
+# ---- the warp layout: door-v0-adroit and hammer-v0-adroit ----------------------
+
+WARP_ENVS = {"door-v0-adroit": 5, "hammer-v0-adroit": 3}  # env -> check H
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("name", sorted(WARP_ENVS))
+def test_warp_layout_equals_plain(name):
+    """The warp layout at N=257 (ragged: past a whole number of rollouts
+    a block at any block size), from a sampled frame or board: one launch
+    counted under ``rollout_warp``, rewards and final state bit for bit
+    those of the lane layout and of the plain version; the real step one
+    warp launch, bit for bit the eager step."""
+    dev = _device()
+    env = _variant_b_env(name)
+    n, h = 257, WARP_ENVS[name]
+    s0 = env.reset(torch.Generator(dev).manual_seed(1), dev)
+    q0 = s0.physics.qpos.expand(n, -1).contiguous()
+    qd0 = torch.zeros_like(q0)
+    rng = np.random.default_rng(2)
+    acts = q0[:, None, :env.action_dim] + torch.from_numpy(
+        (0.3 * rng.standard_normal((n, h, env.action_dim))).astype(
+            np.float32)).to(dev)
+    consts, _, dyn = rk.kernel_operands(env, s0)
+    assert rk.launch_key(env) == "rollout_warp"
+    before = rk.LAUNCHES["rollout_warp"]
+    warp = rk.env_rollout(env, s0, h)(q0, qd0, acts, consts=consts, dyn=dyn)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rollout_warp"] == before + 1
+    lane = rk.env_rollout(env, s0, h, layout="lane")(q0, qd0, acts,
+                                                     consts=consts, dyn=dyn)
+    plain = rk.env_plain_rollout(env, s0, q0, qd0, acts)
+    assert bool(torch.isfinite(plain[0]).all())
+    for w, l, p in zip(warp, lane, plain):
+        assert _same_bits(w, l) and _same_bits(w, p)
+    action = acts[0, 0]
+    before = rk.LAUNCHES["rollout_warp"]
+    (s_k, r_k), (s_e, r_e) = env.step(s0, action), env.plain_step(s0, action)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rollout_warp"] == before + 1
+    assert _same_bits(s_k.physics.qpos, s_e.physics.qpos)
+    assert _same_bits(s_k.physics.qvel, s_e.physics.qvel)
+    assert _same_bits(r_k, r_e)
 
 
 # ---- the sharded entry -----------------------------------------------------------

@@ -288,3 +288,51 @@ def test_host_c_build_matches_plain(case):
     np.testing.assert_allclose(qf.T, qf_p, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(qdf.T, qdf_p, rtol=1e-5, atol=1e-5)
     assert np.array_equal(np.isnan(rew.T), np.isnan(rew_p))
+
+
+def test_emitter_counts_every_operation_and_no_bare_literal():
+    """A three-line program by hand: an operation whose first operand is a
+    literal counts (``0.5 * x``, ``1.0 - y``), a bare literal does not."""
+    em = sm.Emitter()
+    x = em.input("x", "x_in")
+    y = 0.5 * x              # "0x1.0p-1f * x": one op
+    sm.zeros_like(x)         # "0x0.0p+0f": a literal, no op
+    z = 1.0 - y              # "0x1.0p+0f - t0": one op
+    assert em.lines[1].endswith(f"= {sm.f32_literal(0.5)} * x;")
+    assert em.lines[3].endswith(f"= {sm.f32_literal(1.0)} - {y.name};")
+    assert z.name in em.lines[3]
+    assert em.ops == 2
+
+
+def _non_literal_lines(text):
+    """The ``const float t...`` lines of a generated function whose
+    expression is not a bare f32 literal."""
+    exprs = re.findall(r"^  const float t\d+ = (.*);$", text, re.M)
+    return [e for e in exprs if not sm._LITERAL.fullmatch(e)]
+
+
+@pytest.mark.parametrize("name", ["door-v0", "hammer-v0-adroit"])
+def test_ops_count_every_emitted_operation(name):
+    """``Emitter.ops`` of each generated function is the number of its
+    ``const float t...`` lines that are not a bare literal (inputs are
+    ``q_0``-style lines and none of them); the bound's
+    ``ops_per_lane_step`` is their sum over a control step."""
+    from ppi_tpu_torch.envs.physics.rollout_kernel import _generate
+    env = ENVS[name]()
+    state = env.reset(torch.Generator().manual_seed(0), "cpu")
+    args = body_args(env, state)
+    text, ops = _generate(*args)
+    bodies = {"torque": text.split("void env_torque(", 1)[1].split(
+                  "PPI_QUAL", 1)[0],
+              "substep": text.split("void env_substep(", 1)[1].split(
+                  "PPI_QUAL", 1)[0],
+              "reward": text.split("float env_reward(", 1)[1].split(
+                  "PPI_QUAL", 1)[0]}
+    for fn, body in bodies.items():
+        assert ops[fn] == len(_non_literal_lines(body)), fn
+    # operations whose first operand is a literal are counted too
+    assert any(re.match(r"\(?-?0x", e)
+               for e in _non_literal_lines(bodies["substep"]))
+    assert ops_per_lane_step(*args) == (
+        ops["torque"] + env.substeps * ops["substep"] + ops["project"]
+        + ops["reward"] + 2 * env._model.nq)

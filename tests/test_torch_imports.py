@@ -43,6 +43,7 @@ SLICE_MODULES = [
     "ppi_tpu_torch.envs.physics.engine_soa",
     "ppi_tpu_torch.envs.physics.scalar_math",
     "ppi_tpu_torch.envs.physics.rollout_kernel",
+    "ppi_tpu_torch.envs.physics.warp_layout",
     "ppi_tpu_torch.envs.functions",
     "ppi_tpu_torch.ops",
     "ppi_tpu_torch.ops.cuda_ops",
@@ -68,6 +69,7 @@ SLICE_MODULES = [
     "ppi_tpu_torch.studies.fma_contraction",
     "ppi_tpu_torch.studies.replan_trace",
     "ppi_tpu_torch.studies.seed_sweep",
+    "ppi_tpu_torch.studies.warp_layout",
 ]
 
 

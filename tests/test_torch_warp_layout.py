@@ -1,0 +1,289 @@
+"""The rollout kernel's warp layout (csrc/rollout_warp.cu) on the CPU.
+
+door-v0-adroit and hammer-v0-adroit plan and step through the warp layout:
+one rollout a warp, the substep split into ``engine_soa.assemble_soa``
+(lane 0's straight-line ``env_assemble``, then the mass matrix and the
+right-hand side summed across the lanes from generated tables), the
+cooperative Gauss-Jordan solve and ``integrate_soa``. The skeleton also
+compiles as host C, each cooperative stage run lane by lane; that build
+is held to the lane layout's host-C build bit for bit, and to the plain
+version within tests/test_torch_rollout.py's tolerances: torch's CPU
+sin/cos are not the C library's (they differ in the last bit for ~5% of
+f32 inputs), so neither host-C build equals the eager version bit for
+bit. The solve alone takes only +, -, * and /, and equals
+``solve_pd_scalar`` on torch bit for bit.
+"""
+
+import hashlib
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from torch_env_helpers import (
+    Q_TOL, REW_TOL, hand_door_lanes, jax_lane_rollout_fn, port_state)
+from torch_helpers import to_np, to_torch
+from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+from ppi_tpu_torch.envs.physics.engine_soa import (
+    SoaModel, assemble_soa, bias_wrench_soa, fk_soa, integrate_soa,
+    jacobian_column, m3_vec, solve_pd_scalar, substep_soa,
+    velocity_kinematics_soa, world_inertia_soa)
+from ppi_tpu_torch.runners.run_mpc import ENVS
+
+WARP_ENVS = ("door-v0-adroit", "hammer-v0-adroit")
+N, H = 5, 2
+
+# sha256 of the two warp headers as first generated: a change to the
+# generator or the tables shows here, beside the lane pins of
+# tests/test_torch_generator.py
+WARP_SHA256 = {
+    "door-v0-adroit":
+        "d806588aafe3ed30fbfb4d0fa2747b41e6de2baa8b30827c451078e3fded6ed9",
+    "hammer-v0-adroit":
+        "bf91d6063fc7eeceaf2492d7de122dba1b388f9ceb043190b6ca607ab654ec50",
+}
+
+
+def _needs_cc():
+    if shutil.which("cc") is None:
+        pytest.skip("no host C compiler")
+
+
+def _state(name, seed=0):
+    return ENVS[name]().reset(torch.Generator().manual_seed(seed), "cpu")
+
+
+@pytest.fixture(scope="module")
+def headers():
+    """name -> (lane header, warp header) from the seed-0 state."""
+    out = {}
+    for name in WARP_ENVS:
+        args = rk.body_args(ENVS[name](), _state(name))
+        out[name] = (rk.generate_env_header(*args),
+                     rk.generate_warp_header(*args))
+    return out
+
+
+@pytest.fixture(scope="module")
+def builds(headers):
+    """name -> (lane host-C function, warp host-C function): one build
+    each for the whole module."""
+    _needs_cc()
+    return {name: (rk.load_host_rollout(lane),
+                   rk.load_host_warp_rollout(warp))
+            for name, (lane, warp) in headers.items()}
+
+
+def _lanes(name, state, n=N, h=H, seed=3):
+    """The state's posture with a small spread in every lane, velocities
+    and PD targets about the posture from a numpy seed."""
+    env = ENVS[name]()
+    rng = np.random.default_rng(seed)
+    nq = env._model.nq
+    q0 = (np.tile(to_np(state.physics.qpos), (n, 1))
+          + 0.02 * rng.standard_normal((n, nq))).astype(np.float32)
+    qd0 = (0.2 * rng.standard_normal((n, nq))).astype(np.float32)
+    acts = (q0[:, None, :env.action_dim] + 0.3 * rng.standard_normal(
+        (n, h, env.action_dim))).astype(np.float32)
+    return q0, qd0, acts
+
+
+SENTINEL = np.float32(-12345.0)
+PAD = 7
+
+
+def _host_run(fn, env, state, q0, qd0, acts):
+    """(rewards (N,H), qf (N,nq), qdf (N,nq)) of a host-C build, its
+    output buffers padded with a sentinel that must stay untouched."""
+    n, h = acts.shape[0], acts.shape[1]
+    nq = q0.shape[1]
+    consts, _, dyn = rk.kernel_operands(env, state)
+    q0_t, qd0_t = np.ascontiguousarray(q0.T), np.ascontiguousarray(qd0.T)
+    act_t = np.ascontiguousarray(acts.transpose(1, 2, 0))
+    c = None if consts is None else np.ascontiguousarray(to_np(consts))
+    d = None if dyn is None else np.ascontiguousarray(to_np(dyn))
+    rew = np.full(h * n + PAD, SENTINEL, np.float32)
+    qf = np.full(nq * n + PAD, SENTINEL, np.float32)
+    qdf = np.full(nq * n + PAD, SENTINEL, np.float32)
+    ptr = lambda a: None if a is None else a.ctypes.data
+    assert fn(ptr(q0_t), ptr(qd0_t), ptr(act_t), ptr(d), ptr(c), ptr(rew),
+              ptr(qf), ptr(qdf), n, h) == 0
+    for buf in (rew, qf, qdf):
+        assert np.array_equal(buf[-PAD:], np.full(PAD, SENTINEL)), \
+            "a write past the last rollout"
+    return (rew[:h * n].reshape(h, n).T, qf[:nq * n].reshape(nq, n).T,
+            qdf[:nq * n].reshape(nq, n).T)
+
+
+def _bits(x):
+    return np.ascontiguousarray(x).view(np.int32)
+
+
+def _assert_same_bits(a, b):
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(_bits(x), _bits(y))
+
+
+@pytest.mark.parametrize("name", WARP_ENVS)
+def test_stages_compose_to_the_substep(name):
+    """assemble_soa -> solve_pd_scalar -> integrate_soa is substep_soa bit
+    for bit, on eager torch at N=8; the helpers that the warp layout's
+    stages trace (world inertia, Jacobian column, bias wrench) give
+    assemble_soa's per-body values bit for bit."""
+    env = ENVS[name]()
+    state = _state(name)
+    m = SoaModel(env._model)
+    _, dyn_body, dyn = rk.kernel_operands(env, state)
+    if dyn_body is not None:
+        m = m.with_body_offset(dyn_body, dyn.unbind(-1))
+    q0, qd0, acts = _lanes(name, state, n=8, h=1)
+    q, qd = to_torch(q0).unbind(-1), to_torch(qd0).unbind(-1)
+    tau = env.scalar_torque(m, q, qd, to_torch(acts[:, 0]).unbind(-1))
+    h = env.dt / env.substeps
+    a = assemble_soa(m, q, qd, tau)
+    q2, qd2 = integrate_soa(m, q, qd, solve_pd_scalar(a.mass, a.rhs),
+                            a.mdiag, h)
+    q_ref, qd_ref = substep_soa(m, q, qd, tau, h)
+    for x, y in zip(q2 + qd2, q_ref + qd_ref):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    rots, poss, axes, coms = fk_soa(m, q)
+    omega, _, _, alpha, _, a_c = velocity_kinematics_soa(m, q, qd, rots,
+                                                         poss, axes, coms)
+    same = lambda x, y: torch.equal(torch.as_tensor(x).view(torch.int32),
+                                    torch.as_tensor(y).view(torch.int32))
+    for b in range(m.nq):
+        i_w = world_inertia_soa(m, b, rots[b])
+        for j in a.iw_jw[b]:
+            assert all(map(same, m3_vec(i_w, a.jw[b][j]), a.iw_jw[b][j]))
+        for j in m.ancestors[b]:
+            jv, jw = jacobian_column(m, j, axes[j], poss[j], coms[b])
+            assert all(map(same, jv, a.jv[b][j]))
+            assert (jw is None) == (a.jw[b][j] is None)
+            assert jw is None or all(map(same, jw, a.jw[b][j]))
+        f, n = bias_wrench_soa(m, b, i_w, omega[b], alpha[b], a_c[b])
+        assert all(map(same, f, a.f_bias[b]))
+        assert all(map(same, n, a.n_bias[b]))
+
+
+def _spd(nq, seed):
+    """A random SPD matrix with the ancestor-sparse zeros of a hand (two
+    branches that share only the first joints) and a right-hand side."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((nq, nq)).astype(np.float64)
+    mat = a @ a.T / nq + np.eye(nq) * rng.uniform(0.05, 2.0, nq)
+    half = nq // 2
+    mat[half + 2:, 4:half] = mat[4:half, half + 2:] = 0.0
+    mat = mat + np.eye(nq) * (np.abs(mat).sum(1))   # diagonally dominant
+    return mat.astype(np.float32), rng.standard_normal(nq).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", WARP_ENVS)
+def test_cooperative_solve_equals_solve_pd_scalar(headers, name):
+    """The skeleton's solve (lane c owns column c, dead columns skipped),
+    host C, against ``solve_pd_scalar`` over torch at nq = 23 and 25, on
+    four SPD matrices each: bit for bit."""
+    _needs_cc()
+    fn = rk.load_host_warp_solve(headers[name][1])
+    nq = ENVS[name]()._model.nq
+    for seed in range(4):
+        mat, rhs = _spd(nq, seed)
+        aug = np.ascontiguousarray(np.concatenate([mat, rhs[:, None]], 1))
+        assert fn(aug.ctypes.data) == 0
+        ref = solve_pd_scalar(
+            [[torch.tensor([mat[i, j]]) for j in range(nq)]
+             for i in range(nq)],
+            tuple(torch.tensor([v]) for v in rhs))
+        ref = np.array([float(x) for x in ref], np.float32)
+        np.testing.assert_array_equal(_bits(aug[:, nq]), _bits(ref))
+        np.testing.assert_allclose(aug[:, nq], np.linalg.solve(
+            mat.astype(np.float64), rhs.astype(np.float64)), rtol=1e-3,
+            atol=1e-5)
+
+
+@pytest.mark.parametrize("name", WARP_ENVS)
+def test_host_c_warp_build_equals_lane_build(builds, name):
+    """N=5, H=2 from the seed-0 state: the warp build's rewards and final
+    state are the lane build's bit for bit and the plain version's within
+    the rollout tolerances; no write past the last rollout; a NaN lane
+    poisons only its own rewards; the horizon mask; a second frame or
+    board changes the rewards and the two builds still agree."""
+    env, state = ENVS[name](), _state(name)
+    lane, warp = builds[name]
+    q0, qd0, acts = _lanes(name, state)
+    got = _host_run(warp, env, state, q0, qd0, acts)
+    _assert_same_bits(got, _host_run(lane, env, state, q0, qd0, acts))
+    plain = [to_np(x) for x in rk.env_plain_rollout(
+        env, state, to_torch(q0), to_torch(qd0), to_torch(acts))]
+    assert np.isfinite(got[0]).all()
+    np.testing.assert_allclose(got[0], plain[0], **REW_TOL)
+    np.testing.assert_allclose(got[1], plain[1], **Q_TOL)
+    np.testing.assert_allclose(got[2], plain[2], **REW_TOL)
+
+    bad = q0.copy()
+    bad[2, 1] = np.nan
+    rew_bad, _, _ = _host_run(warp, env, state, bad, qd0, acts)
+    assert np.isnan(rew_bad[2]).all()
+    keep = np.arange(N) != 2
+    np.testing.assert_array_equal(_bits(rew_bad[keep]), _bits(got[0][keep]))
+
+    mask = np.array([1.0, 0.0], np.float32)
+    masked = rk.risk_aggregate(to_torch(got[0]), to_torch(mask))
+    np.testing.assert_allclose(to_np(masked), -got[0][:, 0], rtol=1e-6)
+
+    second = _state(name, seed=2)
+    _, _, dyn1 = rk.kernel_operands(env, second)
+    assert not torch.equal(dyn1, rk.kernel_operands(env, state)[2])
+    got1 = _host_run(warp, env, second, q0, qd0, acts)
+    _assert_same_bits(got1, _host_run(lane, env, second, q0, qd0, acts))
+    assert not np.array_equal(got1[0], got[0])
+
+
+def test_door_adroit_warp_build_matches_jax(builds):
+    """door-v0-adroit's warp build against JAX's ``DoorAdroit(engine=
+    "tensor")`` at N=8, H=2 on door-v0-hand's lanes (clamped, free and
+    reset lanes): rewards within REW_TOL."""
+    from ppi_tpu.envs.door_adroit import DoorAdroit as JaxDoorAdroit
+    from ppi_tpu_torch.envs.door_adroit import DoorAdroitState
+    jenv = JaxDoorAdroit(engine="tensor")
+    env = ENVS["door-v0-adroit"]()
+    js, q0, qd0, acts, _, _ = hand_door_lanes(jenv, env, 8, 2)
+    ref = jax_lane_rollout_fn(jenv)(js, q0, qd0, acts)
+    state = port_state(DoorAdroitState, js)
+    got = _host_run(builds["door-v0-adroit"][1], env, state,
+                    q0.astype(np.float32), qd0.astype(np.float32), acts)
+    np.testing.assert_allclose(got[0], ref[0], **REW_TOL)
+
+
+def test_the_adroit_envs_and_only_they_build_the_warp_layout(monkeypatch):
+    """A spy on the build: ``env_rollout(...).load()`` builds the warp
+    skeleton for door-v0-adroit and hammer-v0-adroit and the lane
+    skeleton for every other env of the runner."""
+    built = {}
+    monkeypatch.setattr(rk, "_env_header", lambda *a: "lane")
+    monkeypatch.setattr(rk, "_warp_header", lambda *a: "warp")
+    monkeypatch.setattr(rk, "_library", lambda header: built.setdefault(
+        "current", []).append(("rollout.cu", header)))
+    monkeypatch.setattr(rk, "_warp_library", lambda header: built.setdefault(
+        "current", []).append(("rollout_warp.cu", header)))
+    monkeypatch.setattr(rk, "load_function", lambda *a, **k: a[1])
+    for name, cls in ENVS.items():
+        env = cls()
+        built["current"] = []
+        symbol = rk.env_rollout(env, env.reset(
+            torch.Generator().manual_seed(0), "cpu"), 1).load()
+        want = name in WARP_ENVS
+        assert built["current"] == ([("rollout_warp.cu", "warp")] if want
+                                    else [("rollout.cu", "lane")]), name
+        assert symbol == ("ppi_rollout_warp_launch" if want
+                          else "ppi_rollout_launch")
+        assert rk.kernel_layout(env) == ("warp" if want else "lane")
+        assert rk.launch_key(env) == ("rollout_warp" if want else "rollout")
+    assert len(ENVS) == 21
+
+
+@pytest.mark.parametrize("name", WARP_ENVS)
+def test_warp_headers_are_unchanged(headers, name):
+    warp = headers[name][1]
+    assert "env_assemble" in warp and "env_substep" not in warp
+    assert hashlib.sha256(warp.encode()).hexdigest() == WARP_SHA256[name]
