@@ -10,9 +10,10 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 the card at N=1000 (ragged), H=20: final state and rewards,
                 a pre-poisoned NaN lane, the horizon mask in the objective,
                 and a sampled door frame;
-  3. timings -- kernel time (CUDA events) at N=1024/H=160 and N=64/H=30,
-                the plain rollout at N=1024/H=160, ms per PPI iteration at
-                N=1024/H=160 (sample -> kernel -> LBPS update);
+  3. timings -- kernel time (CUDA events) at N=1024/H=160, N=64/H=30 and
+                N=1024/H=20, the plain rollout at N=1024/H=20, ms per PPI
+                iteration at N=1024/H=160 (sample -> kernel -> LBPS
+                update);
   4. episode -- the canonical door-v0 episode through the port's runner
                 (Lbps, SE kernel, delta 0.9, 2 iters, anneal 0.5,
                 lengthscale 0.08, 64 samples, H=30, T=250, 50 warm-start
@@ -60,8 +61,8 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 DoF) bodies (variants c and d: the bolt projection) and
                 build them with nvcc in parallel with phases 1, 5 and 9;
                 print each body's line count, nvcc seconds and -Xptxas -v
-                summary. door-v0-adroit plans and steps through the warp
-                layout (phase 32's build) in phases 14-16;
+                summary. Both plan and step through the warp layout
+                (phase 32's builds) in phases 14-16;
  14. check   -- each body against its plain version on the card at N=1000
                 (ragged), H=20 (door-v0-adroit H=5: its plain rollout is
                 ~200k eager launches a step): rewards and final state from
@@ -72,10 +73,10 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 frame (H=5), and the real step through the kernel (N=1,
                 H=1) against the eager step;
  15. timings -- each body's kernel time at N=64 and N=1024, H=30
-                (door-v0-adroit H=10), the plain rollout at N=64 there, one
-                synced PPI iteration at the canonical shape (H=30), one real
-                step through the kernel, one eager real step and one
-                observation;
+                (door-v0-adroit H=10), the plain rollout and the kernel at
+                N=64/H=10, one synced PPI iteration at the canonical shape
+                (H=30), one real step through the kernel, one eager real
+                step and one observation;
  16. episodes -- the canonical config (Lbps, SE, delta 0.9, 2 iters, anneal
                 0.5, lengthscale 0.08 = "4dt", N=64, H=30, T=250, 50
                 warm-start iterations) on door-v0-hand at seeds 0-1 (door
@@ -144,10 +145,10 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 (what lying still earns);
  25. build   -- generate the pen-v0-adroit (20 DoF), relocate-v0-adroit
                 (24) and hammer-v0-adroit (25) bodies and build them with
-                nvcc first of all twenty-two builds (with phase 32's two);
+                nvcc first of all twenty-two builds (with phase 32's four);
                 print each body's line count, nvcc seconds and -Xptxas -v
-                summary. hammer-v0-adroit plans and steps through the warp
-                layout in phases 26-28;
+                summary. relocate-v0-adroit and hammer-v0-adroit plan and
+                step through the warp layout in phases 26-28;
  26. check   -- each of those bodies against its plain version on the card
                 at N=1000 (ragged), H=3 (the plain version is 191k-465k
                 eager ops a lane step): rewards and final state
@@ -160,8 +161,8 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 against the eager step;
  27. timings -- each body's kernel time at its canonical shape
                 (pen-v0-adroit N=96/H=15, relocate-v0-adroit N=256/H=20,
-                hammer-v0-adroit N=128/H=30) and at N=64/H=2, the plain
-                rollout at N=64/H=2, ops per lane step and the bound, one
+                hammer-v0-adroit N=128/H=30) and at N=64/H=1, the plain
+                rollout at N=64/H=1, ops per lane step and the bound, one
                 synced PPI iteration with the canonical solver and prior,
                 one real step through the kernel and one observation;
  28. episodes -- the canonical configs (``goal_success.py:78-92``) at seed
@@ -201,25 +202,34 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 return with exactly 110 launches a rank.
  32. build   -- the warp layout (``csrc/rollout_warp.cu``: one rollout a
                 warp, the mass matrix and the solve spread over its lanes)
-                of door-v0-adroit and hammer-v0-adroit, built with nvcc
-                beside phase 25's bodies; print each body's line count,
-                nvcc seconds, shared memory a rollout and -Xptxas -v
-                summary next to its lane layout's;
- 33. check   -- on phase 14's and 26's lanes (N=1000, H=5 and H=3): the
-                warp layout bit for bit the plain version and the lane
-                kernel; a NaN lane, a second frame or board with the mask
-                on its costs, bit for bit the lane kernel's; N=1000 in
-                blocks of 3 rollouts (ragged) into outputs padded with a
-                sentinel past N that must stay; the real step (N=1, H=1)
-                bit for bit ``plain_step`` and the lane kernel;
- 34. timings -- CUDA events at N=64/H=30 (door-v0-adroit), N=128/H=30
-                (hammer-v0-adroit) and N=1024: the lane layout at 128, 32,
-                8 and 1 threads a block, the warp layout; the real step
-                and a synced PPI iteration (Lbps, SE 4dt) in both layouts;
-                then phase 16's and 28's seed-0 episodes once more through
-                the lane layout: exactly 800 and 1250 launches of it, the
-                returns equal the warp layout's, the door open.
-Then one JSON line with the kernels' numbers and, last, the device line.
+                of door-v0-adroit, hammer-v0-adroit,
+                relocate-v0-adroit and door-v0-hand, built with nvcc beside
+                phases 13's and 25's bodies; print each body's line count,
+                nvcc seconds, shared memory a rollout and a block and
+                -Xptxas -v summary next to its lane layout's;
+ 33. check   -- on phase 14's and 26's lanes (N=1000, H=5, 3, 3 and 20):
+                the warp layout bit for bit the lane kernel, and the plain
+                version bit for bit (relocate-v0-adroit's rewards within
+                1e-6: its division by 10); a NaN lane; a second frame,
+                board or goal (the goal through the reward constants) that
+                changes the
+                rewards, with the mask on its costs, bit for bit the lane
+                kernel's; N=1000 in blocks of 3 rollouts (ragged) into
+                outputs padded with a sentinel past N that must stay; the
+                real step (N=1, H=1) bit for bit ``plain_step`` (its reward
+                within the same tolerance) and the lane kernel;
+ 34. timings -- CUDA events at each body's canonical shape (N=64/H=30,
+                N=128/H=30, N=256/H=20, N=64/H=30) and at N=1024: the lane
+                layout at 128, 32, 8 and 1 threads a block, the warp layout
+                at 1, 2, 4 and 8 rollouts a block and as routed; the real
+                step and a synced PPI iteration (the canonical solver and
+                prior) in both layouts; then phase 16's and 28's seed-0
+                episodes of the four once more through the lane layout:
+                exactly 800, 1250, 330 and 800 launches of it, the returns
+                equal the warp layout's, the doors open.
+Then one JSON line with the kernels' numbers (each entry with the (N, H)
+of its ms and bound_ms, of its plain_ms, and the kernel's time at the
+latter) and, last, the device line.
 All numbers also go to chip_smoke.json in the output directory.
 """
 
@@ -290,14 +300,15 @@ DOOR_CEM = dict(episode=["Cem", "door-v0", "WhiteNoiseIid", "--n-elites",
                 launches=50 + 100 + 100)
 
 # phases 13-16: the hand door scenes (variants c and d). Per env: the check
-# horizon, the seeds of phase 16 and how many must open the door. Every
+# horizon, the seeds of phase 16 and how many must open the door, the
+# horizons of the kernel's and the plain rollout's timings. Every
 # episode runs the canonical config (``goal_success.py:63-66,74-77``); seed
 # 0 launches the kernel 50 + 250 x 2 + 250 times (its real step is one
 # launch too).
 HAND = {"door-v0-hand": dict(h_check=20, seeds=range(2), successes=1,
-                             h_time=30),
+                             h_time=30, h_plain=10),
         "door-v0-adroit": dict(h_check=5, seeds=range(1), successes=1,
-                               h_time=10)}
+                               h_time=10, h_plain=10)}
 HAND_EPISODE = ["Lbps", "SquaredExponentialKernel", "--delta", "0.9",
                 "--n-iters", "2", "--anneal", "0.5", "--lengthscale", "0.08",
                 "--timesteps", "250", "--horizon", "30"]
@@ -435,14 +446,14 @@ STANDUP_LYING = 150 * 0.22 / 0.3   # what lying still earns in 150 steps
 ADROIT = {
     "pen-v0-adroit": dict(
         h_check=3, h_frame=2, scale=0.5, act0=5, moved=(3, 4),
-        shape=(96, 15), plain_shape=(64, 2), eager_step=False,
+        shape=(96, 15), plain_shape=(64, 1), eager_step=False,
         family=("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08}),
         episode=["Lbps", "pen-v0-adroit", *_LBPS_SE, "--timesteps", "100",
                  "--horizon", "15"],
         launches=50 + 100 * 2 + 100, success=True),
     "relocate-v0-adroit": dict(
         h_check=3, h_frame=2, scale=0.3, act0=0, moved=(21, 22),
-        shape=(256, 20), plain_shape=(64, 2), eager_step=False,
+        shape=(256, 20), plain_shape=(64, 1), eager_step=False,
         family=("Mppi", "ColouredNoise", {"beta": 2.0}),
         episode=["Mppi", "relocate-v0-adroit", "ColouredNoise", "--beta",
                  "2", "--alpha", "10", "--anneal", "0.9", "--timesteps",
@@ -450,7 +461,7 @@ ADROIT = {
         launches=50 + 140 + 140, success=True),
     "hammer-v0-adroit": dict(
         h_check=3, h_frame=2, scale=0.3, act0=0, moved=(24,),
-        shape=(128, 30), plain_shape=(64, 2), eager_step=False,
+        shape=(128, 30), plain_shape=(64, 1), eager_step=False,
         family=("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08}),
         episode=["Lbps", "hammer-v0-adroit", *_LBPS_SE, "--timesteps",
                  "400", "--horizon", "30"],
@@ -459,15 +470,26 @@ ADROIT = {
 
 
 # phases 32-34: the warp layout (csrc/rollout_warp.cu), through which
-# door-v0-adroit and hammer-v0-adroit plan and step (phases 13-16 and
-# 25-28 run it). Per env: the canonical kernel shape, phase 16's or 28's
-# return and launches come from, the env's class (whose layout phase 34
-# sets to "lane" for its second episode). The lane layout is timed at each
-# of LANE_BLOCKS threads a block; SENTINEL_WARPS rollouts a block leave
-# N_CHECK ragged for the sentinel check.
-WARP = {"door-v0-adroit": dict(shape=(64, 30)),
-        "hammer-v0-adroit": dict(shape=(128, 30))}
+# door-v0-hand, door-v0-adroit, relocate-v0-adroit and hammer-v0-adroit
+# plan and step (phases 13-16 and 25-28 run it). Per env: the canonical
+# kernel shape, and whether its rewards equal the plain version's bit for
+# bit or only within SCENE_TOL (relocate-v0-adroit's reward divides a sum
+# by 10: PyTorch on the card multiplies by the reciprocal, the kernel
+# divides, and the one-ulp quotient carries through the rest of the
+# reward). Phase 16 (HAND) or 28
+# (ADROIT) gives its episode, return and launches, and its canonical
+# solver and prior; phase 34 sets the env's class to the lane layout for
+# the second episode. The lane layout is timed at each of LANE_BLOCKS
+# threads a block, the warp layout at each of WARP_SIZES rollouts a block;
+# SENTINEL_WARPS rollouts a block leave N_CHECK ragged for the sentinel
+# check.
+WARP = {"door-v0-adroit": dict(shape=(64, 30), exact_rewards=True),
+        "hammer-v0-adroit": dict(shape=(128, 30), exact_rewards=True),
+        "relocate-v0-adroit": dict(shape=(256, 20), exact_rewards=False),
+        "door-v0-hand": dict(shape=(64, 30), exact_rewards=True)}
 LANE_BLOCKS = (128, 32, 8, 1)
+WARP_SIZES = (1, 2, 4, 8)
+HAND_FAMILY = ("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08})
 SENTINEL, SENTINEL_WARPS, SENTINEL_PAD = -12345.0, 3, 64
 CHECKED = {}   # phases 14 and 26 keep their inputs and outputs here
 
@@ -831,12 +853,17 @@ def time_hand(name, env, dev):
         out[f"kernel_ms_N{n}_H{h}"] = cuda_ms(
             lambda: r(qn, qdn, a, dyn=s0.frame), iters)
     out[f"bound_ms_N64_H{h}"], out["bound_by"] = rollout_bound(env, 64, h)
-    _, qn, qdn, a = hand_lanes(env, dev, 64, h)
+    hp = HAND[name]["h_plain"]
+    _, qn, qdn, a = hand_lanes(env, dev, 64, hp)
+    if hp != h:   # the kernel at the plain rollout's shape too
+        r = rk.env_rollout(env, s0, hp)
+        out[f"kernel_ms_N64_H{hp}"] = cuda_ms(
+            lambda: r(qn, qdn, a, dyn=s0.frame), 20)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rk.env_plain_rollout(env, s0, qn, qdn, a)
     torch.cuda.synchronize()
-    out[f"plain_ms_N64_H{h}"] = 1e3 * (time.perf_counter() - t0)
+    out[f"plain_ms_N64_H{hp}"] = 1e3 * (time.perf_counter() - t0)
 
     mean, cov_in, cov_out = design_moments(env.action_low, env.action_high,
                                            ratio=1000.0)
@@ -1384,6 +1411,17 @@ def same_bits(a, b):
         a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
 
+def same_rewards(a, b, exact):
+    """Rewards bit for bit, or (``exact`` false) of one shape, NaN at the
+    same places and every other value within SCENE_TOL of ``b``."""
+    if exact:
+        return same_bits(a, b)
+    nan = torch.isnan(a)
+    if a.shape != b.shape or not torch.equal(nan, torch.isnan(b)):
+        return False
+    return bool(nan.all()) or rel_err(a[~nan], b[~nan]) <= SCENE_TOL
+
+
 def time_ppi(door, s0, objective, n, horizon, iters):
     """ms per synced PPI iteration (sample -> rollout -> LBPS update) with
     the SE prior (lengthscale 4 dt) and ``objective`` on ``s0``'s device;
@@ -1643,9 +1681,20 @@ def sharded_phases(door, dev, ret4):
         "ms": float(np.mean(mesh_t["4 ranks"]["kernel_ms"])),
         "plain_ms": mesh_t["4 ranks"]["plain_ms"],
         "bound_ms": mesh_t["bound_ms_shard"], "bound_by": mesh_bound_by,
-        "library_ms": None}
+        "library_ms": None,
+        # ms and bound_ms: one rank's shard; plain_ms: the batch on 4 ranks
+        **shapes((N_MESH // MESH_RANKS, H_MESH), (N_MESH, H_MESH_PLAIN),
+                 None)}
     return dict(mesh_timings=mesh_t, mesh_episodes=episodes_m,
                 mesh_max_abs_err=mesh_max_abs, mesh_s=mesh_s), kernel
+
+
+def shapes(shape, plain_shape, ms_at_plain_shape):
+    """A kernels-line entry's shapes: (N, H) of its ``ms`` and
+    ``bound_ms``, (N, H) of its ``plain_ms``, and the kernel's time at the
+    plain rollout's shape where the two differ (null where not measured)."""
+    return {"shape": list(shape), "plain_shape": list(plain_shape),
+            "ms_at_plain_shape": ms_at_plain_shape}
 
 
 def warp_header(env):
@@ -1695,12 +1744,15 @@ def padded_launch(run, q0, qd0, acts, consts, dyn, size):
 
 def check_warp(name, env, dev):
     """Phase 33 for one env, on phase 14's or 26's lanes and plain results:
-    the warp layout bit for bit the plain version and the lane layout; a
-    NaN lane, a second frame or board (and the mask on its costs), the
+    the warp layout bit for bit the lane layout, and the plain version (the
+    rewards within SCENE_TOL where they are not exact); a NaN lane, a
+    second frame,
+    board or goal that changes the rewards (and the mask on its costs), the
     sentinels past N, the real step. Returns (report, max abs error of the
     warp and of the lane layout against plain)."""
     from ppi_tpu_torch.envs.physics import rollout_kernel as rk
     c = CHECKED[name]
+    exact = WARP[name]["exact_rewards"]
     s0, q0, qd0, acts = c["s0"], c["q0"], c["qd0"], c["acts"]
     h = acts.shape[1]
     consts, _, dyn = rk.kernel_operands(env, s0)
@@ -1712,6 +1764,9 @@ def check_warp(name, env, dev):
     warp, plain = c["out"], c["plain"]
     rep = {"warp_equals_plain": all(same_bits(a, b)
                                     for a, b in zip(warp, plain)),
+           "warp_matches_plain": (
+               same_rewards(warp[0], plain[0], exact)
+               and all(same_bits(a, b) for a, b in zip(warp[1:], plain[1:]))),
            "warp_equals_lane": all(same_bits(a, b)
                                    for a, b in zip(warp, lane)),
            "lane_equals_plain": all(same_bits(a, b)
@@ -1720,9 +1775,9 @@ def check_warp(name, env, dev):
            for lay, out in (("warp", warp), ("lane", lane))}
     check(rep["warp_equals_lane"], f"{name}: warp layout differs from the "
           "lane layout")
-    check(err["warp"] <= 1e-6 * (1.0 + max(float(x.abs().max())
-                                            for x in plain)),
-          f"{name}: warp layout vs plain {err['warp']}")
+    check(rep["warp_matches_plain"], f"{name}: warp layout vs plain: the "
+          f"state's bits, or the rewards {'bits' if exact else SCENE_TOL} "
+          f"(max abs {err['warp']})")
 
     q0_bad = q0.clone()
     q0_bad[3] = torch.nan
@@ -1734,6 +1789,8 @@ def check_warp(name, env, dev):
                        and same_bits(bad[0], bad[1]))
     check(rep["nan_lane"], f"{name}: a NaN lane must go NaN alone")
 
+    # the second frame or board (dyn) or goal (consts) on its own lanes,
+    # against the first's operands on the same lanes
     s1, hf = c["s1"], c["h_frame"]
     a = acts[:, :hf].contiguous()
     q1, qd1 = lanes(s1, q0.shape[0])
@@ -1741,13 +1798,15 @@ def check_warp(name, env, dev):
     r1 = [rk.env_rollout(env, s1, hf, layout=lay)(q1, qd1, a, consts=c1,
                                                   dyn=d1)[0]
           for lay in ("warp", "lane")]
+    r0 = rk.env_rollout(env, s0, hf)(q1, qd1, a, consts=consts, dyn=dyn)[0]
     mask = (torch.arange(hf, device=dev) < max(hf - 2, 1)).float()
     costs = [rk.risk_aggregate(r, mask) for r in r1]
     rep["second_frame_and_mask"] = (
         same_bits(r1[0], r1[1]) and same_bits(costs[0], costs[1])
+        and not bool(torch.equal(r1[0], r0))
         and not bool(torch.equal(costs[0], rk.risk_aggregate(r1[0]))))
-    check(rep["second_frame_and_mask"], f"{name}: second frame or board, "
-          "or the mask")
+    check(rep["second_frame_and_mask"], f"{name}: second frame, board or "
+          "goal, or the mask")
 
     rew_s, qf_s, qdf_s, kept = padded_launch(warp_run, q0, qd0, acts,
                                              consts, dyn, SENTINEL_WARPS)
@@ -1764,17 +1823,25 @@ def check_warp(name, env, dev):
         consts=consts, dyn=dyn)
     rep["real_step"] = (same_bits(s_k.physics.qpos, q_e)
                         and same_bits(s_k.physics.qvel, qd_e)
-                        and same_bits(r_k, r_e)
-                        and same_bits(s_k.physics.qpos, step_lane[1][0]))
-    check(rep["real_step"], f"{name}: warp real step vs plain_step")
+                        and same_rewards(r_k, r_e, exact)
+                        and same_bits(s_k.physics.qpos, step_lane[1][0])
+                        and same_bits(r_k.reshape(1), step_lane[0][0]))
+    check(rep["real_step"], f"{name}: warp real step vs plain_step or the "
+          "lane layout")
     return rep, err
+
+
+def warp_family(name):
+    """(solver, prior, prior options) of ``name``'s canonical config."""
+    return ADROIT[name]["family"] if name in ADROIT else HAND_FAMILY
 
 
 def time_warp(name, env, dev):
     """Phase 34's timings for one env: the lane layout at each of
-    LANE_BLOCKS and the warp layout, at the canonical shape and at N=1024
-    (CUDA events); the real step in both layouts; a synced PPI iteration
-    (the canonical Lbps, SE 4dt) in both layouts."""
+    LANE_BLOCKS, the warp layout at each of WARP_SIZES and as the env
+    routes it, at the canonical shape and at N=1024 (CUDA events); the real
+    step in both layouts; a synced PPI iteration (the canonical solver and
+    prior) in both layouts."""
     from ppi_tpu_torch.algorithms import make_solver
     from ppi_tpu_torch.algorithms.base import _one_iteration
     from ppi_tpu_torch.envs.physics import rollout_kernel as rk
@@ -1790,24 +1857,29 @@ def time_warp(name, env, dev):
     for nn in (n, 1024):
         q0, qd0, acts = study_lanes(env, s0, nn, h, 0.3)
         iters = 10 if nn == n else 3
-        for block in LANE_BLOCKS:
-            r = study_rollout(env, s0, h, "lane", block)
-            out[f"lane_{block}_ms_N{nn}_H{h}"] = cuda_ms(
-                lambda: r(q0, qd0, acts, consts=consts, dyn=dyn), iters, 1)
+        for layout, sizes in (("lane", LANE_BLOCKS), ("warp", WARP_SIZES)):
+            for size in sizes:
+                r = study_rollout(env, s0, h, layout, size)
+                out[f"{layout}_{size}_ms_N{nn}_H{h}"] = cuda_ms(
+                    lambda: r(q0, qd0, acts, consts=consts, dyn=dyn),
+                    iters, 1)
         r = rk.env_rollout(env, s0, h)
         out[f"warp_ms_N{nn}_H{h}"] = cuda_ms(
             lambda: r(q0, qd0, acts, consts=consts, dyn=dyn), iters, 1)
 
+    alg, policy, kwargs = warp_family(name)
     mean, cov_in, cov_out = design_moments(env.action_low, env.action_high,
                                            ratio=1000.0)
     family, state = make_policy(
-        "SquaredExponentialKernel", env.dt * torch.arange(h),
-        env.action_dim, mean, cov_in, cov_out, lengthscale=0.08,
-        lower=env.action_low, upper=env.action_high, device=dev)
+        policy, env.dt * torch.arange(h), env.action_dim, mean, cov_in,
+        cov_out, lower=env.action_low, upper=env.action_high, device=dev,
+        **kwargs)
     for layout in ("warp", "lane"):
         with layout_of(type(env), layout):
-            step = _one_iteration(make_solver("Lbps", delta=0.9), family,
-                                  rk.kernel_mpc_objective(env, s0, h), n)
+            step = _one_iteration(
+                make_solver(alg, delta=0.9, alpha=10.0, n_elites=10,
+                            dimension=family.dim_features), family,
+                rk.kernel_mpc_objective(env, s0, h), n)
             gen = torch.Generator(dev).manual_seed(0)
             st = state
             for _ in range(2):
@@ -1834,7 +1906,7 @@ def time_warp(name, env, dev):
 
 def main():
     # one nvcc for each source, all started together
-    with ThreadPoolExecutor(max_workers=24) as pool:
+    with ThreadPoolExecutor(max_workers=32) as pool:
         return run(pool)
 
 
@@ -1874,7 +1946,7 @@ def run(pool):
     door = Door(fixed_scene=True)
     t0 = time.perf_counter()
     # phase 25's three bodies are the largest (nvcc ~1 min each): they
-    # start first, with phase 32's two warp-layout bodies
+    # start first, with phase 32's four warp-layout bodies
     warp_bodies = {name: warp_header(ENVS[name]()) for name in WARP}
     warp_builds = {name: pool.submit(build_timed, "rollout_warp.cu",
                                      {"env_warp.h": h})
@@ -1963,21 +2035,22 @@ def run(pool):
 
     # ---- 3. timings ------------------------------------------------------------
     timings = {}
-    for n, h, iters in ((1024, 160, 20), (64, 30, 200)):
+    for n, h, iters in ((1024, 160, 20), (64, 30, 200), (1024, 20, 20)):
         a = torch.from_numpy((0.4 * rng.standard_normal(
             (n, h, door.action_dim))).astype(np.float32)).to(dev)
         qn, qdn = lanes(s0, n)
         r = make_run(h)
         timings[f"kernel_ms_N{n}_H{h}"] = cuda_ms(
             lambda: r(qn, qdn, a, dyn=s0.frame), iters)
+    # the plain rollout at H=20: one eager op per scalar op, ~19 s at H=160
     a = torch.from_numpy((0.4 * rng.standard_normal(
-        (1024, 160, door.action_dim))).astype(np.float32)).to(dev)
+        (1024, 20, door.action_dim))).astype(np.float32)).to(dev)
     qn, qdn = lanes(s0, 1024)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rk.env_plain_rollout(door, s0, qn, qdn, a)
     torch.cuda.synchronize()
-    timings["plain_ms_N1024_H160"] = 1e3 * (time.perf_counter() - t0)
+    timings["plain_ms_N1024_H20"] = 1e3 * (time.perf_counter() - t0)
 
     timings["ppi_iter_ms_N1024_H160"], stats = time_ppi(
         door, s0, rk.kernel_mpc_objective(door, s0, 160), 1024, 160, 20)
@@ -2205,7 +2278,8 @@ def run(pool):
               f"{secs:.1f} s (in parallel with phases 1-12); ptxas: "
               f"{' | '.join(info['ptxas'])}", flush=True)
 
-    warp_builds["door-v0-adroit"].result()   # phase 14 launches it
+    for name in HAND:   # phase 14 launches their warp builds
+        warp_builds[name].result()
 
     # ---- 14. hand bodies: kernel vs plain --------------------------------------
     hand_errs, hand_max_abs = {}, {}
@@ -2394,7 +2468,9 @@ def run(pool):
               f"{secs:.1f} s (in parallel with phases 1-24); ptxas: "
               f"{' | '.join(info['ptxas'])}", flush=True)
 
-    warp_builds["hammer-v0-adroit"].result()   # phase 26 launches it
+    for name in ADROIT:   # phase 26 launches the warp builds among them
+        if name in WARP:
+            warp_builds[name].result()
 
     # ---- 26. those bodies: kernel vs plain ----------------------------------
     adroit_errs, adroit_max_abs = {}, {}
@@ -2456,14 +2532,17 @@ def run(pool):
         size = re.search(r"#define PPI_SH_SIZE (\d+)", warp_bodies[name])
         info = {"lines": len(warp_bodies[name].splitlines()), "nvcc_s": secs,
                 "ptxas": ptxas_summary(lib),
-                "shared_bytes_a_rollout": 4 * int(size.group(1))}
+                "shared_bytes_a_rollout": 4 * int(size.group(1)),
+                "shared_bytes_a_block": {
+                    w: 4 * int(size.group(1)) * w for w in WARP_SIZES}}
         warp_info[name] = info
         print(f"warp build {name}: {info['lines']} generated lines, nvcc "
               f"{secs:.1f} s (in parallel with phase 1), "
               f"{info['shared_bytes_a_rollout']} B of shared memory a "
-              f"rollout; ptxas: {' | '.join(info['ptxas'])}; the lane "
-              f"layout's: {' | '.join(body_info[name]['ptxas'])}",
-              flush=True)
+              f"rollout, {info['shared_bytes_a_block']} a block of 1-8 "
+              f"rollouts; ptxas: "
+              f"{' | '.join(info['ptxas'])}; the lane layout's: "
+              f"{' | '.join(body_info[name]['ptxas'])}", flush=True)
     out.update(warp_builds=warp_info)
 
     # ---- 33. the warp layout: bits against plain and the lane layout ------
@@ -2483,11 +2562,12 @@ def run(pool):
     for name in WARP:
         warp_times[name] = time_warp(name, ENVS[name](), dev)
         print(f"timings {name} (lane layout at blocks {LANE_BLOCKS}, warp "
-              f"layout): {json.dumps(warp_times[name])}", flush=True)
+              f"layout at {WARP_SIZES} rollouts a block and as routed): "
+              f"{json.dumps(warp_times[name])}", flush=True)
     out.update(warp_timings=warp_times)
     lane_episodes = {}
     for name in WARP:
-        if name == "door-v0-adroit":
+        if name in HAND:
             args_list, n_samples = (HAND_EPISODE[:1] + [name]
                                     + HAND_EPISODE[1:]), 64
             warp_run, expected = hand_episodes[name][0], HAND_LAUNCHES
@@ -2503,7 +2583,7 @@ def run(pool):
                                "wall_s": wall, "launches": got}
         print(f"episode {name} seed 0, lane layout: "
               f"{json.dumps(lane_episodes[name])}; warp layout (phase "
-              f"{16 if name == 'door-v0-adroit' else 28}): return "
+              f"{16 if name in HAND else 28}): return "
               f"{warp_run['return']!r}, wall {warp_run['wall_s']:.1f} s",
               flush=True)
         check(got == expected and warp_run["launches"] == expected,
@@ -2530,9 +2610,10 @@ def run(pool):
          "launches": launches + episodes["door-v0 cem"]["launches"]
          + sum(r["launches"] for r in short.values()),
          "max_abs_err": max_abs, "ms": timings["kernel_ms_N1024_H160"],
-         "plain_ms": timings["plain_ms_N1024_H160"],
+         "plain_ms": timings["plain_ms_N1024_H20"],
          "bound_ms": timings["bound_ms_N1024_H160"],
-         "bound_by": "operations", "library_ms": None},
+         "bound_by": "operations", "library_ms": None,
+         **shapes((1024, 160), (1024, 20), timings["kernel_ms_N1024_H20"])},
         {"name": "moment_match", "route": "cuda",
          "source": "ppi_tpu_torch/csrc/moment_match.cu",
          "replaces": "ppi_tpu/ops/pallas_ops.py:78",
@@ -2540,7 +2621,8 @@ def run(pool):
          "ms": mm_times["kernel_ms_4096x640"],
          "plain_ms": mm_times["plain_ms_4096x640"],
          "bound_ms": mm_times["bound_ms_4096x640"], "bound_by": mm_bound_by,
-         "library_ms": mm_times["library_ms_4096x640"]}]
+         "library_ms": mm_times["library_ms_4096x640"],
+         **shapes((4096, 640), (4096, 640), mm_times["kernel_ms_4096x640"])}]
     for env_name, cfg in VARIANT_B.items():
         n, h = cfg["shape"]
         t = b_times[env_name]
@@ -2553,21 +2635,8 @@ def run(pool):
              "ms": t[f"kernel_ms_N{n}_H{h}"],
              "plain_ms": t[f"plain_ms_N{n}_H{h}"],
              "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
-             "library_ms": None})
-    for env_name, cfg in HAND.items():
-        if env_name in WARP:
-            continue
-        t, h = hand_times[env_name], cfg["h_time"]
-        kernels.append(
-            {"name": f"{env_name.replace('-v0-', '_')}_rollout",
-             "route": "cuda", "source": "ppi_tpu_torch/csrc/rollout.cu",
-             "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
-             "launches": sum(r["launches"] for r in hand_episodes[env_name]),
-             "max_abs_err": hand_max_abs[env_name],
-             "ms": t[f"kernel_ms_N64_H{h}"],
-             "plain_ms": t[f"plain_ms_N64_H{h}"],
-             "bound_ms": t[f"bound_ms_N64_H{h}"], "bound_by": t["bound_by"],
-             "library_ms": None})
+             "library_ms": None,
+             **shapes((n, h), (n, h), t[f"kernel_ms_N{n}_H{h}"])})
     for env_name, cfg in SCENES.items():
         n, h = cfg["shape"]
         t = scene_times[env_name]
@@ -2581,7 +2650,8 @@ def run(pool):
              "ms": t[f"kernel_ms_N{n}_H{h}"],
              "plain_ms": t[f"plain_ms_N{n}_H{h}"],
              "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
-             "library_ms": None})
+             "library_ms": None,
+             **shapes((n, h), (n, h), t[f"kernel_ms_N{n}_H{h}"])})
     for env_name, cfg in ADROIT.items():
         if env_name in WARP:
             continue
@@ -2597,7 +2667,8 @@ def run(pool):
              "ms": t[f"kernel_ms_N{n}_H{h}"],
              "plain_ms": t[f"plain_ms_N{pn}_H{ph}"],
              "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
-             "library_ms": None})
+             "library_ms": None,
+             **shapes((n, h), (pn, ph), t[f"kernel_ms_N{pn}_H{ph}"])})
     for env_name, cfg in REST.items():
         n, h = cfg["shape"]
         t = rest_times[env_name]
@@ -2611,18 +2682,26 @@ def run(pool):
              "ms": t[f"kernel_ms_N{n}_H{h}"],
              "plain_ms": t[f"plain_ms_N{n}_H{h}"],
              "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
-             "library_ms": None})
-    # the two warp-layout bodies: the lane layout's entry (phase 34's
+             "library_ms": None,
+             **shapes((n, h), (n, h), t[f"kernel_ms_N{n}_H{h}"])})
+    # the four warp-layout bodies: the lane layout's entry (phase 34's
     # episodes, block 128) beside the warp layout's (phases 16 and 28)
     for env_name, cfg in WARP.items():
         n, h = cfg["shape"]
         t = warp_times[env_name]
-        plain_ms = (hand_times[env_name]["plain_ms_N64_H10"]
-                    if env_name == "door-v0-adroit"
-                    else adroit_times[env_name]["plain_ms_N64_H2"])
-        warp_launches = (sum(r["launches"] for r in hand_episodes[env_name])
-                         if env_name == "door-v0-adroit"
-                         else adroit_episodes[env_name]["launches"])
+        if env_name in HAND:
+            pn, ph = 64, HAND[env_name]["h_plain"]
+            routed = hand_times[env_name]
+            warp_launches = sum(r["launches"]
+                                for r in hand_episodes[env_name])
+        else:
+            pn, ph = ADROIT[env_name]["plain_shape"]
+            routed = adroit_times[env_name]
+            warp_launches = adroit_episodes[env_name]["launches"]
+        plain_ms = routed[f"plain_ms_N{pn}_H{ph}"]
+        # phases 15 and 27 time the kernel as routed (the warp layout) at
+        # the plain rollout's shape; the lane layout is not timed there
+        at_plain = {"lane": None, "warp": routed[f"kernel_ms_N{pn}_H{ph}"]}
         stem = env_name.replace("-v0-", "_")
         for layout, source, launches, ms in (
                 ("lane", "rollout.cu", lane_episodes[env_name]["launches"],
@@ -2637,7 +2716,8 @@ def run(pool):
                  "launches": launches,
                  "max_abs_err": warp_err[env_name][layout], "ms": ms,
                  "plain_ms": plain_ms, "bound_ms": t[f"bound_ms_N{n}_H{h}"],
-                 "bound_by": t["bound_by"], "library_ms": None})
+                 "bound_by": t["bound_by"], "library_ms": None,
+                 **shapes((n, h), (pn, ph), at_plain[layout])})
     kernels.append(mesh_kernel)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 // Whole-rollout kernel, warp layout: N rollouts of H control steps of
 // contact physics, one rollout per warp.
 //
-// Replaces, for the bodies too large for one thread (door-v0-adroit,
+// Replaces, for the bodies whose lane layout one thread's dependent chain
+// bounds (door-v0-hand, door-v0-adroit, relocate-v0-adroit,
 // hammer-v0-adroit), the Pallas megakernel
 // ppi_tpu/envs/physics/pallas_rollout.py (make_pallas_rollout, pallas_call
 // at line 190), as rollout.cu does with one rollout a thread for the
@@ -42,14 +43,17 @@
 // PPI_PROJECT is defined, the PPI_* sizes and shared-memory offsets, and
 // the tables. The tables are read-only global memory: a warp's lanes read
 // different rows of them at once, which the constant cache would
-// serialize.
+// serialize; every SM keeps them in L1. Staging the skeleton's own tables
+// once a block in shared memory (bulk copies on an mbarrier) was measured
+// on an H100 and was no faster than those L1 hits (PERF.md section 6).
 //
 // What bounds it on an H100: latency. One rollout is one warp's chain of
-// dependent stages; at the canonical N=64-128 each warp has an SM to
+// dependent stages; at the canonical N=64-256 each warp has an SM to
 // itself and its time is lane 0's straight-line stage, the stages' loads
 // and __syncwarps, the tables and the solve (PERF.md section 5 has the SM
 // cycles of each), far above the operation bound. A block holds `warps`
-// rollouts (a launch argument; 1 measured best).
+// rollouts (a launch argument; 1 measured best, or within the run-to-run
+// spread of the best).
 //
 // The file also compiles as host C (no __CUDACC__): each cooperative stage
 // then runs lane by lane, lane 0 to 31, in the same per-element order, so

@@ -152,6 +152,9 @@ class DoorHand:
     fixed_scene: bool = False         # True: pin the nominal frame
 
     name = "door-v0-hand"
+    # one thread's dependent chain bounds the lane layout here: the
+    # rollout kernel runs one rollout a warp (rollout_kernel.kernel_layout)
+    scalar_kernel_layout = "warp"
 
     # the sampled door frame overrides the door body's joint-origin offset
     # (a runtime input of the rollout kernel)

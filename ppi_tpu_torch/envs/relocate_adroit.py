@@ -144,6 +144,10 @@ class RelocateAdroit(RelocateHand):
     kd_abd: float = 0.3
 
     name = "relocate-v0-adroit"
+    # the body is too large for one thread: the rollout kernel runs one
+    # rollout a warp (rollout_kernel.kernel_layout); relocate-v0-hand, the
+    # parent, keeps the lane layout
+    scalar_kernel_layout = "warp"
 
     _low, _high = _LOW, _HIGH
     # the level palm centred over the nominal ball start, its bottom 1 cm

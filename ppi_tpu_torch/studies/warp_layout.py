@@ -2,8 +2,9 @@
 
     python -m ppi_tpu_torch.studies.warp_layout [ENV ...]
 
-For each env (door-v0-adroit and hammer-v0-adroit unless named): builds
-the lane layout (``csrc/rollout.cu``) and the warp layout
+For each env (the four warp-layout bodies, door-v0-adroit,
+hammer-v0-adroit, relocate-v0-adroit and door-v0-hand, unless named):
+builds the lane layout (``csrc/rollout.cu``) and the warp layout
 (``csrc/rollout_warp.cu``) of its body in parallel and prints each
 build's ``-Xptxas -v`` summary; checks at N=257 (ragged), H=3 that the
 two layouts give the same bits and match the plain version; then times
@@ -35,7 +36,9 @@ from ppi_tpu_torch.runners.run_mpc import ENVS
 
 # env -> (canonical N, H), the scale of the random PD targets
 CANONICAL = {"door-v0-adroit": ((64, 30), 0.3),
-             "hammer-v0-adroit": ((128, 30), 0.3)}
+             "hammer-v0-adroit": ((128, 30), 0.3),
+             "relocate-v0-adroit": ((256, 20), 0.3),
+             "door-v0-hand": ((64, 30), 0.3)}
 BLOCKS = (128, 32, 8, 1)
 WARPS = (1, 2, 4, 8)
 N_CHECK, H_CHECK = 257, 3

@@ -525,9 +525,17 @@ def test_essps_control_step_never_waits_for_the_card(policy):
     assert bool(torch.isfinite(state.physics.qpos).all())
 
 
-# ---- the warp layout: door-v0-adroit and hammer-v0-adroit ----------------------
+# ---- the warp layout: door-v0-adroit, hammer-v0-adroit, relocate-v0-adroit,
+# door-v0-hand ------------------------------------------------------------
 
-WARP_ENVS = {"door-v0-adroit": 5, "hammer-v0-adroit": 3}  # env -> check H
+# env -> (check H, whether the rewards equal the plain version's bit for
+# bit): relocate-v0-adroit's reward divides a sum by 10, which PyTorch on
+# the card does as a multiplication by the reciprocal and the kernel as a
+# division; the one-ulp quotient carries through the rest of the reward,
+# which then agrees within REWARD_TOL of 1 + |plain|
+WARP_ENVS = {"door-v0-adroit": (5, True), "hammer-v0-adroit": (3, True),
+             "relocate-v0-adroit": (3, False), "door-v0-hand": (5, True)}
+REWARD_TOL = 1e-6
 
 
 def _same_bits(a, b):
@@ -535,16 +543,27 @@ def _same_bits(a, b):
         a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
 
+def _same_rewards(a, b, exact):
+    """Bit for bit, or (``exact`` false) NaN where ``b`` is and the rest
+    within REWARD_TOL."""
+    if exact:
+        return _same_bits(a, b)
+    nan = torch.isnan(a)
+    return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and (bool(nan.all()) or _rel(a[~nan], b[~nan]) <= REWARD_TOL))
+
+
 @pytest.mark.parametrize("name", sorted(WARP_ENVS))
 def test_warp_layout_equals_plain(name):
     """The warp layout at N=257 (ragged: past a whole number of rollouts
     a block at any block size), from a sampled frame or board: one launch
     counted under ``rollout_warp``, rewards and final state bit for bit
-    those of the lane layout and of the plain version; the real step one
-    warp launch, bit for bit the eager step."""
+    those of the lane layout and of the plain version (the rewards within
+    REWARD_TOL where they are not exact); the real step one warp launch,
+    bit for bit the eager step (its reward within the same tolerance)."""
     dev = _device()
     env = _variant_b_env(name)
-    n, h = 257, WARP_ENVS[name]
+    n, (h, exact) = 257, WARP_ENVS[name]
     s0 = env.reset(torch.Generator(dev).manual_seed(1), dev)
     q0 = s0.physics.qpos.expand(n, -1).contiguous()
     qd0 = torch.zeros_like(q0)
@@ -562,8 +581,9 @@ def test_warp_layout_equals_plain(name):
                                                      consts=consts, dyn=dyn)
     plain = rk.env_plain_rollout(env, s0, q0, qd0, acts)
     assert bool(torch.isfinite(plain[0]).all())
-    for w, l, p in zip(warp, lane, plain):
-        assert _same_bits(w, l) and _same_bits(w, p)
+    for i, (w, l, p) in enumerate(zip(warp, lane, plain)):
+        assert _same_bits(w, l)
+        assert _same_rewards(w, p, exact) if i == 0 else _same_bits(w, p)
     action = acts[0, 0]
     before = rk.LAUNCHES["rollout_warp"]
     (s_k, r_k), (s_e, r_e) = env.step(s0, action), env.plain_step(s0, action)
@@ -571,7 +591,7 @@ def test_warp_layout_equals_plain(name):
     assert rk.LAUNCHES["rollout_warp"] == before + 1
     assert _same_bits(s_k.physics.qpos, s_e.physics.qpos)
     assert _same_bits(s_k.physics.qvel, s_e.physics.qvel)
-    assert _same_bits(r_k, r_e)
+    assert _same_rewards(r_k, r_e, exact)
 
 
 # ---- the sharded entry -----------------------------------------------------------

@@ -1,6 +1,7 @@
 """The rollout kernel's warp layout (csrc/rollout_warp.cu) on the CPU.
 
-door-v0-adroit and hammer-v0-adroit plan and step through the warp layout:
+door-v0-adroit, hammer-v0-adroit, relocate-v0-adroit and door-v0-hand plan
+and step through the warp layout:
 one rollout a warp, the substep split into ``engine_soa.assemble_soa``
 (lane 0's straight-line ``env_assemble``, then the mass matrix and the
 right-hand side summed across the lanes from generated tables), the
@@ -17,12 +18,15 @@ bit. The solve alone takes only +, -, * and /, and equals
 import hashlib
 import shutil
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from torch_env_helpers import (
-    Q_TOL, REW_TOL, hand_door_lanes, jax_lane_rollout_fn, port_state)
+    Q_TOL, REW_TOL, assert_rollout_close, hand_door_lanes,
+    jax_lane_rollout_fn, port_state)
 from torch_helpers import to_np, to_torch
 from ppi_tpu_torch.envs.physics import rollout_kernel as rk
 from ppi_tpu_torch.envs.physics.engine_soa import (
@@ -31,10 +35,11 @@ from ppi_tpu_torch.envs.physics.engine_soa import (
     velocity_kinematics_soa, world_inertia_soa)
 from ppi_tpu_torch.runners.run_mpc import ENVS
 
-WARP_ENVS = ("door-v0-adroit", "hammer-v0-adroit")
+WARP_ENVS = ("door-v0-adroit", "hammer-v0-adroit", "relocate-v0-adroit",
+             "door-v0-hand")
 N, H = 5, 2
 
-# sha256 of the two warp headers as first generated: a change to the
+# sha256 of the warp headers as first generated: a change to the
 # generator or the tables shows here, beside the lane pins of
 # tests/test_torch_generator.py
 WARP_SHA256 = {
@@ -42,6 +47,10 @@ WARP_SHA256 = {
         "d806588aafe3ed30fbfb4d0fa2747b41e6de2baa8b30827c451078e3fded6ed9",
     "hammer-v0-adroit":
         "bf91d6063fc7eeceaf2492d7de122dba1b388f9ceb043190b6ca607ab654ec50",
+    "relocate-v0-adroit":
+        "65b169325486ac35e33e2184490ba80ac84079336dd2c336b9f34fdc2dab13b8",
+    "door-v0-hand":
+        "068107eb5dcded245ea594ae77ece5f242237608e597a8f646126536453dffc5",
 }
 
 
@@ -181,8 +190,8 @@ def _spd(nq, seed):
 @pytest.mark.parametrize("name", WARP_ENVS)
 def test_cooperative_solve_equals_solve_pd_scalar(headers, name):
     """The skeleton's solve (lane c owns column c, dead columns skipped),
-    host C, against ``solve_pd_scalar`` over torch at nq = 23 and 25, on
-    four SPD matrices each: bit for bit."""
+    host C, against ``solve_pd_scalar`` over torch at each warp env's nq
+    (12 to 25), on four SPD matrices each: bit for bit."""
     _needs_cc()
     fn = rk.load_host_warp_solve(headers[name][1])
     nq = ENVS[name]()._model.nq
@@ -207,7 +216,8 @@ def test_host_c_warp_build_equals_lane_build(builds, name):
     state are the lane build's bit for bit and the plain version's within
     the rollout tolerances; no write past the last rollout; a NaN lane
     poisons only its own rewards; the horizon mask; a second frame or
-    board changes the rewards and the two builds still agree."""
+    board (``dyn``) or a second goal (the reward constants ``consts``)
+    changes the rewards and the two builds still agree."""
     env, state = ENVS[name](), _state(name)
     lane, warp = builds[name]
     q0, qd0, acts = _lanes(name, state)
@@ -232,8 +242,10 @@ def test_host_c_warp_build_equals_lane_build(builds, name):
     np.testing.assert_allclose(to_np(masked), -got[0][:, 0], rtol=1e-6)
 
     second = _state(name, seed=2)
-    _, _, dyn1 = rk.kernel_operands(env, second)
-    assert not torch.equal(dyn1, rk.kernel_operands(env, state)[2])
+    ops0, ops1 = rk.kernel_operands(env, state), rk.kernel_operands(env,
+                                                                    second)
+    k = 2 if ops0[2] is not None else 0   # dyn, else consts
+    assert ops0[k] is not None and not torch.equal(ops1[k], ops0[k])
     got1 = _host_run(warp, env, second, q0, qd0, acts)
     _assert_same_bits(got1, _host_run(lane, env, second, q0, qd0, acts))
     assert not np.array_equal(got1[0], got[0])
@@ -255,10 +267,58 @@ def test_door_adroit_warp_build_matches_jax(builds):
     np.testing.assert_allclose(got[0], ref[0], **REW_TOL)
 
 
+def test_door_hand_warp_build_matches_jax(builds):
+    """door-v0-hand's warp build (12 DoF: 13 columns, lanes 13-31 idle in
+    the solve) against JAX's ``DoorHand(engine="tensor")`` at N=8, H=2 on
+    its clamped, free and reset lanes: tests/test_torch_door_hand.py's
+    tolerances (REW_TOL, Q_TOL)."""
+    from ppi_tpu.envs.door_hand import DoorHand as JaxDoorHand
+    from ppi_tpu_torch.envs.door_hand import DoorHandState
+    jenv = JaxDoorHand(engine="tensor")
+    env = ENVS["door-v0-hand"]()
+    js, q0, qd0, acts, _, _ = hand_door_lanes(jenv, env, 8, 2)
+    ref = jax_lane_rollout_fn(jenv)(js, q0, qd0, acts)
+    got = _host_run(builds["door-v0-hand"][1], env,
+                    port_state(DoorHandState, js), q0.astype(np.float32),
+                    qd0.astype(np.float32), acts)
+    assert_rollout_close(got, ref)
+
+
+def test_relocate_adroit_warp_build_matches_jax(builds):
+    """relocate-v0-adroit's warp build (the goal through ``consts``, the
+    ball a three-slide chain of its own) against JAX's
+    ``RelocateAdroit(engine="tensor")`` at N=8, H=2 from a pinned goal, the
+    ball on the table, sliding into the thumb and falling beside the
+    fingers: tests/test_torch_relocate_adroit.py's tolerances (REW_TOL,
+    Q_TOL)."""
+    from ppi_tpu.envs.relocate_adroit import (
+        RelocateAdroit as JaxRelocateAdroit)
+    from ppi_tpu_torch.envs.relocate_adroit import (
+        BALL_X, BALL_Y, BALL_Z, N_ACT, RelocateAdroitState)
+    jenv = JaxRelocateAdroit(engine="tensor")
+    env = ENVS["relocate-v0-adroit"]()
+    js = jenv.reset(jax.random.key(0)).replace(
+        target=jnp.asarray((0.65, 0.10, 0.88), jnp.float32))
+    q = np.asarray(js.physics.qpos).copy()
+    q[BALL_X], q[BALL_Y] = 0.02, -0.03
+    q0 = np.tile(q, (8, 1)).astype(np.float32)
+    qd0 = np.zeros_like(q0)
+    qd0[3:6, BALL_Y] = -2.0
+    q0[6:, BALL_Y], q0[6:, BALL_Z] = 0.2, 0.1
+    acts = (q0[:, None, :N_ACT] + 0.3 * np.random.default_rng(0)
+            .standard_normal((8, 2, N_ACT))).astype(np.float32)
+    ref = jax_lane_rollout_fn(jenv)(js, q0, qd0, acts)
+    got = _host_run(builds["relocate-v0-adroit"][1], env,
+                    port_state(RelocateAdroitState, js), q0, qd0, acts)
+    assert np.isfinite(got[0]).all()
+    assert_rollout_close(got, ref)
+
+
 def test_the_adroit_envs_and_only_they_build_the_warp_layout(monkeypatch):
     """A spy on the build: ``env_rollout(...).load()`` builds the warp
-    skeleton for door-v0-adroit and hammer-v0-adroit and the lane
-    skeleton for every other env of the runner."""
+    skeleton for the four warp envs (door-v0-adroit, hammer-v0-adroit,
+    relocate-v0-adroit and door-v0-hand) and the lane skeleton for every
+    other env of the runner, relocate-v0-hand included."""
     built = {}
     monkeypatch.setattr(rk, "_env_header", lambda *a: "lane")
     monkeypatch.setattr(rk, "_warp_header", lambda *a: "warp")
