@@ -86,7 +86,9 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
  17. build   -- generate the hammer-v0 (5 DoF), pen-v0-hand (11),
                 relocate-v0-hand (13) and hammer-v0-hand (10) bodies and
                 build them with nvcc beside all the others; print each
-                body's line count, nvcc seconds and -Xptxas -v summary;
+                body's line count, nvcc seconds and -Xptxas -v summary.
+                relocate-v0-hand and hammer-v0-hand plan and step through
+                the warp layout (phase 32's builds) in phases 18-20;
  18. check   -- each of those bodies against its plain version on the card
                 at N=1000 (ragged), H=20 (relocate-v0-hand H=10): rewards
                 and final state bit-identical or within 1e-6, from lanes in
@@ -145,7 +147,7 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 (what lying still earns);
  25. build   -- generate the pen-v0-adroit (20 DoF), relocate-v0-adroit
                 (24) and hammer-v0-adroit (25) bodies and build them with
-                nvcc first of all twenty-two builds (with phase 32's four);
+                nvcc first of all twenty-two builds (with phase 32's six);
                 print each body's line count, nvcc seconds and -Xptxas -v
                 summary. relocate-v0-adroit and hammer-v0-adroit plan and
                 step through the warp layout in phases 26-28;
@@ -182,7 +184,11 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 bit-identical to the unsharded launch, within TOL of the
                 plain version, a NaN lane in rank 2's shard alone, the
                 horizon mask, N=1002 raising "divide", exactly one launch
-                a rank per call, every rank's costs identical;
+                a rank per call, every rank's costs identical; and
+                hammer-v0-hand (a warp-layout body) at N=128 (32 lanes a
+                rank), H=10: the sharded costs bit-identical to the
+                unsharded launch, exactly one warp-layout launch a rank and
+                none of the lane layout, every rank's costs identical;
  30. timings -- ``studies/mesh_megakernel_bench.py``'s configuration
                 (door-v0, SE with lengthscale 4 dt, Lbps delta 0.9, H=160,
                 N=16384): ms per synced PPI iteration unsharded, on the 4
@@ -202,15 +208,17 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 return with exactly 110 launches a rank.
  32. build   -- the warp layout (``csrc/rollout_warp.cu``: one rollout a
                 warp, the mass matrix and the solve spread over its lanes)
-                of door-v0-adroit, hammer-v0-adroit,
-                relocate-v0-adroit and door-v0-hand, built with nvcc beside
-                phases 13's and 25's bodies; print each body's line count,
+                of door-v0-adroit, hammer-v0-adroit, relocate-v0-adroit,
+                door-v0-hand, relocate-v0-hand and hammer-v0-hand, built
+                with nvcc beside phases 13's, 17's and 25's bodies, first
+                of all builds; print each body's line count,
                 nvcc seconds, shared memory a rollout and a block and
                 -Xptxas -v summary next to its lane layout's;
- 33. check   -- on phase 14's and 26's lanes (N=1000, H=5, 3, 3 and 20):
-                the warp layout bit for bit the lane kernel, and the plain
-                version bit for bit (relocate-v0-adroit's rewards within
-                1e-6: its division by 10); a NaN lane; a second frame,
+ 33. check   -- on phase 14's, 18's and 26's lanes (N=1000, H=5, 3, 3, 20,
+                10 and 20): the warp layout bit for bit the lane kernel,
+                and the plain version bit for bit (the relocate bodies'
+                rewards within 1e-6: their division by the number of tip
+                spheres); a NaN lane; a second frame,
                 board or goal (the goal through the reward constants) that
                 changes the
                 rewards, with the mask on its costs, bit for bit the lane
@@ -219,14 +227,16 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 real step (N=1, H=1) bit for bit ``plain_step`` (its reward
                 within the same tolerance) and the lane kernel;
  34. timings -- CUDA events at each body's canonical shape (N=64/H=30,
-                N=128/H=30, N=256/H=20, N=64/H=30) and at N=1024: the lane
+                N=128/H=30, N=256/H=20, N=64/H=30, N=256/H=20, N=128/H=30)
+                and at N=1024: the lane
                 layout at 128, 32, 8 and 1 threads a block, the warp layout
                 at 1, 2, 4 and 8 rollouts a block and as routed; the real
                 step and a synced PPI iteration (the canonical solver and
-                prior) in both layouts; then phase 16's and 28's seed-0
-                episodes of the four once more through the lane layout:
-                exactly 800, 1250, 330 and 800 launches of it, the returns
-                equal the warp layout's, the doors open.
+                prior) in both layouts; then phase 16's, 20's and 28's
+                seed-0 episodes of the six once more through the lane
+                layout: exactly 800, 1250, 330, 800, 330 and 1250 launches
+                of it, the returns equal the warp layout's, the doors open
+                and the ball at its goal.
 Then one JSON line with the kernels' numbers (each entry with the (N, H)
 of its ms and bound_ms, of its plain_ms, and the kernel's time at the
 latter) and, last, the device line.
@@ -470,28 +480,30 @@ ADROIT = {
 
 
 # phases 32-34: the warp layout (csrc/rollout_warp.cu), through which
-# door-v0-hand, door-v0-adroit, relocate-v0-adroit and hammer-v0-adroit
-# plan and step (phases 13-16 and 25-28 run it). Per env: the canonical
-# kernel shape, and whether its rewards equal the plain version's bit for
-# bit or only within SCENE_TOL (relocate-v0-adroit's reward divides a sum
-# by 10: PyTorch on the card multiplies by the reciprocal, the kernel
-# divides, and the one-ulp quotient carries through the rest of the
-# reward). Phase 16 (HAND) or 28
-# (ADROIT) gives its episode, return and launches, and its canonical
-# solver and prior; phase 34 sets the env's class to the lane layout for
-# the second episode. The lane layout is timed at each of LANE_BLOCKS
-# threads a block, the warp layout at each of WARP_SIZES rollouts a block;
-# SENTINEL_WARPS rollouts a block leave N_CHECK ragged for the sentinel
-# check.
+# door-v0-hand, door-v0-adroit, relocate-v0-adroit, hammer-v0-adroit,
+# relocate-v0-hand and hammer-v0-hand plan and step (phases 13-20 and
+# 25-28 run it). Per env: the canonical kernel shape, and whether its
+# rewards equal the plain version's bit for bit or only within SCENE_TOL
+# (the relocate bodies' rewards divide a sum over the tip spheres by their
+# number, 10 or 6: PyTorch on the card multiplies by the reciprocal, the
+# kernel divides, and the one-ulp quotient carries through the rest of the
+# reward). Phase 16 (HAND), 20 (SCENES) or 28 (ADROIT) gives its episode,
+# return and launches, and its canonical solver and prior; phase 34 sets
+# the env's class to the lane layout for the second episode. The lane
+# layout is timed at each of LANE_BLOCKS threads a block, the warp layout
+# at each of WARP_SIZES rollouts a block; SENTINEL_WARPS rollouts a block
+# leave N_CHECK ragged for the sentinel check.
 WARP = {"door-v0-adroit": dict(shape=(64, 30), exact_rewards=True),
         "hammer-v0-adroit": dict(shape=(128, 30), exact_rewards=True),
         "relocate-v0-adroit": dict(shape=(256, 20), exact_rewards=False),
-        "door-v0-hand": dict(shape=(64, 30), exact_rewards=True)}
+        "door-v0-hand": dict(shape=(64, 30), exact_rewards=True),
+        "hammer-v0-hand": dict(shape=(128, 30), exact_rewards=True),
+        "relocate-v0-hand": dict(shape=(256, 20), exact_rewards=False)}
 LANE_BLOCKS = (128, 32, 8, 1)
 WARP_SIZES = (1, 2, 4, 8)
 HAND_FAMILY = ("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08})
 SENTINEL, SENTINEL_WARPS, SENTINEL_PAD = -12345.0, 3, 64
-CHECKED = {}   # phases 14 and 26 keep their inputs and outputs here
+CHECKED = {}   # phases 14, 18 and 26 keep their inputs and outputs here
 
 # phases 29-31: the sharded entry. The check's NaN lane lies in rank 2's
 # shard (lanes 500-749 of N_CHECK); the timing runs the configuration of
@@ -499,6 +511,8 @@ CHECKED = {}   # phases 14 and 26 keep their inputs and outputs here
 # version is timed at H=20 (one eager op per scalar op: ~13 s at H=160).
 MESH_RANKS = 4
 MESH_NAN_LANE = 600
+# phase 29's warp-layout body and its (N, H)
+MESH_WARP, N_MESH_WARP, H_MESH_WARP = "hammer-v0-hand", 128, 10
 N_MESH, H_MESH, H_MESH_PLAIN, MESH_ITERS = 16384, 160, 20, 10
 # phase 4's canonical door-v0 episode (``make mpc-lbps``) at T timesteps
 DOOR_ARGS = ["Lbps", "door-v0", "SquaredExponentialKernel", "--delta", "0.9",
@@ -1476,6 +1490,7 @@ def mesh_phases(rank, cfg):
         make_mesh, make_multislice_mesh, shard_bounds)
     from ppi_tpu_torch.parallel.mesh import per_rank, replicas_agree
     from ppi_tpu_torch.runners import run_mpc
+    from ppi_tpu_torch.runners.run_mpc import ENVS
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_mesh(device=cfg["device"])
@@ -1505,6 +1520,18 @@ def mesh_phases(rank, cfg):
         costs=costs.cpu(), nan=nan.cpu(), masked=masked.cpu(),
         plain=plain.cpu(), launches=launches, divide=divide,
         agree=replicas_agree([costs, nan, masked, plain], mesh))
+
+    # the sharded objective on a warp-layout body (its board from the
+    # parent's state), which launches the env's own layout on each shard
+    env_w = ENVS[MESH_WARP]()
+    s_w = env_w.reset(None, dev, board=torch.from_numpy(cfg["warp_board"]))
+    LAUNCHES.clear()
+    costs_w = rk.sharded_kernel_mpc_objective(env_w, s_w, H_MESH_WARP, mesh)(
+        None, torch.from_numpy(cfg["warp_acts"]).to(dev))
+    out["warp_check"] = dict(
+        costs=costs_w.cpu(), agree=replicas_agree(costs_w, mesh),
+        launches={lay: per_rank(LAUNCHES[key], mesh)
+                  for lay, key in rk.LAUNCH_KEYS.items()})
 
     # ---- 30. timings at N=16384, H=160 ------------------------------------
     lo, hi = shard_bounds(N_MESH, mesh)
@@ -1589,6 +1616,21 @@ def sharded_phases(door, dev, ret4):
         None, acts).cpu()
     c_plain = risk_aggregate(rk.env_plain_rollout(
         door, s0, *lanes(s0, N_CHECK), acts)[0]).cpu()
+    # phase 29's warp-layout body: the unsharded launch on the parent,
+    # whose phase 18 built it (no rank runs nvcc)
+    from ppi_tpu_torch.runners.run_mpc import ENVS
+    env_w = ENVS[MESH_WARP]()
+    s_w = env_w.reset(torch.Generator(dev).manual_seed(0), dev)
+    acts_w = s_w.physics.qpos[:env_w.action_dim] + torch.from_numpy(
+        (0.3 * np.random.default_rng(30).standard_normal(
+            (N_MESH_WARP, H_MESH_WARP, env_w.action_dim))).astype(
+                np.float32)).to(dev)
+    check(rk.kernel_layout(env_w) == "warp", f"{MESH_WARP}: not routed to "
+          "the warp layout")
+    c_warp = rk.kernel_mpc_objective(env_w, s_w, H_MESH_WARP)(
+        None, acts_w).cpu()
+    check(bool(torch.isfinite(c_warp).all()), f"{MESH_WARP}: unsharded "
+          "costs not finite")
     ret20, _, _, got20 = run_episode(DOOR_ARGS + ["--timesteps", "20"], 64)
     check(got20 == 110, f"unsharded T=20 episode: {got20} launches")
     a = torch.from_numpy((0.4 * rng.standard_normal(
@@ -1609,13 +1651,15 @@ def sharded_phases(door, dev, ret4):
     mesh_t["bound_ms_batch"] = rollout_bound(door, N_MESH, H_MESH)[0]
     cfg = dict(device="cuda", acts=acts.cpu().numpy(),
                mask=mask.cpu().numpy(), episode=door_args(250),
-               short=door_args(20), episodes=True)
+               short=door_args(20), episodes=True,
+               warp_board=s_w.board.cpu().numpy(),
+               warp_acts=acts_w.cpu().numpy())
     t0 = time.perf_counter()
     groups = {"4 ranks": spawn(mesh_phases, MESH_RANKS, cfg)}
     groups["1 rank"] = spawn(mesh_phases, 1, dict(cfg, episodes=False))
     mesh_s = time.perf_counter() - t0
 
-    mesh_max_abs = None
+    mesh_max_abs, warp_sharded = None, {}
     for label, res in groups.items():
         c, w = res["check"], res["ranks"]
         tag = f"{label}, {res['backend']}"
@@ -1646,6 +1690,20 @@ def sharded_phases(door, dev, ret4):
               f"{json.dumps(errs)} (tol {TOL}); NaN lane {MESH_NAN_LANE} "
               f"alone; N={N_CHECK + 2}: {c['divide']!r}; launches per rank "
               f"{c['launches']}; every rank's costs identical", flush=True)
+        cw = res["warp_check"]
+        check(same_bits(cw["costs"], c_warp), f"{tag}: {MESH_WARP}'s sharded "
+              "costs differ from the unsharded warp-layout launch")
+        check(cw["launches"] == {"lane": [0.0] * w, "warp": [1.0] * w},
+              f"{tag}: {MESH_WARP}'s launches per rank {cw['launches']}, "
+              "expected one of the warp layout each")
+        check(cw["agree"], f"{tag}: ranks gathered different {MESH_WARP} "
+              "costs")
+        warp_sharded[label] = cw["launches"]
+        print(f"check sharded ({tag}) {MESH_WARP}, warp layout: "
+              f"N={N_MESH_WARP} H={H_MESH_WARP}, {N_MESH_WARP // w} lanes a "
+              f"rank: costs bit-identical to the unsharded launch; launches "
+              f"per rank {json.dumps(cw['launches'])}; every rank's costs "
+              f"identical", flush=True)
 
     for label, res in groups.items():
         t = res["timings"]
@@ -1686,7 +1744,8 @@ def sharded_phases(door, dev, ret4):
         **shapes((N_MESH // MESH_RANKS, H_MESH), (N_MESH, H_MESH_PLAIN),
                  None)}
     return dict(mesh_timings=mesh_t, mesh_episodes=episodes_m,
-                mesh_max_abs_err=mesh_max_abs, mesh_s=mesh_s), kernel
+                mesh_max_abs_err=mesh_max_abs, mesh_s=mesh_s,
+                mesh_warp_check=warp_sharded), kernel
 
 
 def shapes(shape, plain_shape, ms_at_plain_shape):
@@ -1833,7 +1892,10 @@ def check_warp(name, env, dev):
 
 def warp_family(name):
     """(solver, prior, prior options) of ``name``'s canonical config."""
-    return ADROIT[name]["family"] if name in ADROIT else HAND_FAMILY
+    for table in (ADROIT, SCENES):
+        if name in table:
+            return table[name]["family"]
+    return HAND_FAMILY
 
 
 def time_warp(name, env, dev):
@@ -1946,7 +2008,7 @@ def run(pool):
     door = Door(fixed_scene=True)
     t0 = time.perf_counter()
     # phase 25's three bodies are the largest (nvcc ~1 min each): they
-    # start first, with phase 32's four warp-layout bodies
+    # start first, with phase 32's six warp-layout bodies
     warp_bodies = {name: warp_header(ENVS[name]()) for name in WARP}
     warp_builds = {name: pool.submit(build_timed, "rollout_warp.cu",
                                      {"env_warp.h": h})
@@ -2333,6 +2395,10 @@ def run(pool):
               f"{secs:.1f} s (in parallel with phases 1-16); ptxas: "
               f"{' | '.join(info['ptxas'])}", flush=True)
 
+    for name in SCENES:   # phase 18 launches the warp builds among them
+        if name in WARP:
+            warp_builds[name].result()
+
     # ---- 18. those bodies: kernel vs plain ------------------------------------
     scene_errs, scene_max_abs = {}, {}
     for name, cfg in SCENES.items():
@@ -2362,8 +2428,9 @@ def run(pool):
 
         runs = []
         for seed in cfg["seeds"]:
-            ret, success, wall, got = run_episode(cfg["episode"], n_samples,
-                                                  seed, final)
+            ret, success, wall, got = run_episode(
+                cfg["episode"], n_samples, seed, final,
+                key=rk.launch_key(ENVS[name]()))
             run_ = {"seed": seed, "return": ret, "success": success,
                     "wall_s": wall, "launches": got}
             if name.startswith("hammer"):
@@ -2571,11 +2638,18 @@ def run(pool):
             args_list, n_samples = (HAND_EPISODE[:1] + [name]
                                     + HAND_EPISODE[1:]), 64
             warp_run, expected = hand_episodes[name][0], HAND_LAUNCHES
+            phase = 16
+        elif name in SCENES:
+            cfg = SCENES[name]
+            args_list, n_samples = cfg["episode"], cfg["shape"][0]
+            warp_run, expected = scene_episodes[name][0], cfg["launches"]
+            phase = 20
         else:
             args_list, n_samples = ADROIT[name]["episode"], \
                 ADROIT[name]["shape"][0]
             warp_run, expected = adroit_episodes[name], \
                 ADROIT[name]["launches"]
+            phase = 28
         with layout_of(type(ENVS[name]()), "lane"):
             ret, success, wall, got = run_episode(args_list, n_samples, 0,
                                                   key="rollout")
@@ -2583,7 +2657,7 @@ def run(pool):
                                "wall_s": wall, "launches": got}
         print(f"episode {name} seed 0, lane layout: "
               f"{json.dumps(lane_episodes[name])}; warp layout (phase "
-              f"{16 if name in HAND else 28}): return "
+              f"{phase}): return "
               f"{warp_run['return']!r}, wall {warp_run['wall_s']:.1f} s",
               flush=True)
         check(got == expected and warp_run["launches"] == expected,
@@ -2638,6 +2712,8 @@ def run(pool):
              "library_ms": None,
              **shapes((n, h), (n, h), t[f"kernel_ms_N{n}_H{h}"])})
     for env_name, cfg in SCENES.items():
+        if env_name in WARP:
+            continue
         n, h = cfg["shape"]
         t = scene_times[env_name]
         kernels.append(
@@ -2684,8 +2760,8 @@ def run(pool):
              "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
              "library_ms": None,
              **shapes((n, h), (n, h), t[f"kernel_ms_N{n}_H{h}"])})
-    # the four warp-layout bodies: the lane layout's entry (phase 34's
-    # episodes, block 128) beside the warp layout's (phases 16 and 28)
+    # the six warp-layout bodies: the lane layout's entry (phase 34's
+    # episodes, block 128) beside the warp layout's (phases 16, 20 and 28)
     for env_name, cfg in WARP.items():
         n, h = cfg["shape"]
         t = warp_times[env_name]
@@ -2694,14 +2770,22 @@ def run(pool):
             routed = hand_times[env_name]
             warp_launches = sum(r["launches"]
                                 for r in hand_episodes[env_name])
+        elif env_name in SCENES:
+            pn, ph = n, h
+            routed = scene_times[env_name]
+            warp_launches = sum(r["launches"]
+                                for r in scene_episodes[env_name])
         else:
             pn, ph = ADROIT[env_name]["plain_shape"]
             routed = adroit_times[env_name]
             warp_launches = adroit_episodes[env_name]["launches"]
         plain_ms = routed[f"plain_ms_N{pn}_H{ph}"]
-        # phases 15 and 27 time the kernel as routed (the warp layout) at
-        # the plain rollout's shape; the lane layout is not timed there
-        at_plain = {"lane": None, "warp": routed[f"kernel_ms_N{pn}_H{ph}"]}
+        # phases 15, 19 and 27 time the kernel as routed (the warp layout)
+        # at the plain rollout's shape; phase 34 times the lane layout only
+        # at the canonical shape, the plain rollout's for phase 19's bodies
+        at_plain = {"lane": t[f"lane_128_ms_N{n}_H{h}"]
+                    if (pn, ph) == (n, h) else None,
+                    "warp": routed[f"kernel_ms_N{pn}_H{ph}"]}
         stem = env_name.replace("-v0-", "_")
         for layout, source, launches, ms in (
                 ("lane", "rollout.cu", lane_episodes[env_name]["launches"],

@@ -3,7 +3,7 @@
 //
 // Replaces, for the bodies whose lane layout one thread's dependent chain
 // bounds (door-v0-hand, door-v0-adroit, relocate-v0-adroit,
-// hammer-v0-adroit), the Pallas megakernel
+// hammer-v0-adroit, hammer-v0-hand, relocate-v0-hand), the Pallas megakernel
 // ppi_tpu/envs/physics/pallas_rollout.py (make_pallas_rollout, pallas_call
 // at line 190), as rollout.cu does with one rollout a thread for the
 // others. The contract is rollout.cu's: the same arguments and lane-major

@@ -166,6 +166,9 @@ class HammerHand:
     #                                  point strays outside WS_GRIP_X
 
     name = "hammer-v0-hand"
+    # one thread's dependent chain bounds the lane layout here: the
+    # rollout kernel runs one rollout a warp (rollout_kernel.kernel_layout)
+    scalar_kernel_layout = "warp"
 
     # the sampled board overrides the nail body's joint-origin offset (a
     # runtime input of the rollout kernel)

@@ -18,8 +18,8 @@ lane 0's ``env_assemble`` and ``env_integrate`` around generated stages,
 tables and a Gauss-Jordan solve that spread the rest of the substep over
 the warp's lanes (``warp_layout``); an env with
 ``scalar_kernel_layout = "warp"`` (door-v0-hand, door-v0-adroit,
-relocate-v0-adroit, hammer-v0-adroit) plans and steps through it. Both
-give the same values bit for bit.
+relocate-v0-adroit, hammer-v0-adroit, hammer-v0-hand, relocate-v0-hand)
+plans and steps through it. Both give the same values bit for bit.
 
 The kernel is built with ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/<hash of sources and flags>/`` and bound with ``ctypes``

@@ -145,8 +145,7 @@ class RelocateAdroit(RelocateHand):
 
     name = "relocate-v0-adroit"
     # the body is too large for one thread: the rollout kernel runs one
-    # rollout a warp (rollout_kernel.kernel_layout); relocate-v0-hand, the
-    # parent, keeps the lane layout
+    # rollout a warp (rollout_kernel.kernel_layout)
     scalar_kernel_layout = "warp"
 
     _low, _high = _LOW, _HIGH

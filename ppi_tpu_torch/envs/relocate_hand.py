@@ -131,6 +131,9 @@ class RelocateHand(Relocate):
     kd_thumb: float = 0.7   # double gains keep the pinch balanced
 
     name = "relocate-v0-hand"
+    # one thread's dependent chain bounds the lane layout here: the
+    # rollout kernel runs one rollout a warp (rollout_kernel.kernel_layout)
+    scalar_kernel_layout = "warp"
 
     _low, _high = _LOW, _HIGH
     _qpos0_act = _QPOS0_ARM   # the actuated joints' initial posture

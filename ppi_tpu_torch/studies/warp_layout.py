@@ -2,15 +2,18 @@
 
     python -m ppi_tpu_torch.studies.warp_layout [ENV ...]
 
-For each env (the four warp-layout bodies, door-v0-adroit,
-hammer-v0-adroit, relocate-v0-adroit and door-v0-hand, unless named):
-builds the lane layout (``csrc/rollout.cu``) and the warp layout
-(``csrc/rollout_warp.cu``) of its body in parallel and prints each
-build's ``-Xptxas -v`` summary; checks at N=257 (ragged), H=3 that the
-two layouts give the same bits and match the plain version; then times
-(CUDA events) at the env's canonical shape and at N=1024: the lane layout
-at 128, 32, 8 and 1 threads a block, the warp layout at 1, 2, 4 and 8
-rollouts (warps) a block, and the real step (N=1, H=1) in both layouts;
+For each env (the six warp-layout bodies, door-v0-adroit,
+hammer-v0-adroit, relocate-v0-adroit, door-v0-hand, hammer-v0-hand and
+relocate-v0-hand, unless named): builds the lane layout
+(``csrc/rollout.cu``) and the warp layout (``csrc/rollout_warp.cu``) of
+its body in parallel and prints each build's ``-Xptxas -v`` summary;
+checks at N=257 (ragged), H=3 that the two layouts give the same bits and
+match the plain version; then times (CUDA events) at the env's canonical
+shape and at N=1024: the lane layout at 128, 32, 8 and 1 threads a block,
+the warp layout at 1, 2, 4 and 8 rollouts (warps) a block, then the two
+layouts as the main path launches them (128 threads, 1 rollout a block)
+in turns, lane, warp, warp, lane, at the canonical shape (``abba``), and
+the real step (N=1, H=1) in both layouts;
 then, from a build of the warp layout with ``PPI_STAGE_CLOCKS`` defined,
 the SM cycles of each stage (lane 0's clock, so the cooperative stages
 count their slowest lane and their ``__syncwarp``) per rollout and substep
@@ -38,7 +41,9 @@ from ppi_tpu_torch.runners.run_mpc import ENVS
 CANONICAL = {"door-v0-adroit": ((64, 30), 0.3),
              "hammer-v0-adroit": ((128, 30), 0.3),
              "relocate-v0-adroit": ((256, 20), 0.3),
-             "door-v0-hand": ((64, 30), 0.3)}
+             "door-v0-hand": ((64, 30), 0.3),
+             "hammer-v0-hand": ((128, 30), 0.3),
+             "relocate-v0-hand": ((256, 20), 0.3)}
 BLOCKS = (128, 32, 8, 1)
 WARPS = (1, 2, 4, 8)
 N_CHECK, H_CHECK = 257, 3
@@ -177,6 +182,13 @@ def study(name, dev):
                 r = rollout(env, state, h, layout, size)
                 out[f"{layout}_{size}_ms_N{nn}_H{h}"] = cuda_ms(
                     lambda: r(q0, qd0, acts, consts=consts, dyn=dyn), 3)
+    q0, qd0, acts = lanes(env, state, n, h, scale)
+    runs = {"lane": rollout(env, state, h, "lane", 128),
+            "warp": rollout(env, state, h, "warp", rk.WARPS_PER_BLOCK)}
+    out[f"abba_ms_N{n}_H{h}"] = [
+        (lay, cuda_ms(lambda: runs[lay](q0, qd0, acts, consts=consts,
+                                        dyn=dyn), 10))
+        for lay in ("lane", "warp", "warp", "lane")]
     header = rk._warp_header(*rk.body_args(env, state))
     for nn in (n, 1024):
         out[f"cycles_N{nn}_H{h}"] = stage_cycles(env, state, header, nn, h,

@@ -457,10 +457,10 @@ def test_scene_kernel_matches_plain(name):
     s0, q0, qd0, acts = _scene_lanes(env, dev, n, h, SCENE_ENVS[name])
     consts, _, dyn = rk.kernel_operands(env, s0)
     run = rk.env_rollout(env, s0, h)
-    before = rk.LAUNCHES["rollout"]
+    before = rk.LAUNCHES[rk.launch_key(env)]
     rew, qf, qdf = run(q0, qd0, acts, consts=consts, dyn=dyn)
     torch.cuda.synchronize()
-    assert rk.LAUNCHES["rollout"] == before + 1
+    assert rk.LAUNCHES[rk.launch_key(env)] == before + 1
     rew_p, qf_p, qdf_p = rk.env_plain_rollout(env, s0, q0, qd0, acts)
     assert bool(torch.isfinite(rew_p).all())
     assert _rel(rew, rew_p) <= 1e-6
@@ -475,10 +475,10 @@ def test_scene_real_step_is_one_kernel_launch(name):
     dev = _device()
     env = _variant_b_env(name)
     s0, _, _, acts = _scene_lanes(env, dev, 1, 1, 0.2)
-    before = rk.LAUNCHES["rollout"]
+    before = rk.LAUNCHES[rk.launch_key(env)]
     s1, r1 = env.step(s0, acts[0, 0])
     torch.cuda.synchronize()
-    assert rk.LAUNCHES["rollout"] == before + 1
+    assert rk.LAUNCHES[rk.launch_key(env)] == before + 1
     s2, r2 = env.plain_step(s0, acts[0, 0])
     assert r1.shape == () and int(s1.t) == 1
     assert _rel(s1.physics.qpos, s2.physics.qpos) <= 1e-6
@@ -526,15 +526,17 @@ def test_essps_control_step_never_waits_for_the_card(policy):
 
 
 # ---- the warp layout: door-v0-adroit, hammer-v0-adroit, relocate-v0-adroit,
-# door-v0-hand ------------------------------------------------------------
+# door-v0-hand, hammer-v0-hand, relocate-v0-hand ------------------------------
 
 # env -> (check H, whether the rewards equal the plain version's bit for
-# bit): relocate-v0-adroit's reward divides a sum by 10, which PyTorch on
-# the card does as a multiplication by the reciprocal and the kernel as a
-# division; the one-ulp quotient carries through the rest of the reward,
+# bit): the relocate bodies' rewards divide a sum over the tip spheres by
+# their number, not a power of two, which PyTorch on the card does as a
+# multiplication by the reciprocal and the kernel as a division; the
+# one-ulp quotient carries through the rest of the reward,
 # which then agrees within REWARD_TOL of 1 + |plain|
 WARP_ENVS = {"door-v0-adroit": (5, True), "hammer-v0-adroit": (3, True),
-             "relocate-v0-adroit": (3, False), "door-v0-hand": (5, True)}
+             "relocate-v0-adroit": (3, False), "door-v0-hand": (5, True),
+             "hammer-v0-hand": (5, True), "relocate-v0-hand": (5, False)}
 REWARD_TOL = 1e-6
 
 

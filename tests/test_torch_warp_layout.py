@@ -1,7 +1,7 @@
 """The rollout kernel's warp layout (csrc/rollout_warp.cu) on the CPU.
 
-door-v0-adroit, hammer-v0-adroit, relocate-v0-adroit and door-v0-hand plan
-and step through the warp layout:
+door-v0-adroit, hammer-v0-adroit, relocate-v0-adroit, door-v0-hand,
+hammer-v0-hand and relocate-v0-hand plan and step through the warp layout:
 one rollout a warp, the substep split into ``engine_soa.assemble_soa``
 (lane 0's straight-line ``env_assemble``, then the mass matrix and the
 right-hand side summed across the lanes from generated tables), the
@@ -36,7 +36,7 @@ from ppi_tpu_torch.envs.physics.engine_soa import (
 from ppi_tpu_torch.runners.run_mpc import ENVS
 
 WARP_ENVS = ("door-v0-adroit", "hammer-v0-adroit", "relocate-v0-adroit",
-             "door-v0-hand")
+             "door-v0-hand", "hammer-v0-hand", "relocate-v0-hand")
 N, H = 5, 2
 
 # sha256 of the warp headers as first generated: a change to the
@@ -51,6 +51,10 @@ WARP_SHA256 = {
         "65b169325486ac35e33e2184490ba80ac84079336dd2c336b9f34fdc2dab13b8",
     "door-v0-hand":
         "068107eb5dcded245ea594ae77ece5f242237608e597a8f646126536453dffc5",
+    "hammer-v0-hand":
+        "19b7a3b13ffbd97a6ddb56ddc6191f095d648a538bceeff453935e8523d19742",
+    "relocate-v0-hand":
+        "31a869d73b18d0dae8ff952d99b71a1da622bba4394d28192a0c1bca069a861f",
 }
 
 
@@ -191,7 +195,7 @@ def _spd(nq, seed):
 def test_cooperative_solve_equals_solve_pd_scalar(headers, name):
     """The skeleton's solve (lane c owns column c, dead columns skipped),
     host C, against ``solve_pd_scalar`` over torch at each warp env's nq
-    (12 to 25), on four SPD matrices each: bit for bit."""
+    (10 to 25), on four SPD matrices each: bit for bit."""
     _needs_cc()
     fn = rk.load_host_warp_solve(headers[name][1])
     nq = ENVS[name]()._model.nq
@@ -314,11 +318,73 @@ def test_relocate_adroit_warp_build_matches_jax(builds):
     assert_rollout_close(got, ref)
 
 
-def test_the_adroit_envs_and_only_they_build_the_warp_layout(monkeypatch):
+def test_hammer_hand_warp_build_matches_jax(builds):
+    """hammer-v0-hand's warp build (10 DoF, the board through ``dyn``)
+    against JAX's ``HammerHand(engine="tensor")`` at N=8, H=3 on
+    tests/test_torch_hammer_hand.py's lanes: the free hammer resting on the
+    bench, and its head over the nail, falling at 2 m/s (the strike, the
+    nail's friction clip). That file's host-C tolerance, 1e-4 relative and
+    absolute: the impact amplifies libm's one-ulp sin/cos (measured 1.6e-6
+    in the rewards, 2.3e-6 in the positions, 7.2e-5 in a struck hammer's
+    velocity)."""
+    from ppi_tpu.envs.hammer_hand import HammerHand as JaxHammerHand
+    from ppi_tpu_torch.envs.hammer_hand import (
+        GRIP_START, HAM_X, HAM_Z, HEAD_LOCAL, N_ACT, NAIL, NAIL_X,
+        HammerHandState)
+    jenv = JaxHammerHand(engine="tensor")
+    js = jenv.reset(jax.random.key(0))
+    n = 8
+    q0 = np.tile(np.asarray(js.physics.qpos), (n, 1)).astype(np.float32)
+    qd0 = np.zeros_like(q0)
+    head_z = float(js.board[2]) + 0.06 + 0.018 + 0.045 + 0.01
+    q0[n // 2:, HAM_X] = NAIL_X - HEAD_LOCAL[0] - GRIP_START[0]
+    q0[n // 2:, HAM_Z] = head_z - HEAD_LOCAL[2] - GRIP_START[1]
+    qd0[n // 2:, HAM_Z] = -2.0
+    acts = (q0[:, None, :N_ACT] + 0.3 * np.random.default_rng(0)
+            .standard_normal((n, 3, N_ACT))).astype(np.float32)
+    ref = jax_lane_rollout_fn(jenv)(js, q0, qd0, acts)
+    got = _host_run(builds["hammer-v0-hand"][1], ENVS["hammer-v0-hand"](),
+                    port_state(HammerHandState, js), q0, qd0, acts)
+    assert np.all(got[1][n // 2:, NAIL] > 0.0)   # the strike drove the nail
+    for x, y in zip(got, ref):
+        np.testing.assert_allclose(x, y, rtol=1e-4, atol=1e-4)
+
+
+def test_relocate_hand_warp_build_matches_jax(builds):
+    """relocate-v0-hand's warp build (13 DoF, the goal through ``consts``)
+    against JAX's ``RelocateHand(engine="tensor")`` at N=8, H=2 from a
+    pinned goal: the ball resting on the table, sliding along it at 2 m/s,
+    and falling into the open hand from 7 cm (REW_TOL, Q_TOL; measured
+    1.8e-7 in the rewards, 2.2e-7 in the positions, 7.5e-6 in the
+    velocities)."""
+    from ppi_tpu.envs.relocate_hand import RelocateHand as JaxRelocateHand
+    from ppi_tpu_torch.envs.relocate_hand import (
+        BALL_X, BALL_Y, BALL_Z, N_ACT, RelocateHandState)
+    jenv = JaxRelocateHand(engine="tensor")
+    js = jenv.reset(jax.random.key(0)).replace(
+        target=jnp.asarray((0.55, 0.15, 0.85), jnp.float32))
+    q = np.asarray(js.physics.qpos).copy()
+    q[BALL_X], q[BALL_Y] = 0.02, -0.03
+    q0 = np.tile(q, (8, 1)).astype(np.float32)
+    qd0 = np.zeros_like(q0)
+    qd0[3:6, BALL_Y] = -2.0
+    q0[6:, BALL_Z] = 0.07
+    acts = (q0[:, None, :N_ACT] + 0.3 * np.random.default_rng(0)
+            .standard_normal((8, 2, N_ACT))).astype(np.float32)
+    ref = jax_lane_rollout_fn(jenv)(js, q0, qd0, acts)
+    got = _host_run(builds["relocate-v0-hand"][1], ENVS["relocate-v0-hand"](),
+                    port_state(RelocateHandState, js), q0, qd0, acts)
+    assert np.isfinite(got[0]).all()
+    assert np.all(np.abs(got[1][3:6, BALL_Y] - q0[3:6, BALL_Y]) > 1e-3)
+    assert_rollout_close(got, ref)
+
+
+def test_the_six_warp_envs_and_only_they_build_the_warp_layout(monkeypatch):
     """A spy on the build: ``env_rollout(...).load()`` builds the warp
-    skeleton for the four warp envs (door-v0-adroit, hammer-v0-adroit,
-    relocate-v0-adroit and door-v0-hand) and the lane skeleton for every
-    other env of the runner, relocate-v0-hand included."""
+    skeleton for the six warp envs (door-v0-adroit, hammer-v0-adroit,
+    relocate-v0-adroit, door-v0-hand, hammer-v0-hand and relocate-v0-hand)
+    and the lane skeleton for every other env of the runner, relocate-v0
+    and pen-v0-hand included."""
     built = {}
     monkeypatch.setattr(rk, "_env_header", lambda *a: "lane")
     monkeypatch.setattr(rk, "_warp_header", lambda *a: "warp")
@@ -340,6 +406,29 @@ def test_the_adroit_envs_and_only_they_build_the_warp_layout(monkeypatch):
         assert rk.kernel_layout(env) == ("warp" if want else "lane")
         assert rk.launch_key(env) == ("rollout_warp" if want else "rollout")
     assert len(ENVS) == 21
+
+
+# the bodies whose mass matrix's first pivot folds to a constant, which
+# ``warp_layout.generate_stages`` declines for now (ROADMAP queue 2)
+CONSTANT_FIRST_PIVOT = ("cheetah", "hopper", "humanoid-standup", "pen-v0",
+                        "pen-v0-adroit", "pen-v0-hand", "walker2d",
+                        "walker~walk")
+
+
+@pytest.mark.parametrize("name", sorted(set(ENVS) - set(WARP_ENVS)))
+def test_which_bodies_the_warp_generator_takes(name):
+    """The warp generator takes every lane-layout body of the runner
+    (fetch-pick, relocate-v0, door-v0 and the other small ones; the warp
+    bodies' headers are pinned below), but for those whose first pivot is
+    a constant, which may decline with that reason and no other."""
+    args = rk.body_args(ENVS[name](), _state(name))
+    try:
+        header = rk.generate_warp_header(*args)
+    except NotImplementedError as e:
+        assert name in CONSTANT_FIRST_PIVOT
+        assert "the first pivot is a constant" in str(e)
+    else:
+        assert "env_assemble" in header
 
 
 @pytest.mark.parametrize("name", WARP_ENVS)
