@@ -119,7 +119,8 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 hopper, walker2d, walker~walk and humanoid-standup bodies
                 (variant b) and build them with nvcc beside all the others;
                 print each body's line count, nvcc seconds and -Xptxas -v
-                summary;
+                summary. fetch-pick plans and steps through the warp
+                layout (phase 32's build) in phases 22-24;
  22. check   -- each of those bodies against its plain version on the card
                 at N=1000 (ragged), H=20: rewards and final state
                 bit-identical or within TOL, from lanes in contact (the
@@ -147,10 +148,10 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 (what lying still earns);
  25. build   -- generate the pen-v0-adroit (20 DoF), relocate-v0-adroit
                 (24) and hammer-v0-adroit (25) bodies and build them with
-                nvcc first of all twenty-two builds (with phase 32's six);
-                print each body's line count, nvcc seconds and -Xptxas -v
-                summary. relocate-v0-adroit and hammer-v0-adroit plan and
-                step through the warp layout in phases 26-28;
+                nvcc first of all twenty-two builds (with phase 32's
+                eight); print each body's line count, nvcc seconds and
+                -Xptxas -v summary. All three plan and step through the
+                warp layout in phases 26-28;
  26. check   -- each of those bodies against its plain version on the card
                 at N=1000 (ragged), H=3 (the plain version is 191k-465k
                 eager ops a lane step): rewards and final state
@@ -209,13 +210,15 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
  32. build   -- the warp layout (``csrc/rollout_warp.cu``: one rollout a
                 warp, the mass matrix and the solve spread over its lanes)
                 of door-v0-adroit, hammer-v0-adroit, relocate-v0-adroit,
-                door-v0-hand, relocate-v0-hand and hammer-v0-hand, built
-                with nvcc beside phases 13's, 17's and 25's bodies, first
-                of all builds; print each body's line count,
+                door-v0-hand, relocate-v0-hand, hammer-v0-hand,
+                pen-v0-adroit (its solve's constant head) and fetch-pick,
+                built with nvcc beside phases 13's, 17's, 21's and 25's
+                bodies, first of all builds; print each body's line count,
                 nvcc seconds, shared memory a rollout and a block and
                 -Xptxas -v summary next to its lane layout's;
- 33. check   -- on phase 14's, 18's and 26's lanes (N=1000, H=5, 3, 3, 20,
-                10 and 20): the warp layout bit for bit the lane kernel,
+ 33. check   -- on phase 14's, 18's, 22's and 26's lanes (N=1000, H=5, 3,
+                3, 20, 10, 20, 3 and 20): the warp layout bit for bit the
+                lane kernel,
                 and the plain version bit for bit (the relocate bodies'
                 rewards within 1e-6: their division by the number of tip
                 spheres); a NaN lane; a second frame,
@@ -227,16 +230,19 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 real step (N=1, H=1) bit for bit ``plain_step`` (its reward
                 within the same tolerance) and the lane kernel;
  34. timings -- CUDA events at each body's canonical shape (N=64/H=30,
-                N=128/H=30, N=256/H=20, N=64/H=30, N=256/H=20, N=128/H=30)
-                and at N=1024: the lane
+                N=128/H=30, N=256/H=20, N=64/H=30, N=128/H=30, N=256/H=20,
+                N=96/H=15, N=384/H=20) and at N=1024: the lane
                 layout at 128, 32, 8 and 1 threads a block, the warp layout
-                at 1, 2, 4 and 8 rollouts a block and as routed; the real
+                at 1, 2, 4 and 8 rollouts a block and as routed, and both
+                as the main path launches them in turns (lane, warp, warp,
+                lane) at the canonical shape; the real
                 step and a synced PPI iteration (the canonical solver and
-                prior) in both layouts; then phase 16's, 20's and 28's
-                seed-0 episodes of the six once more through the lane
-                layout: exactly 800, 1250, 330, 800, 330 and 1250 launches
-                of it, the returns equal the warp layout's, the doors open
-                and the ball at its goal.
+                prior) in both layouts; then phase 16's, 20's, 24's and
+                28's seed-0 episodes of the eight once more through the
+                lane layout: exactly 800, 1250, 330, 800, 1250, 330, 350
+                and 410 launches of it, the returns equal the warp
+                layout's, the doors open, the ball and the pen at their
+                goals.
 Then one JSON line with the kernels' numbers (each entry with the (N, H)
 of its ms and bound_ms, of its plain_ms, and the kernel's time at the
 latter) and, last, the device line.
@@ -481,15 +487,18 @@ ADROIT = {
 
 # phases 32-34: the warp layout (csrc/rollout_warp.cu), through which
 # door-v0-hand, door-v0-adroit, relocate-v0-adroit, hammer-v0-adroit,
-# relocate-v0-hand and hammer-v0-hand plan and step (phases 13-20 and
-# 25-28 run it). Per env: the canonical kernel shape, and whether its
-# rewards equal the plain version's bit for bit or only within SCENE_TOL
-# (the relocate bodies' rewards divide a sum over the tip spheres by their
-# number, 10 or 6: PyTorch on the card multiplies by the reciprocal, the
-# kernel divides, and the one-ulp quotient carries through the rest of the
-# reward). Phase 16 (HAND), 20 (SCENES) or 28 (ADROIT) gives its episode,
-# return and launches, and its canonical solver and prior; phase 34 sets
-# the env's class to the lane layout for the second episode. The lane
+# relocate-v0-hand, hammer-v0-hand, pen-v0-adroit and fetch-pick plan and
+# step (phases 13-28 run it; pen-v0-adroit's solve starts with its
+# constant head, PPI_SOLVE_FROM 3). Per env: the canonical kernel shape,
+# and whether its rewards equal the plain version's bit for bit or only
+# within SCENE_TOL (the relocate bodies' rewards divide a sum over the tip
+# spheres by their number, 10 or 6: PyTorch on the card multiplies by the
+# reciprocal, the kernel divides, and the one-ulp quotient carries through
+# the rest of the reward; fetch-pick divides by its 4 tips, exactly).
+# Phase 16 (HAND), 20 (SCENES), 24 (REST, seed 0 only) or 28 (ADROIT)
+# gives its episode, return and launches, and its canonical solver and
+# prior; phase 34 sets the env's class to the lane layout for the second
+# episode. The lane
 # layout is timed at each of LANE_BLOCKS threads a block, the warp layout
 # at each of WARP_SIZES rollouts a block; SENTINEL_WARPS rollouts a block
 # leave N_CHECK ragged for the sentinel check.
@@ -498,12 +507,14 @@ WARP = {"door-v0-adroit": dict(shape=(64, 30), exact_rewards=True),
         "relocate-v0-adroit": dict(shape=(256, 20), exact_rewards=False),
         "door-v0-hand": dict(shape=(64, 30), exact_rewards=True),
         "hammer-v0-hand": dict(shape=(128, 30), exact_rewards=True),
-        "relocate-v0-hand": dict(shape=(256, 20), exact_rewards=False)}
+        "relocate-v0-hand": dict(shape=(256, 20), exact_rewards=False),
+        "pen-v0-adroit": dict(shape=(96, 15), exact_rewards=True),
+        "fetch-pick": dict(shape=(384, 20), exact_rewards=True)}
 LANE_BLOCKS = (128, 32, 8, 1)
 WARP_SIZES = (1, 2, 4, 8)
 HAND_FAMILY = ("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08})
 SENTINEL, SENTINEL_WARPS, SENTINEL_PAD = -12345.0, 3, 64
-CHECKED = {}   # phases 14, 18 and 26 keep their inputs and outputs here
+CHECKED = {}   # phases 14, 18, 22 and 26 keep their inputs and outputs
 
 # phases 29-31: the sharded entry. The check's NaN lane lies in rank 2's
 # shard (lanes 500-749 of N_CHECK); the timing runs the configuration of
@@ -1220,6 +1231,11 @@ def check_rest(name, env, dev):
     rew, qf, qdf = run(q0, qd0, acts, consts=consts)
     rew_p, qf_p, qdf_p = rk.env_plain_rollout(env, s0, q0, qd0, acts)
     torch.cuda.synchronize()
+    if name in WARP:   # phase 33's lanes
+        CHECKED[name] = dict(s0=s0, q0=q0, qd0=qd0, acts=acts,
+                             h_frame=H_FRAME,
+                             s1=rest_state(env, name, dev, second=True),
+                             out=(rew, qf, qdf), plain=(rew_p, qf_p, qdf_p))
     errs = {"rewards": rel_err(rew, rew_p), "qf": rel_err(qf, qf_p),
             "qdf": rel_err(qdf, qdf_p)}
     max_abs = max(float((a - b).abs().max())
@@ -1892,18 +1908,19 @@ def check_warp(name, env, dev):
 
 def warp_family(name):
     """(solver, prior, prior options) of ``name``'s canonical config."""
-    for table in (ADROIT, SCENES):
+    for table in (ADROIT, SCENES, REST):
         if name in table:
-            return table[name]["family"]
+            return table[name]["family"][:3]
     return HAND_FAMILY
 
 
 def time_warp(name, env, dev):
     """Phase 34's timings for one env: the lane layout at each of
     LANE_BLOCKS, the warp layout at each of WARP_SIZES and as the env
-    routes it, at the canonical shape and at N=1024 (CUDA events); the real
-    step in both layouts; a synced PPI iteration (the canonical solver and
-    prior) in both layouts."""
+    routes it, at the canonical shape and at N=1024 (CUDA events); both
+    layouts as the main path launches them in turns (lane, warp, warp,
+    lane) at the canonical shape; the real step in both layouts; a synced
+    PPI iteration (the canonical solver and prior) in both layouts."""
     from ppi_tpu_torch.algorithms import make_solver
     from ppi_tpu_torch.algorithms.base import _one_iteration
     from ppi_tpu_torch.envs.physics import rollout_kernel as rk
@@ -1928,6 +1945,15 @@ def time_warp(name, env, dev):
         r = rk.env_rollout(env, s0, h)
         out[f"warp_ms_N{nn}_H{h}"] = cuda_ms(
             lambda: r(q0, qd0, acts, consts=consts, dyn=dyn), iters, 1)
+    # the two layouts as the main path launches them, in turns: lane, warp,
+    # warp, lane at the canonical shape (the layout each env keeps)
+    q0, qd0, acts = study_lanes(env, s0, n, h, 0.3)
+    runs = {"lane": study_rollout(env, s0, h, "lane", 128),
+            "warp": study_rollout(env, s0, h, "warp", rk.WARPS_PER_BLOCK)}
+    out[f"abba_ms_N{n}_H{h}"] = [
+        [lay, cuda_ms(lambda: runs[lay](q0, qd0, acts, consts=consts,
+                                        dyn=dyn), 10, 1)]
+        for lay in ("lane", "warp", "warp", "lane")]
 
     alg, policy, kwargs = warp_family(name)
     mean, cov_in, cov_out = design_moments(env.action_low, env.action_high,
@@ -2008,7 +2034,7 @@ def run(pool):
     door = Door(fixed_scene=True)
     t0 = time.perf_counter()
     # phase 25's three bodies are the largest (nvcc ~1 min each): they
-    # start first, with phase 32's six warp-layout bodies
+    # start first, with phase 32's eight warp-layout bodies
     warp_bodies = {name: warp_header(ENVS[name]()) for name in WARP}
     warp_builds = {name: pool.submit(build_timed, "rollout_warp.cu",
                                      {"env_warp.h": h})
@@ -2472,6 +2498,10 @@ def run(pool):
               f"{secs:.1f} s (in parallel with phases 1-20); ptxas: "
               f"{' | '.join(info['ptxas'])}", flush=True)
 
+    for name in REST:   # phase 22 launches the warp build among them
+        if name in WARP:
+            warp_builds[name].result()
+
     # ---- 22. those bodies: kernel vs plain --------------------------------------
     rest_errs, rest_max_abs, rest_contact = {}, {}, {}
     for name in REST:
@@ -2506,7 +2536,8 @@ def run(pool):
         runs = []
         for seed in cfg["seeds"]:
             ret, success, wall, got = run_episode(
-                cfg["episode"], cfg["shape"][0], seed, final)
+                cfg["episode"], cfg["shape"][0], seed, final,
+                key=rk.launch_key(env))
             passed, extra = rest_gate(name, env, ret, success,
                                       last["state"], timesteps)
             run_ = {"seed": seed, "return": ret, "success": success,
@@ -2644,6 +2675,13 @@ def run(pool):
             args_list, n_samples = cfg["episode"], cfg["shape"][0]
             warp_run, expected = scene_episodes[name][0], cfg["launches"]
             phase = 20
+        elif name in REST:   # seed 0 only: one episode holds the returns
+            cfg = REST[name]
+            args_list, n_samples = cfg["episode"], cfg["shape"][0]
+            warp_run = rest_episodes[name][0]
+            expected = 50 + 2 * int(args_list[args_list.index(
+                "--timesteps") + 1])
+            phase = 24
         else:
             args_list, n_samples = ADROIT[name]["episode"], \
                 ADROIT[name]["shape"][0]
@@ -2668,6 +2706,8 @@ def run(pool):
               f"layout's {warp_run['return']!r} ({warp_run['success']})")
     check(lane_episodes["door-v0-adroit"]["success"],
           "door-v0-adroit: the door did not open at seed 0")
+    check(lane_episodes["pen-v0-adroit"]["success"],
+          "pen-v0-adroit: the pen did not reach its goal at seed 0")
     out.update(lane_episodes=lane_episodes,
                total_s=time.perf_counter() - t_start)
     print(f"total: {out['total_s']:.0f} s, the kernels' builds included",
@@ -2746,6 +2786,8 @@ def run(pool):
              "library_ms": None,
              **shapes((n, h), (pn, ph), t[f"kernel_ms_N{pn}_H{ph}"])})
     for env_name, cfg in REST.items():
+        if env_name in WARP:
+            continue
         n, h = cfg["shape"]
         t = rest_times[env_name]
         kernels.append(
@@ -2760,8 +2802,9 @@ def run(pool):
              "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
              "library_ms": None,
              **shapes((n, h), (n, h), t[f"kernel_ms_N{n}_H{h}"])})
-    # the six warp-layout bodies: the lane layout's entry (phase 34's
-    # episodes, block 128) beside the warp layout's (phases 16, 20 and 28)
+    # the eight warp-layout bodies: the lane layout's entry (phase 34's
+    # episodes, block 128) beside the warp layout's (phases 16, 20, 24 and
+    # 28)
     for env_name, cfg in WARP.items():
         n, h = cfg["shape"]
         t = warp_times[env_name]
@@ -2770,23 +2813,26 @@ def run(pool):
             routed = hand_times[env_name]
             warp_launches = sum(r["launches"]
                                 for r in hand_episodes[env_name])
-        elif env_name in SCENES:
+        elif env_name in SCENES or env_name in REST:
             pn, ph = n, h
-            routed = scene_times[env_name]
-            warp_launches = sum(r["launches"]
-                                for r in scene_episodes[env_name])
+            routed = (scene_times if env_name in SCENES
+                      else rest_times)[env_name]
+            warp_launches = sum(r["launches"] for r in (
+                scene_episodes if env_name in SCENES
+                else rest_episodes)[env_name])
         else:
             pn, ph = ADROIT[env_name]["plain_shape"]
             routed = adroit_times[env_name]
             warp_launches = adroit_episodes[env_name]["launches"]
         plain_ms = routed[f"plain_ms_N{pn}_H{ph}"]
-        # phases 15, 19 and 27 time the kernel as routed (the warp layout)
-        # at the plain rollout's shape; phase 34 times the lane layout only
-        # at the canonical shape, the plain rollout's for phase 19's bodies
+        # phases 15, 19, 23 and 27 time the kernel as routed (the warp
+        # layout) at the plain rollout's shape; phase 34 times the lane
+        # layout only at the canonical shape, the plain rollout's for phase
+        # 19's and 23's bodies
         at_plain = {"lane": t[f"lane_128_ms_N{n}_H{h}"]
                     if (pn, ph) == (n, h) else None,
                     "warp": routed[f"kernel_ms_N{pn}_H{ph}"]}
-        stem = env_name.replace("-v0-", "_")
+        stem = env_name.replace("-v0-", "_").replace("-", "_")
         for layout, source, launches, ms in (
                 ("lane", "rollout.cu", lane_episodes[env_name]["launches"],
                  t[f"lane_128_ms_N{n}_H{h}"]),

@@ -3,7 +3,8 @@
 //
 // Replaces, for the bodies whose lane layout one thread's dependent chain
 // bounds (door-v0-hand, door-v0-adroit, relocate-v0-adroit,
-// hammer-v0-adroit, hammer-v0-hand, relocate-v0-hand), the Pallas megakernel
+// hammer-v0-adroit, hammer-v0-hand, relocate-v0-hand, pen-v0-adroit,
+// fetch-pick), the Pallas megakernel
 // ppi_tpu/envs/physics/pallas_rollout.py (make_pallas_rollout, pallas_call
 // at line 190), as rollout.cu does with one rollout a thread for the
 // others. The contract is rollout.cu's: the same arguments and lane-major
@@ -31,7 +32,9 @@
 //   4. Gauss-Jordan without pivoting, lane c holding column c of the
 //      augmented matrix in registers: step k broadcasts the pivot and
 //      column k's factors from lane k with __shfl_sync, and every lane
-//      updates its column;
+//      updates its column; the leading steps whose pivot the scalar
+//      program folds to a constant (PPI_SOLVE_FROM of them) take their
+//      folded operands from generated tables;
 //   5. env_integrate on lane 0: the semi-implicit Euler step.
 // Every value is computed by the same operations on the same operands as
 // in the lane layout, and nvcc runs with -fmad=false, so every value is
@@ -116,10 +119,24 @@ typedef struct {
 typedef struct {
   short p, f;  // contact point and force
 } PpiRhsContact;
+// one op of the solve's constant head, on lane c's column (kind: PPI_HEAD_*)
+typedef struct {
+  float v;
+  int kind;
+} PpiHeadOp;
+#define PPI_HEAD_SYM 0
+#define PPI_HEAD_LIT 1
+#define PPI_HEAD_CONST 2
 
 #include "env_warp.h"
 
 #define PPI_W (PPI_NQ + 1)  // row stride of the augmented matrix
+// the first step of the solve whose pivot is not a folded constant; the
+// steps before it are the constant head (a header that defines it defines
+// the tables ppi_head_rows and ppi_head_ops)
+#ifndef PPI_SOLVE_FROM
+#define PPI_SOLVE_FROM 0
+#endif
 
 // Stage clocks, for a study's build only (the header defines
 // PPI_STAGE_CLOCKS; the main path's never does): lane 0 of every rollout
@@ -215,6 +232,13 @@ PPI_QUAL void ppi_rhs(float* sh, int lane) {
 // step (columns <= k are dead, and lanes past nq hold no column: their
 // values are never read), so the warp never diverges. Lane nq ends with
 // the solution and writes it back to column nq.
+//
+// The constant head, steps 0 .. PPI_SOLVE_FROM - 1 (pivots that the scalar
+// program folds in float64): each lane reads its column's op of the step
+// from the generated tables, so that a folded reciprocal, row entry,
+// product or cell is the program's f32 literal; a constant cell's register
+// holds that literal, so a broadcast factor is the program's operand too.
+// Both sides of every select are computed, so the warp never diverges.
 #ifdef __CUDACC__
 PPI_QUAL void ppi_solve(float* aug) {
   const int c = (int)(threadIdx.x & 31u);
@@ -222,8 +246,24 @@ PPI_QUAL void ppi_solve(float* aug) {
   float col[PPI_NQ];
 #pragma unroll
   for (int i = 0; i < PPI_NQ; ++i) col[i] = aug[i * PPI_W + cc];
+#if PPI_SOLVE_FROM > 0
 #pragma unroll
-  for (int k = 0; k < PPI_NQ; ++k) {
+  for (int k = 0; k < PPI_SOLVE_FROM; ++k) {
+    const PpiHeadOp r = ppi_head_rows[k * PPI_W + cc];
+    const float rk = r.kind == PPI_HEAD_SYM ? col[k] * r.v : r.v;
+#pragma unroll
+    for (int i = 0; i < PPI_NQ; ++i) {
+      if (i == k) continue;
+      const float f = __shfl_sync(0xffffffffu, col[i], k);
+      const PpiHeadOp o = ppi_head_ops[(k * PPI_NQ + i) * PPI_W + cc];
+      const float d = o.kind == PPI_HEAD_SYM ? col[i] - f * rk : col[i] - o.v;
+      col[i] = o.kind == PPI_HEAD_CONST ? o.v : d;
+    }
+    col[k] = rk;
+  }
+#endif
+#pragma unroll
+  for (int k = PPI_SOLVE_FROM; k < PPI_NQ; ++k) {
     const float inv_p = 1.0f / __shfl_sync(0xffffffffu, col[k], k);
     const float rk = col[k] * inv_p;
 #pragma unroll
@@ -247,7 +287,27 @@ PPI_QUAL void ppi_solve(float* aug) {
   float cols[PPI_NQ + 1][PPI_NQ], f[PPI_NQ];
   for (int c = 0; c <= PPI_NQ; ++c)
     for (int i = 0; i < PPI_NQ; ++i) cols[c][i] = aug[i * PPI_W + c];
-  for (int k = 0; k < PPI_NQ; ++k) {
+#if PPI_SOLVE_FROM > 0
+  for (int k = 0; k < PPI_SOLVE_FROM; ++k) {
+    for (int i = 0; i < PPI_NQ; ++i) f[i] = cols[k][i];
+    for (int c = 0; c <= PPI_NQ; ++c) {
+      const PpiHeadOp r = ppi_head_rows[k * PPI_W + c];
+      const float rk = r.kind == PPI_HEAD_SYM ? cols[c][k] * r.v : r.v;
+      for (int i = 0; i < PPI_NQ; ++i) {
+        if (i == k) continue;
+        const PpiHeadOp o = ppi_head_ops[(k * PPI_NQ + i) * PPI_W + c];
+        if (o.kind == PPI_HEAD_CONST)
+          cols[c][i] = o.v;
+        else if (o.kind == PPI_HEAD_LIT)
+          cols[c][i] = cols[c][i] - o.v;
+        else
+          cols[c][i] = cols[c][i] - f[i] * rk;
+      }
+      cols[c][k] = rk;
+    }
+  }
+#endif
+  for (int k = PPI_SOLVE_FROM; k < PPI_NQ; ++k) {
     const float inv_p = 1.0f / cols[k][k];
     for (int i = 0; i < PPI_NQ; ++i) f[i] = cols[k][i];
     for (int c = 0; c <= PPI_NQ; ++c) {

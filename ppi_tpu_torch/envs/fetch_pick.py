@@ -60,6 +60,9 @@ class FetchPickAndPlace:
     fixed_goal: bool = False
 
     name = "fetch-pick"
+    # its lane build spills: the rollout kernel runs one rollout a warp
+    # (rollout_kernel.kernel_layout)
+    scalar_kernel_layout = "warp"
 
     def __post_init__(self):
         model, palm, tips, ball = _build_model()

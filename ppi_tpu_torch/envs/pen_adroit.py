@@ -116,6 +116,10 @@ class PenAdroit(PenHand):
     kd_abd: float = 0.2
 
     name = "pen-v0-adroit"
+    # one thread's dependent chain bounds the lane layout here: the
+    # rollout kernel runs one rollout a warp (rollout_kernel.kernel_layout);
+    # pen-v0-hand, the parent, stays on the lane layout
+    scalar_kernel_layout = "warp"
 
     _low, _high = _LOW, _HIGH
     # alternate MCP curls form a zigzag cradle under the rod (pen-v0-hand's

@@ -315,19 +315,26 @@ def contact_forces_soa(m: SoaModel, pts, vels):
 
 # ---- solve + dynamics -------------------------------------------------------
 
+def gauss_jordan_step(aug, k: int):
+    """Step k of ``solve_pd_scalar`` on the augmented rows ``aug``, in
+    place: row k scaled by its pivot's reciprocal, every other row minus
+    its factor times it."""
+    inv_p = 1.0 / aug[k][k]
+    row_k = [v * inv_p for v in aug[k]]
+    for i in range(len(aug)):
+        if i == k:
+            continue
+        f = aug[i][k]
+        aug[i] = [aug[i][c] - f * row_k[c] for c in range(len(row_k))]
+    aug[k] = row_k
+
+
 def solve_pd_scalar(mass, rhs):
     """Gauss-Jordan on scalar lists (PD, no pivoting)."""
     n = len(rhs)
     aug = [list(mass[i]) + [rhs[i]] for i in range(n)]
     for k in range(n):
-        inv_p = 1.0 / aug[k][k]
-        row_k = [v * inv_p for v in aug[k]]
-        for i in range(n):
-            if i == k:
-                continue
-            f = aug[i][k]
-            aug[i] = [aug[i][c] - f * row_k[c] for c in range(n + 1)]
-        aug[k] = row_k
+        gauss_jordan_step(aug, k)
     return tuple(aug[i][n] for i in range(n))
 
 

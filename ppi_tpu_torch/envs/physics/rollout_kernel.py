@@ -16,10 +16,12 @@ That is the lane layout: one rollout a thread. The warp layout
 (``csrc/rollout_warp.cu``, one rollout a warp) replaces ``env_substep`` by
 lane 0's ``env_assemble`` and ``env_integrate`` around generated stages,
 tables and a Gauss-Jordan solve that spread the rest of the substep over
-the warp's lanes (``warp_layout``); an env with
-``scalar_kernel_layout = "warp"`` (door-v0-hand, door-v0-adroit,
-relocate-v0-adroit, hammer-v0-adroit, hammer-v0-hand, relocate-v0-hand)
-plans and steps through it. Both give the same values bit for bit.
+the warp's lanes (``warp_layout``; where the mass matrix's leading
+pivots fold to constants, the solve's first steps come from tables); an
+env with ``scalar_kernel_layout = "warp"`` (door-v0-hand, door-v0-adroit,
+relocate-v0-adroit, hammer-v0-adroit, hammer-v0-hand, relocate-v0-hand,
+pen-v0-adroit, fetch-pick) plans and steps through it. Both give the same
+values bit for bit; every body of the runner has both.
 
 The kernel is built with ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/<hash of sources and flags>/`` and bound with ``ctypes``

@@ -21,8 +21,9 @@ it runs on all 32 lanes:
     lane j the right-hand side's entry j, each entry's terms in
     ``assemble_soa``'s order;
   * the solve (hand-written in the skeleton), lane c holding column c of
-    the augmented matrix, then ``env_integrate``
-    (``engine_soa.integrate_soa``) on lane 0.
+    the augmented matrix: its constant head (``_solve_head``: the steps
+    whose pivot Python folds, from tables) then the register loop, then
+    ``env_integrate`` (``engine_soa.integrate_soa``) on lane 0.
 
 Every value is the one the lane layout computes, bit for bit: a template
 instance runs the same ``engine_soa`` helper on the same values, with
@@ -30,10 +31,10 @@ Python folding its constants as the straight-line program does; each
 table entry is summed by one lane in the program's order, and where the
 program folds model constants in float64 (a term whose operands are all
 Python floats, an entry that stays an exact 0.0, a constant diagonal of a
-slide joint) the tables carry the folded value as the straight-line
-code's f32 literal would. ``generate_stages`` raises where the program
-folds only part of a term, which the tables cannot express, or where the
-first pivot is a constant (then the solve's first step would fold too).
+slide joint, the solve's steps while its pivot is a constant) the tables
+carry the folded value as the straight-line code's f32 literal would.
+``generate_stages`` raises where the program folds only part of a term,
+which the tables cannot express.
 """
 
 import dataclasses
@@ -45,13 +46,16 @@ from ppi_tpu_torch.envs.physics import scalar_math as sm
 from ppi_tpu_torch.envs.physics.engine import HINGE
 from ppi_tpu_torch.envs.physics.engine_soa import (
     Assembly, accumulate_force, bias_wrench_soa, contact_point_soa,
-    contact_terms, fk_body_soa, integrate_soa, jacobian_column, m3_vec,
-    passive_torque_soa, plane_contact_soa, segment_contact_soa,
-    sphere_contact_soa, v3_dot, velocity_body_soa, world_inertia_soa)
+    contact_terms, fk_body_soa, gauss_jordan_step, integrate_soa,
+    jacobian_column, m3_vec, passive_torque_soa, plane_contact_soa,
+    segment_contact_soa, sphere_contact_soa, v3_dot, velocity_body_soa,
+    world_inertia_soa)
 
 LANES = 32
 # flags of a mass-matrix op (PpiMassOp in csrc/rollout_warp.cu)
 START, END, CONST, JW = 1, 2, 4, 8
+# kinds of an op of the solve's constant head (PpiHeadOp)
+HEAD_SYM, HEAD_LIT, HEAD_CONST = 0, 1, 2
 _SHORT = 32767
 
 
@@ -304,6 +308,55 @@ def _schedule(entries, lanes: int = LANES):
     return table, steps
 
 
+def _solve_head(entries, nq: int):
+    """The solve's constant head: (k0, row table, op table), k0 the first
+    step whose pivot is symbolic. In the steps before it the lane program
+    (``solve_pd_scalar`` on the entries) folds: ``1.0 / pivot`` in float64,
+    a row entry or a product whose operands are all Python floats, a cell
+    that stays a Python float. Lane c's column c is held to that step by
+    step, each constant as its f32 literal (as ``ppi_const_cells``):
+
+      * row entry (k, c): ``col[k] * v`` with v the literal of ``1.0 /
+        pivot`` (HEAD_SYM), or v itself, the folded ``aug[k][c] / pivot``
+        (HEAD_CONST);
+      * cell (i, c), i != k: ``col[i] - f * r`` with f broadcast from lane
+        k (HEAD_SYM), ``col[i] - v`` with v the folded product (HEAD_LIT),
+        or v, the folded cell (HEAD_CONST).
+
+    From step k0 on no cell is a Python float (its pivot is symbolic, so
+    is its row, so every product), and the skeleton's register loop
+    computes what the program emits. Tables row-major over (k, c) and
+    (k, i, c), c over the nq + 1 columns; row i == k of the ops unused."""
+    width = nq + 1
+    marker = sm.Emitter()   # the symbolic cells: only their kind matters
+    aug = [[None] * width for _ in range(nq)]
+    for k in range(nq):
+        for l in range(k, nq):
+            value, ops = entries.get((k, l), (0.0, None))
+            aug[k][l] = aug[l][k] = (value if ops is None
+                                     else sm.Sym(marker, "m"))
+        aug[k][nq] = sm.Sym(marker, "rhs")
+    rows, ops = [], []
+    k = 0
+    while k < nq and _const(aug[k][k]):
+        inv_p = 1.0 / aug[k][k]
+        row_k = [v * inv_p for v in aug[k]]
+        rows += [(HEAD_CONST, r) if _const(r) else (HEAD_SYM, inv_p)
+                 for r in row_k]
+        for i in range(nq):
+            f = aug[i][k]
+            for c in range(width):
+                if i == k or not (_const(f) and _const(row_k[c])):
+                    ops.append((HEAD_SYM, 0.0))
+                elif _const(aug[i][c]):
+                    ops.append((HEAD_CONST, aug[i][c] - f * row_k[c]))
+                else:
+                    ops.append((HEAD_LIT, f * row_k[c]))
+        gauss_jordan_step(aug, k)
+        k += 1
+    return k, rows, ops
+
+
 def _rhs_tables(m, asm, slots):
     """(per joint, body ops, contact ops) of the right-hand side: lane j
     sums entry j, its body terms then its contact terms."""
@@ -372,20 +425,36 @@ def _short(x: int) -> int:
     return x
 
 
+def _first_staged_depth(width) -> int:
+    """The first depth of the body tree (``width``: bodies a depth) whose
+    kinematics run as template stages, every deeper depth too: the first
+    from which on every depth holds two bodies or more (the digits). Where
+    that leaves every depth on lane 0 (the deepest holds one body: a pen's
+    hinges under its slides), the split that costs least, counting a body
+    on lane 0 as one and a stage as two (its loads and ``__syncwarp``
+    cost about one body's kinematics), the deepest of equals."""
+    wide = len(width)
+    while wide > 0 and width[wide - 1] >= 2:
+        wide -= 1
+    if wide < len(width):
+        return wide
+    cost = [sum(width[:p]) + sum(1 + -(-w // LANES) for w in width[p:])
+            for p in range(len(width) + 1)]
+    return max(p for p, c in enumerate(cost) if c == min(cost))
+
+
 def _kinematics(m, q, qd, slots, names):
     """Every body's FK and velocity kinematics (``fk_body_soa``,
-    ``velocity_body_soa``): on lane 0 down to the first depth of the tree
-    from which on every depth holds two bodies or more (the digits), each
-    deeper depth a template stage, its bodies across the lanes. Returns
-    (rots, poss, axes, coms, omega, v_o, alpha, a_c) and the stages."""
+    ``velocity_body_soa``): on lane 0 down to ``_first_staged_depth``,
+    each deeper depth a template stage, its bodies across the lanes.
+    Returns (rots, poss, axes, coms, omega, v_o, alpha, a_c) and the
+    stages."""
     nq = m.nq
     depth = []
     for b in range(nq):
         depth.append(0 if m.parents[b] < 0 else depth[m.parents[b]] + 1)
-    width = [depth.count(d) for d in range(max(depth) + 1)]
-    wide = len(width)
-    while wide > 0 and width[wide - 1] >= 2:
-        wide -= 1
+    wide = _first_staged_depth([depth.count(d)
+                                for d in range(max(depth) + 1)])
     zero = (0.0, 0.0, 0.0)
     rots, poss, axes, coms, omega, v_o, alpha, a_o, a_c = (
         [None] * nq for _ in range(9))
@@ -539,8 +608,7 @@ def generate_stages(m, prologue, h: float, action_dim: int,
             slots.known(x, off[at] + j)
     asm, stages = _lane0_and_stages(mm, q, qd, tau, slots)
     entries = _mass_entries(mm, asm, slots)
-    if entries[(0, 0)][1] is None:
-        raise NotImplementedError("the first pivot is a constant")
+    solve_from, head_rows, head_ops = _solve_head(entries, nq)
     const_cells, sym_ops, mdiag = [], [], [None] * nq
     for k in range(nq):
         for l in range(k, nq):
@@ -612,5 +680,11 @@ def generate_stages(m, prologue, h: float, action_dim: int,
         f"#define PPI_N_CONST_SLOTS {len(slots.const)}",
         f"#define PPI_N_CONST_CELLS {len(const_cells)}",
         f"#define PPI_MASS_STEPS {mass_steps}"]
+    if solve_from:   # a body whose first pivot is symbolic has no head
+        defines.append(f"#define PPI_SOLVE_FROM {solve_from}")
+        tables += [_table("PpiHeadOp", name, rows,
+                          lambda r: f"{f(r[1])}, {r[0]}")
+                   for name, rows in (("ppi_head_rows", head_rows),
+                                      ("ppi_head_ops", head_ops))]
     return defines, tables + stage_tables, [assemble, *stage_functions,
                                             integrate]

@@ -2,9 +2,10 @@
 
     python -m ppi_tpu_torch.studies.warp_layout [ENV ...]
 
-For each env (the six warp-layout bodies, door-v0-adroit,
-hammer-v0-adroit, relocate-v0-adroit, door-v0-hand, hammer-v0-hand and
-relocate-v0-hand, unless named): builds the lane layout
+For each env (the eight warp-layout bodies, door-v0-adroit,
+hammer-v0-adroit, relocate-v0-adroit, door-v0-hand, hammer-v0-hand,
+relocate-v0-hand, pen-v0-adroit and fetch-pick, unless named): builds the
+lane layout
 (``csrc/rollout.cu``) and the warp layout (``csrc/rollout_warp.cu``) of
 its body in parallel and prints each build's ``-Xptxas -v`` summary;
 checks at N=257 (ragged), H=3 that the two layouts give the same bits and
@@ -43,7 +44,9 @@ CANONICAL = {"door-v0-adroit": ((64, 30), 0.3),
              "relocate-v0-adroit": ((256, 20), 0.3),
              "door-v0-hand": ((64, 30), 0.3),
              "hammer-v0-hand": ((128, 30), 0.3),
-             "relocate-v0-hand": ((256, 20), 0.3)}
+             "relocate-v0-hand": ((256, 20), 0.3),
+             "pen-v0-adroit": ((96, 15), 0.3),
+             "fetch-pick": ((384, 20), 0.3)}
 BLOCKS = (128, 32, 8, 1)
 WARPS = (1, 2, 4, 8)
 N_CHECK, H_CHECK = 257, 3

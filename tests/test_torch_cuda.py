@@ -526,17 +526,20 @@ def test_essps_control_step_never_waits_for_the_card(policy):
 
 
 # ---- the warp layout: door-v0-adroit, hammer-v0-adroit, relocate-v0-adroit,
-# door-v0-hand, hammer-v0-hand, relocate-v0-hand ------------------------------
+# door-v0-hand, hammer-v0-hand, relocate-v0-hand, pen-v0-adroit, fetch-pick ---
 
 # env -> (check H, whether the rewards equal the plain version's bit for
 # bit): the relocate bodies' rewards divide a sum over the tip spheres by
 # their number, not a power of two, which PyTorch on the card does as a
 # multiplication by the reciprocal and the kernel as a division; the
 # one-ulp quotient carries through the rest of the reward,
-# which then agrees within REWARD_TOL of 1 + |plain|
+# which then agrees within REWARD_TOL of 1 + |plain| (fetch-pick divides
+# by its 4 tips, exactly). pen-v0-adroit's solve starts with its constant
+# head (three folded pivots)
 WARP_ENVS = {"door-v0-adroit": (5, True), "hammer-v0-adroit": (3, True),
              "relocate-v0-adroit": (3, False), "door-v0-hand": (5, True),
-             "hammer-v0-hand": (5, True), "relocate-v0-hand": (5, False)}
+             "hammer-v0-hand": (5, True), "relocate-v0-hand": (5, False),
+             "pen-v0-adroit": (3, True), "fetch-pick": (5, True)}
 REWARD_TOL = 1e-6
 
 

@@ -1,7 +1,8 @@
 """The rollout kernel's warp layout (csrc/rollout_warp.cu) on the CPU.
 
 door-v0-adroit, hammer-v0-adroit, relocate-v0-adroit, door-v0-hand,
-hammer-v0-hand and relocate-v0-hand plan and step through the warp layout:
+hammer-v0-hand and relocate-v0-hand (and pen-v0-adroit and fetch-pick,
+tests/test_torch_warp_pivot.py) plan and step through the warp layout:
 one rollout a warp, the substep split into ``engine_soa.assemble_soa``
 (lane 0's straight-line ``env_assemble``, then the mass matrix and the
 right-hand side summed across the lanes from generated tables), the
@@ -37,6 +38,10 @@ from ppi_tpu_torch.runners.run_mpc import ENVS
 
 WARP_ENVS = ("door-v0-adroit", "hammer-v0-adroit", "relocate-v0-adroit",
              "door-v0-hand", "hammer-v0-hand", "relocate-v0-hand")
+# every env that plans and steps through the warp layout: the six above,
+# and the two whose solve starts with a constant head
+# (tests/test_torch_warp_pivot.py)
+ROUTED_WARP_ENVS = WARP_ENVS + ("pen-v0-adroit", "fetch-pick")
 N, H = 5, 2
 
 # sha256 of the warp headers as first generated: a change to the
@@ -381,10 +386,10 @@ def test_relocate_hand_warp_build_matches_jax(builds):
 
 def test_the_six_warp_envs_and_only_they_build_the_warp_layout(monkeypatch):
     """A spy on the build: ``env_rollout(...).load()`` builds the warp
-    skeleton for the six warp envs (door-v0-adroit, hammer-v0-adroit,
-    relocate-v0-adroit, door-v0-hand, hammer-v0-hand and relocate-v0-hand)
-    and the lane skeleton for every other env of the runner, relocate-v0
-    and pen-v0-hand included."""
+    skeleton for the warp envs (door-v0-adroit, hammer-v0-adroit,
+    relocate-v0-adroit, door-v0-hand, hammer-v0-hand, relocate-v0-hand,
+    pen-v0-adroit and fetch-pick) and the lane skeleton for every other env
+    of the runner, relocate-v0 and pen-v0-hand included."""
     built = {}
     monkeypatch.setattr(rk, "_env_header", lambda *a: "lane")
     monkeypatch.setattr(rk, "_warp_header", lambda *a: "warp")
@@ -398,7 +403,7 @@ def test_the_six_warp_envs_and_only_they_build_the_warp_layout(monkeypatch):
         built["current"] = []
         symbol = rk.env_rollout(env, env.reset(
             torch.Generator().manual_seed(0), "cpu"), 1).load()
-        want = name in WARP_ENVS
+        want = name in ROUTED_WARP_ENVS
         assert built["current"] == ([("rollout_warp.cu", "warp")] if want
                                     else [("rollout.cu", "lane")]), name
         assert symbol == ("ppi_rollout_warp_launch" if want
@@ -408,27 +413,17 @@ def test_the_six_warp_envs_and_only_they_build_the_warp_layout(monkeypatch):
     assert len(ENVS) == 21
 
 
-# the bodies whose mass matrix's first pivot folds to a constant, which
-# ``warp_layout.generate_stages`` declines for now (ROADMAP queue 2)
-CONSTANT_FIRST_PIVOT = ("cheetah", "hopper", "humanoid-standup", "pen-v0",
-                        "pen-v0-adroit", "pen-v0-hand", "walker2d",
-                        "walker~walk")
-
-
 @pytest.mark.parametrize("name", sorted(set(ENVS) - set(WARP_ENVS)))
 def test_which_bodies_the_warp_generator_takes(name):
-    """The warp generator takes every lane-layout body of the runner
-    (fetch-pick, relocate-v0, door-v0 and the other small ones; the warp
-    bodies' headers are pinned below), but for those whose first pivot is
-    a constant, which may decline with that reason and no other."""
-    args = rk.body_args(ENVS[name](), _state(name))
-    try:
-        header = rk.generate_warp_header(*args)
-    except NotImplementedError as e:
-        assert name in CONSTANT_FIRST_PIVOT
-        assert "the first pivot is a constant" in str(e)
-    else:
-        assert "env_assemble" in header
+    """The warp generator takes every body of the runner outside the six
+    pinned below, none declined: fetch-pick, pen-v0-adroit, relocate-v0,
+    door-v0, the other small ones, and the eight whose first pivot folds
+    to a constant (cheetah, hopper, humanoid-standup, pen-v0,
+    pen-v0-adroit, pen-v0-hand, walker2d, walker~walk), whose solve starts
+    with its constant head."""
+    header = rk.generate_warp_header(*rk.body_args(ENVS[name](),
+                                                   _state(name)))
+    assert "env_assemble" in header
 
 
 @pytest.mark.parametrize("name", WARP_ENVS)
