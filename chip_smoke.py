@@ -18,7 +18,8 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 (Lbps, SE kernel, delta 0.9, 2 iters, anneal 0.5,
                 lengthscale 0.08, 64 samples, H=30, T=250, 50 warm-start
                 iterations, seed 0): finite return, exactly 800 kernel
-                launches (each real step is one), the door open;
+                launches of door-v0's routed layout (the split layout,
+                phases 35-37; each real step is one), the door open;
   5. build   -- the moment-match kernel's build time and -Xptxas -v summary;
   6. check   -- the moment-match kernel against its plain version and both
                 against a float64 oracle on the card: (4096, 64) with
@@ -243,9 +244,35 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 and 410 launches of it, the returns equal the warp
                 layout's, the doors open, the ball and the pen at their
                 goals.
+ 35. build   -- the split layout (``csrc/rollout_split.cu``: 32 rollouts
+                a block, each rollout's substep and reward scheduled over
+                the block's warps) of door-v0, which plans and steps
+                through it (phases 2-31 run it), and of hammer-v0, which
+                keeps the lane layout; generated and
+                built with nvcc in phase 1 (door-v0's before phase 2);
+                print each body's line count, nvcc seconds, warps a
+                group, phases, shared memory a group and -Xptxas -v
+                summary next to its lane layout's;
+ 36. check   -- on phase 2's (door-v0) and phase 18's (hammer-v0) lanes,
+                N=1000, H=20: the split layout bit for bit the lane kernel
+                and within TOL (SCENE_TOL) of the plain version; a NaN
+                lane; the second frame or board with the mask, both
+                layouts' bits equal; N=1000 (31 groups and 8 rollouts) into
+                outputs padded with a sentinel past N that must stay; the
+                real step bit for bit ``plain_step`` and both layouts;
+ 37. timings -- CUDA events in turns (lane, split, split, lane) at
+                N=64/H=30, and for door-v0 at N=1024/H=160 (phase 3's north
+                star), N=4096/H=160 (phase 30's shard) and N=16384/H=160;
+                the real step and a synced PPI iteration in both layouts;
+                the split kernel's blocks an SM; then phase 4's door-v0
+                episode once more through the lane layout and phase 20's
+                seed-0 hammer-v0 episode once more through the split
+                layout: exactly 800 and 550 launches of it, the returns
+                equal.
 Then one JSON line with the kernels' numbers (each entry with the (N, H)
 of its ms and bound_ms, of its plain_ms, and the kernel's time at the
-latter) and, last, the device line.
+latter; the rollout bodies of phase 35 with their registers and spills)
+and, last, the device line.
 All numbers also go to chip_smoke.json in the output directory.
 """
 
@@ -515,6 +542,25 @@ WARP_SIZES = (1, 2, 4, 8)
 HAND_FAMILY = ("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08})
 SENTINEL, SENTINEL_WARPS, SENTINEL_PAD = -12345.0, 3, 64
 CHECKED = {}   # phases 14, 18, 22 and 26 keep their inputs and outputs
+
+# each layout's skeleton in ppi_tpu_torch/csrc
+SOURCES = {"lane": "rollout.cu", "warp": "rollout_warp.cu",
+           "split": "rollout_split.cu"}
+
+# phases 35-37: the split layout (csrc/rollout_split.cu) of door-v0 and
+# hammer-v0: each rollout's substep and reward spread over the warps of a
+# block. Per env: the layout it is routed to, the canonical shape, the
+# larger shapes it is timed at in turns with the lane layout (door-v0's
+# body also runs phase 3's north star and phase 30's 4096-lane shard), the
+# check's tolerance against plain, and its episode (phase 4's or phase
+# 20's seed 0) with its launches, run once more through the other layout.
+SPLIT = {"door-v0": dict(routed="split", shape=(64, 30),
+                         big=((1024, 160), (4096, 160), (16384, 160)),
+                         tol=TOL, episode=None, launches=800),
+         "hammer-v0": dict(routed="lane", shape=(64, 30), big=(),
+                           tol=SCENE_TOL,
+                           episode=SCENES["hammer-v0"]["episode"],
+                           launches=SCENES["hammer-v0"]["launches"])}
 
 # phases 29-31: the sharded entry. The check's NaN lane lies in rank 2's
 # shard (lanes 500-749 of N_CHECK); the timing runs the configuration of
@@ -1525,7 +1571,7 @@ def mesh_phases(rank, cfg):
     costs, nan = f(None, acts), f(None, bad)
     masked = rk.sharded_kernel_mpc_objective(door, s0, H_CHECK, mesh,
                                              mask)(None, acts)
-    launches = per_rank(LAUNCHES["rollout"], mesh)
+    launches = per_rank(LAUNCHES[rk.launch_key(door)], mesh)
     divide = None
     try:
         f(None, torch.cat([acts, acts[:2]]))
@@ -1607,7 +1653,7 @@ def mesh_phases(rank, cfg):
                 ret=float(track["reward"].sum()),
                 success=bool(agent.env.success(env_state)),
                 wall_s=time.perf_counter() - t0,
-                launches=per_rank(LAUNCHES["rollout"], mesh),
+                launches=per_rank(LAUNCHES[rk.launch_key(door)], mesh),
                 agree=replicas_agree([carry.policy, track["action"],
                                       env_state.physics.qpos], mesh))
     return out if rank == 0 else None
@@ -1647,7 +1693,8 @@ def sharded_phases(door, dev, ret4):
         None, acts_w).cpu()
     check(bool(torch.isfinite(c_warp).all()), f"{MESH_WARP}: unsharded "
           "costs not finite")
-    ret20, _, _, got20 = run_episode(DOOR_ARGS + ["--timesteps", "20"], 64)
+    ret20, _, _, got20 = run_episode(DOOR_ARGS + ["--timesteps", "20"], 64,
+                                     key=rk.launch_key(door))
     check(got20 == 110, f"unsharded T=20 episode: {got20} launches")
     a = torch.from_numpy((0.4 * rng.standard_normal(
         (N_MESH, H_MESH, door.action_dim))).astype(np.float32)).to(dev)
@@ -1709,7 +1756,8 @@ def sharded_phases(door, dev, ret4):
         cw = res["warp_check"]
         check(same_bits(cw["costs"], c_warp), f"{tag}: {MESH_WARP}'s sharded "
               "costs differ from the unsharded warp-layout launch")
-        check(cw["launches"] == {"lane": [0.0] * w, "warp": [1.0] * w},
+        check(cw["launches"] == {"lane": [0.0] * w, "warp": [1.0] * w,
+                                 "split": [0.0] * w},
               f"{tag}: {MESH_WARP}'s launches per rank {cw['launches']}, "
               "expected one of the warp layout each")
         check(cw["agree"], f"{tag}: ranks gathered different {MESH_WARP} "
@@ -1749,7 +1797,7 @@ def sharded_phases(door, dev, ret4):
           f"{ret20!r}; both spawned groups {mesh_s:.1f} s", flush=True)
     kernel = {
         "name": "door_sharded_rollout", "route": "cuda",
-        "source": "ppi_tpu_torch/csrc/rollout.cu",
+        "source": f"ppi_tpu_torch/csrc/{SOURCES[rk.kernel_layout(door)]}",
         "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:322",
         "launches": int(sum(e["launches"])), "max_abs_err": mesh_max_abs,
         "ms": float(np.mean(mesh_t["4 ranks"]["kernel_ms"])),
@@ -1795,9 +1843,10 @@ def layout_of(env_cls, layout):
 
 def padded_launch(run, q0, qd0, acts, consts, dyn, size):
     """One launch of ``run``'s kernel (``run.load()``) with ``size``
-    threads (lane) or rollouts (warp) a block, into output buffers
-    SENTINEL_PAD floats longer than the N rollouts fill, prefilled with
-    SENTINEL: (rewards, qf, qdf, whether every pad kept its sentinel)."""
+    threads (lane) or rollouts (warp) a block (None for the split layout,
+    32 rollouts a block), into output buffers SENTINEL_PAD floats longer
+    than the N rollouts fill, prefilled with SENTINEL: (rewards, qf, qdf,
+    whether every pad kept its sentinel)."""
     fn = run.load()
     n, h = acts.shape[0], acts.shape[1]
     nq = q0.shape[1]
@@ -1808,7 +1857,8 @@ def padded_launch(run, q0, qd0, acts, consts, dyn, size):
             for k in (h, nq, nq)]
     ptr = lambda x: None if x is None else x.data_ptr()
     err = fn(*[x.data_ptr() for x in ins], ptr(dyn), ptr(consts),
-             *[x.data_ptr() for x in outs], n, h, size,
+             *[x.data_ptr() for x in outs], n, h,
+             *(() if size is None else (size,)),
              torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     check(err == 0, f"padded launch: CUDA error {err}")
@@ -1992,6 +2042,205 @@ def time_warp(name, env, dev):
     return out
 
 
+def turns_mean(times, shape, layout):
+    """The mean of ``layout``'s two times in phase 37's turns at ``shape``."""
+    n, h = shape
+    return float(np.mean([ms for lay, ms in times[f"turns_ms_N{n}_H{h}"]
+                          if lay == layout]))
+
+
+def regs_spills(ptxas):
+    """{registers, spill_stores_bytes, spill_loads_bytes} of a kernel from
+    its ``-Xptxas -v`` lines."""
+    text = " ".join(ptxas)
+    regs = re.search(r"Used (\d+) registers", text)
+    stores = re.search(r"(\d+) bytes spill stores", text)
+    loads = re.search(r"(\d+) bytes spill loads", text)
+    return {"registers": int(regs.group(1)) if regs else None,
+            "spill_stores_bytes": int(stores.group(1)) if stores else None,
+            "spill_loads_bytes": int(loads.group(1)) if loads else None}
+
+
+def split_build(env):
+    """(library, nvcc seconds, header) of ``env``'s split-layout body,
+    through the wrapper's own caches (so the main path reuses the build)."""
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    state = env.reset(torch.Generator().manual_seed(0), "cpu")
+    header = rk._split_header(*rk.body_args(env, state))
+    t0 = time.perf_counter()
+    lib = rk._split_library(header)
+    return lib, time.perf_counter() - t0, header
+
+
+def split_occupancy(lib):
+    """Blocks of the split kernel an SM holds at once."""
+    from ppi_tpu_torch.build import load_function
+    fn = load_function(lib, "ppi_rollout_split_occupancy", 1, 0,
+                       stream=False)
+    # the launch raises the kernel's shared-memory limit first
+    blocks = np.zeros(1, np.int32)
+    check(fn(blocks.ctypes.data) == 0, "occupancy query failed")
+    return int(blocks[0])
+
+
+def check_split(name, env, dev, c):
+    """Phase 36 for one env on a phase's lanes and plain results ``c``
+    (door-v0: phase 2's, N=1000, H=20, the nominal frame; hammer-v0: phase
+    18's): the split layout bit for bit the lane kernel (rewards, qf, qdf)
+    and the plain version within SPLIT's tolerance (bit identity
+    reported); a NaN lane (NaN alone, both layouts' bits equal); the second
+    frame or board with the mask on its costs, both layouts' bits equal
+    and the costs moved; N=1000 (31 groups of 32 and 8 more) into outputs
+    padded past N with a sentinel that must stay; the real step (N=1, H=1)
+    bit for bit both layouts and within the tolerance of ``plain_step``.
+    Returns (report, max abs error of the split and the lane layout
+    against plain)."""
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    s0, q0, qd0, acts = c["s0"], c["q0"], c["qd0"], c["acts"]
+    h = acts.shape[1]
+    consts, _, dyn = rk.kernel_operands(env, s0)
+    runs = {lay: rk.env_rollout(env, s0, h, layout=lay)
+            for lay in ("lane", "split")}
+    out = {lay: r(q0, qd0, acts, consts=consts, dyn=dyn)
+           for lay, r in runs.items()}
+    torch.cuda.synchronize()
+    plain = c["plain"]
+    rep = {"split_equals_lane": all(same_bits(a, b) for a, b in
+                                    zip(out["split"], out["lane"])),
+           "split_equals_plain": all(same_bits(a, b) for a, b in
+                                     zip(out["split"], plain)),
+           "split_vs_plain": max(rel_err(a, b) for a, b in
+                                 zip(out["split"], plain))}
+    err = {lay: max(float((a - b).abs().max()) for a, b in zip(o, plain))
+           for lay, o in out.items()}
+    check(rep["split_equals_lane"], f"{name}: split layout differs from "
+          "the lane layout")
+    check(rep["split_vs_plain"] <= SPLIT[name]["tol"], f"{name}: split "
+          f"layout vs plain {rep['split_vs_plain']}")
+
+    q0_bad = q0.clone()
+    q0_bad[3] = torch.nan
+    bad = {lay: r(q0_bad, qd0, acts, consts=consts, dyn=dyn)
+           for lay, r in runs.items()}
+    keep = torch.arange(q0.shape[0], device=dev) != 3
+    rep["nan_lane"] = (bool(torch.isnan(bad["split"][0][3]).all())
+                       and same_bits(bad["split"][0][keep],
+                                     out["split"][0][keep])
+                       and all(same_bits(a, b) for a, b in
+                               zip(bad["split"], bad["lane"])))
+    check(rep["nan_lane"], f"{name}: a NaN lane must go NaN alone")
+
+    s1, hf = c["s1"], c["h_frame"]
+    a = acts[:, :hf].contiguous()
+    q1, qd1 = lanes(s1, q0.shape[0])
+    c1, _, d1 = rk.kernel_operands(env, s1)
+    r1 = [rk.env_rollout(env, s1, hf, layout=lay)(q1, qd1, a, consts=c1,
+                                                  dyn=d1)[0]
+          for lay in ("split", "lane")]
+    r0 = runs["split"](q1, qd1, acts, consts=consts, dyn=dyn)[0][:, :hf]
+    mask = (torch.arange(hf, device=dev) < max(hf - 2, 1)).float()
+    costs = [rk.risk_aggregate(r, mask) for r in r1]
+    rep["second_frame_and_mask"] = (
+        same_bits(r1[0], r1[1]) and same_bits(costs[0], costs[1])
+        and not bool(torch.equal(r1[0], r0))
+        and not bool(torch.equal(costs[0], rk.risk_aggregate(r1[0]))))
+    check(rep["second_frame_and_mask"], f"{name}: second frame or board, "
+          "or the mask")
+
+    rew_s, qf_s, qdf_s, kept = padded_launch(runs["split"], q0, qd0, acts,
+                                             consts, dyn, None)
+    rep["sentinels_kept"] = kept and all(
+        same_bits(x, y) for x, y in zip((rew_s, qf_s, qdf_s), out["split"]))
+    check(rep["sentinels_kept"], f"{name}: {q0.shape[0]} rollouts in groups "
+          "of 32: a write past N, or other bits")
+
+    action = acts[q0.shape[0] // 2, 0]
+    s_k, r_k = env.step(s0, action)
+    q_e, qd_e, r_e = rk.plain_step(env, s0, action)
+    step = {lay: rk.env_rollout(env, s0, 1, layout=lay)(
+        s0.physics.qpos[None], s0.physics.qvel[None], action[None, None],
+        consts=consts, dyn=dyn) for lay in ("lane", "split")}
+    rep["real_step_vs_plain"] = max(
+        rel_err(s_k.physics.qpos, q_e), rel_err(s_k.physics.qvel, qd_e),
+        rel_err(r_k, r_e))
+    rep["real_step"] = (
+        rep["real_step_vs_plain"] <= SPLIT[name]["tol"]
+        and all(same_bits(s_k.physics.qpos, o[1][0])
+                and same_bits(s_k.physics.qvel, o[2][0])
+                and same_bits(r_k.reshape(1), o[0][0])
+                for o in step.values()))
+    check(rep["real_step"], f"{name}: real step vs plain_step or either "
+          "layout")
+    return rep, err
+
+
+def time_split(name, env, dev):
+    """Phase 37's timings for one env: CUDA events in turns (lane, split,
+    split, lane) at the canonical shape and at SPLIT's larger shapes; the
+    real step (host clock) and a synced PPI iteration (the canonical
+    solver and prior) in both layouts; the bound at each shape."""
+    from ppi_tpu_torch.algorithms import make_solver
+    from ppi_tpu_torch.algorithms.base import _one_iteration
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    from ppi_tpu_torch.policies import design_moments, make_policy
+    from ppi_tpu_torch.studies.warp_layout import lanes as study_lanes
+    cfg = SPLIT[name]
+    n, h = cfg["shape"]
+    s0 = env.reset(torch.Generator(dev).manual_seed(0), dev)
+    consts, _, dyn = rk.kernel_operands(env, s0)
+    out = {"ops_per_lane_step": rk.ops_per_lane_step(*rk.body_args(
+        env, env.reset(torch.Generator().manual_seed(0), "cpu")))}
+    for nn, hh in ((n, h), *cfg["big"]):
+        q0, qd0, acts = study_lanes(env, s0, nn, hh, 0.3)
+        runs = {lay: rk.env_rollout(env, s0, hh, layout=lay)
+                for lay in ("lane", "split")}
+        iters = 20 if nn == n else 3
+        out[f"turns_ms_N{nn}_H{hh}"] = [
+            [lay, cuda_ms(lambda: runs[lay](q0, qd0, acts, consts=consts,
+                                            dyn=dyn), iters, 1)]
+            for lay in ("lane", "split", "split", "lane")]
+        out[f"bound_ms_N{nn}_H{hh}"], out["bound_by"] = rollout_bound(
+            env, nn, hh)
+
+    alg, policy, kwargs = (("Lbps", "SquaredExponentialKernel",
+                            {"lengthscale": 0.08}) if name == "door-v0"
+                           else SCENES[name]["family"])
+    mean, cov_in, cov_out = design_moments(env.action_low, env.action_high,
+                                           ratio=1000.0)
+    family, state = make_policy(
+        policy, env.dt * torch.arange(h), env.action_dim, mean, cov_in,
+        cov_out, lower=env.action_low, upper=env.action_high, device=dev,
+        **kwargs)
+    for layout in ("split", "lane"):
+        with layout_of(type(env), layout):
+            step = _one_iteration(
+                make_solver(alg, delta=0.9, n_elites=10,
+                            dimension=family.dim_features), family,
+                rk.kernel_mpc_objective(env, s0, h), n)
+            gen = torch.Generator(dev).manual_seed(0)
+            st = state
+            for _ in range(2):
+                st, (stats, _, _) = step(st, gen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                st, (stats, _, _) = step(st, gen)
+                torch.cuda.synchronize()
+            out[f"{layout}_ppi_iter_ms_N{n}_H{h}"] = \
+                1e3 * (time.perf_counter() - t0) / 5
+            check(bool(torch.isfinite(stats["mean"])),
+                  f"{name}: PPI iteration cost not finite ({layout})")
+            action = family.predict_mean(st)[0]
+            env.step(s0, action)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                env.step(s0, action)
+            torch.cuda.synchronize()
+            out[f"{layout}_step_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+    return out
+
+
 def main():
     # one nvcc for each source, all started together
     with ThreadPoolExecutor(max_workers=32) as pool:
@@ -2039,6 +2288,9 @@ def run(pool):
     warp_builds = {name: pool.submit(build_timed, "rollout_warp.cu",
                                      {"env_warp.h": h})
                    for name, h in warp_bodies.items()}
+    # phase 35's split bodies (each generated in its thread, a few seconds)
+    split_builds = {name: pool.submit(split_build, ENVS[name]())
+                    for name in SPLIT}
     bodies = {name: env_header(ENVS[name]()) for name in ADROIT}
     body_builds = {name: pool.submit(build_timed, "rollout.cu",
                                      {"env_body.h": h})
@@ -2070,6 +2322,8 @@ def run(pool):
                                d.scalar_reward, dyn_body=DOOR)
 
     # ---- 2. kernel vs plain ----------------------------------------------------
+    # the objectives below launch door-v0's routed layout: its build first
+    split_builds["door-v0"].result()
     rng = np.random.default_rng(0)
     acts = torch.from_numpy((0.4 * rng.standard_normal(
         (N_CHECK, H_CHECK, door.action_dim))).astype(np.float32)).to(dev)
@@ -2120,6 +2374,9 @@ def run(pool):
           f"(tol {TOL}); max abs err {max_abs:.3g}; NaN lane isolated; "
           f"mask and sampled frame applied", flush=True)
     out.update(check_errors=errs, max_abs_err=max_abs)
+    # phase 36 holds the split layout to the lane kernel on these lanes
+    CHECKED["door-v0"] = dict(s0=s0, q0=q0, qd0=qd0, acts=acts, s1=s1,
+                              h_frame=H_FRAME, plain=(rew_p, qf_p, qdf_p))
 
     # ---- 3. timings ------------------------------------------------------------
     timings = {}
@@ -2153,7 +2410,7 @@ def run(pool):
     ret, success, track = run_mpc.main(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = LAUNCHES["rollout"]
+    launches = LAUNCHES[rk.launch_key(door)]
     expected = 50 + 250 * 2 + 250   # each real step is a launch too
     check(np.isfinite(ret), f"episode return {ret}")
     check(track["action"].shape == (250, door.action_dim)
@@ -2341,8 +2598,9 @@ def run(pool):
     episodes = {}
     for name in [*VARIANT_B, "door-v0 cem"]:
         cfg = DOOR_CEM if name == "door-v0 cem" else VARIANT_B[name]
-        ret, success, wall, got = run_episode(cfg["episode"],
-                                              cfg["n_samples"])
+        ret, success, wall, got = run_episode(
+            cfg["episode"], cfg["n_samples"],
+            key=rk.launch_key(ENVS[cfg["episode"][1]]()))
         episodes[name] = {"return": ret, "success": success,
                           "wall_s": wall, "launches": got}
         print(f"episode {name}: return {ret:.2f}, success {success}, "
@@ -2479,7 +2737,8 @@ def run(pool):
     for prior in OTHER_PRIORS:
         ret, success, wall, got = run_episode(
             ["Lbps", "door-v0", prior, "--delta", "0.9", "--lengthscale",
-             "0.08", "--beta", "0.5", "--timesteps", str(T_SHORT)], 64)
+             "0.08", "--beta", "0.5", "--timesteps", str(T_SHORT)], 64,
+            key=rk.launch_key(door))
         short[prior] = {"return": ret, "wall_s": wall, "launches": got}
         print(f"episode door-v0 T={T_SHORT} {prior}: return {ret:.2f}, {got} "
               f"kernel launches, wall {wall:.1f} s", flush=True)
@@ -2708,26 +2967,118 @@ def run(pool):
           "door-v0-adroit: the door did not open at seed 0")
     check(lane_episodes["pen-v0-adroit"]["success"],
           "pen-v0-adroit: the pen did not reach its goal at seed 0")
-    out.update(lane_episodes=lane_episodes,
+    out.update(lane_episodes=lane_episodes)
+
+    # ---- 35. the split layout's builds --------------------------------------
+    split_info = {}
+    for name in SPLIT:
+        lib, secs, header = split_builds[name].result()
+        defs = dict(re.findall(r"#define (PPI_\w+) (\d+)", header))
+        info = {"routed": rk.kernel_layout(ENVS[name]()),
+                "lines": len(header.splitlines()), "nvcc_s": secs,
+                "ptxas": ptxas_summary(lib), "streams": int(defs["PPI_K"]),
+                "substep_phases": int(defs["PPI_SUB_PHASES"]),
+                "reward_phases": int(defs["PPI_REW_PHASES"]),
+                "shared_bytes_a_group": 4 * 32 * int(defs["PPI_SLOTS"])}
+        info["lane_ptxas"] = (body_info[name]["ptxas"] if name in body_info
+                              else ptxas)   # phase 1 built door-v0's
+        split_info[name] = info
+        print(f"split build {name} (routed: {info['routed']}): "
+              f"{info['lines']} generated lines, nvcc {secs:.1f} s (in "
+              f"parallel with phase 1), {info['streams']} warps a group of "
+              f"32 rollouts, {info['substep_phases']} phases a substep and "
+              f"{info['reward_phases']} for the reward, "
+              f"{info['shared_bytes_a_group']} B of shared memory a group; "
+              f"ptxas: {' | '.join(info['ptxas'])}; the lane layout's: "
+              f"{' | '.join(info['lane_ptxas'])}", flush=True)
+
+    # ---- 36. the split layout: bits against the lane kernel and plain ----
+    split_check, split_err = {}, {}
+    for name in SPLIT:
+        split_check[name], split_err[name] = check_split(
+            name, ENVS[name](), dev, CHECKED[name])
+        print(f"check {name} split layout: N={N_CHECK} H="
+              f"{CHECKED[name]['acts'].shape[1]} "
+              f"{json.dumps(split_check[name])}; max abs err against plain: "
+              f"split {split_err[name]['split']:.3g}, lane "
+              f"{split_err[name]['lane']:.3g}", flush=True)
+
+    # ---- 37. timings, and the episodes once more through the other layout
+    split_times, other_runs = {}, {}
+    routed_runs = {"door-v0": {"return": out["episode_return"],
+                               "success": out["episode_success"],
+                               "wall_s": out["episode_wall_s"],
+                               "launches": out["episode_launches"]},
+                   "hammer-v0": scene_episodes["hammer-v0"][0]}
+    for name, cfg in SPLIT.items():
+        env = ENVS[name]()
+        split_times[name] = time_split(name, env, dev)
+        split_info[name]["blocks_per_sm"] = split_occupancy(
+            split_builds[name].result()[0])
+        print(f"timings {name} (lane, split, split, lane; real step and PPI "
+              f"iteration in both layouts): {json.dumps(split_times[name])}; "
+              f"split blocks an SM: {split_info[name]['blocks_per_sm']}",
+              flush=True)
+        check(rk.kernel_layout(env) == cfg["routed"], f"{name}: not routed "
+              f"to the {cfg['routed']} layout")
+        other = "lane" if cfg["routed"] == "split" else "split"
+        args_list = cfg["episode"] or DOOR_ARGS + ["--timesteps", "250"]
+        with layout_of(type(env), other):
+            ret, success, wall, got = run_episode(
+                args_list, cfg["shape"][0], 0, key=rk.LAUNCH_KEYS[other])
+        other_runs[name] = {"layout": other, "return": ret,
+                            "success": success, "wall_s": wall,
+                            "launches": got}
+        routed = routed_runs[name]
+        print(f"episode {name} seed 0, {other} layout: "
+              f"{json.dumps(other_runs[name])}; {cfg['routed']} layout "
+              f"(phase {4 if name == 'door-v0' else 20}): return "
+              f"{routed['return']!r}, wall {routed['wall_s']:.1f} s",
+              flush=True)
+        check(got == routed["launches"] == cfg["launches"],
+              f"{name}: {got} and {routed['launches']} launches, expected "
+              f"{cfg['launches']}")
+        check(ret == routed["return"] and success == routed["success"],
+              f"{name}: {other} layout's return {ret!r} ({success}), the "
+              f"{cfg['routed']} layout's {routed['return']!r} "
+              f"({routed['success']})")
+    out.update(split_builds=split_info, split_check=split_check,
+               split_max_abs_err=split_err, split_timings=split_times,
+               split_other_episodes=other_runs,
                total_s=time.perf_counter() - t_start)
     print(f"total: {out['total_s']:.0f} s, the kernels' builds included",
           flush=True)
 
     Path("chiprun_out").mkdir(exist_ok=True)
     Path("chiprun_out/chip_smoke.json").write_text(json.dumps(out, indent=1))
-    # door-v0's body ran on three paths: phase 4's Lbps episode, make
-    # mpc-cem's episode in phase 12 and phase 20's short episodes
+    # door-v0's split layout ran on three paths: phase 4's Lbps episode,
+    # make mpc-cem's episode in phase 12 and phase 20's short episodes;
+    # its lane layout phase 37's episode
+    door_launches = {"split": launches + episodes["door-v0 cem"]["launches"]
+                     + sum(r["launches"] for r in short.values()),
+                     "lane": other_runs["door-v0"]["launches"]}
     kernels = [
         {"name": "door_rollout", "route": "cuda",
          "source": "ppi_tpu_torch/csrc/rollout.cu",
          "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
-         "launches": launches + episodes["door-v0 cem"]["launches"]
-         + sum(r["launches"] for r in short.values()),
+         "launches": door_launches["lane"],
          "max_abs_err": max_abs, "ms": timings["kernel_ms_N1024_H160"],
          "plain_ms": timings["plain_ms_N1024_H20"],
          "bound_ms": timings["bound_ms_N1024_H160"],
          "bound_by": "operations", "library_ms": None,
+         **regs_spills(split_info["door-v0"]["lane_ptxas"]),
          **shapes((1024, 160), (1024, 20), timings["kernel_ms_N1024_H20"])},
+        {"name": "door_split_rollout", "route": "cuda",
+         "source": "ppi_tpu_torch/csrc/rollout_split.cu",
+         "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
+         "launches": door_launches["split"],
+         "max_abs_err": split_err["door-v0"]["split"],
+         "ms": turns_mean(split_times["door-v0"], (1024, 160), "split"),
+         "plain_ms": timings["plain_ms_N1024_H20"],
+         "bound_ms": split_times["door-v0"]["bound_ms_N1024_H160"],
+         "bound_by": split_times["door-v0"]["bound_by"], "library_ms": None,
+         **regs_spills(split_info["door-v0"]["ptxas"]),
+         **shapes((1024, 160), (1024, 20), None)},
         {"name": "moment_match", "route": "cuda",
          "source": "ppi_tpu_torch/csrc/moment_match.cu",
          "replaces": "ppi_tpu/ops/pallas_ops.py:78",
@@ -2752,7 +3103,7 @@ def run(pool):
              "library_ms": None,
              **shapes((n, h), (n, h), t[f"kernel_ms_N{n}_H{h}"])})
     for env_name, cfg in SCENES.items():
-        if env_name in WARP:
+        if env_name in WARP or env_name in SPLIT:
             continue
         n, h = cfg["shape"]
         t = scene_times[env_name]
@@ -2848,6 +3199,27 @@ def run(pool):
                  "plain_ms": plain_ms, "bound_ms": t[f"bound_ms_N{n}_H{h}"],
                  "bound_by": t["bound_by"], "library_ms": None,
                  **shapes((n, h), (pn, ph), at_plain[layout])})
+    # hammer-v0's two layouts: the lane layout's launches are phase 20's,
+    # the split layout's phase 37's episode
+    t = split_times["hammer-v0"]
+    ham_launches = {"lane": sum(r["launches"]
+                                for r in scene_episodes["hammer-v0"]),
+                    "split": other_runs["hammer-v0"]["launches"]}
+    for layout, stem in (("lane", "hammer_rollout"),
+                         ("split", "hammer_split_rollout")):
+        kernels.append(
+            {"name": stem, "route": "cuda",
+             "source": f"ppi_tpu_torch/csrc/{SOURCES[layout]}",
+             "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
+             "launches": ham_launches[layout],
+             "max_abs_err": split_err["hammer-v0"][layout],
+             "ms": turns_mean(t, (64, 30), layout),
+             "plain_ms": scene_times["hammer-v0"]["plain_ms_N64_H30"],
+             "bound_ms": t["bound_ms_N64_H30"], "bound_by": t["bound_by"],
+             "library_ms": None,
+             **regs_spills(split_info["hammer-v0"][
+                 "ptxas" if layout == "split" else "lane_ptxas"]),
+             **shapes((64, 30), (64, 30), turns_mean(t, (64, 30), layout))})
     kernels.append(mesh_kernel)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

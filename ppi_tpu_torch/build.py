@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -34,7 +35,8 @@ HOST_CC_FLAGS = ("-x", "c", "-std=c99", "-O2", "-ffp-contract=off",
 # 1e-2 within 20 control steps, so contraction alone moved the kernel that
 # far from its plain version.
 SOURCE_NVCC_FLAGS = {"rollout.cu": ("-fmad=false",),
-                     "rollout_warp.cu": ("-fmad=false",)}
+                     "rollout_warp.cu": ("-fmad=false",),
+                     "rollout_split.cu": ("-fmad=false",)}
 
 # kernel name -> launches in this process
 LAUNCHES = collections.Counter()
@@ -75,7 +77,9 @@ def build_library(source: str, headers=None, host: bool = False) -> Path:
         (out_dir / name).write_text(body)
     src = out_dir / source
     src.write_text(text)
-    tmp = out_dir / f".{lib.name}.{os.getpid()}"
+    # a temporary of this process and thread: two threads may build the
+    # same key at once
+    tmp = out_dir / f".{lib.name}.{os.getpid()}.{threading.get_ident()}"
     if host:
         cmd = [_compiler("cc", "/usr/bin/cc"), *flags, "-I", str(out_dir),
                "-o", str(tmp), str(src), "-lm"]

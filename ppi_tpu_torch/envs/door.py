@@ -106,6 +106,10 @@ class Door:
     # the sampled door frame overrides the door body's joint-origin offset
     # (a runtime input of the rollout kernel)
     scalar_dyn_body = DOOR
+    # the rollout kernel's split layout: each rollout's substep spread over
+    # three warps of a block, faster than the lane layout on the card at
+    # the shapes this body runs (PERF.md section 6, rows 1a and 1e)
+    scalar_kernel_layout = "split"
 
     def __post_init__(self):
         model, palm, handle = _build_model()

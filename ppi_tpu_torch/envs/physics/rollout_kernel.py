@@ -20,8 +20,14 @@ the warp's lanes (``warp_layout``; where the mass matrix's leading
 pivots fold to constants, the solve's first steps come from tables); an
 env with ``scalar_kernel_layout = "warp"`` (door-v0-hand, door-v0-adroit,
 relocate-v0-adroit, hammer-v0-adroit, hammer-v0-hand, relocate-v0-hand,
-pen-v0-adroit, fetch-pick) plans and steps through it. Both give the same
-values bit for bit; every body of the runner has both.
+pen-v0-adroit, fetch-pick) plans and steps through it. The split layout
+(``csrc/rollout_split.cu``, 32 rollouts a block) schedules the lane
+layout's own substep and reward over the block's warps, one stream a warp,
+values crossing streams through shared memory between barriers
+(``split_layout``); an env with ``scalar_kernel_layout = "split"``
+(door-v0) plans and steps through it. All three give the same
+values bit for bit; every body of the runner has a lane and a warp body,
+and every one whose split plan fits a block's shared memory a split body.
 
 The kernel is built with ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/<hash of sources and flags>/`` and bound with ``ctypes``
@@ -29,9 +35,9 @@ The kernel is built with ``nvcc`` for ``sm_90a`` at first use into
 
 The wrapper returned by ``make_rollout`` takes the plain version (the same
 scalar program, eagerly over torch tensors) for CPU tensors only. For CUDA
-tensors it launches the kernel or raises; ``LAUNCHES["rollout"]`` and
-``LAUNCHES["rollout_warp"]`` (the shared counter of
-``ppi_tpu_torch.build``) count the two layouts' launches.
+tensors it launches the kernel or raises; ``LAUNCHES["rollout"]``,
+``LAUNCHES["rollout_warp"]`` and ``LAUNCHES["rollout_split"]`` (the shared
+counter of ``ppi_tpu_torch.build``) count the three layouts' launches.
 
 Env contract (duck-typed, as ``ppi_tpu``'s): ``env._model``, ``env.dt``,
 ``env.substeps``, ``env.action_dim``, ``env.scalar_torque(m, q, qd, act)``,
@@ -58,10 +64,11 @@ from pathlib import Path
 
 import torch
 
-from ppi_tpu_torch.build import LAUNCHES, build_library, load_function
+from ppi_tpu_torch.build import (
+    BUILD_ROOT, LAUNCHES, build_library, load_function)
 from ppi_tpu_torch.envs.base import risk_aggregate
 from ppi_tpu_torch.envs.physics import scalar_math as sm
-from ppi_tpu_torch.envs.physics import warp_layout
+from ppi_tpu_torch.envs.physics import split_layout, warp_layout
 from ppi_tpu_torch.envs.physics.engine_soa import SoaModel, substep_soa
 from ppi_tpu_torch.parallel.mesh import gather_costs, shard_bounds
 
@@ -120,12 +127,54 @@ def generate_warp_header(model, dt: float, substeps: int, action_dim: int,
                      layout="warp")[0]
 
 
+def generate_split(model, dt: float, substeps: int, action_dim: int,
+                   torque_fn, reward_fn, dyn_body=None, n_consts: int = 0,
+                   reward_takes_action: bool = False, project_fn=None,
+                   streams=None):
+    """(C source, report) of the split layout's per-env body
+    (``env_split.h``) for ``csrc/rollout_split.cu``:
+    ``generate_env_header``'s torque and projection, and the substep and
+    the reward scheduled over the warps of a group by ``split_layout``
+    (``streams`` forces their number, for a study); the report is
+    ``split_layout.plan_body``'s: the streams, phases, slots and carry
+    registers chosen, the model's cost a step for each number of streams,
+    and the substep's and the reward's plans. Deterministic, as the lane
+    header; the search runs at every call (seconds)."""
+    text, _, info = _generate_body(
+        model, dt, substeps, action_dim, torque_fn, reward_fn, dyn_body,
+        n_consts, reward_takes_action, project_fn, "split", streams, True)
+    return text, info
+
+
+def generate_split_header(model, dt: float, substeps: int, action_dim: int,
+                          torque_fn, reward_fn, dyn_body=None,
+                          n_consts: int = 0, reward_takes_action: bool = False,
+                          project_fn=None) -> str:
+    """``generate_split``'s C source, the generator's choice read from
+    ``SPLIT_CACHE`` after its first search for the body
+    (``split_layout.cached_body``)."""
+    return _generate_body(model, dt, substeps, action_dim, torque_fn,
+                          reward_fn, dyn_body, n_consts, reward_takes_action,
+                          project_fn, "split")[0]
+
+
 def _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
               dyn_body, n_consts, reward_takes_action, project_fn,
               layout="lane"):
     """(header text, {function: emitted f32 ops}) of ``layout``'s body;
-    the ops are counted for the lane layout only (the warp layout does the
-    same work)."""
+    the ops are counted for the lane layout only (the warp and split
+    layouts do the same work)."""
+    return _generate_body(model, dt, substeps, action_dim, torque_fn,
+                          reward_fn, dyn_body, n_consts, reward_takes_action,
+                          project_fn, layout)[:2]
+
+
+def _generate_body(model, dt, substeps, action_dim, torque_fn, reward_fn,
+                   dyn_body, n_consts, reward_takes_action, project_fn,
+                   layout, streams=None, report=False):
+    """``_generate``'s (text, ops) and, with ``report``, the split layout's
+    report (else None; without it the split body comes through
+    ``SPLIT_CACHE``)."""
     m = SoaModel(model)
     nq, h = m.nq, dt / substeps
 
@@ -154,12 +203,12 @@ def _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
         "const float* dyn, float* tau)",
         em, [(f"tau[{j}]", tau[j]) for j in range(nq)])
 
-    if layout == "lane":
-        em = sm.Emitter()
+    if layout in ("lane", "split"):
+        em_sub = em = sm.Emitter()
         mm, q, qd, tau = prologue(em, with_tau=True)
         q2, qd2 = substep_soa(mm, q, qd, tau, h)
         ops["substep"] = em.ops
-        stages = [sm.c_function(
+        stages = [] if layout == "split" else [sm.c_function(
             "void env_substep(float* q, float* qd, const float* tau, "
             "const float* dyn)",
             em, [(f"q[{j}]", q2[j]) for j in range(nq)]
@@ -174,11 +223,24 @@ def _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
     consts = (tuple(em.input(f"c_{k}", f"consts[{k}]")
                     for k in range(n_consts)) if n_consts else None)
     r = call_reward(reward_fn, mm, q, qd, act, consts, reward_takes_action)
-    em.lines.append(f"  return {sm._operand(r)};")
     ops["reward"] = em.ops
-    reward = sm.c_function(
-        "float env_reward(const float* q, const float* qd, const float* act, "
-        "const float* dyn, const float* consts)", em, [])
+    info = None
+    if layout == "split":
+        if report:
+            info = split_layout.plan_body(em_sub, q2, qd2, em, r, nq,
+                                          substeps, ops["torque"], streams)
+            split_defines, reward = split_layout.emit_body(info)
+        else:
+            split_defines, reward = split_layout.cached_body(
+                SPLIT_CACHE, em_sub, q2, qd2, em, r, nq, substeps,
+                ops["torque"])
+        warp_defines = warp_defines + split_defines
+    else:
+        em.lines.append(f"  return {sm._operand(r)};")
+        reward = sm.c_function(
+            "float env_reward(const float* q, const float* qd, "
+            "const float* act, const float* dyn, const float* consts)",
+            em, [])
 
     defines = [f"#define PPI_NQ {nq}", f"#define PPI_DA {action_dim}",
                f"#define PPI_SUBSTEPS {substeps}",
@@ -201,7 +263,8 @@ def _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
                if qd2[j] is not qd[j]]))
         defines.append("#define PPI_PROJECT 1")
 
-    skeleton = "rollout.cu" if layout == "lane" else "rollout_warp.cu"
+    skeleton = {"lane": "rollout.cu", "warp": "rollout_warp.cu",
+                "split": "rollout_split.cu"}[layout]
     text = "\n".join([
         f"/* Per-env body of ppi_tpu_torch/csrc/{skeleton}, generated by",
         "   ppi_tpu_torch/envs/physics/rollout_kernel.py from the scalar",
@@ -211,7 +274,7 @@ def _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
         sm.C_HELPERS,
         *tables,
         *functions])
-    return text, ops
+    return text, ops, info
 
 
 # the MPC agent builds an objective per control step: generate each env's
@@ -219,6 +282,10 @@ def _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
 # one entry per env of the registry a process touches, none ever evicted
 _env_header = functools.cache(generate_env_header)
 _warp_header = functools.cache(generate_warp_header)
+_split_header = functools.cache(generate_split_header)
+# the split generator's results (``split_layout.cached_body``), one file a
+# body, beside the builds
+SPLIT_CACHE = BUILD_ROOT.parent / "split"
 
 
 # ---- build -------------------------------------------------------------------
@@ -240,6 +307,14 @@ def _warp_library(header: str, host: bool = False) -> Path:
                          host=host)
 
 
+@functools.cache
+def _split_library(header: str, host: bool = False) -> Path:
+    """``csrc/rollout_split.cu`` with ``header`` as ``env_split.h``, built
+    once per distinct header."""
+    return build_library("rollout_split.cu", {"env_split.h": header},
+                         host=host)
+
+
 def load_host_rollout(header: str):
     """The host-C build of the skeleton + ``header``:
     ``fn(q0, qd0, act, dyn, consts, rew, qf, qdf, n, horizon)`` on pointers
@@ -255,6 +330,14 @@ def load_host_warp_rollout(header: str):
     cooperative stage run lane by lane."""
     return load_function(_warp_library(header, host=True),
                          "ppi_rollout_warp_host", 8, 2, stream=False)
+
+
+def load_host_split_rollout(header: str):
+    """The host-C build of the split skeleton + ``header`` (a
+    ``generate_split_header`` text): ``load_host_rollout``'s function, each
+    phase run stream by stream and each stream's share lane by lane."""
+    return load_function(_split_library(header, host=True),
+                         "ppi_rollout_split_host", 8, 2, stream=False)
 
 
 def load_host_warp_solve(header: str):
@@ -302,8 +385,9 @@ def plain_rollout(model, dt: float, substeps: int, torque_fn, reward_fn,
 
 # ---- the wrapper -----------------------------------------------------------------
 
-# kernel launch counters (``LAUNCHES``) of the two layouts
-LAUNCH_KEYS = {"lane": "rollout", "warp": "rollout_warp"}
+# kernel launch counters (``LAUNCHES``) of the three layouts
+LAUNCH_KEYS = {"lane": "rollout", "warp": "rollout_warp",
+               "split": "rollout_split"}
 # rollouts (warps) a block of the warp layout holds
 WARPS_PER_BLOCK = 1
 
@@ -318,7 +402,9 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
     counterpart of ``make_pallas_rollout``. ``layout`` "lane" launches
     ``csrc/rollout.cu`` (one rollout a thread, ``block`` threads a CUDA
     block), "warp" ``csrc/rollout_warp.cu`` (one rollout a warp,
-    ``warps`` of them a block); both compute the same values bit for bit.
+    ``warps`` of them a block), "split" ``csrc/rollout_split.cu`` (32
+    rollouts a block, each spread over its warps); all compute the same
+    values bit for bit.
     ``horizon`` is only checked: the kernel takes it at run time, so one
     build serves every H. With ``n_consts`` the run takes the (n_consts,)
     f32 reward constants ``consts`` on the actions' device;
@@ -326,7 +412,8 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
     ``run.load()`` builds and loads the kernel (the first CUDA launch does
     it otherwise)."""
     if layout not in LAUNCH_KEYS:
-        raise ValueError(f"layout must be 'lane' or 'warp', not {layout!r}")
+        raise ValueError(f"layout must be one of {sorted(LAUNCH_KEYS)}, "
+                         f"not {layout!r}")
     nq = model.nq
     fn = None
     args = (model, dt, substeps, action_dim, torque_fn, reward_fn, dyn_body,
@@ -336,6 +423,10 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
         if layout == "warp":
             return load_function(_warp_library(_warp_header(*args)),
                                  "ppi_rollout_warp_launch", 8, 3,
+                                 stream=True)
+        if layout == "split":
+            return load_function(_split_library(_split_header(*args)),
+                                 "ppi_rollout_split_launch", 8, 2,
                                  stream=True)
         return load_function(_library(_env_header(*args)),
                              "ppi_rollout_launch", 8, 3, stream=True)
@@ -376,10 +467,10 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
         qdf = torch.empty((nq, n), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
+            size = {"lane": (block,), "warp": (warps,), "split": ()}[layout]
             err = fn(q0_t.data_ptr(), qd0_t.data_ptr(), act_t.data_ptr(),
                      dyn_ptr, consts_ptr, rew.data_ptr(), qf.data_ptr(),
-                     qdf.data_ptr(), n, horizon,
-                     warps if layout == "warp" else block, stream)
+                     qdf.data_ptr(), n, horizon, *size, stream)
         if err != 0:
             raise RuntimeError(f"rollout kernel ({layout} layout) launch "
                                f"failed: CUDA error {err}")
@@ -429,7 +520,8 @@ def kernel_operands(env, state0):
 
 def body_args(env, state):
     """The positional arguments of ``generate_env_header``,
-    ``generate_warp_header`` and ``ops_per_lane_step`` for ``env``;
+    ``generate_warp_header``, ``generate_split_header`` and
+    ``ops_per_lane_step`` for ``env``;
     ``state`` gives the number of reward constants. ``env_rollout`` adds
     the env's layout (``kernel_layout``)."""
     consts, dyn_body, _ = kernel_operands(env, state)
@@ -443,7 +535,8 @@ def body_args(env, state):
 def kernel_layout(env) -> str:
     """The rollout kernel's layout for ``env``: its
     ``scalar_kernel_layout`` ("warp" for the bodies too large for one
-    thread), else "lane"."""
+    thread, "split" where spreading one rollout's program over a block's
+    warps beat the lane layout), else "lane"."""
     return getattr(env, "scalar_kernel_layout", "lane")
 
 

@@ -513,7 +513,7 @@ def test_essps_control_step_never_waits_for_the_card(policy):
     action, carry, _ = agent.control_step(carry, state, 0)
     state, _ = env.step(state, action)
     torch.cuda.synchronize()
-    before = rk.LAUNCHES["rollout"]
+    before = rk.LAUNCHES[rk.launch_key(env)]
     torch.cuda.set_sync_debug_mode("error")
     try:
         action, carry, _ = agent.control_step(carry, state, 1)
@@ -521,7 +521,7 @@ def test_essps_control_step_never_waits_for_the_card(policy):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert rk.LAUNCHES["rollout"] == before + 2
+    assert rk.LAUNCHES[rk.launch_key(env)] == before + 2
     assert bool(torch.isfinite(state.physics.qpos).all())
 
 
@@ -597,6 +597,76 @@ def test_warp_layout_equals_plain(name):
     assert _same_bits(s_k.physics.qpos, s_e.physics.qpos)
     assert _same_bits(s_k.physics.qvel, s_e.physics.qvel)
     assert _same_rewards(r_k, r_e, exact)
+
+
+# ---- the split layout: door-v0 and hammer-v0 ------------------------------------
+
+SPLIT_ENVS = ("door-v0", "hammer-v0")
+SENTINEL, PAD = -12345.0, 64
+
+
+@pytest.mark.parametrize("name", SPLIT_ENVS)
+def test_split_layout_equals_lane_layout(name, monkeypatch):
+    """The split layout (door-v0 routes to it; hammer-v0, which keeps the
+    lane layout, is put on it here) at N=257 (ragged: 8 groups of 32
+    rollouts and one more), H=4, from a sampled frame or board, with a NaN
+    lane: one launch counted under ``rollout_split``; rewards and
+    final state bit for bit those of the lane layout and of the plain
+    version, the NaN lane's too (the card's NaN is canonical); the NaN
+    lane's rewards NaN and every other lane's finite; nothing written past
+    N (sentinel-padded outputs); the real step one split launch, bit for
+    bit the eager step."""
+    dev = _device()
+    env = _variant_b_env(name)
+    n, h = 257, 4
+    s0, q0, qd0, acts = _scene_lanes(env, dev, n, h, 0.4)
+    q0 = q0.clone()
+    q0[100] = torch.nan
+    consts, _, dyn = rk.kernel_operands(env, s0)
+    assert rk.kernel_layout(env) == ("split" if name == "door-v0"
+                                     else "lane")
+    monkeypatch.setattr(type(env), "scalar_kernel_layout", "split",
+                        raising=False)
+    assert rk.launch_key(env) == "rollout_split"
+    run = rk.env_rollout(env, s0, h)
+    before = rk.LAUNCHES["rollout_split"]
+    split = run(q0, qd0, acts, consts=consts, dyn=dyn)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rollout_split"] == before + 1
+    lane = rk.env_rollout(env, s0, h, layout="lane")(q0, qd0, acts,
+                                                     consts=consts, dyn=dyn)
+    plain = rk.env_plain_rollout(env, s0, q0, qd0, acts)
+    for s, l, p in zip(split, lane, plain):
+        assert _same_bits(s, l) and _same_bits(s, p)
+    keep = torch.arange(n, device=dev) != 100
+    assert bool(torch.isnan(split[0][100]).all())
+    assert bool(torch.isfinite(split[0][keep]).all())
+
+    # one launch into outputs padded past N with a sentinel (the inputs in
+    # the kernel's lane-major layout, held until the launch has run)
+    nq = q0.shape[1]
+    ins = [q0.t().contiguous(), qd0.t().contiguous(),
+           acts.permute(1, 2, 0).contiguous()]
+    outs = [torch.full((k * n + PAD,), SENTINEL, device=dev)
+            for k in (h, nq, nq)]
+    err = run.load()(*[x.data_ptr() for x in ins], dyn.data_ptr(), None,
+                     *[x.data_ptr() for x in outs], n, h,
+                     torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    for x, (k, ref) in zip(outs, ((h, split[0]), (nq, split[1]),
+                                  (nq, split[2]))):
+        assert bool((x[k * n:] == SENTINEL).all())
+        assert _same_bits(x[:k * n].view(k, n).t(), ref)
+
+    action = acts[0, 0]
+    before = rk.LAUNCHES["rollout_split"]
+    (s_k, r_k), (s_e, r_e) = env.step(s0, action), env.plain_step(s0, action)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rollout_split"] == before + 1
+    assert _same_bits(s_k.physics.qpos, s_e.physics.qpos)
+    assert _same_bits(s_k.physics.qvel, s_e.physics.qvel)
+    assert _same_bits(r_k, r_e)
 
 
 # ---- the sharded entry -----------------------------------------------------------

@@ -42,6 +42,9 @@ WARP_ENVS = ("door-v0-adroit", "hammer-v0-adroit", "relocate-v0-adroit",
 # and the two whose solve starts with a constant head
 # (tests/test_torch_warp_pivot.py)
 ROUTED_WARP_ENVS = WARP_ENVS + ("pen-v0-adroit", "fetch-pick")
+# the env that plans and steps through the split layout
+# (tests/test_torch_split_layout.py)
+ROUTED_SPLIT_ENVS = ("door-v0",)
 N, H = 5, 2
 
 # sha256 of the warp headers as first generated: a change to the
@@ -388,28 +391,38 @@ def test_the_six_warp_envs_and_only_they_build_the_warp_layout(monkeypatch):
     """A spy on the build: ``env_rollout(...).load()`` builds the warp
     skeleton for the warp envs (door-v0-adroit, hammer-v0-adroit,
     relocate-v0-adroit, door-v0-hand, hammer-v0-hand, relocate-v0-hand,
-    pen-v0-adroit and fetch-pick) and the lane skeleton for every other env
-    of the runner, relocate-v0 and pen-v0-hand included."""
+    pen-v0-adroit and fetch-pick), the split skeleton for the split env
+    (door-v0, tests/test_torch_split_layout.py) and the lane skeleton for
+    every other env of the runner, relocate-v0, pen-v0-hand and hammer-v0
+    included."""
     built = {}
     monkeypatch.setattr(rk, "_env_header", lambda *a: "lane")
     monkeypatch.setattr(rk, "_warp_header", lambda *a: "warp")
+    monkeypatch.setattr(rk, "_split_header", lambda *a: "split")
     monkeypatch.setattr(rk, "_library", lambda header: built.setdefault(
         "current", []).append(("rollout.cu", header)))
     monkeypatch.setattr(rk, "_warp_library", lambda header: built.setdefault(
         "current", []).append(("rollout_warp.cu", header)))
+    monkeypatch.setattr(rk, "_split_library", lambda header: built.setdefault(
+        "current", []).append(("rollout_split.cu", header)))
     monkeypatch.setattr(rk, "load_function", lambda *a, **k: a[1])
+    table = {"lane": ("rollout.cu", "ppi_rollout_launch", "rollout"),
+             "warp": ("rollout_warp.cu", "ppi_rollout_warp_launch",
+                      "rollout_warp"),
+             "split": ("rollout_split.cu", "ppi_rollout_split_launch",
+                       "rollout_split")}
     for name, cls in ENVS.items():
         env = cls()
         built["current"] = []
         symbol = rk.env_rollout(env, env.reset(
             torch.Generator().manual_seed(0), "cpu"), 1).load()
-        want = name in ROUTED_WARP_ENVS
-        assert built["current"] == ([("rollout_warp.cu", "warp")] if want
-                                    else [("rollout.cu", "lane")]), name
-        assert symbol == ("ppi_rollout_warp_launch" if want
-                          else "ppi_rollout_launch")
-        assert rk.kernel_layout(env) == ("warp" if want else "lane")
-        assert rk.launch_key(env) == ("rollout_warp" if want else "rollout")
+        want = ("warp" if name in ROUTED_WARP_ENVS
+                else "split" if name in ROUTED_SPLIT_ENVS else "lane")
+        source, launch, key = table[want]
+        assert built["current"] == [(source, want)], name
+        assert symbol == launch
+        assert rk.kernel_layout(env) == want
+        assert rk.launch_key(env) == key
     assert len(ENVS) == 21
 
 

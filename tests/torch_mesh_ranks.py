@@ -17,7 +17,7 @@ from ppi_tpu_torch.build import LAUNCHES
 from ppi_tpu_torch.envs.base import mpc_objective
 from ppi_tpu_torch.envs.door import Door
 from ppi_tpu_torch.envs.physics.rollout_kernel import (
-    kernel_mpc_objective, sharded_kernel_mpc_objective)
+    kernel_mpc_objective, launch_key, sharded_kernel_mpc_objective)
 from ppi_tpu_torch.mpc import Mpc
 from ppi_tpu_torch.parallel import (
     make_mesh, make_multislice_mesh, sharded_mpc_objective)
@@ -164,15 +164,16 @@ def fail_on_rank_one(rank):
 
 def card_objective_case(rank, acts, horizon):
     """The sharded kernel objective on the card (door-v0, the nominal
-    frame): rank 0 returns the costs, the backend, each rank's launches and
-    whether every rank gathered the same costs."""
+    frame): rank 0 returns the costs, the backend, each rank's launches of
+    door-v0's layout and whether every rank gathered the same costs."""
     mesh = make_mesh()
     door = Door(fixed_scene=True)
     s0 = door.reset(None, mesh.device)
-    before = LAUNCHES["rollout"]
+    key = launch_key(door)
+    before = LAUNCHES[key]
     costs = sharded_kernel_mpc_objective(door, s0, horizon, mesh)(
         None, torch.from_numpy(acts).to(mesh.device))
-    launches = per_rank(LAUNCHES["rollout"] - before, mesh)
+    launches = per_rank(LAUNCHES[key] - before, mesh)
     agree = replicas_agree(costs, mesh)
     if rank:
         return None
