@@ -35,9 +35,11 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 N=4096 (exactly 50 kernel launches each), and the canonical
                 d=20, N=100 (below the dispatch threshold: 0 launches);
   9. build   -- generate the pen-v0, relocate-v0 and cheetah bodies of the
-                rollout kernel (reward constants, action reward) and build
-                them with nvcc in parallel with phases 1 and 5; print each
-                body's line count, nvcc seconds and -Xptxas -v summary;
+                rollout kernel's lane layout (reward constants, action
+                reward) and build them with nvcc in parallel with phases 1
+                and 5; print each body's line count, nvcc seconds and
+                -Xptxas -v summary (relocate-v0 and cheetah route to their
+                split bodies, phases 35-37, which phases 10-12 run);
  10. check   -- each body against the plain version on the card at N=1000
                 (ragged), H=20: rewards and final state, a pre-poisoned NaN
                 lane, the horizon mask and two goals (pen-v0, relocate-v0)
@@ -56,8 +58,8 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 N=256) to success, cheetah (Mppi, ColouredNoise, T=150,
                 N=256) to a positive return, and make mpc-cem's door-v0
                 (Cem, WhiteNoiseIid, N=64, T=100); exactly 350, 330, 350
-                and 250 kernel launches (warm start + iterations + real
-                steps);
+                and 250 kernel launches of each env's routed layout (warm
+                start + iterations + real steps);
  13. build   -- generate the door-v0-hand (12 DoF) and door-v0-adroit (23
                 DoF) bodies (variants c and d: the bolt projection) and
                 build them with nvcc in parallel with phases 1, 5 and 9;
@@ -247,28 +249,36 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
  35. build   -- the split layout (``csrc/rollout_split.cu``: 32 rollouts
                 a block, each rollout's substep and reward scheduled over
                 the block's warps) of door-v0, which plans and steps
-                through it (phases 2-31 run it), and of hammer-v0, which
-                keeps the lane layout; generated and
-                built with nvcc in phase 1 (door-v0's before phase 2);
-                print each body's line count, nvcc seconds, warps a
-                group, phases, shared memory a group and -Xptxas -v
-                summary next to its lane layout's;
- 36. check   -- on phase 2's (door-v0) and phase 18's (hammer-v0) lanes,
-                N=1000, H=20: the split layout bit for bit the lane kernel
-                and within TOL (SCENE_TOL) of the plain version; a NaN
-                lane; the second frame or board with the mask, both
-                layouts' bits equal; N=1000 (31 groups and 8 rollouts) into
-                outputs padded with a sentinel past N that must stay; the
-                real step bit for bit ``plain_step`` and both layouts;
+                through it (phases 2-31 run it), of hammer-v0, which
+                keeps the lane layout, and of relocate-v0 and cheetah,
+                whose substep is partitioned by the body tree and which
+                plan and step through it (phases 10-12 run them);
+                generated and built with nvcc in phase 1 (door-v0's before
+                phase 2, relocate-v0's and cheetah's before phase 10, with
+                their warp bodies for phase 37); print each body's line
+                count, nvcc seconds, warps a group, phases, shared memory
+                a group and -Xptxas -v summary next to its lane layout's;
+ 36. check   -- on phase 2's (door-v0), phase 18's (hammer-v0) and phase
+                10's (relocate-v0, cheetah) lanes, N=1000, H=20: the split
+                layout bit for bit the lane kernel and within TOL
+                (SCENE_TOL) of the plain version; a NaN lane; the second
+                frame, board, goal or start with the mask, both layouts'
+                bits equal; N=1000 (31 groups and 8 rollouts) into outputs
+                padded with a sentinel past N that must stay; the real step
+                within the tolerance of ``plain_step`` and bit for bit both
+                layouts';
  37. timings -- CUDA events in turns (lane, split, split, lane) at
-                N=64/H=30, and for door-v0 at N=1024/H=160 (phase 3's north
-                star), N=4096/H=160 (phase 30's shard) and N=16384/H=160;
-                the real step and a synced PPI iteration in both layouts;
-                the split kernel's blocks an SM; then phase 4's door-v0
-                episode once more through the lane layout and phase 20's
-                seed-0 hammer-v0 episode once more through the split
-                layout: exactly 800 and 550 launches of it, the returns
-                equal.
+                N=64/H=30 (door-v0, hammer-v0), and (lane, warp, split,
+                split, warp, lane) at N=256/H=20 (relocate-v0) and
+                N=256/H=30 (cheetah), and for door-v0 at N=1024/H=160
+                (phase 3's north star), N=4096/H=160 (phase 30's shard)
+                and N=16384/H=160; the real step and a synced PPI
+                iteration in the lane and split layouts; the split
+                kernel's blocks an SM; then phase 4's door-v0 episode and
+                phase 12's relocate-v0 and cheetah episodes once more
+                through the lane layout and phase 20's seed-0 hammer-v0
+                episode once more through the split layout: exactly 800,
+                330, 350 and 550 launches of it, the returns equal.
 Then one JSON line with the kernels' numbers (each entry with the (N, H)
 of its ms and bound_ms, of its plain_ms, and the kernel's time at the
 latter; the rollout bodies of phase 35 with their registers and spills)
@@ -547,20 +557,28 @@ CHECKED = {}   # phases 14, 18, 22 and 26 keep their inputs and outputs
 SOURCES = {"lane": "rollout.cu", "warp": "rollout_warp.cu",
            "split": "rollout_split.cu"}
 
-# phases 35-37: the split layout (csrc/rollout_split.cu) of door-v0 and
-# hammer-v0: each rollout's substep and reward spread over the warps of a
-# block. Per env: the layout it is routed to, the canonical shape, the
-# larger shapes it is timed at in turns with the lane layout (door-v0's
-# body also runs phase 3's north star and phase 30's 4096-lane shard), the
-# check's tolerance against plain, and its episode (phase 4's or phase
-# 20's seed 0) with its launches, run once more through the other layout.
+# phases 35-37: the split layout (csrc/rollout_split.cu) of door-v0,
+# hammer-v0, relocate-v0 and cheetah: each rollout's substep and reward
+# spread over the warps of a block (the last two partitioned by the body
+# tree, ``scalar_split_partition``). Per env: the layout it is routed to,
+# the canonical shape, the larger shapes it is timed at in turns with the
+# lane layout (door-v0's body also runs phase 3's north star and phase
+# 30's 4096-lane shard), whether the warp layout joins the turns at the
+# canonical shape, the check's tolerance against plain, and its episode
+# (phase 4's, 20's or 12's seed 0) with its launches, run once more
+# through the other layout.
 SPLIT = {"door-v0": dict(routed="split", shape=(64, 30),
                          big=((1024, 160), (4096, 160), (16384, 160)),
                          tol=TOL, episode=None, launches=800),
          "hammer-v0": dict(routed="lane", shape=(64, 30), big=(),
                            tol=SCENE_TOL,
                            episode=SCENES["hammer-v0"]["episode"],
-                           launches=SCENES["hammer-v0"]["launches"])}
+                           launches=SCENES["hammer-v0"]["launches"]),
+         **{name: dict(routed="split", shape=VARIANT_B[name]["shape"],
+                       big=(), warp=True, tol=TOL,
+                       episode=VARIANT_B[name]["episode"],
+                       launches=VARIANT_B[name]["launches"])
+            for name in ("relocate-v0", "cheetah")}}
 
 # phases 29-31: the sharded entry. The check's NaN lane lies in rank 2's
 # shard (lanes 500-749 of N_CHECK); the timing runs the configuration of
@@ -698,6 +716,10 @@ def check_variant_b(name, env, dev):
     max_abs = max(float((a - b).abs().max())
                   for a, b in ((rew, rew_p), (qf, qf_p), (qdf, qdf_p)))
     check(max(errs.values()) <= TOL, f"{name}: kernel vs plain {errs} > {TOL}")
+    if name in SPLIT:   # phase 36 holds the other layout to these lanes
+        CHECKED[name] = dict(s0=s0, q0=q0, qd0=qd0, acts=acts,
+                             s1=variant_b_state(env, name, dev, 1),
+                             h_frame=H_FRAME, plain=(rew_p, qf_p, qdf_p))
 
     q0_bad = q0.clone()
     q0_bad[3] = torch.nan
@@ -2066,7 +2088,8 @@ def split_build(env):
     through the wrapper's own caches (so the main path reuses the build)."""
     from ppi_tpu_torch.envs.physics import rollout_kernel as rk
     state = env.reset(torch.Generator().manual_seed(0), "cpu")
-    header = rk._split_header(*rk.body_args(env, state))
+    header = rk._split_header(*rk.body_args(env, state),
+                              rk.split_partition(env))
     t0 = time.perf_counter()
     lib = rk._split_library(header)
     return lib, time.perf_counter() - t0, header
@@ -2086,11 +2109,13 @@ def split_occupancy(lib):
 def check_split(name, env, dev, c):
     """Phase 36 for one env on a phase's lanes and plain results ``c``
     (door-v0: phase 2's, N=1000, H=20, the nominal frame; hammer-v0: phase
-    18's): the split layout bit for bit the lane kernel (rewards, qf, qdf)
-    and the plain version within SPLIT's tolerance (bit identity
-    reported); a NaN lane (NaN alone, both layouts' bits equal); the second
-    frame or board with the mask on its costs, both layouts' bits equal
-    and the costs moved; N=1000 (31 groups of 32 and 8 more) into outputs
+    18's; relocate-v0 and cheetah: phase 10's): the split layout bit for
+    bit the lane kernel (rewards, qf, qdf) and the plain version within
+    SPLIT's tolerance (bit identity reported); a NaN lane (NaN alone, both
+    layouts' bits equal); the second frame, board, goal or start with the
+    mask on its costs, both layouts' bits equal and the costs moved (by
+    the frame, board or goal alone where the env has one); N=1000 (31
+    groups of 32 and 8 more) into outputs
     padded past N with a sentinel that must stay; the real step (N=1, H=1)
     bit for bit both layouts and within the tolerance of ``plain_step``.
     Returns (report, max abs error of the split and the lane layout
@@ -2137,7 +2162,9 @@ def check_split(name, env, dev, c):
     r1 = [rk.env_rollout(env, s1, hf, layout=lay)(q1, qd1, a, consts=c1,
                                                   dyn=d1)[0]
           for lay in ("split", "lane")]
-    r0 = runs["split"](q1, qd1, acts, consts=consts, dyn=dyn)[0][:, :hf]
+    operands = consts is not None or dyn is not None
+    r0 = (runs["split"](q1, qd1, acts, consts=consts, dyn=dyn) if operands
+          else out["split"])[0][:, :hf]
     mask = (torch.arange(hf, device=dev) < max(hf - 2, 1)).float()
     costs = [rk.risk_aggregate(r, mask) for r in r1]
     rep["second_frame_and_mask"] = (
@@ -2176,9 +2203,11 @@ def check_split(name, env, dev, c):
 
 def time_split(name, env, dev):
     """Phase 37's timings for one env: CUDA events in turns (lane, split,
-    split, lane) at the canonical shape and at SPLIT's larger shapes; the
-    real step (host clock) and a synced PPI iteration (the canonical
-    solver and prior) in both layouts; the bound at each shape."""
+    split, lane; lane, warp, split, split, warp, lane for an env whose
+    SPLIT entry names the warp layout too) at the canonical shape and
+    lane, split, split, lane at SPLIT's larger shapes; the real step (host
+    clock) and a synced PPI iteration (the canonical solver and prior) in
+    the lane and split layouts; the bound at each shape."""
     from ppi_tpu_torch.algorithms import make_solver
     from ppi_tpu_torch.algorithms.base import _one_iteration
     from ppi_tpu_torch.envs.physics import rollout_kernel as rk
@@ -2192,19 +2221,24 @@ def time_split(name, env, dev):
         env, env.reset(torch.Generator().manual_seed(0), "cpu")))}
     for nn, hh in ((n, h), *cfg["big"]):
         q0, qd0, acts = study_lanes(env, s0, nn, hh, 0.3)
+        turns = (("lane", "warp", "split") if cfg.get("warp") and nn == n
+                 else ("lane", "split"))
         runs = {lay: rk.env_rollout(env, s0, hh, layout=lay)
-                for lay in ("lane", "split")}
+                for lay in turns}
         iters = 20 if nn == n else 3
         out[f"turns_ms_N{nn}_H{hh}"] = [
             [lay, cuda_ms(lambda: runs[lay](q0, qd0, acts, consts=consts,
                                             dyn=dyn), iters, 1)]
-            for lay in ("lane", "split", "split", "lane")]
+            for lay in turns + turns[::-1]]
         out[f"bound_ms_N{nn}_H{hh}"], out["bound_by"] = rollout_bound(
             env, nn, hh)
 
     alg, policy, kwargs = (("Lbps", "SquaredExponentialKernel",
                             {"lengthscale": 0.08}) if name == "door-v0"
-                           else SCENES[name]["family"])
+                           else (VARIANT_B if name in VARIANT_B
+                                 else SCENES)[name]["family"])
+    # the Mppi temperature of phase 11's iteration (the others have none)
+    alpha = {"alpha": 10.0} if name in VARIANT_B else {}
     mean, cov_in, cov_out = design_moments(env.action_low, env.action_high,
                                            ratio=1000.0)
     family, state = make_policy(
@@ -2215,7 +2249,7 @@ def time_split(name, env, dev):
         with layout_of(type(env), layout):
             step = _one_iteration(
                 make_solver(alg, delta=0.9, n_elites=10,
-                            dimension=family.dim_features), family,
+                            dimension=family.dim_features, **alpha), family,
                 rk.kernel_mpc_objective(env, s0, h), n)
             gen = torch.Generator(dev).manual_seed(0)
             st = state
@@ -2288,9 +2322,14 @@ def run(pool):
     warp_builds = {name: pool.submit(build_timed, "rollout_warp.cu",
                                      {"env_warp.h": h})
                    for name, h in warp_bodies.items()}
-    # phase 35's split bodies (each generated in its thread, a few seconds)
+    # phase 35's split bodies (each generated in its thread, a few seconds),
+    # and the warp bodies phase 37 times beside them
     split_builds = {name: pool.submit(split_build, ENVS[name]())
                     for name in SPLIT}
+    for name, cfg in SPLIT.items():
+        if cfg.get("warp"):
+            pool.submit(build_timed, "rollout_warp.cu",
+                        {"env_warp.h": warp_header(ENVS[name]())})
     bodies = {name: env_header(ENVS[name]()) for name in ADROIT}
     body_builds = {name: pool.submit(build_timed, "rollout.cu",
                                      {"env_body.h": h})
@@ -2574,6 +2613,9 @@ def run(pool):
     out.update(bodies=body_info)
 
     # ---- 10. variant (b): kernel vs plain ------------------------------------
+    for name in VARIANT_B:   # relocate-v0's and cheetah's routed bodies
+        if name in SPLIT:
+            split_builds[name].result()
     b_errs, b_max_abs = {}, {}
     for name in VARIANT_B:
         b_errs[name], b_max_abs[name] = check_variant_b(name, ENVS[name](),
@@ -3009,7 +3051,12 @@ def run(pool):
                                "success": out["episode_success"],
                                "wall_s": out["episode_wall_s"],
                                "launches": out["episode_launches"]},
-                   "hammer-v0": scene_episodes["hammer-v0"][0]}
+                   "hammer-v0": scene_episodes["hammer-v0"][0],
+                   "relocate-v0": episodes["relocate-v0"],
+                   "cheetah": episodes["cheetah"]}
+    # the phase that ran each env's seed-0 episode through its routed layout
+    routed_phase = {"door-v0": 4, "hammer-v0": 20, "relocate-v0": 12,
+                    "cheetah": 12}
     for name, cfg in SPLIT.items():
         env = ENVS[name]()
         split_times[name] = time_split(name, env, dev)
@@ -3032,7 +3079,7 @@ def run(pool):
         routed = routed_runs[name]
         print(f"episode {name} seed 0, {other} layout: "
               f"{json.dumps(other_runs[name])}; {cfg['routed']} layout "
-              f"(phase {4 if name == 'door-v0' else 20}): return "
+              f"(phase {routed_phase[name]}): return "
               f"{routed['return']!r}, wall {routed['wall_s']:.1f} s",
               flush=True)
         check(got == routed["launches"] == cfg["launches"],
@@ -3091,6 +3138,30 @@ def run(pool):
     for env_name, cfg in VARIANT_B.items():
         n, h = cfg["shape"]
         t = b_times[env_name]
+        if env_name in SPLIT:
+            # two layouts: phase 12's episode through the routed one,
+            # phase 37's through the other; times from phase 37's turns
+            ran = {SPLIT[env_name]["routed"]: episodes[env_name]["launches"],
+                   other_runs[env_name]["layout"]:
+                       other_runs[env_name]["launches"]}
+            for layout in ("lane", "split"):
+                ms = turns_mean(split_times[env_name], (n, h), layout)
+                kernels.append(
+                    {"name": f"{env_name.split('-')[0]}_"
+                             f"{'split_' if layout == 'split' else ''}"
+                             "rollout",
+                     "route": "cuda",
+                     "source": f"ppi_tpu_torch/csrc/{SOURCES[layout]}",
+                     "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
+                     "launches": ran[layout],
+                     "max_abs_err": split_err[env_name][layout], "ms": ms,
+                     "plain_ms": t[f"plain_ms_N{n}_H{h}"],
+                     "bound_ms": t[f"bound_ms_N{n}_H{h}"],
+                     "bound_by": t["bound_by"], "library_ms": None,
+                     **regs_spills(split_info[env_name][
+                         "ptxas" if layout == "split" else "lane_ptxas"]),
+                     **shapes((n, h), (n, h), ms)})
+            continue
         kernels.append(
             {"name": f"{env_name.split('-')[0]}_rollout", "route": "cuda",
              "source": "ppi_tpu_torch/csrc/rollout.cu",

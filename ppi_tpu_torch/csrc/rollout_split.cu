@@ -2,7 +2,7 @@
 // contact physics, each rollout's program spread over the PPI_K warps of a
 // block, each warp carrying the block's 32 rollouts.
 //
-// Replaces, for door-v0, the Pallas megakernel
+// Replaces, for door-v0, relocate-v0 and cheetah, the Pallas megakernel
 // ppi_tpu/envs/physics/pallas_rollout.py (make_pallas_rollout, pallas_call
 // at line 190; door-v0's body also runs under sharded_pallas_mpc_objective,
 // shard_map at line 322), as rollout.cu does with one rollout a thread for
@@ -16,16 +16,22 @@
 //
 // What bounds it on an H100: the lane layout runs a rollout's whole
 // straight-line substep (4,199 f32 ops for door-v0, 2,906 for hammer-v0,
-// with a longest dependent chain under 90) on one thread, so one warp
-// scheduler of the SM issues it alone: at the canonical N=64 two warps on
-// one SM of 132, 2.3-2.6 cycles an op, while three of the SM's four
-// schedulers idle. Not the dependences but one warp's issue of a long
-// straight line sets the pace.
+// 7,003 and 7,028 for relocate-v0 and cheetah, with a longest dependent
+// chain under 90 for the first two, of weight 173 and 150 for the last
+// two) on one thread, so one warp scheduler of the SM issues it alone: at
+// the canonical N=64 two warps on one SM of 132, 2.3-2.6 cycles an op,
+// while three of the SM's four schedulers idle. Not the dependences but
+// one warp's issue of a long straight line sets the pace.
 //
 // The design: a block is one group of 32 rollouts (lane l holds rollout
-// 32 * blockIdx.x + l) and PPI_K warps (3 for door-v0). The generator
-// (ppi_tpu_torch/envs/physics/split_layout.py) list-schedules the lane
-// layout's own emitted substep and reward into PPI_K streams and phases:
+// 32 * blockIdx.x + l) and PPI_K warps (3 for door-v0 and cheetah, 4 for
+// relocate-v0). The generator (ppi_tpu_torch/envs/physics/split_layout.py)
+// list-schedules the lane layout's own emitted substep and reward into
+// PPI_K streams and phases, or (relocate-v0, cheetah) partitions the
+// substep by the body tree, one warp for each root chain and each subtree
+// hanging off it, so that only frames, the terms of the shared sums and
+// the accelerations cross warps (3 phases a substep for cheetah, 4 for
+// relocate-v0, against 12 in relocate-v0's list schedule):
 // warp w runs stream w, inside one warp-uniform if/else chain, so no warp
 // diverges; a barrier of the block separates two phases. A value that
 // another stream reads goes through the group's shared memory at

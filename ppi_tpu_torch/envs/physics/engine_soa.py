@@ -183,8 +183,9 @@ def fk_soa(m: SoaModel, q: Sequence):
         p = m.parents[b]
         r_p = rots[p] if p >= 0 else m.identity3
         p_p = poss[p] if p >= 0 else (0.0, 0.0, 0.0)
-        r_b, p_b, a_world, com = fk_body_soa(m, b, r_p, p_p,
-                                             m.offset_pos[b], q[b])
+        with sm.owner(("body", b)):
+            r_b, p_b, a_world, com = fk_body_soa(m, b, r_p, p_p,
+                                                 m.offset_pos[b], q[b])
         rots.append(r_b)
         poss.append(p_b)
         axes.append(a_world)
@@ -206,9 +207,10 @@ def _jacobians(m: SoaModel, poss, axes, coms):
     jv = [[None] * m.nq for _ in range(m.nq)]
     jw = [[None] * m.nq for _ in range(m.nq)]
     for b in range(m.nq):
-        for j in m.ancestors[b]:
-            jv[b][j], jw[b][j] = jacobian_column(m, j, axes[j], poss[j],
-                                                 coms[b])
+        with sm.owner(("body", b)):
+            for j in m.ancestors[b]:
+                jv[b][j], jw[b][j] = jacobian_column(m, j, axes[j], poss[j],
+                                                     coms[b])
     return jv, jw
 
 
@@ -294,22 +296,29 @@ def contact_forces_soa(m: SoaModel, pts, vels):
     """Returns a list of vec3 forces per sphere geom."""
     forces = [(0.0, 0.0, 0.0) for _ in pts]
 
-    for (si, pi) in m.pair_sphere_plane:
-        f = plane_contact_soa(m, si, pi, pts[si], vels[si])
-        forces[si] = accumulate_force(forces[si], "add", f)
+    def add(s, kind, f, t=None):
+        with sm.owner(("sphere", s)):
+            forces[s] = accumulate_force(forces[s], kind, f, t)
 
-    for (ai, bi) in m.pair_sphere_sphere:
-        f = sphere_contact_soa(m, ai, bi, pts[ai], pts[bi], vels[ai],
-                               vels[bi])
-        forces[ai] = accumulate_force(forces[ai], "add", f)
-        forces[bi] = accumulate_force(forces[bi], "sub", f)
+    for i, (si, pi) in enumerate(m.pair_sphere_plane):
+        with sm.owner(("pair", "plane", i)):
+            f = plane_contact_soa(m, si, pi, pts[si], vels[si])
+        add(si, "add", f)
 
-    for (si, ea, eb) in m.pair_sphere_segment:
-        f, t = segment_contact_soa(m, si, ea, eb, pts[ea], pts[eb], pts[si],
-                                   vels[ea], vels[eb], vels[si])
-        forces[si] = accumulate_force(forces[si], "add", f)
-        forces[ea] = accumulate_force(forces[ea], "sub_rest", f, t)
-        forces[eb] = accumulate_force(forces[eb], "sub_t", f, t)
+    for i, (ai, bi) in enumerate(m.pair_sphere_sphere):
+        with sm.owner(("pair", "sphere", i)):
+            f = sphere_contact_soa(m, ai, bi, pts[ai], pts[bi], vels[ai],
+                                   vels[bi])
+        add(ai, "add", f)
+        add(bi, "sub", f)
+
+    for i, (si, ea, eb) in enumerate(m.pair_sphere_segment):
+        with sm.owner(("pair", "segment", i)):
+            f, t = segment_contact_soa(m, si, ea, eb, pts[ea], pts[eb],
+                                       pts[si], vels[ea], vels[eb], vels[si])
+        add(si, "add", f)
+        add(ea, "sub_rest", f, t)
+        add(eb, "sub_t", f, t)
     return forces
 
 
@@ -364,8 +373,9 @@ def contact_points_soa(m: SoaModel, rots, poss, v_o, omega):
     """World position and velocity of every sphere geom, and its body."""
     pts, pt_vels, pt_body = [], [], []
     for s, sb in enumerate(m.sphere_body):
-        p_s, v_s = contact_point_soa(m, s, rots[sb], poss[sb], v_o[sb],
-                                     omega[sb])
+        with sm.owner(("sphere", s)):
+            p_s, v_s = contact_point_soa(m, s, rots[sb], poss[sb], v_o[sb],
+                                         omega[sb])
         pts.append(p_s)
         pt_vels.append(v_s)
         pt_body.append(sb)
@@ -375,13 +385,14 @@ def contact_points_soa(m: SoaModel, rots, poss, v_o, omega):
 def passive_torque_soa(m: SoaModel, q, qd):
     out = []
     for j in range(m.nq):
-        tau = -m.damping[j] * qd[j]
-        if m.spring_k[j] != 0.0:
-            tau = tau - m.spring_k[j] * (q[j] - m.spring_ref[j])
-        if m.limit_k[j] != 0.0:
-            lo, hi = m.q_limit[j]
-            tau = tau - m.limit_k[j] * (sm.maximum(q[j] - hi, 0.0)
-                                        + sm.minimum(q[j] - lo, 0.0))
+        with sm.owner(("sum", j)):
+            tau = -m.damping[j] * qd[j]
+            if m.spring_k[j] != 0.0:
+                tau = tau - m.spring_k[j] * (q[j] - m.spring_ref[j])
+            if m.limit_k[j] != 0.0:
+                lo, hi = m.q_limit[j]
+                tau = tau - m.limit_k[j] * (sm.maximum(q[j] - hi, 0.0)
+                                            + sm.minimum(q[j] - lo, 0.0))
         out.append(tau)
     return tuple(out)
 
@@ -427,9 +438,10 @@ def velocity_kinematics_soa(m: SoaModel, q, qd, rots, poss, axes, coms):
         al_p = alpha[p] if p >= 0 else zero
         ao_p = a_o[p] if p >= 0 else zero
         o_p = poss[p] if p >= 0 else zero
-        w_b, vo_b, vc_b, al_b, ao_b, ac_b = velocity_body_soa(
-            m, b, qd[b], w_p, vo_p, al_p, ao_p, o_p, poss[b], axes[b],
-            coms[b])
+        with sm.owner(("body", b)):
+            w_b, vo_b, vc_b, al_b, ao_b, ac_b = velocity_body_soa(
+                m, b, qd[b], w_p, vo_p, al_p, ao_p, o_p, poss[b], axes[b],
+                coms[b])
         omega.append(w_b)
         v_o.append(vo_b)
         v_c.append(vc_b)
@@ -474,24 +486,30 @@ def assemble_soa(m: SoaModel, q, qd, tau) -> Assembly:
     rots, poss, axes, coms = fk_soa(m, q)
     jv, jw = _jacobians(m, poss, axes, coms)
 
-    # mass matrix (ancestor-sparse upper triangle)
+    # mass matrix (ancestor-sparse upper triangle); entry (k, l), k an
+    # ancestor of l, sums a term of each body at or below l
     mass = [[0.0] * m.nq for _ in range(m.nq)]
     i_world, iw_jws = [], []
     for b in range(m.nq):
-        i_w = world_inertia_soa(m, b, rots[b])
-        i_world.append(i_w)
-        mb = m.mass[b]
-        anc = sorted(m.ancestors[b])
-        iw_jw = {j: m3_vec(i_w, jw[b][j]) for j in anc if jw[b][j] is not None}
-        iw_jws.append(iw_jw)
+        with sm.owner(("body", b)):
+            i_w = world_inertia_soa(m, b, rots[b])
+            i_world.append(i_w)
+            mb = m.mass[b]
+            anc = sorted(m.ancestors[b])
+            iw_jw = {j: m3_vec(i_w, jw[b][j]) for j in anc
+                     if jw[b][j] is not None}
+            iw_jws.append(iw_jw)
         for ii, k in enumerate(anc):
             for l in anc[ii:]:
-                term = mb * v3_dot(jv[b][k], jv[b][l])
-                if jw[b][k] is not None and l in iw_jw:
-                    term = term + v3_dot(jw[b][k], iw_jw[l])
-                mass[k][l] = mass[k][l] + term
+                with sm.owner(("body", b)):
+                    term = mb * v3_dot(jv[b][k], jv[b][l])
+                    if jw[b][k] is not None and l in iw_jw:
+                        term = term + v3_dot(jw[b][k], iw_jw[l])
+                with sm.owner(("mass", l)):
+                    mass[k][l] = mass[k][l] + term
     for k in range(m.nq):
-        mass[k][k] = mass[k][k] + m.armature[k]
+        with sm.owner(("mass", k)):
+            mass[k][k] = mass[k][k] + m.armature[k]
         for l in range(k):
             mass[k][l] = mass[l][k]
 
@@ -504,25 +522,38 @@ def assemble_soa(m: SoaModel, q, qd, tau) -> Assembly:
     passive = passive_torque_soa(m, q, qd)
     f_bias, n_bias = [], []
     for b in range(m.nq):
-        f, n = bias_wrench_soa(m, b, i_world[b], omega[b], alpha[b], a_c[b])
+        with sm.owner(("body", b)):
+            f, n = bias_wrench_soa(m, b, i_world[b], omega[b], alpha[b],
+                                   a_c[b])
         f_bias.append(f)
         n_bias.append(n)
+    # rhs[j] sums a term of each body and contact sphere at or below joint j
     rhs = []
     for j in range(m.nq):
-        t = tau[j] + passive[j]
+        with sm.owner(("sum", j)):
+            t = tau[j] + passive[j]
         a_j, o_j = axes[j], poss[j]
         hinge = m.joint_types[j] == HINGE
         for b in range(m.nq):
             if j not in m.ancestors[b]:
                 continue
-            t = t + v3_dot(jv[b][j], f_bias[b])
+            with sm.owner(("body", b)):
+                term = v3_dot(jv[b][j], f_bias[b])
+            with sm.owner(("sum", j)):
+                t = t + term
             if jw[b][j] is not None:
-                t = t - v3_dot(jw[b][j], n_bias[b])
+                with sm.owner(("body", b)):
+                    term = v3_dot(jw[b][j], n_bias[b])
+                with sm.owner(("sum", j)):
+                    t = t - term
         for s, sb in enumerate(pt_body):
             if j not in m.ancestors[sb]:
                 continue
-            col = (v3_cross(a_j, v3_sub(pts[s], o_j)) if hinge else a_j)
-            t = t + v3_dot(col, forces[s])
+            with sm.owner(("sphere", s)):
+                col = (v3_cross(a_j, v3_sub(pts[s], o_j)) if hinge else a_j)
+                term = v3_dot(col, forces[s])
+            with sm.owner(("sum", j)):
+                t = t + term
         rhs.append(t)
     mdiag = tuple(mass[k][k] for k in range(m.nq))
     return Assembly(mass, tuple(rhs), mdiag, poss, axes, jv, jw, iw_jws,

@@ -25,7 +25,10 @@ pen-v0-adroit, fetch-pick) plans and steps through it. The split layout
 layout's own substep and reward over the block's warps, one stream a warp,
 values crossing streams through shared memory between barriers
 (``split_layout``); an env with ``scalar_kernel_layout = "split"``
-(door-v0) plans and steps through it. All three give the same
+(door-v0, relocate-v0, cheetah) plans and steps through it, and one with
+``scalar_split_partition = "subtree"`` (relocate-v0, cheetah) has its
+split body's substep partitioned by the body tree
+(``split_layout.plan_partition``). All three give the same
 values bit for bit; every body of the runner has a lane and a warp body,
 and every one whose split plan fits a block's shared memory a split body.
 
@@ -130,32 +133,36 @@ def generate_warp_header(model, dt: float, substeps: int, action_dim: int,
 def generate_split(model, dt: float, substeps: int, action_dim: int,
                    torque_fn, reward_fn, dyn_body=None, n_consts: int = 0,
                    reward_takes_action: bool = False, project_fn=None,
-                   streams=None):
+                   partition=None, streams=None):
     """(C source, report) of the split layout's per-env body
     (``env_split.h``) for ``csrc/rollout_split.cu``:
     ``generate_env_header``'s torque and projection, and the substep and
-    the reward scheduled over the warps of a group by ``split_layout``
-    (``streams`` forces their number, for a study); the report is
+    the reward scheduled over the warps of a group by ``split_layout``:
+    list-scheduled (``streams`` forces their number, for a study), or with
+    ``partition="subtree"`` the substep partitioned by the model's body
+    tree (``split_layout.plan_partition``). The report is
     ``split_layout.plan_body``'s: the streams, phases, slots and carry
     registers chosen, the model's cost a step for each number of streams,
-    and the substep's and the reward's plans. Deterministic, as the lane
-    header; the search runs at every call (seconds)."""
+    the substep's and the reward's plans and the partition's report.
+    Deterministic, as the lane header; the search runs at every call
+    (a second or two)."""
     text, _, info = _generate_body(
         model, dt, substeps, action_dim, torque_fn, reward_fn, dyn_body,
-        n_consts, reward_takes_action, project_fn, "split", streams, True)
+        n_consts, reward_takes_action, project_fn, "split", streams, True,
+        partition)
     return text, info
 
 
 def generate_split_header(model, dt: float, substeps: int, action_dim: int,
                           torque_fn, reward_fn, dyn_body=None,
                           n_consts: int = 0, reward_takes_action: bool = False,
-                          project_fn=None) -> str:
+                          project_fn=None, partition=None) -> str:
     """``generate_split``'s C source, the generator's choice read from
     ``SPLIT_CACHE`` after its first search for the body
     (``split_layout.cached_body``)."""
     return _generate_body(model, dt, substeps, action_dim, torque_fn,
                           reward_fn, dyn_body, n_consts, reward_takes_action,
-                          project_fn, "split")[0]
+                          project_fn, "split", partition=partition)[0]
 
 
 def _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
@@ -171,10 +178,13 @@ def _generate(model, dt, substeps, action_dim, torque_fn, reward_fn,
 
 def _generate_body(model, dt, substeps, action_dim, torque_fn, reward_fn,
                    dyn_body, n_consts, reward_takes_action, project_fn,
-                   layout, streams=None, report=False):
+                   layout, streams=None, report=False, partition=None):
     """``_generate``'s (text, ops) and, with ``report``, the split layout's
     report (else None; without it the split body comes through
-    ``SPLIT_CACHE``)."""
+    ``SPLIT_CACHE``); ``partition`` as ``generate_split``'s."""
+    if partition not in (None, "subtree"):
+        raise ValueError(f"partition must be None or 'subtree', not "
+                         f"{partition!r}")
     m = SoaModel(model)
     nq, h = m.nq, dt / substeps
 
@@ -226,14 +236,16 @@ def _generate_body(model, dt, substeps, action_dim, torque_fn, reward_fn,
     ops["reward"] = em.ops
     info = None
     if layout == "split":
+        tree = split_layout.Tree.of(m) if partition else None
         if report:
             info = split_layout.plan_body(em_sub, q2, qd2, em, r, nq,
-                                          substeps, ops["torque"], streams)
+                                          substeps, ops["torque"], streams,
+                                          tree)
             split_defines, reward = split_layout.emit_body(info)
         else:
             split_defines, reward = split_layout.cached_body(
                 SPLIT_CACHE, em_sub, q2, qd2, em, r, nq, substeps,
-                ops["torque"])
+                ops["torque"], tree)
         warp_defines = warp_defines + split_defines
     else:
         em.lines.append(f"  return {sm._operand(r)};")
@@ -396,15 +408,16 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
                  action_dim: int, torque_fn, reward_fn, project_fn=None,
                  n_consts: int = 0, reward_takes_action: bool = False,
                  dyn_body=None, block: int = 128, layout: str = "lane",
-                 warps: int = WARPS_PER_BLOCK):
+                 warps: int = WARPS_PER_BLOCK, split_partition=None):
     """Build ``run(q0 (N,nq), qd0 (N,nq), actions (N,H,da), consts=None,
     dyn=None) -> (rewards (N,H), qpos_f (N,nq), qvel_f (N,nq))``, the
     counterpart of ``make_pallas_rollout``. ``layout`` "lane" launches
     ``csrc/rollout.cu`` (one rollout a thread, ``block`` threads a CUDA
     block), "warp" ``csrc/rollout_warp.cu`` (one rollout a warp,
     ``warps`` of them a block), "split" ``csrc/rollout_split.cu`` (32
-    rollouts a block, each spread over its warps); all compute the same
-    values bit for bit.
+    rollouts a block, each spread over its warps: list-scheduled, or with
+    ``split_partition="subtree"`` partitioned by the body tree); all
+    compute the same values bit for bit.
     ``horizon`` is only checked: the kernel takes it at run time, so one
     build serves every H. With ``n_consts`` the run takes the (n_consts,)
     f32 reward constants ``consts`` on the actions' device;
@@ -425,7 +438,8 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
                                  "ppi_rollout_warp_launch", 8, 3,
                                  stream=True)
         if layout == "split":
-            return load_function(_split_library(_split_header(*args)),
+            return load_function(_split_library(_split_header(
+                *args, split_partition)),
                                  "ppi_rollout_split_launch", 8, 2,
                                  stream=True)
         return load_function(_library(_env_header(*args)),
@@ -540,6 +554,13 @@ def kernel_layout(env) -> str:
     return getattr(env, "scalar_kernel_layout", "lane")
 
 
+def split_partition(env):
+    """How ``env``'s split body is planned: its ``scalar_split_partition``
+    ("subtree": partitioned by the body tree, ``split_layout.
+    plan_partition``), else None (list-scheduled)."""
+    return getattr(env, "scalar_split_partition", None)
+
+
 def launch_key(env) -> str:
     """The ``LAUNCHES`` counter that ``env``'s rollout launches add to."""
     return LAUNCH_KEYS[kernel_layout(env)]
@@ -553,7 +574,8 @@ def env_rollout(env, state, horizon: int, block: int = 128, layout=None):
     return make_rollout(model, dt, substeps, horizon, action_dim, torque_fn,
                         reward_fn, project_fn=project_fn, n_consts=n_consts,
                         reward_takes_action=takes_action, dyn_body=dyn_body,
-                        block=block, layout=layout or kernel_layout(env))
+                        block=block, layout=layout or kernel_layout(env),
+                        split_partition=split_partition(env))
 
 
 def env_plain_rollout(env, state, q0, qd0, actions):

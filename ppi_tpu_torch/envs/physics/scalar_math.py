@@ -20,8 +20,10 @@ math functions are called, so every emitted operation is single precision.
 ``0.0 * x`` is emitted, never folded: a NaN has to reach the latch.
 """
 
+import contextlib
 import math
 import re
+import threading
 
 import numpy as np
 import torch
@@ -43,15 +45,41 @@ _LITERAL = re.compile(r"\(-0x[0-9a-f]\.[0-9a-f]+p[+-]\d+f\)"
                       r"|0x[0-9a-f]\.[0-9a-f]+p[+-]\d+f")
 
 
+# what the program computes for while it runs (``owner``), per thread:
+# several threads may generate bodies at once
+_OWNER = threading.local()
+
+
+@contextlib.contextmanager
+def owner(tag):
+    """Within the block, every line an ``Emitter`` emits is recorded as
+    computed for ``tag`` (``Emitter.owners``): ``("body", b)``,
+    ``("sphere", s)``, ``("pair", kind, i)`` (a contact pair of
+    ``engine_soa.contact_forces_soa``), ``("mass", j)`` (the sum of a mass
+    matrix entry in joint j's column) and ``("sum", j)`` (joint j's
+    right-hand side: its passive torque and the sum of its terms). The
+    innermost block wins. Over floats and tensors it does nothing, and no
+    line changes: the split layout's subtree partition reads the record."""
+    prev = getattr(_OWNER, "tag", None)
+    _OWNER.tag = tag
+    try:
+        yield
+    finally:
+        _OWNER.tag = prev
+
+
 class Emitter:
     """Collects the straight-line C body of one generated function.
 
     ``ops`` counts the f32 operations emitted: each arithmetic operator and
     each math or helper call is one, whatever its operands (a bare literal
-    is none)."""
+    is none). ``owners`` maps each emitted name to the tag of the
+    ``owner`` block it was emitted in (names emitted outside any are
+    absent)."""
 
     def __init__(self):
         self.lines = []
+        self.owners = {}
         self._n = 0
         self.ops = 0
 
@@ -61,6 +89,9 @@ class Emitter:
         self.lines.append(f"  const float {name} = {expr};")
         if not _LITERAL.fullmatch(expr):
             self.ops += 1
+        tag = getattr(_OWNER, "tag", None)
+        if tag is not None:
+            self.owners[name] = tag
         return Sym(self, name)
 
     def input(self, name: str, c_expr: str) -> "Sym":

@@ -37,6 +37,24 @@ of this generator (PERF.md section 6): exchanges and phases, not the ops,
 decide whether a split pays. The search takes seconds in Python, so
 ``cached_body`` keeps its result on disk under a hash of the program.
 
+The subtree partition (``plan_partition``), for a body whose env opts in
+(``scalar_split_partition = "subtree"``: relocate-v0, cheetah), places
+the substep by the model's body tree instead: the scalar program records
+what each line computes for while it emits (``scalar_math.owner``: a
+body, a contact sphere or pair, a sum of the mass matrix or right-hand
+side), each tree's root chain and each subtree hanging off it gets a
+warp (``subtree_groups``), a body's kinematics, Jacobian columns and mass
+and force terms and its contacts run on its warp, and only what feeds
+another warp crosses: the frames at a subtree's root (or a copy computed
+again where that is cheaper, ``_replicate``), the terms of the sums that
+gather several warps and the accelerations. The mass matrix is
+ancestor-sparse (``engine_soa.assemble_soa``), so a subtree's own entries
+stay on its warp; an entry whose terms come from several warps keeps the
+lane program's chain on the solve's warp, its terms sent, never regrouped
+into partial sums. Phases follow from the dependences that cross warps
+(``_phases``); the search over the solve's warp and the replication keeps
+the plan the model prices lowest.
+
 Each stream's share of a phase is one generated function; the device runs
 stream w on warp w inside a warp-uniform ``if``/``else`` chain with
 ``PPI_BARRIER`` between phases, and the host-C build runs the phases in
@@ -148,11 +166,16 @@ def parse(em: sm.Emitter, outputs, in_slots) -> Program:
         live[v] = True
         stack.extend(index[t] for t in _NAME.findall(rows[v][1])
                      if t in index)
-    keep = [v for v in range(len(rows)) if live[v]]
-    new = {rows[v][0]: i for i, v in enumerate(keep)}
+    return _program([rows[v] for v in range(len(rows)) if live[v]], inputs,
+                    input_slot, outs)
+
+
+def _program(rows, inputs, input_slot, outs) -> Program:
+    """The ``Program`` of (name, expression) ``rows`` in an order that
+    defines every name before it is read."""
+    new = {name: i for i, (name, _) in enumerate(rows)}
     prog = Program(inputs, input_slot, [], [], [], [], [], [], outs)
-    for v in keep:
-        name, expr = rows[v]
+    for name, expr in rows:
         toks = _NAME.findall(expr)
         prog.names.append(name)
         prog.exprs.append(expr)
@@ -454,6 +477,245 @@ def plan(prog: Program, k: int, base: int, final_barrier: bool,
     return Plan(prog, sched, layout(prog, sched, base, final_barrier))
 
 
+# ---- the subtree partition ---------------------------------------------------
+
+# the caps tried for ``_replicate``: the most the ops another warp would
+# send a value from may weigh for the reading warp to compute them itself
+# (past a few hundred the solve's warp copies every term it sums)
+REPLICATE_CAPS = (0, 64, 256)
+
+
+@dataclasses.dataclass(frozen=True)
+class Tree:
+    """What the subtree partition reads of a model: each body's parent,
+    each contact sphere's body, and each contact pair's spheres by kind
+    (``engine_soa.contact_forces_soa``'s "plane", "sphere" and "segment"
+    pairs, the plane itself left out)."""
+    parents: tuple
+    sphere_body: tuple
+    pairs: dict
+
+    @classmethod
+    def of(cls, m) -> "Tree":
+        """The tree of an ``engine_soa.SoaModel``."""
+        return cls(tuple(int(p) for p in m.parents),
+                   tuple(int(b) for b in m.sphere_body),
+                   {"plane": tuple((int(s),) for s, _ in m.pair_sphere_plane),
+                    "sphere": tuple(tuple(int(x) for x in r)
+                                    for r in m.pair_sphere_sphere),
+                    "segment": tuple(tuple(int(x) for x in r)
+                                     for r in m.pair_sphere_segment)})
+
+
+def subtree_groups(parents) -> list:
+    """The bodies of each warp: a tree's root chain (its root down to the
+    first body with more than one child, that body included) is one group
+    and each subtree that hangs off it another; a tree that is a chain is
+    one group."""
+    n = len(parents)
+    children = [[] for _ in range(n)]
+    for b, p in enumerate(parents):
+        if p >= 0:
+            children[p].append(b)
+
+    def below(b):
+        out = [b]
+        for c in children[b]:
+            out += below(c)
+        return sorted(out)
+
+    groups = []
+    for root in (b for b in range(n) if parents[b] < 0):
+        chain = [root]
+        while len(children[chain[-1]]) == 1:
+            chain.append(children[chain[-1]][0])
+        groups.append(chain)
+        groups += [below(c) for c in children[chain[-1]]]
+    return groups
+
+
+def _merge(groups, weight) -> list:
+    """``groups`` with the two of least ``weight`` (of their bodies) merged
+    until at most ``MAX_STREAMS`` are left."""
+    groups = [list(g) for g in groups]
+    while len(groups) > MAX_STREAMS:
+        groups.sort(key=lambda g: (sum(weight[b] for b in g), g))
+        groups = [sorted(groups[0] + groups[1])] + groups[2:]
+    return sorted(groups)
+
+
+def _assign(prog, owners, tree, groups, solve):
+    """Each op's warp and kind ("mass" and "sum" for the sums of the mass
+    matrix and the right-hand side, else None): a body's op on its group's
+    warp, a sphere's on its body's, a contact pair's on the warp of its
+    sphere deepest in its tree (the first of equals), a sum of joint j on
+    j's warp when every body below j is there, and every other op (the
+    sums that gather terms from several warps, the solve, the
+    integration) on warp ``solve``."""
+    group = {b: g for g, members in enumerate(groups) for b in members}
+    depth = [0] * len(tree.parents)
+    for b, p in enumerate(tree.parents):
+        depth[b] = depth[p] + 1 if p >= 0 else 0
+    closed = [True] * len(tree.parents)
+    for b, p in enumerate(tree.parents):
+        while p >= 0:   # p is an ancestor of b: p's sums gather b's terms
+            closed[p] = closed[p] and group[b] == group[p]
+            p = tree.parents[p]
+    warp, kind = [], []
+    for name in prog.names:
+        tag = owners.get(name, (None,))
+        if tag[0] == "body":
+            w = group[tag[1]]
+        elif tag[0] == "sphere":
+            w = group[tree.sphere_body[tag[1]]]
+        elif tag[0] == "pair":
+            body = max((tree.sphere_body[x]
+                        for x in tree.pairs[tag[1]][tag[2]]),
+                       key=lambda b: depth[b])
+            w = group[body]
+        elif tag[0] in ("mass", "sum") and closed[tag[1]]:
+            w = group[tag[1]]
+        else:
+            w = solve
+        warp.append(w)
+        kind.append(tag[0] if tag[0] in ("mass", "sum") else None)
+    return warp, kind
+
+
+def _replicate(prog, warp, kind, cap):
+    """``prog`` with the values a warp reads from another computed on it
+    again where the other warp's ops they need weigh at most ``cap``: each
+    such op gets a copy on the reading warp (its name with ``_w`` and the
+    warp's number), the same expression on the copies of its operands, so
+    the same bits. Returns (program, warp, kind, copies)."""
+    n = len(prog.names)
+    copies = [set() for _ in range(max(warp) + 1)]
+    for v in range(n):
+        if prog.literal[v]:
+            continue
+        for u in prog.preds[v]:
+            h = warp[v]
+            if prog.literal[u] or warp[u] == h or u in copies[h]:
+                continue
+            need, stack, weight = set(), [u], 0
+            while stack and weight <= cap:   # past the cap: sent
+                x = stack.pop()
+                if x in need or prog.literal[x] or warp[x] == h \
+                        or x in copies[h]:
+                    continue
+                need.add(x)
+                weight += prog.weights[x]
+                stack.extend(prog.preds[x])
+            if weight <= cap:
+                copies[h] |= need
+    rows, warp2, kind2 = [], [], []
+
+    def renamed(expr, h):
+        return _NAME.sub(lambda m: (f"{m.group(1)}_w{h}"
+                                    if index.get(m.group(1)) in copies[h]
+                                    else m.group(1)), expr)
+
+    index = {name: v for v, name in enumerate(prog.names)}
+    for v in range(n):
+        name, expr = prog.names[v], prog.exprs[v]
+        rows.append((name, expr if prog.literal[v] else renamed(expr,
+                                                                warp[v])))
+        warp2.append(warp[v])
+        kind2.append(kind[v])
+        for h in range(len(copies)):
+            if v in copies[h]:
+                rows.append((f"{name}_w{h}", renamed(expr, h)))
+                warp2.append(h)
+                kind2.append(kind[v])
+    return (_program(rows, prog.inputs, prog.input_slot, prog.outputs),
+            warp2, kind2, sum(len(c) for c in copies))
+
+
+def _phases(prog, warp, kind, solve, rhs_late) -> Schedule:
+    """The phases of ``prog`` on fixed warps: warp ``solve``'s ops as early
+    as their operands allow (a value of another warp one phase after its
+    producer's), with ``rhs_late`` its right-hand-side sums that read
+    another warp's terms no earlier than the phase after its mass-matrix
+    sums, so that the solve's elimination of the matrix runs while the
+    other warps compute those terms; then its sums and every other warp's
+    ops as late as their readers allow (a sum adds one term an op: late,
+    it lets the warps that send its terms send them late)."""
+    n = len(prog.names)
+    ops = [v for v in range(n) if not prog.literal[v]]
+    preds = [[u for u in prog.preds[v] if not prog.literal[u]]
+             for v in range(n)]
+
+    def earliest(release):
+        at = [0] * n
+        for v in ops:
+            at[v] = max([release.get(v, 0)]
+                        + [at[u] + (warp[u] != warp[v]) for u in preds[v]])
+        return at
+
+    at = earliest({})
+    if rhs_late:
+        mass = [at[v] for v in ops if warp[v] == solve and kind[v] == "mass"]
+        first = max(mass, default=0) + 1
+        at = earliest({v: first for v in ops
+                       if warp[v] == solve and kind[v] == "sum"
+                       and any(warp[u] != solve for u in preds[v])})
+    last = max(at[v] for v in ops)
+    succs = [[] for _ in range(n)]
+    for v in ops:
+        for u in preds[v]:
+            succs[u].append(v)
+    for v in reversed(ops):
+        if warp[v] != solve or kind[v] is not None:
+            at[v] = min([last] + [at[u] - (warp[u] != warp[v])
+                                  for u in succs[v]])
+    used = sorted({at[v] for v in ops})
+    renumber = {p: i for i, p in enumerate(used)}
+    stream, phase, order = [-1] * n, [-1] * n, {}
+    for v in ops:
+        stream[v], phase[v] = warp[v], renumber[at[v]]
+        order.setdefault((phase[v], stream[v]), []).append(v)
+    return Schedule(max(warp) + 1, len(used), stream, phase, order)
+
+
+def plan_partition(prog: Program, owners: dict, tree: Tree, base: int):
+    """The subtree partition of the substep ``prog`` (its ops' owner tags
+    ``owners``, ``scalar_math.Emitter.owners``): one warp a group of
+    ``subtree_groups`` (past ``MAX_STREAMS`` groups the lightest merged,
+    ``_merge``), the search over the warp that runs the solve, the
+    replication cap (``REPLICATE_CAPS``) and ``rhs_late`` (``_phases``)
+    keeping the plan the model prices lowest. Returns (plan, report)."""
+    weight = [0] * len(tree.parents)
+    for v, name in enumerate(prog.names):
+        tag = owners.get(name, (None,))
+        if tag[0] == "body":
+            weight[tag[1]] += prog.weights[v]
+    groups = _merge(subtree_groups(tree.parents), weight)
+    best, costs = None, {}
+    for solve in range(len(groups)):
+        warp, kind = _assign(prog, owners, tree, groups, solve)
+        for cap in REPLICATE_CAPS:
+            prog2, warp2, kind2, copies = _replicate(prog, warp, kind, cap)
+            for rhs_late in (False, True):
+                sched = _phases(prog2, warp2, kind2, solve, rhs_late)
+                if sched.phases < 2:   # all on one warp: the lane layout
+                    continue
+                lay = layout(prog2, sched, base, True)
+                costs[f"solve{solve}_cap{cap}_rhs{int(rhs_late)}"] = lay.cost
+                if best is None or lay.cost < best[0].lay.cost:
+                    best = (Plan(prog2, sched, lay),
+                            dict(solve_warp=solve, replicate_cap=cap,
+                                 rhs_late=rhs_late, copies=copies))
+    plan_, report = best
+    outs = set(plan_.prog.outputs)
+    crossing = {x for st in plan_.lay.stores.values() for slot, x in st
+                if (slot, x) not in outs}
+    report.update(groups=groups, exchanged=len(crossing),
+                  loads=sum(1 for binds in plan_.lay.binds.values()
+                            for _, e in binds if e.startswith("sh[")),
+                  cost_by_choice=costs)
+    return plan_, report
+
+
 def _function(prefix, plan_, p, s):
     prog, lay = plan_.prog, plan_.lay
     lines = [f"  const float {x} = {e};" for x, e in lay.binds[(p, s)]]
@@ -509,28 +771,38 @@ def emit(prefix: str, plan_: Plan, width: int, clock0: int,
 
 
 def plan_body(em_sub, q2, qd2, em_rew, r, nq: int, substeps: int,
-              torque_ops: int, streams=None) -> dict:
+              torque_ops: int, streams=None, tree=None) -> dict:
     """The split layout of one body, planned: its report (the streams,
     phases, slots and carry registers chosen, the model's cost a step for
-    each number of streams, and the substep's and the reward's plans).
+    each number of streams, the substep's and the reward's plans, and with
+    ``tree`` the partition's report).
 
     ``em_sub`` emitted one substep (q2, qd2 its new state), ``em_rew`` the
     reward ``r``. Slots: q at 0..nq-1, qd at nq..2nq-1, the reward at 2nq,
     then the substep's and the reward's own. K, from 2 (one stream is the
     lane layout) to ``MAX_STREAMS``, is the one whose step costs least in
     the model (substeps x the substep, the reward into at most K streams,
-    the torque on every stream), or ``streams``."""
+    the torque on every stream), or ``streams``. With ``tree`` (a
+    ``Tree``) the substep is the subtree partition's (``plan_partition``,
+    from ``em_sub``'s owner tags) and K its number of groups; the reward
+    is list-scheduled either way."""
+    if streams and tree is not None:
+        raise ValueError("the subtree partition chooses its own warps")
     slot_q, slot_qd, slot_r = 0, nq, 2 * nq
     in_slots = {"q": slot_q, "qd": slot_qd}
     sub = parse(em_sub, [(slot_q + j, q2[j]) for j in range(nq)]
                 + [(slot_qd + j, qd2[j]) for j in range(nq)], in_slots)
     rew = parse(em_rew, [(slot_r, r)], in_slots)
     base = 2 * nq + 1
-    best, report = None, {}
-    ks = [streams] if streams else range(2, MAX_STREAMS + 1)
+    best, report, partition = None, {}, None
+    if tree is not None:
+        part, partition = plan_partition(sub, em_sub.owners, tree, base)
+        ks = [part.sched.k]
+    else:
+        ks = [streams] if streams else range(2, MAX_STREAMS + 1)
     rews = [plan(rew, kr, 0, False, True) for kr in range(1, max(ks) + 1)]
     for k in ks:
-        ps = plan(sub, k, base, True)
+        ps = part if tree is not None else plan(sub, k, base, True)
         pr = min(rews[:k], key=lambda x: x.lay.cost)
         pr = Plan(rew, pr.sched, layout(rew, pr.sched, base + ps.lay.slots,
                                         False))
@@ -547,7 +819,8 @@ def plan_body(em_sub, q2, qd2, em_rew, r, nq: int, substeps: int,
             "substep_cost": ps.lay.cost, "reward_cost": pr.lay.cost,
             "step_cost": step, "step_cost_by_streams": report,
             "substep_plan": ps, "reward_plan": pr,
-            "slot_q": slot_q, "slot_qd": slot_qd, "slot_r": slot_r}
+            "slot_q": slot_q, "slot_qd": slot_qd, "slot_r": slot_r,
+            "partition": partition}
 
 
 def emit_body(info: dict):
@@ -578,24 +851,27 @@ def emit_body(info: dict):
 
 
 def cached_body(cache: Path, em_sub, q2, qd2, em_rew, r, nq: int,
-                substeps: int, torque_ops: int):
+                substeps: int, torque_ops: int, tree=None):
     """``emit_body(plan_body(...))``, kept in ``cache`` under the sha256 of
-    the two programs, their outputs and the generator's own source (this
-    module and ``scalar_math``): the search runs once per body and
-    generator, not once per process. The text is the same either way."""
+    the two programs, their outputs, the partition's tree and owner tags
+    (with ``tree``) and the generator's own source (this module and
+    ``scalar_math``): the search runs once per body and generator, not
+    once per process. The text is the same either way."""
     key = hashlib.sha256()
     for module in (__file__, sm.__file__):
         key.update(Path(module).read_bytes())
     outs = [x.name if isinstance(x, sm.Sym) else sm.f32_literal(x)
             for x in (*q2, *qd2, r)]
+    part = None if tree is None else [dataclasses.asdict(tree),
+                                      sorted(em_sub.owners.items())]
     key.update(json.dumps([em_sub.lines, em_rew.lines, outs, nq, substeps,
-                           torque_ops]).encode())
+                           torque_ops, part]).encode())
     path = cache / f"{key.hexdigest()}.json"
     if path.exists():
         got = json.loads(path.read_text())
         return got["defines"], got["text"]
     defines, text = emit_body(plan_body(em_sub, q2, qd2, em_rew, r, nq,
-                                        substeps, torque_ops))
+                                        substeps, torque_ops, tree=tree))
     cache.mkdir(parents=True, exist_ok=True)
     # a temporary of this process and thread: two may plan one body at once
     tmp = path.with_name(f".{path.name}.{os.getpid()}."

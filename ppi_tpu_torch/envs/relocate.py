@@ -144,6 +144,13 @@ class Relocate:
     fixed_goal: bool = False  # True: pin the fixed goal and ball start
 
     name = "relocate-v0"
+    # the rollout kernel's split layout, its substep partitioned by the
+    # body tree (split_layout.plan_partition): the arm's chain, each finger
+    # and the ball on warps of their own; faster than the lane and warp
+    # layouts on the card at the canonical N=256/H=20 (PERF.md section 6,
+    # row 1b)
+    scalar_kernel_layout = "split"
+    scalar_split_partition = "subtree"
 
     def __post_init__(self):
         model, palm, tips, ball = _build_model()

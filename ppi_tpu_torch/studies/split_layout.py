@@ -2,25 +2,32 @@
 
     python -m ppi_tpu_torch.studies.split_layout [ENV ...]
 
-For each env (door-v0 and hammer-v0 unless named), in one process on the
-card: first the host seconds to generate its bodies (the lane header;
-the split generator's search; the split header through an empty cache
-and through the filled one, ``split_layout.cached_body``; the lane header
-again); then builds, in parallel, the lane layout (``csrc/rollout.cu``),
-the warp layout (``csrc/rollout_warp.cu``, its existing warp header), the split
-layout (``csrc/rollout_split.cu``) as the generator chooses it and forced
-to 2, 3 and 4 streams, and the clocked builds (the warp layout's
-``PPI_STAGE_CLOCKS``, the split layout's ``PPI_PHASE_CLOCKS``); prints
-each build's ``-Xptxas -v`` summary and the split generator's report
-(streams, phases, slots, carry registers, the model's cost a step for each
-number of streams). Then: the split layout against the lane layout bit
-for bit at N=257 (ragged), H=3 with a NaN lane; CUDA-event times in turns
-(lane, warp, split, split, warp, lane) at N=64/H=30, and lane, split,
-split, lane at N=1024/H=160, at N=4096/H=160 (a 4-rank shard of N=16384)
-and at N=16384/H=160; the split layout at 2, 3 and 4 streams at N=64/H=30;
-the real step (N=1, H=1, host clock over 20 launches) in all three
-layouts; the warp layout's SM cycles a stage and the split layout's a
-phase at N=64/H=30 (lane 0 of each warp: its work, then work and wait to
+For each env (door-v0 and hammer-v0 unless named; relocate-v0 and cheetah
+take the subtree partition, ``scalar_split_partition``), in one process
+on the card: first the host seconds to generate its bodies (the lane
+header; the split generator's search; the split header through an empty
+cache and through the filled one, ``split_layout.cached_body``; the lane
+header again); then builds, in parallel, the lane layout
+(``csrc/rollout.cu``), the warp layout (``csrc/rollout_warp.cu``, its
+existing warp header), the split layout (``csrc/rollout_split.cu``) as the
+generator chooses it (for a partitioned env, the partition; its
+list-scheduled body too, "list") and forced to 2, 3 and 4 list-scheduled
+streams, and the clocked builds (the warp layout's ``PPI_STAGE_CLOCKS``,
+the split layout's ``PPI_PHASE_CLOCKS``); prints each build's ``-Xptxas
+-v`` summary and the split generator's report (streams, phases, slots,
+carry registers, the model's cost a step for each number of streams; for
+a partition its groups, solve warp, replication, exchanged values and
+shared loads, and the model's cost of every choice it tried). Then: the
+split layout against the lane layout bit for bit at N=257 (ragged), H=3
+with a NaN lane; CUDA-event times in turns (lane, warp, split, split,
+warp, lane) at the env's canonical shape (``SHAPES``: N=64/H=30 for
+door-v0 and hammer-v0, N=256/H=20 for relocate-v0, N=256/H=30 for
+cheetah), and for door-v0 and hammer-v0 lane, split, split, lane at
+N=1024/H=160, at N=4096/H=160 (a 4-rank shard of N=16384) and at
+N=16384/H=160; the other split builds at the canonical shape; the real
+step (N=1, H=1, host clock over 20 launches) in all three layouts; the
+warp layout's SM cycles a stage and the split layout's a phase at the
+canonical shape (lane 0 of each warp: its work, then work and wait to
 the barrier's end, per group and substep, the reward's phases and the
 torque per step); and the split kernel's blocks an SM
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); for door-v0, the
@@ -48,7 +55,10 @@ from ppi_tpu_torch.runners.run_mpc import ENVS
 from ppi_tpu_torch.studies import warp_layout as wl
 
 ENV_NAMES = ("door-v0", "hammer-v0")
-SHAPES = ((64, 30), (1024, 160), (4096, 160), (16384, 160))
+_DOOR_SHAPES = ((64, 30), (1024, 160), (4096, 160), (16384, 160))
+# each env's shapes, its canonical one (where its episodes run) first
+SHAPES = {"door-v0": _DOOR_SHAPES, "hammer-v0": _DOOR_SHAPES,
+          "relocate-v0": ((256, 20),), "cheetah": ((256, 30),)}
 FORCED = (2, 3, 4)
 PHASE_CLOCKS = "\n#define PPI_PHASE_CLOCKS 1\n"
 # the canonical door-v0 episode (make mpc-lbps), timed in turns
@@ -133,7 +143,7 @@ def phase_cycles(env, state, split, n, h):
             "reward_total": float(c[ps:ps + pr, 0, 1].sum())}
 
 
-def generation_s(args):
+def generation_s(args, partition):
     """Host seconds to generate one body: the lane header, the split
     generator's search (``generate_split``), the split header through an
     empty cache and through the filled one, and the lane header again."""
@@ -141,14 +151,17 @@ def generation_s(args):
     rk.SPLIT_CACHE = cache.parent / "split_study"
     shutil.rmtree(rk.SPLIT_CACHE, ignore_errors=True)
     out = {}
+    split = {"partition": partition}
     try:
-        for what, fn in (("lane", rk.generate_env_header),
-                         ("split_search", rk.generate_split),
-                         ("split_cache_miss", rk.generate_split_header),
-                         ("split_cache_hit", rk.generate_split_header),
-                         ("lane_again", rk.generate_env_header)):
+        for what, fn, kw in (("lane", rk.generate_env_header, {}),
+                             ("split_search", rk.generate_split, split),
+                             ("split_cache_miss", rk.generate_split_header,
+                              split),
+                             ("split_cache_hit", rk.generate_split_header,
+                              split),
+                             ("lane_again", rk.generate_env_header, {})):
             t0 = time.perf_counter()
-            fn(*args)
+            fn(*args, **kw)
             out[what] = time.perf_counter() - t0
     finally:
         shutil.rmtree(rk.SPLIT_CACHE, ignore_errors=True)
@@ -217,18 +230,21 @@ def study(name, dev, splits):
     out["split_equals_plain"] = same(got["split"], plain)
     out["warp_equals_lane"] = same(got["warp"], got["lane"])
 
-    for n, h in SHAPES:
+    shapes = SHAPES.get(name, _DOOR_SHAPES[:1])
+    n0, h0 = shapes[0]
+    for n, h in shapes:
         q0, qd0, acts = wl.lanes(env, state, n, h, 0.3)
         runs = {lay: rollout(env, state, h, lay)
                 for lay in ("lane", "warp", "split")}
+        first = (n, h) == (n0, h0)
         order = (("lane", "warp", "split", "split", "warp", "lane")
-                 if n == 64 else ("lane", "split", "split", "lane"))
-        iters = 20 if n == 64 else 3
+                 if first else ("lane", "split", "split", "lane"))
+        iters = 20 if first else 3
         out[f"turns_ms_N{n}_H{h}"] = [
             [lay, wl.cuda_ms(lambda: runs[lay](q0, qd0, acts, consts=consts,
                                                dyn=dyn), iters)]
             for lay in order]
-        if n == 64:
+        if first:
             out[f"split_by_streams_ms_N{n}_H{h}"] = {
                 str(k): wl.cuda_ms(s.runner(q0, qd0, acts, consts, dyn),
                                    iters)
@@ -247,10 +263,10 @@ def study(name, dev, splits):
         torch.cuda.synchronize()
         out[f"{lay}_step_ms"] = 1e3 * (time.perf_counter() - t0) / 20
     header = rk._warp_header(*rk.body_args(env, state))
-    out["warp_stage_cycles_N64_H30"] = wl.stage_cycles(env, state, header,
-                                                       64, 30, 0.3)
-    out["split_phase_cycles_N64_H30"] = phase_cycles(env, state,
-                                                     splits["clk"], 64, 30)
+    out[f"warp_stage_cycles_N{n0}_H{h0}"] = wl.stage_cycles(
+        env, state, header, n0, h0, 0.3)
+    out[f"split_phase_cycles_N{n0}_H{h0}"] = phase_cycles(
+        env, state, splits["clk"], n0, h0)
     return out
 
 
@@ -267,7 +283,7 @@ def main(names):
     for name in names:
         env = ENVS[name]()
         gen[name] = generation_s(rk.body_args(env, env.reset(
-            torch.Generator().manual_seed(0), "cpu")))
+            torch.Generator().manual_seed(0), "cpu")), rk.split_partition(env))
         print(f"generation {name} (host s): {json.dumps(gen[name])}",
               flush=True)
     jobs = {}
@@ -283,10 +299,14 @@ def main(names):
             jobs[(name, "warp")] = pool.submit(rk._warp_library, warp)
             jobs[(name, "warp_clk")] = pool.submit(rk._warp_library,
                                                    warp + wl.CLOCKS)
-            chosen = rk.generate_split(*args)
+            partition = rk.split_partition(env)
+            chosen = rk.generate_split(*args, partition=partition)
             made = {None: chosen}
-            for k in FORCED:   # the chosen number of warps is built once
-                made[k] = (chosen if k == chosen[1]["streams"]
+            listed = chosen if partition is None else rk.generate_split(*args)
+            if partition is not None:
+                made["list"] = listed
+            for k in FORCED:   # the list's number of warps is built once
+                made[k] = (listed if k == listed[1]["streams"]
                            else rk.generate_split(*args, streams=k))
             for k, (header, report) in made.items():
                 jobs[(name, k)] = pool.submit(Split, header, report)

@@ -268,10 +268,11 @@ def test_variant_b_kernel_matches_plain(name):
     run = rk.env_rollout(env, s0, h)
     q0 = s0.physics.qpos.expand(n, -1).contiguous()
     qd0 = s0.physics.qvel.expand(n, -1).contiguous()
-    before = rk.LAUNCHES["rollout"]
+    key = rk.launch_key(env)   # relocate-v0 and cheetah: the split layout
+    before = rk.LAUNCHES[key]
     rew, qf, qdf = run(q0, qd0, acts, consts=consts)
     torch.cuda.synchronize()
-    assert rk.LAUNCHES["rollout"] == before + 1
+    assert rk.LAUNCHES[key] == before + 1
     rew_p, qf_p, qdf_p = rk.env_plain_rollout(env, s0, q0, qd0, acts)
     assert _rel(rew, rew_p) <= 1e-4
     assert _rel(qf, qf_p) <= 1e-4
@@ -314,7 +315,8 @@ def test_coloured_noise_control_step_never_waits_for_the_card():
     carry = agent.init(pol, torch.Generator(dev).manual_seed(0))
     carry, _ = agent.warm_start(carry, state, 2)  # builds and loads first
     torch.cuda.synchronize()
-    before = rk.LAUNCHES["rollout"]
+    key = rk.launch_key(env)   # the split layout
+    before = rk.LAUNCHES[key]
     torch.cuda.set_sync_debug_mode("error")
     try:
         action, carry, _ = agent.control_step(carry, state, 1)
@@ -322,7 +324,7 @@ def test_coloured_noise_control_step_never_waits_for_the_card():
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert rk.LAUNCHES["rollout"] == before + 2
+    assert rk.LAUNCHES[key] == before + 2
     assert bool(torch.isfinite(state.physics.qpos).all())
 
 
@@ -667,6 +669,58 @@ def test_split_layout_equals_lane_layout(name, monkeypatch):
     assert _same_bits(s_k.physics.qpos, s_e.physics.qpos)
     assert _same_bits(s_k.physics.qvel, s_e.physics.qvel)
     assert _same_bits(r_k, r_e)
+
+
+# ---- the split layout's subtree partition: relocate-v0 and cheetah ------------
+
+@pytest.mark.parametrize("name", ["relocate-v0", "cheetah"])
+def test_partitioned_split_layout_equals_lane_layout(name):
+    """relocate-v0 and cheetah route to the split layout, their substep
+    partitioned by the body tree: at N=257 (ragged), H=5, from a sampled
+    goal or start, with a NaN lane, one launch counted under
+    ``rollout_split``; rewards and final state bit for bit the lane
+    layout's (the NaN lane's too) and within 1e-4 of the plain version
+    (cheetah's control cost divides by 5,400: one ulp off plain on the
+    card); the NaN lane's rewards NaN and every other lane's finite; the
+    real step one split launch, bit for bit the lane layout's step."""
+    dev = _device()
+    env = _variant_b_env(name)
+    assert rk.kernel_layout(env) == "split"
+    assert rk.split_partition(env) == "subtree"
+    s0 = env.reset(torch.Generator(dev).manual_seed(1), dev)
+    n, h = 257, 5
+    rng = np.random.default_rng(2)
+    acts = torch.from_numpy((ACTION_SCALE[name] * rng.standard_normal(
+        (n, h, env.action_dim))).astype(np.float32)).to(dev)
+    q0 = s0.physics.qpos.expand(n, -1).clone()
+    q0[100] = torch.nan
+    qd0 = s0.physics.qvel.expand(n, -1).contiguous()
+    consts, _, _ = rk.kernel_operands(env, s0)
+    before = rk.LAUNCHES["rollout_split"]
+    split = rk.env_rollout(env, s0, h)(q0, qd0, acts, consts=consts)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rollout_split"] == before + 1
+    lane = rk.env_rollout(env, s0, h, layout="lane")(q0, qd0, acts,
+                                                     consts=consts)
+    plain = rk.env_plain_rollout(env, s0, q0, qd0, acts)
+    keep = torch.arange(n, device=dev) != 100
+    for s, l, p in zip(split, lane, plain):
+        assert _same_bits(s, l)
+        assert _rel(s[keep], p[keep]) <= 1e-4
+    assert bool(torch.isnan(split[0][100]).all())
+    assert bool(torch.isfinite(split[0][keep]).all())
+
+    action = acts[0, 0]
+    before = rk.LAUNCHES["rollout_split"]
+    s_k, r_k = env.step(s0, action)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rollout_split"] == before + 1
+    one = rk.env_rollout(env, s0, 1, layout="lane")(
+        s0.physics.qpos[None], s0.physics.qvel[None], action[None, None],
+        consts=consts)
+    assert _same_bits(s_k.physics.qpos, one[1][0])
+    assert _same_bits(s_k.physics.qvel, one[2][0])
+    assert _same_bits(r_k.reshape(1), one[0][0])
 
 
 # ---- the sharded entry -----------------------------------------------------------

@@ -1,0 +1,198 @@
+"""The split layout's subtree partition on the CPU (csrc/rollout_split.cu).
+
+relocate-v0 and cheetah opt in (``scalar_split_partition = "subtree"``):
+their split body's substep is partitioned by the model's body tree
+(``split_layout.plan_partition``) instead of list-scheduled. Each tree's
+root chain and each subtree hanging off it runs on a warp of its own
+(cheetah: the torso's chain and each leg; relocate-v0: the arm's chain,
+each finger and the ball's chain), from the owner tags the scalar program
+records while it emits (``scalar_math.owner``), and only the terms of the
+shared sums, the frames and the accelerations cross between warps. Held
+here: the host-C partitioned builds against the host-C lane builds bit for
+bit (a ragged group, a NaN lane, H=3); the plans against the race and slot
+simulator of tests/test_torch_split_layout.py; the groups, phases and the
+model's costs; the owner tags (every line of the emitted program is the
+untagged program's, the plain path unchanged); the two new headers by
+sha256 and the main path's header read back from the generator's cache.
+"""
+
+import functools
+import hashlib
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_split_layout import _assert_same, _check_body
+from test_torch_warp_layout import _host_run, _lanes, _needs_cc
+from torch_helpers import to_np, to_torch
+from torch_env_helpers import Q_TOL, REW_TOL
+from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+from ppi_tpu_torch.envs.physics import scalar_math as sm
+from ppi_tpu_torch.envs.physics import split_layout as spl
+from ppi_tpu_torch.envs.physics.engine_soa import SoaModel, substep_soa
+from ppi_tpu_torch.runners.run_mpc import ENVS
+
+SUBTREE_ENVS = ("relocate-v0", "cheetah")
+N, H = 37, 3   # one full group of 32 rollouts and a ragged one
+
+# sha256 of the two partitioned split headers as first generated
+SUBTREE_SHA256 = {
+    "relocate-v0":
+        "6324a75871ade63898fdf6acdca1f9ecd8c41af299839da2d743b765ef423fc9",
+    "cheetah":
+        "fec86c4e88446189e61c9d70fad7848287723743bad146799977bcd6b5893726",
+}
+
+
+def _state(name, seed=0):
+    return ENVS[name]().reset(torch.Generator().manual_seed(seed), "cpu")
+
+
+@functools.cache
+def _split(name):
+    """(split header, generator report) of ``name``'s partitioned body,
+    generated once (the search runs at every ``generate_split``)."""
+    env = ENVS[name]()
+    return rk.generate_split(*rk.body_args(env, _state(name)),
+                             partition=rk.split_partition(env))
+
+
+@pytest.mark.parametrize("name", SUBTREE_ENVS)
+def test_host_c_partition_build_equals_lane_build(name):
+    """N=37 (a full group and a ragged one), H=3 from the seed-0 state with
+    a NaN lane: the partitioned build's rewards and final state are the
+    lane build's bit for bit (NaN payloads aside, as in
+    tests/test_torch_split_layout.py) and the plain version's within the
+    rollout tolerances; no write past the last rollout; the NaN lane's
+    rewards are NaN and every other lane's finite."""
+    _needs_cc()
+    env, state = ENVS[name](), _state(name)
+    args = rk.body_args(env, state)
+    lane = rk.load_host_rollout(rk.generate_env_header(*args))
+    split = rk.load_host_split_rollout(_split(name)[0])
+    q0, qd0, acts = _lanes(name, state, N, H)
+    q0[33, 1] = np.nan   # in the ragged group
+    got = _host_run(split, env, state, q0, qd0, acts)
+    _assert_same(got, _host_run(lane, env, state, q0, qd0, acts))
+    assert np.isnan(got[0][33]).all()
+    keep = np.arange(N) != 33
+    assert np.isfinite(got[0][keep]).all()
+    plain = [to_np(x)[keep] for x in rk.env_plain_rollout(
+        env, state, to_torch(q0), to_torch(qd0), to_torch(acts))]
+    np.testing.assert_allclose(got[0][keep], plain[0], **REW_TOL)
+    np.testing.assert_allclose(got[1][keep], plain[1], **Q_TOL)
+    np.testing.assert_allclose(got[2][keep], plain[2], **REW_TOL)
+
+
+@pytest.mark.parametrize("name", SUBTREE_ENVS)
+def test_the_partition_keeps_the_invariants(name):
+    """The partitioned substep's and the reward's plans pass the race and
+    slot simulator (``_check_body``): every op once on one warp after its
+    operands, every value of another warp loaded after the barrier that
+    follows its store, no slot reused while live."""
+    _check_body(name, _split(name)[1])
+
+
+def test_the_partitions():
+    """cheetah: the torso's chain (with the solve) and each leg, three
+    phases a substep; relocate-v0: the arm's chain, each finger, and the
+    ball's chain with the solve, four phases. Each exchanges a few hundred
+    values at most a substep, uses fewer slots a group than its list plan
+    and costs the model about half the list plan's step."""
+    cheetah, relocate = _split("cheetah")[1], _split("relocate-v0")[1]
+    assert cheetah["partition"]["groups"] == [[0, 1, 2], [3, 4, 5],
+                                              [6, 7, 8]]
+    assert relocate["partition"]["groups"] == [[0, 1, 2, 3], [4], [5],
+                                               [6, 7, 8]]
+    assert (cheetah["streams"], cheetah["substep_phases"],
+            cheetah["partition"]["solve_warp"]) == (3, 3, 0)
+    assert (relocate["streams"], relocate["substep_phases"],
+            relocate["partition"]["solve_warp"]) == (4, 4, 3)
+    env = {"cheetah": ENVS["cheetah"](), "relocate-v0": ENVS["relocate-v0"]()}
+    for name, info in (("cheetah", cheetah), ("relocate-v0", relocate)):
+        listed = rk.generate_split(*rk.body_args(env[name], _state(name)))[1]
+        assert info["partition"]["exchanged"] <= 200
+        assert info["slots"] < listed["slots"]
+        assert info["step_cost"] < 0.6 * listed["step_cost"]
+        assert info["partition"]["cost_by_choice"]
+        assert min(info["partition"]["cost_by_choice"].values()) \
+            == info["substep_cost"]
+
+
+def test_subtree_groups_and_merge():
+    """A tree's root chain runs to its first fork; each subtree below a
+    fork and each chain-shaped tree is one group; past four groups the two
+    lightest merge."""
+    assert spl.subtree_groups((-1, 0, 1, 2, 3, 3, -1, 6, 7)) == [
+        [0, 1, 2, 3], [4], [5], [6, 7, 8]]
+    assert spl.subtree_groups((-1, 0, 1, 2, -1, 4)) == [[0, 1, 2, 3],
+                                                        [4, 5]]
+    parents = ENVS["door-v0-adroit"]()._soa.parents
+    groups = spl.subtree_groups(parents)
+    assert len(groups) == 7
+    merged = spl._merge(groups, [1] * len(parents))
+    assert len(merged) == spl.MAX_STREAMS
+    assert sorted(b for g in merged for b in g) == list(range(len(parents)))
+
+
+@pytest.mark.parametrize("name", SUBTREE_ENVS)
+def test_owner_tags(name):
+    """The substep's owner tags name emitted lines (the tags change no
+    line: every lane, warp and split header stays pinned in the other
+    files); the per-body, per-sphere, per-pair and sum tags cover all the
+    live ops but the solve and the integration; over torch tensors
+    ``owner`` changes nothing."""
+    env = ENVS[name]()
+    m = SoaModel(env._model)
+    em = sm.Emitter()
+    q, qd, tau = (tuple(em.input(f"{s}_{j}", f"{s}[{j}]")
+                        for j in range(m.nq)) for s in ("q", "qd", "tau"))
+    q2, qd2 = substep_soa(m, q, qd, tau, env.dt / env.substeps)
+    names = {ln.split(" = ")[0].split()[-1] for ln in em.lines}
+    assert set(em.owners) <= names
+    assert {tag[0] for tag in em.owners.values()} == {
+        "body", "sphere", "pair", "mass", "sum"}
+    prog = spl.parse(em, list(enumerate(q2 + qd2)),
+                     {"q": 0, "qd": m.nq})
+    live = [x for x, lit in zip(prog.names, prog.literal) if not lit]
+    assert sum(x not in em.owners for x in live) < 0.15 * len(live)
+    gen = torch.Generator().manual_seed(0)
+    qt, qdt, taut = (tuple(torch.randn(4, generator=gen)
+                           for _ in range(m.nq)) for _ in range(3))
+    with sm.owner(("body", 0)):
+        a = substep_soa(m, qt, qdt, taut, env.dt / env.substeps)
+    b = substep_soa(m, qt, qdt, taut, env.dt / env.substeps)
+    for x, y in zip(a[0] + a[1], b[0] + b[1]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("name", SUBTREE_ENVS)
+def test_partition_headers_are_pinned(name):
+    header = _split(name)[0]
+    assert "env_sub_0_0" in header and "env_substep" not in header
+    assert hashlib.sha256(header.encode()).hexdigest() \
+        == SUBTREE_SHA256[name]
+
+
+@pytest.mark.parametrize("name", SUBTREE_ENVS)
+def test_the_partition_header_comes_from_the_cache(name, tmp_path,
+                                                   monkeypatch):
+    """The main path's split header for a partitioned env is the
+    partition's, written to the generator's cache at its first generation
+    and read back without a search; the list-scheduled header is another
+    entry of the cache."""
+    monkeypatch.setattr(rk, "SPLIT_CACHE", tmp_path)
+    env = ENVS[name]()
+    args = rk.body_args(env, _state(name))
+    assert rk.generate_split_header(*args, partition="subtree") \
+        == _split(name)[0]
+    assert len(list(tmp_path.glob("*.json"))) == 1
+
+    def no_search(*a, **k):
+        raise AssertionError("searched again")
+    monkeypatch.setattr(spl, "plan_body", no_search)
+    assert rk.generate_split_header(*args, partition="subtree") \
+        == _split(name)[0]
+    with pytest.raises(AssertionError, match="searched again"):
+        rk.generate_split_header(*args)

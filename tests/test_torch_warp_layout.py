@@ -42,9 +42,9 @@ WARP_ENVS = ("door-v0-adroit", "hammer-v0-adroit", "relocate-v0-adroit",
 # and the two whose solve starts with a constant head
 # (tests/test_torch_warp_pivot.py)
 ROUTED_WARP_ENVS = WARP_ENVS + ("pen-v0-adroit", "fetch-pick")
-# the env that plans and steps through the split layout
-# (tests/test_torch_split_layout.py)
-ROUTED_SPLIT_ENVS = ("door-v0",)
+# the envs that plan and step through the split layout
+# (tests/test_torch_split_layout.py, tests/test_torch_split_subtree.py)
+ROUTED_SPLIT_ENVS = ("door-v0", "relocate-v0", "cheetah")
 N, H = 5, 2
 
 # sha256 of the warp headers as first generated: a change to the
@@ -391,10 +391,10 @@ def test_the_six_warp_envs_and_only_they_build_the_warp_layout(monkeypatch):
     """A spy on the build: ``env_rollout(...).load()`` builds the warp
     skeleton for the warp envs (door-v0-adroit, hammer-v0-adroit,
     relocate-v0-adroit, door-v0-hand, hammer-v0-hand, relocate-v0-hand,
-    pen-v0-adroit and fetch-pick), the split skeleton for the split env
-    (door-v0, tests/test_torch_split_layout.py) and the lane skeleton for
-    every other env of the runner, relocate-v0, pen-v0-hand and hammer-v0
-    included."""
+    pen-v0-adroit and fetch-pick), the split skeleton for the split envs
+    (door-v0, tests/test_torch_split_layout.py; relocate-v0 and cheetah,
+    tests/test_torch_split_subtree.py) and the lane skeleton for every
+    other env of the runner, pen-v0-hand and hammer-v0 included."""
     built = {}
     monkeypatch.setattr(rk, "_env_header", lambda *a: "lane")
     monkeypatch.setattr(rk, "_warp_header", lambda *a: "warp")
