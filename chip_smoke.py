@@ -123,7 +123,9 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 (variant b) and build them with nvcc beside all the others;
                 print each body's line count, nvcc seconds and -Xptxas -v
                 summary. fetch-pick plans and steps through the warp
-                layout (phase 32's build) in phases 22-24;
+                layout (phase 32's build), walker2d and humanoid-standup
+                through the split layout partitioned by the body tree
+                (phase 35's builds) in phases 22-24;
  22. check   -- each of those bodies against its plain version on the card
                 at N=1000 (ragged), H=20: rewards and final state
                 bit-identical or within TOL, from lanes in contact (the
@@ -250,16 +252,20 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 a block, each rollout's substep and reward scheduled over
                 the block's warps) of door-v0, which plans and steps
                 through it (phases 2-31 run it), of hammer-v0, which
-                keeps the lane layout, and of relocate-v0 and cheetah,
-                whose substep is partitioned by the body tree and which
-                plan and step through it (phases 10-12 run them);
-                generated and built with nvcc in phase 1 (door-v0's before
-                phase 2, relocate-v0's and cheetah's before phase 10, with
-                their warp bodies for phase 37); print each body's line
-                count, nvcc seconds, warps a group, phases, shared memory
-                a group and -Xptxas -v summary next to its lane layout's;
- 36. check   -- on phase 2's (door-v0), phase 18's (hammer-v0) and phase
-                10's (relocate-v0, cheetah) lanes, N=1000, H=20: the split
+                keeps the lane layout, and of relocate-v0, cheetah,
+                walker2d and humanoid-standup, whose substep is
+                partitioned by the body tree and which plan and step
+                through it (phases 10-12 run the first two, phases 22-24
+                the others); generated and built with nvcc in phase 1
+                (door-v0's before phase 2, relocate-v0's and cheetah's
+                before phase 10, walker2d's and humanoid-standup's before
+                phase 22, with their warp bodies for phase 37); print each
+                body's line count, nvcc seconds, warps a group, phases,
+                shared memory a group and -Xptxas -v summary next to its
+                lane layout's;
+ 36. check   -- on phase 2's (door-v0), phase 18's (hammer-v0), phase
+                10's (relocate-v0, cheetah) and phase 22's (walker2d,
+                humanoid-standup) lanes, N=1000, H=20: the split
                 layout bit for bit the lane kernel and within TOL
                 (SCENE_TOL) of the plain version; a NaN lane; the second
                 frame, board, goal or start with the mask, both layouts'
@@ -270,15 +276,16 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
  37. timings -- CUDA events in turns (lane, split, split, lane) at
                 N=64/H=30 (door-v0, hammer-v0), and (lane, warp, split,
                 split, warp, lane) at N=256/H=20 (relocate-v0) and
-                N=256/H=30 (cheetah), and for door-v0 at N=1024/H=160
-                (phase 3's north star), N=4096/H=160 (phase 30's shard)
-                and N=16384/H=160; the real step and a synced PPI
+                N=256/H=30 (cheetah, walker2d, humanoid-standup), and for
+                door-v0 at N=1024/H=160 (phase 3's north star),
+                N=4096/H=160 (phase 30's shard) and N=16384/H=160; the real step and a synced PPI
                 iteration in the lane and split layouts; the split
-                kernel's blocks an SM; then phase 4's door-v0 episode and
-                phase 12's relocate-v0 and cheetah episodes once more
-                through the lane layout and phase 20's seed-0 hammer-v0
-                episode once more through the split layout: exactly 800,
-                330, 350 and 550 launches of it, the returns equal.
+                kernel's blocks an SM; then phase 4's door-v0 episode,
+                phase 12's relocate-v0 and cheetah episodes and phase 24's
+                walker2d and humanoid-standup episodes once more through
+                the lane layout and phase 20's seed-0 hammer-v0 episode
+                once more through the split layout: exactly 800, 330, 350,
+                350, 350 and 550 launches of it, the returns equal.
 Then one JSON line with the kernels' numbers (each entry with the (N, H)
 of its ms and bound_ms, of its plain_ms, and the kernel's time at the
 latter; the rollout bodies of phase 35 with their registers and spills)
@@ -485,6 +492,13 @@ PUSH_CONTACT_START = (0.15, -0.1)
 PICK_CONTACT_START = (0.0, 0.07)
 STANDUP_LYING = 150 * 0.22 / 0.3   # what lying still earns in 150 steps
 
+
+def rest_launches(name):
+    """Launches of one of phase 24's episodes: 50 warm-start iterations,
+    then T iterations and T real steps."""
+    episode = REST[name]["episode"]
+    return 50 + 2 * int(episode[episode.index("--timesteps") + 1])
+
 # phases 25-28: the three Adroit-class scenes (20-25 DoF) at their
 # canonical configs (``goal_success.py:78-92``). Per env: the check
 # horizon and the scale of its random actions about the actuated joints'
@@ -558,15 +572,15 @@ SOURCES = {"lane": "rollout.cu", "warp": "rollout_warp.cu",
            "split": "rollout_split.cu"}
 
 # phases 35-37: the split layout (csrc/rollout_split.cu) of door-v0,
-# hammer-v0, relocate-v0 and cheetah: each rollout's substep and reward
-# spread over the warps of a block (the last two partitioned by the body
-# tree, ``scalar_split_partition``). Per env: the layout it is routed to,
-# the canonical shape, the larger shapes it is timed at in turns with the
-# lane layout (door-v0's body also runs phase 3's north star and phase
-# 30's 4096-lane shard), whether the warp layout joins the turns at the
-# canonical shape, the check's tolerance against plain, and its episode
-# (phase 4's, 20's or 12's seed 0) with its launches, run once more
-# through the other layout.
+# hammer-v0, relocate-v0, cheetah, walker2d and humanoid-standup: each
+# rollout's substep and reward spread over the warps of a block (the last
+# four partitioned by the body tree, ``scalar_split_partition``). Per env:
+# the layout it is routed to, the canonical shape, the larger shapes it is
+# timed at in turns with the lane layout (door-v0's body also runs phase
+# 3's north star and phase 30's 4096-lane shard), whether the warp layout
+# joins the turns at the canonical shape, the check's tolerance against
+# plain, and its episode (phase 4's, 20's, 12's or 24's seed 0) with its
+# launches, run once more through the other layout.
 SPLIT = {"door-v0": dict(routed="split", shape=(64, 30),
                          big=((1024, 160), (4096, 160), (16384, 160)),
                          tol=TOL, episode=None, launches=800),
@@ -578,7 +592,11 @@ SPLIT = {"door-v0": dict(routed="split", shape=(64, 30),
                        big=(), warp=True, tol=TOL,
                        episode=VARIANT_B[name]["episode"],
                        launches=VARIANT_B[name]["launches"])
-            for name in ("relocate-v0", "cheetah")}}
+            for name in ("relocate-v0", "cheetah")},
+         **{name: dict(routed="split", shape=REST[name]["shape"], big=(),
+                       warp=True, tol=TOL, episode=REST[name]["episode"],
+                       launches=rest_launches(name))
+            for name in ("walker2d", "humanoid-standup")}}
 
 # phases 29-31: the sharded entry. The check's NaN lane lies in rank 2's
 # shard (lanes 500-749 of N_CHECK); the timing runs the configuration of
@@ -1255,10 +1273,12 @@ def time_scene(name, env, dev, table=None, lanes_fn=None):
 def rest_state(env, name, dev, second=False):
     """Phase 22's initial state: a reset at seed 0 (the locomotion envs and
     reacher), or a contact start; with ``second`` the second target or
-    goal pinned instead of the sampled one."""
+    goal pinned instead of the sampled one, or where the env has none the
+    reset at seed 1 (a second start)."""
     from ppi_tpu_torch.envs.physics.engine import PhysicsState
-    gen = torch.Generator(dev).manual_seed(0)
     pin = REST[name]["second"] if second else None
+    gen = torch.Generator(dev).manual_seed(
+        1 if second and pin is None else 0)
     if name == "reacher":
         return env.reset(gen, dev, target=pin)
     if name == "fetch-push":
@@ -1299,7 +1319,7 @@ def check_rest(name, env, dev):
     rew, qf, qdf = run(q0, qd0, acts, consts=consts)
     rew_p, qf_p, qdf_p = rk.env_plain_rollout(env, s0, q0, qd0, acts)
     torch.cuda.synchronize()
-    if name in WARP:   # phase 33's lanes
+    if name in WARP or name in SPLIT:   # phase 33's or 36's lanes
         CHECKED[name] = dict(s0=s0, q0=q0, qd0=qd0, acts=acts,
                              h_frame=H_FRAME,
                              s1=rest_state(env, name, dev, second=True),
@@ -2109,7 +2129,8 @@ def split_occupancy(lib):
 def check_split(name, env, dev, c):
     """Phase 36 for one env on a phase's lanes and plain results ``c``
     (door-v0: phase 2's, N=1000, H=20, the nominal frame; hammer-v0: phase
-    18's; relocate-v0 and cheetah: phase 10's): the split layout bit for
+    18's; relocate-v0 and cheetah: phase 10's; walker2d and
+    humanoid-standup: phase 22's): the split layout bit for
     bit the lane kernel (rewards, qf, qdf) and the plain version within
     SPLIT's tolerance (bit identity reported); a NaN lane (NaN alone, both
     layouts' bits equal); the second frame, board, goal or start with the
@@ -2233,12 +2254,20 @@ def time_split(name, env, dev):
         out[f"bound_ms_N{nn}_H{hh}"], out["bound_by"] = rollout_bound(
             env, nn, hh)
 
-    alg, policy, kwargs = (("Lbps", "SquaredExponentialKernel",
-                            {"lengthscale": 0.08}) if name == "door-v0"
-                           else (VARIANT_B if name in VARIANT_B
-                                 else SCENES)[name]["family"])
-    # the Mppi temperature of phase 11's iteration (the others have none)
-    alpha = {"alpha": 10.0} if name in VARIANT_B else {}
+    # the solver and prior of phase 3's, 11's, 19's or 23's iteration, and
+    # the Mppi temperature of phase 11's (10) or 23's (REST's fourth field)
+    if name == "door-v0":
+        alg, policy, kwargs = ("Lbps", "SquaredExponentialKernel",
+                               {"lengthscale": 0.08})
+        alpha = {}
+    elif name in REST:
+        alg, policy, kwargs, temperature = REST[name]["family"]
+        alpha = {"alpha": temperature}
+    elif name in VARIANT_B:
+        (alg, policy, kwargs), alpha = VARIANT_B[name]["family"], {
+            "alpha": 10.0}
+    else:
+        (alg, policy, kwargs), alpha = SCENES[name]["family"], {}
     mean, cov_in, cov_out = design_moments(env.action_low, env.action_high,
                                            ratio=1000.0)
     family, state = make_policy(
@@ -2799,9 +2828,11 @@ def run(pool):
               f"{secs:.1f} s (in parallel with phases 1-20); ptxas: "
               f"{' | '.join(info['ptxas'])}", flush=True)
 
-    for name in REST:   # phase 22 launches the warp build among them
+    for name in REST:   # phase 22 launches the warp and split builds
         if name in WARP:
             warp_builds[name].result()
+        if name in SPLIT:
+            split_builds[name].result()
 
     # ---- 22. those bodies: kernel vs plain --------------------------------------
     rest_errs, rest_max_abs, rest_contact = {}, {}, {}
@@ -2829,7 +2860,7 @@ def run(pool):
         env, last = ENVS[name](), {}
         timesteps = int(cfg["episode"][cfg["episode"].index("--timesteps")
                                        + 1])
-        expected = 50 + 2 * timesteps
+        expected = rest_launches(name)
 
         def final(env_state, row, last=last):
             last["state"] = env_state
@@ -2980,8 +3011,7 @@ def run(pool):
             cfg = REST[name]
             args_list, n_samples = cfg["episode"], cfg["shape"][0]
             warp_run = rest_episodes[name][0]
-            expected = 50 + 2 * int(args_list[args_list.index(
-                "--timesteps") + 1])
+            expected = rest_launches(name)
             phase = 24
         else:
             args_list, n_samples = ADROIT[name]["episode"], \
@@ -3053,10 +3083,12 @@ def run(pool):
                                "launches": out["episode_launches"]},
                    "hammer-v0": scene_episodes["hammer-v0"][0],
                    "relocate-v0": episodes["relocate-v0"],
-                   "cheetah": episodes["cheetah"]}
+                   "cheetah": episodes["cheetah"],
+                   **{name: rest_episodes[name][0]
+                      for name in SPLIT if name in REST}}
     # the phase that ran each env's seed-0 episode through its routed layout
     routed_phase = {"door-v0": 4, "hammer-v0": 20, "relocate-v0": 12,
-                    "cheetah": 12}
+                    "cheetah": 12, "walker2d": 24, "humanoid-standup": 24}
     for name, cfg in SPLIT.items():
         env = ENVS[name]()
         split_times[name] = time_split(name, env, dev)
@@ -3135,32 +3167,40 @@ def run(pool):
          "bound_ms": mm_times["bound_ms_4096x640"], "bound_by": mm_bound_by,
          "library_ms": mm_times["library_ms_4096x640"],
          **shapes((4096, 640), (4096, 640), mm_times["kernel_ms_4096x640"])}]
+
+    def split_pair(env_name, stem, t, routed_launches):
+        """The lane and split entries of a body routed to the split layout:
+        its phase 12's or 24's episode through the routed layout
+        (``routed_launches``), phase 37's through the other; times from
+        phase 37's turns, the plain rollout and bound from ``t`` (phase 11's
+        or 23's)."""
+        n, h = SPLIT[env_name]["shape"]
+        ran = {SPLIT[env_name]["routed"]: routed_launches,
+               other_runs[env_name]["layout"]:
+                   other_runs[env_name]["launches"]}
+        for layout in ("lane", "split"):
+            ms = turns_mean(split_times[env_name], (n, h), layout)
+            kernels.append(
+                {"name": f"{stem}_{'split_' if layout == 'split' else ''}"
+                         "rollout",
+                 "route": "cuda",
+                 "source": f"ppi_tpu_torch/csrc/{SOURCES[layout]}",
+                 "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
+                 "launches": ran[layout],
+                 "max_abs_err": split_err[env_name][layout], "ms": ms,
+                 "plain_ms": t[f"plain_ms_N{n}_H{h}"],
+                 "bound_ms": t[f"bound_ms_N{n}_H{h}"],
+                 "bound_by": t["bound_by"], "library_ms": None,
+                 **regs_spills(split_info[env_name][
+                     "ptxas" if layout == "split" else "lane_ptxas"]),
+                 **shapes((n, h), (n, h), ms)})
+
     for env_name, cfg in VARIANT_B.items():
         n, h = cfg["shape"]
         t = b_times[env_name]
         if env_name in SPLIT:
-            # two layouts: phase 12's episode through the routed one,
-            # phase 37's through the other; times from phase 37's turns
-            ran = {SPLIT[env_name]["routed"]: episodes[env_name]["launches"],
-                   other_runs[env_name]["layout"]:
-                       other_runs[env_name]["launches"]}
-            for layout in ("lane", "split"):
-                ms = turns_mean(split_times[env_name], (n, h), layout)
-                kernels.append(
-                    {"name": f"{env_name.split('-')[0]}_"
-                             f"{'split_' if layout == 'split' else ''}"
-                             "rollout",
-                     "route": "cuda",
-                     "source": f"ppi_tpu_torch/csrc/{SOURCES[layout]}",
-                     "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
-                     "launches": ran[layout],
-                     "max_abs_err": split_err[env_name][layout], "ms": ms,
-                     "plain_ms": t[f"plain_ms_N{n}_H{h}"],
-                     "bound_ms": t[f"bound_ms_N{n}_H{h}"],
-                     "bound_by": t["bound_by"], "library_ms": None,
-                     **regs_spills(split_info[env_name][
-                         "ptxas" if layout == "split" else "lane_ptxas"]),
-                     **shapes((n, h), (n, h), ms)})
+            split_pair(env_name, env_name.split("-")[0], t,
+                       episodes[env_name]["launches"])
             continue
         kernels.append(
             {"name": f"{env_name.split('-')[0]}_rollout", "route": "cuda",
@@ -3212,9 +3252,13 @@ def run(pool):
             continue
         n, h = cfg["shape"]
         t = rest_times[env_name]
+        stem = env_name.replace("~", "_").replace("-", "_")
+        if env_name in SPLIT:
+            split_pair(env_name, stem, t, sum(
+                r["launches"] for r in rest_episodes[env_name]))
+            continue
         kernels.append(
-            {"name": f"{env_name.replace('~', '_').replace('-', '_')}"
-                     "_rollout",
+            {"name": f"{stem}_rollout",
              "route": "cuda", "source": "ppi_tpu_torch/csrc/rollout.cu",
              "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
              "launches": sum(r["launches"] for r in rest_episodes[env_name]),

@@ -25,8 +25,9 @@ pen-v0-adroit, fetch-pick) plans and steps through it. The split layout
 layout's own substep and reward over the block's warps, one stream a warp,
 values crossing streams through shared memory between barriers
 (``split_layout``); an env with ``scalar_kernel_layout = "split"``
-(door-v0, relocate-v0, cheetah) plans and steps through it, and one with
-``scalar_split_partition = "subtree"`` (relocate-v0, cheetah) has its
+(door-v0, relocate-v0, cheetah, walker2d, humanoid-standup) plans and
+steps through it, and one with ``scalar_split_partition = "subtree"``
+(the same but door-v0) has its
 split body's substep partitioned by the body tree
 (``split_layout.plan_partition``). All three give the same
 values bit for bit; every body of the runner has a lane and a warp body,

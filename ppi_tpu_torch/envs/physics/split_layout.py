@@ -38,7 +38,9 @@ decide whether a split pays. The search takes seconds in Python, so
 ``cached_body`` keeps its result on disk under a hash of the program.
 
 The subtree partition (``plan_partition``), for a body whose env opts in
-(``scalar_split_partition = "subtree"``: relocate-v0, cheetah), places
+(``scalar_split_partition = "subtree"``: relocate-v0, cheetah,
+walker2d, humanoid-standup; a tree that is one chain has nothing to
+partition and is refused), places
 the substep by the model's body tree instead: the scalar program records
 what each line computes for while it emits (``scalar_math.owner``: a
 body, a contact sphere or pair, a sum of the mass matrix or right-hand
@@ -683,13 +685,21 @@ def plan_partition(prog: Program, owners: dict, tree: Tree, base: int):
     ``subtree_groups`` (past ``MAX_STREAMS`` groups the lightest merged,
     ``_merge``), the search over the warp that runs the solve, the
     replication cap (``REPLICATE_CAPS``) and ``rhs_late`` (``_phases``)
-    keeping the plan the model prices lowest. Returns (plan, report)."""
+    keeping the plan the model prices lowest. Returns (plan, report).
+    Raises ``ValueError`` on a tree of fewer than two groups (a chain):
+    with nothing to put beside its one warp there is no partition."""
+    found = subtree_groups(tree.parents)
+    if len(found) < 2:
+        raise ValueError(
+            f"the subtree partition needs a fork in the body tree: this "
+            f"tree gives {len(found)} group (a chain), which would put "
+            f"every op on one warp; list-schedule it (partition=None)")
     weight = [0] * len(tree.parents)
     for v, name in enumerate(prog.names):
         tag = owners.get(name, (None,))
         if tag[0] == "body":
             weight[tag[1]] += prog.weights[v]
-    groups = _merge(subtree_groups(tree.parents), weight)
+    groups = _merge(found, weight)
     best, costs = None, {}
     for solve in range(len(groups)):
         warp, kind = _assign(prog, owners, tree, groups, solve)
@@ -709,7 +719,12 @@ def plan_partition(prog: Program, owners: dict, tree: Tree, base: int):
     outs = set(plan_.prog.outputs)
     crossing = {x for st in plan_.lay.stores.values() for slot, x in st
                 if (slot, x) not in outs}
-    report.update(groups=groups, exchanged=len(crossing),
+    # each phase's op weight on each warp: how long each warp works
+    order, k = plan_.sched.order, plan_.sched.k
+    weights = [[sum(plan_.prog.weights[v] for v in order.get((p, s), ()))
+                for s in range(k)] for p in range(plan_.sched.phases)]
+    report.update(groups=groups, phase_weights=weights,
+                  exchanged=len(crossing),
                   loads=sum(1 for binds in plan_.lay.binds.values()
                             for _, e in binds if e.startswith("sh[")),
                   cost_by_choice=costs)

@@ -108,6 +108,12 @@ class HumanoidStandup:
 
     # the control cost takes the step's action
     scalar_reward_takes_action = True
+    # the rollout kernel's split layout, its substep partitioned by the
+    # body tree (split_layout.plan_partition): the torso's chain, the leg
+    # and the arm on a warp each; faster than the lane and warp layouts on
+    # the card at the canonical N=256/H=30 (PERF.md section 6, row 1b)
+    scalar_kernel_layout = "split"
+    scalar_split_partition = "subtree"
 
     def __post_init__(self):
         model, head = _build_model()

@@ -95,6 +95,12 @@ class Walker:
 
     # the control cost takes the step's action
     scalar_reward_takes_action = True
+    # the rollout kernel's split layout, its substep partitioned by the
+    # body tree (split_layout.plan_partition): the torso's chain and each
+    # leg on a warp of its own; faster than the lane and warp layouts on
+    # the card at the canonical N=256/H=30 (PERF.md section 6, row 1b)
+    scalar_kernel_layout = "split"
+    scalar_split_partition = "subtree"
 
     def __post_init__(self):
         model = _build_model()
@@ -181,6 +187,10 @@ class WalkerWalk(Walker):
     stand_height: float = 1.0
 
     name = "walker~walk"
+    # walker2d's substep under its own reward and shape (N=128/H=25): the
+    # lane layout until the split layout is measured for it (ROADMAP queue 2)
+    scalar_kernel_layout = "lane"
+    scalar_split_partition = None
 
     def scalar_reward(self, m, q, qd, act):
         # dm_control's shaping has no control cost: ``act`` keeps the

@@ -671,14 +671,20 @@ def test_split_layout_equals_lane_layout(name, monkeypatch):
     assert _same_bits(r_k, r_e)
 
 
-# ---- the split layout's subtree partition: relocate-v0 and cheetah ------------
+# ---- the split layout's subtree partition ------------------------------------
 
-@pytest.mark.parametrize("name", ["relocate-v0", "cheetah"])
+# the locomotion bodies' random torques: 0.75 of the box, as chip_smoke.py's
+LOCOMOTION_SCALE = 0.75
+
+
+@pytest.mark.parametrize("name", ["relocate-v0", "cheetah", "walker2d",
+                                  "humanoid-standup"])
 def test_partitioned_split_layout_equals_lane_layout(name):
-    """relocate-v0 and cheetah route to the split layout, their substep
-    partitioned by the body tree: at N=257 (ragged), H=5, from a sampled
-    goal or start, with a NaN lane, one launch counted under
-    ``rollout_split``; rewards and final state bit for bit the lane
+    """relocate-v0, cheetah, walker2d and humanoid-standup route to the
+    split layout, their substep partitioned by the body tree: at N=257
+    (ragged), H=5, from a sampled goal or start, with a NaN lane, one
+    launch counted under ``rk.launch_key(env)`` (``rollout_split``);
+    rewards and final state bit for bit the lane
     layout's (the NaN lane's too) and within 1e-4 of the plain version
     (cheetah's control cost divides by 5,400: one ulp off plain on the
     card); the NaN lane's rewards NaN and every other lane's finite; the
@@ -687,19 +693,23 @@ def test_partitioned_split_layout_equals_lane_layout(name):
     env = _variant_b_env(name)
     assert rk.kernel_layout(env) == "split"
     assert rk.split_partition(env) == "subtree"
+    key = rk.launch_key(env)
+    assert key == "rollout_split"
     s0 = env.reset(torch.Generator(dev).manual_seed(1), dev)
     n, h = 257, 5
     rng = np.random.default_rng(2)
-    acts = torch.from_numpy((ACTION_SCALE[name] * rng.standard_normal(
+    scale = (ACTION_SCALE[name] if name in ACTION_SCALE
+             else LOCOMOTION_SCALE * env.max_torque)
+    acts = torch.from_numpy((scale * rng.standard_normal(
         (n, h, env.action_dim))).astype(np.float32)).to(dev)
     q0 = s0.physics.qpos.expand(n, -1).clone()
     q0[100] = torch.nan
     qd0 = s0.physics.qvel.expand(n, -1).contiguous()
     consts, _, _ = rk.kernel_operands(env, s0)
-    before = rk.LAUNCHES["rollout_split"]
+    before = rk.LAUNCHES[key]
     split = rk.env_rollout(env, s0, h)(q0, qd0, acts, consts=consts)
     torch.cuda.synchronize()
-    assert rk.LAUNCHES["rollout_split"] == before + 1
+    assert rk.LAUNCHES[key] == before + 1
     lane = rk.env_rollout(env, s0, h, layout="lane")(q0, qd0, acts,
                                                      consts=consts)
     plain = rk.env_plain_rollout(env, s0, q0, qd0, acts)
@@ -711,10 +721,10 @@ def test_partitioned_split_layout_equals_lane_layout(name):
     assert bool(torch.isfinite(split[0][keep]).all())
 
     action = acts[0, 0]
-    before = rk.LAUNCHES["rollout_split"]
+    before = rk.LAUNCHES[key]
     s_k, r_k = env.step(s0, action)
     torch.cuda.synchronize()
-    assert rk.LAUNCHES["rollout_split"] == before + 1
+    assert rk.LAUNCHES[key] == before + 1
     one = rk.env_rollout(env, s0, 1, layout="lane")(
         s0.physics.qpos[None], s0.physics.qvel[None], action[None, None],
         consts=consts)

@@ -1,19 +1,23 @@
 """The split layout's subtree partition on the CPU (csrc/rollout_split.cu).
 
-relocate-v0 and cheetah opt in (``scalar_split_partition = "subtree"``):
-their split body's substep is partitioned by the model's body tree
-(``split_layout.plan_partition``) instead of list-scheduled. Each tree's
-root chain and each subtree hanging off it runs on a warp of its own
-(cheetah: the torso's chain and each leg; relocate-v0: the arm's chain,
-each finger and the ball's chain), from the owner tags the scalar program
+relocate-v0, cheetah, walker2d and humanoid-standup opt in
+(``scalar_split_partition = "subtree"``): their split body's substep is
+partitioned by the model's body tree (``split_layout.plan_partition``)
+instead of list-scheduled. Each tree's root chain and each subtree hanging
+off it runs on a warp of its own (cheetah and walker2d: the torso's chain
+and each leg; humanoid-standup: the torso's chain, the leg and the arm;
+relocate-v0: the arm's chain, each finger and the ball's chain), from the
+owner tags the scalar program
 records while it emits (``scalar_math.owner``), and only the terms of the
 shared sums, the frames and the accelerations cross between warps. Held
 here: the host-C partitioned builds against the host-C lane builds bit for
 bit (a ragged group, a NaN lane, H=3); the plans against the race and slot
 simulator of tests/test_torch_split_layout.py; the groups, phases and the
 model's costs; the owner tags (every line of the emitted program is the
-untagged program's, the plain path unchanged); the two new headers by
-sha256 and the main path's header read back from the generator's cache.
+untagged program's, the plain path unchanged); the four headers by
+sha256 and the main path's header read back from the generator's cache; a
+chain-shaped tree (hopper's) refused by name; walker~walk, walker2d's
+substep under another reward, kept on the lane layout.
 """
 
 import functools
@@ -33,15 +37,19 @@ from ppi_tpu_torch.envs.physics import split_layout as spl
 from ppi_tpu_torch.envs.physics.engine_soa import SoaModel, substep_soa
 from ppi_tpu_torch.runners.run_mpc import ENVS
 
-SUBTREE_ENVS = ("relocate-v0", "cheetah")
+SUBTREE_ENVS = ("relocate-v0", "cheetah", "walker2d", "humanoid-standup")
 N, H = 37, 3   # one full group of 32 rollouts and a ragged one
 
-# sha256 of the two partitioned split headers as first generated
+# sha256 of the partitioned split headers as first generated
 SUBTREE_SHA256 = {
     "relocate-v0":
         "6324a75871ade63898fdf6acdca1f9ecd8c41af299839da2d743b765ef423fc9",
     "cheetah":
         "fec86c4e88446189e61c9d70fad7848287723743bad146799977bcd6b5893726",
+    "walker2d":
+        "6c71fe7b681fa73eae5e058639aee00fe4e51cace10c567a7f00357514dd5c8d",
+    "humanoid-standup":
+        "c64cf3024d4dcc26818b5db4e962bfd9aea138edc6ad386b75400d44a4339ca3",
 }
 
 
@@ -94,24 +102,43 @@ def test_the_partition_keeps_the_invariants(name):
     _check_body(name, _split(name)[1])
 
 
+# per partitioned env: its groups of bodies, warps, phases a substep and
+# the warp that runs the solve
+PARTITIONS = {
+    "cheetah": ([[0, 1, 2], [3, 4, 5], [6, 7, 8]], 3, 3, 0),
+    "relocate-v0": ([[0, 1, 2, 3], [4], [5], [6, 7, 8]], 4, 4, 3),
+    "walker2d": ([[0, 1, 2], [3, 4, 5], [6, 7, 8]], 3, 3, 0),
+    "humanoid-standup": ([[0, 1, 2], [3, 4, 5], [6, 7]], 3, 3, 0),
+}
+
+
 def test_the_partitions():
-    """cheetah: the torso's chain (with the solve) and each leg, three
-    phases a substep; relocate-v0: the arm's chain, each finger, and the
-    ball's chain with the solve, four phases. Each exchanges a few hundred
-    values at most a substep, uses fewer slots a group than its list plan
-    and costs the model about half the list plan's step."""
-    cheetah, relocate = _split("cheetah")[1], _split("relocate-v0")[1]
-    assert cheetah["partition"]["groups"] == [[0, 1, 2], [3, 4, 5],
-                                              [6, 7, 8]]
-    assert relocate["partition"]["groups"] == [[0, 1, 2, 3], [4], [5],
-                                               [6, 7, 8]]
-    assert (cheetah["streams"], cheetah["substep_phases"],
-            cheetah["partition"]["solve_warp"]) == (3, 3, 0)
-    assert (relocate["streams"], relocate["substep_phases"],
-            relocate["partition"]["solve_warp"]) == (4, 4, 3)
-    env = {"cheetah": ENVS["cheetah"](), "relocate-v0": ENVS["relocate-v0"]()}
-    for name, info in (("cheetah", cheetah), ("relocate-v0", relocate)):
-        listed = rk.generate_split(*rk.body_args(env[name], _state(name)))[1]
+    """cheetah and walker2d: the torso's chain (with the solve) and each
+    leg, three phases a substep; humanoid-standup: the torso's chain (with
+    the solve), the leg and the arm, three phases; relocate-v0: the arm's
+    chain, each finger, and the ball's chain with the solve, four phases.
+    Each exchanges a few hundred values at most a substep, uses fewer slots
+    a group than its list plan and costs the model about half the list
+    plan's step (humanoid-standup's the most, 0.56: its arm's warp is the
+    lightest); every phase's weight is reported for every warp, and the
+    last phase (the solve's right-hand side and the integration) runs on
+    the solve's warp alone."""
+    assert sorted(PARTITIONS) == sorted(SUBTREE_ENVS)
+    for name, (groups, streams, phases, solve) in PARTITIONS.items():
+        info = _split(name)[1]
+        part = info["partition"]
+        assert part["groups"] == groups, name
+        assert (info["streams"], info["substep_phases"],
+                part["solve_warp"]) == (streams, phases, solve), name
+        weights = part["phase_weights"]
+        assert len(weights) == phases
+        assert all(len(row) == streams for row in weights)
+        assert [w > 0 for w in weights[-1]] == [
+            s == solve for s in range(streams)], name
+    for name in SUBTREE_ENVS:
+        info = _split(name)[1]
+        env = ENVS[name]()
+        listed = rk.generate_split(*rk.body_args(env, _state(name)))[1]
         assert info["partition"]["exchanged"] <= 200
         assert info["slots"] < listed["slots"]
         assert info["step_cost"] < 0.6 * listed["step_cost"]
@@ -134,6 +161,34 @@ def test_subtree_groups_and_merge():
     merged = spl._merge(groups, [1] * len(parents))
     assert len(merged) == spl.MAX_STREAMS
     assert sorted(b for g in merged for b in g) == list(range(len(parents)))
+
+
+def test_the_partition_refuses_a_chain():
+    """hopper's tree is one chain (slides, pitch, thigh, leg, foot): one
+    group, nothing to put beside it, so the partition raises a
+    ``ValueError`` that names the group count and the missing fork before
+    any search, and the list schedule still plans the body."""
+    env = ENVS["hopper"]()
+    args = rk.body_args(env, _state("hopper"))
+    assert len(spl.subtree_groups(env._soa.parents)) == 1
+    with pytest.raises(ValueError, match=r"needs a fork.*gives 1 group"):
+        rk.generate_split(*args, partition="subtree")
+    assert rk.generate_split(*args)[1]["partition"] is None
+
+
+def test_walker_walk_stays_on_the_lane_layout():
+    """walker~walk subclasses walker2d (the same substep, its own reward
+    and shape) but keeps the lane layout until it is measured on its own;
+    walker2d and humanoid-standup route to the partitioned split layout."""
+    walk = ENVS["walker~walk"]()
+    assert (rk.kernel_layout(walk), rk.split_partition(walk)) == ("lane",
+                                                                  None)
+    assert rk.launch_key(walk) == "rollout"
+    for name in ("walker2d", "humanoid-standup"):
+        env = ENVS[name]()
+        assert (rk.kernel_layout(env), rk.split_partition(env)) == (
+            "split", "subtree"), name
+        assert rk.launch_key(env) == "rollout_split"
 
 
 @pytest.mark.parametrize("name", SUBTREE_ENVS)
