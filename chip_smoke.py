@@ -91,7 +91,9 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 build them with nvcc beside all the others; print each
                 body's line count, nvcc seconds and -Xptxas -v summary.
                 relocate-v0-hand and hammer-v0-hand plan and step through
-                the warp layout (phase 32's builds) in phases 18-20;
+                the warp layout (phase 32's builds), pen-v0-hand through
+                the split layout partitioned by the body tree (phase 35's
+                build) in phases 18-20;
  18. check   -- each of those bodies against its plain version on the card
                 at N=1000 (ragged), H=20 (relocate-v0-hand H=10): rewards
                 and final state bit-identical or within 1e-6, from lanes in
@@ -123,9 +125,9 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 (variant b) and build them with nvcc beside all the others;
                 print each body's line count, nvcc seconds and -Xptxas -v
                 summary. fetch-pick plans and steps through the warp
-                layout (phase 32's build), walker2d and humanoid-standup
-                through the split layout partitioned by the body tree
-                (phase 35's builds) in phases 22-24;
+                layout (phase 32's build), walker2d, walker~walk and
+                humanoid-standup through the split layout partitioned by
+                the body tree (phase 35's builds) in phases 22-24;
  22. check   -- each of those bodies against its plain version on the card
                 at N=1000 (ragged), H=20: rewards and final state
                 bit-identical or within TOL, from lanes in contact (the
@@ -252,20 +254,23 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 a block, each rollout's substep and reward scheduled over
                 the block's warps) of door-v0, which plans and steps
                 through it (phases 2-31 run it), of hammer-v0, which
-                keeps the lane layout, and of relocate-v0, cheetah,
-                walker2d and humanoid-standup, whose substep is
-                partitioned by the body tree and which plan and step
-                through it (phases 10-12 run the first two, phases 22-24
-                the others); generated and built with nvcc in phase 1
+                keeps the lane layout, and of pen-v0-hand, relocate-v0,
+                cheetah, walker2d, walker~walk and humanoid-standup, whose
+                substep is partitioned by the body tree and which plan and
+                step through it (phases 10-12 run relocate-v0 and
+                cheetah, phases 18-20 pen-v0-hand, phases 22-24 the
+                others); generated and built with nvcc in phase 1
                 (door-v0's before phase 2, relocate-v0's and cheetah's
-                before phase 10, walker2d's and humanoid-standup's before
-                phase 22, with their warp bodies for phase 37); print each
+                before phase 10, pen-v0-hand's before phase 18, the
+                others' before phase 22, with their warp bodies for phase
+                37); print each
                 body's line count, nvcc seconds, warps a group, phases,
                 shared memory a group and -Xptxas -v summary next to its
                 lane layout's;
  36. check   -- on phase 2's (door-v0), phase 18's (hammer-v0), phase
-                10's (relocate-v0, cheetah) and phase 22's (walker2d,
-                humanoid-standup) lanes, N=1000, H=20: the split
+                10's (relocate-v0, cheetah), phase 18's (pen-v0-hand) and
+                phase 22's (walker2d, walker~walk, humanoid-standup) lanes,
+                N=1000, H=20: the split
                 layout bit for bit the lane kernel and within TOL
                 (SCENE_TOL) of the plain version; a NaN lane; the second
                 frame, board, goal or start with the mask, both layouts'
@@ -275,17 +280,20 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 layouts';
  37. timings -- CUDA events in turns (lane, split, split, lane) at
                 N=64/H=30 (door-v0, hammer-v0), and (lane, warp, split,
-                split, warp, lane) at N=256/H=20 (relocate-v0) and
-                N=256/H=30 (cheetah, walker2d, humanoid-standup), and for
+                split, warp, lane) at N=256/H=20 (relocate-v0),
+                N=256/H=30 (cheetah, walker2d, humanoid-standup),
+                N=96/H=15 (pen-v0-hand) and N=128/H=25 (walker~walk), and
+                for
                 door-v0 at N=1024/H=160 (phase 3's north star),
                 N=4096/H=160 (phase 30's shard) and N=16384/H=160; the real step and a synced PPI
                 iteration in the lane and split layouts; the split
                 kernel's blocks an SM; then phase 4's door-v0 episode,
-                phase 12's relocate-v0 and cheetah episodes and phase 24's
-                walker2d and humanoid-standup episodes once more through
-                the lane layout and phase 20's seed-0 hammer-v0 episode
-                once more through the split layout: exactly 800, 330, 350,
-                350, 350 and 550 launches of it, the returns equal.
+                phase 12's relocate-v0 and cheetah episodes, phase 20's
+                pen-v0-hand episode and phase 24's walker2d, walker~walk
+                and humanoid-standup episodes once more through the lane
+                layout and phase 20's seed-0 hammer-v0 episode once more
+                through the split layout: exactly 800, 330, 350, 350, 350,
+                350, 350, 350 and 550 launches of it, the returns equal.
 Then one JSON line with the kernels' numbers (each entry with the (N, H)
 of its ms and bound_ms, of its plain_ms, and the kernel's time at the
 latter; the rollout bodies of phase 35 with their registers and spills)
@@ -572,9 +580,10 @@ SOURCES = {"lane": "rollout.cu", "warp": "rollout_warp.cu",
            "split": "rollout_split.cu"}
 
 # phases 35-37: the split layout (csrc/rollout_split.cu) of door-v0,
-# hammer-v0, relocate-v0, cheetah, walker2d and humanoid-standup: each
-# rollout's substep and reward spread over the warps of a block (the last
-# four partitioned by the body tree, ``scalar_split_partition``). Per env:
+# hammer-v0, pen-v0-hand, relocate-v0, cheetah, walker2d, walker~walk and
+# humanoid-standup: each rollout's substep and reward spread over the warps
+# of a block (all but door-v0 and hammer-v0 partitioned by the body tree,
+# ``scalar_split_partition``). Per env:
 # the layout it is routed to, the canonical shape, the larger shapes it is
 # timed at in turns with the lane layout (door-v0's body also runs phase
 # 3's north star and phase 30's 4096-lane shard), whether the warp layout
@@ -584,10 +593,12 @@ SOURCES = {"lane": "rollout.cu", "warp": "rollout_warp.cu",
 SPLIT = {"door-v0": dict(routed="split", shape=(64, 30),
                          big=((1024, 160), (4096, 160), (16384, 160)),
                          tol=TOL, episode=None, launches=800),
-         "hammer-v0": dict(routed="lane", shape=(64, 30), big=(),
-                           tol=SCENE_TOL,
-                           episode=SCENES["hammer-v0"]["episode"],
-                           launches=SCENES["hammer-v0"]["launches"]),
+         **{name: dict(routed=routed, shape=SCENES[name]["shape"], big=(),
+                       warp=routed == "split", tol=SCENE_TOL,
+                       episode=SCENES[name]["episode"],
+                       launches=SCENES[name]["launches"])
+            for name, routed in (("hammer-v0", "lane"),
+                                 ("pen-v0-hand", "split"))},
          **{name: dict(routed="split", shape=VARIANT_B[name]["shape"],
                        big=(), warp=True, tol=TOL,
                        episode=VARIANT_B[name]["episode"],
@@ -596,7 +607,7 @@ SPLIT = {"door-v0": dict(routed="split", shape=(64, 30),
          **{name: dict(routed="split", shape=REST[name]["shape"], big=(),
                        warp=True, tol=TOL, episode=REST[name]["episode"],
                        launches=rest_launches(name))
-            for name in ("walker2d", "humanoid-standup")}}
+            for name in ("walker2d", "walker~walk", "humanoid-standup")}}
 
 # phases 29-31: the sharded entry. The check's NaN lane lies in rank 2's
 # shard (lanes 500-749 of N_CHECK); the timing runs the configuration of
@@ -2128,9 +2139,10 @@ def split_occupancy(lib):
 
 def check_split(name, env, dev, c):
     """Phase 36 for one env on a phase's lanes and plain results ``c``
-    (door-v0: phase 2's, N=1000, H=20, the nominal frame; hammer-v0: phase
-    18's; relocate-v0 and cheetah: phase 10's; walker2d and
-    humanoid-standup: phase 22's): the split layout bit for
+    (door-v0: phase 2's, N=1000, H=20, the nominal frame; hammer-v0 and
+    pen-v0-hand: phase 18's; relocate-v0 and cheetah: phase 10's;
+    walker2d, walker~walk and humanoid-standup: phase 22's): the split
+    layout bit for
     bit the lane kernel (rewards, qf, qdf) and the plain version within
     SPLIT's tolerance (bit identity reported); a NaN lane (NaN alone, both
     layouts' bits equal); the second frame, board, goal or start with the
@@ -2750,9 +2762,11 @@ def run(pool):
               f"{secs:.1f} s (in parallel with phases 1-16); ptxas: "
               f"{' | '.join(info['ptxas'])}", flush=True)
 
-    for name in SCENES:   # phase 18 launches the warp builds among them
+    for name in SCENES:   # phase 18 launches the warp and split builds
         if name in WARP:
             warp_builds[name].result()
+        if name in SPLIT:
+            split_builds[name].result()
 
     # ---- 18. those bodies: kernel vs plain ------------------------------------
     scene_errs, scene_max_abs = {}, {}
@@ -3081,14 +3095,16 @@ def run(pool):
                                "success": out["episode_success"],
                                "wall_s": out["episode_wall_s"],
                                "launches": out["episode_launches"]},
-                   "hammer-v0": scene_episodes["hammer-v0"][0],
                    "relocate-v0": episodes["relocate-v0"],
                    "cheetah": episodes["cheetah"],
+                   **{name: scene_episodes[name][0]
+                      for name in SPLIT if name in SCENES},
                    **{name: rest_episodes[name][0]
                       for name in SPLIT if name in REST}}
     # the phase that ran each env's seed-0 episode through its routed layout
-    routed_phase = {"door-v0": 4, "hammer-v0": 20, "relocate-v0": 12,
-                    "cheetah": 12, "walker2d": 24, "humanoid-standup": 24}
+    routed_phase = {name: 20 if name in SCENES else 24 if name in REST
+                    else 12 for name in SPLIT}
+    routed_phase["door-v0"] = 4
     for name, cfg in SPLIT.items():
         env = ENVS[name]()
         split_times[name] = time_split(name, env, dev)
@@ -3169,11 +3185,11 @@ def run(pool):
          **shapes((4096, 640), (4096, 640), mm_times["kernel_ms_4096x640"])}]
 
     def split_pair(env_name, stem, t, routed_launches):
-        """The lane and split entries of a body routed to the split layout:
-        its phase 12's or 24's episode through the routed layout
+        """The lane and split entries of a body with a split body: its
+        phase 12's, 20's or 24's episodes through the routed layout
         (``routed_launches``), phase 37's through the other; times from
-        phase 37's turns, the plain rollout and bound from ``t`` (phase 11's
-        or 23's)."""
+        phase 37's turns, the plain rollout and bound from ``t`` (phase
+        11's, 19's or 23's)."""
         n, h = SPLIT[env_name]["shape"]
         ran = {SPLIT[env_name]["routed"]: routed_launches,
                other_runs[env_name]["layout"]:
@@ -3214,13 +3230,17 @@ def run(pool):
              "library_ms": None,
              **shapes((n, h), (n, h), t[f"kernel_ms_N{n}_H{h}"])})
     for env_name, cfg in SCENES.items():
-        if env_name in WARP or env_name in SPLIT:
+        if env_name in WARP:
             continue
         n, h = cfg["shape"]
         t = scene_times[env_name]
+        stem = env_name.replace("-v0", "").replace("-", "_")
+        if env_name in SPLIT:
+            split_pair(env_name, stem, t, sum(
+                r["launches"] for r in scene_episodes[env_name]))
+            continue
         kernels.append(
-            {"name": f"{env_name.replace('-v0', '').replace('-', '_')}"
-                     "_rollout",
+            {"name": f"{stem}_rollout",
              "route": "cuda", "source": "ppi_tpu_torch/csrc/rollout.cu",
              "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
              "launches": sum(r["launches"] for r in scene_episodes[env_name]),
@@ -3314,27 +3334,6 @@ def run(pool):
                  "plain_ms": plain_ms, "bound_ms": t[f"bound_ms_N{n}_H{h}"],
                  "bound_by": t["bound_by"], "library_ms": None,
                  **shapes((n, h), (pn, ph), at_plain[layout])})
-    # hammer-v0's two layouts: the lane layout's launches are phase 20's,
-    # the split layout's phase 37's episode
-    t = split_times["hammer-v0"]
-    ham_launches = {"lane": sum(r["launches"]
-                                for r in scene_episodes["hammer-v0"]),
-                    "split": other_runs["hammer-v0"]["launches"]}
-    for layout, stem in (("lane", "hammer_rollout"),
-                         ("split", "hammer_split_rollout")):
-        kernels.append(
-            {"name": stem, "route": "cuda",
-             "source": f"ppi_tpu_torch/csrc/{SOURCES[layout]}",
-             "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
-             "launches": ham_launches[layout],
-             "max_abs_err": split_err["hammer-v0"][layout],
-             "ms": turns_mean(t, (64, 30), layout),
-             "plain_ms": scene_times["hammer-v0"]["plain_ms_N64_H30"],
-             "bound_ms": t["bound_ms_N64_H30"], "bound_by": t["bound_by"],
-             "library_ms": None,
-             **regs_spills(split_info["hammer-v0"][
-                 "ptxas" if layout == "split" else "lane_ptxas"]),
-             **shapes((64, 30), (64, 30), turns_mean(t, (64, 30), layout))})
     kernels.append(mesh_kernel)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 // contact physics, each rollout's program spread over the PPI_K warps of a
 // block, each warp carrying the block's 32 rollouts.
 //
-// Replaces, for door-v0, relocate-v0 and cheetah, the Pallas megakernel
+// Replaces, for door-v0, relocate-v0, cheetah, walker2d, walker~walk,
+// humanoid-standup and pen-v0-hand, the Pallas megakernel
 // ppi_tpu/envs/physics/pallas_rollout.py (make_pallas_rollout, pallas_call
 // at line 190; door-v0's body also runs under sharded_pallas_mpc_objective,
 // shard_map at line 322), as rollout.cu does with one rollout a thread for
@@ -27,7 +28,7 @@
 // 32 * blockIdx.x + l) and PPI_K warps (3 for door-v0 and cheetah, 4 for
 // relocate-v0). The generator (ppi_tpu_torch/envs/physics/split_layout.py)
 // list-schedules the lane layout's own emitted substep and reward into
-// PPI_K streams and phases, or (relocate-v0, cheetah) partitions the
+// PPI_K streams and phases, or (the routed bodies but door-v0) partitions the
 // substep by the body tree, one warp for each root chain and each subtree
 // hanging off it, so that only frames, the terms of the shared sums and
 // the accelerations cross warps (3 phases a substep for cheetah, 4 for

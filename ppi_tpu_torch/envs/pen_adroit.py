@@ -118,8 +118,10 @@ class PenAdroit(PenHand):
     name = "pen-v0-adroit"
     # one thread's dependent chain bounds the lane layout here: the
     # rollout kernel runs one rollout a warp (rollout_kernel.kernel_layout);
-    # pen-v0-hand, the parent, stays on the lane layout
+    # pen-v0-hand, the parent, takes the partitioned split layout, and its
+    # split body here stays list-scheduled
     scalar_kernel_layout = "warp"
+    scalar_split_partition = None
 
     _low, _high = _LOW, _HIGH
     # alternate MCP curls form a zigzag cradle under the rod (pen-v0-hand's

@@ -122,6 +122,13 @@ class PenHand:
     fixed_goal: bool = False  # True: pin the fixed target
 
     name = "pen-v0-hand"
+    # the rollout kernel's split layout, its substep partitioned by the
+    # body tree (split_layout.plan_partition): the pen's chain and each
+    # two-body digit on a warp of its own, the solve on the first digit's;
+    # faster than the lane layout on the card at the canonical N=96/H=15
+    # (PERF.md section 6, row 1b)
+    scalar_kernel_layout = "split"
+    scalar_split_partition = "subtree"
 
     _low, _high = _LOW, _HIGH
     # digits poised just clear of the rod (fingers slightly curled outward,

@@ -25,7 +25,8 @@ pen-v0-adroit, fetch-pick) plans and steps through it. The split layout
 layout's own substep and reward over the block's warps, one stream a warp,
 values crossing streams through shared memory between barriers
 (``split_layout``); an env with ``scalar_kernel_layout = "split"``
-(door-v0, relocate-v0, cheetah, walker2d, humanoid-standup) plans and
+(door-v0, relocate-v0, cheetah, walker2d, walker~walk, humanoid-standup,
+pen-v0-hand) plans and
 steps through it, and one with ``scalar_split_partition = "subtree"``
 (the same but door-v0) has its
 split body's substep partitioned by the body tree

@@ -39,8 +39,8 @@ decide whether a split pays. The search takes seconds in Python, so
 
 The subtree partition (``plan_partition``), for a body whose env opts in
 (``scalar_split_partition = "subtree"``: relocate-v0, cheetah,
-walker2d, humanoid-standup; a tree that is one chain has nothing to
-partition and is refused), places
+walker2d, walker~walk, humanoid-standup, pen-v0-hand; a tree that is one
+chain has nothing to partition and is refused), places
 the substep by the model's body tree instead: the scalar program records
 what each line computes for while it emits (``scalar_math.owner``: a
 body, a contact sphere or pair, a sum of the mass matrix or right-hand
@@ -685,9 +685,12 @@ def plan_partition(prog: Program, owners: dict, tree: Tree, base: int):
     ``subtree_groups`` (past ``MAX_STREAMS`` groups the lightest merged,
     ``_merge``), the search over the warp that runs the solve, the
     replication cap (``REPLICATE_CAPS``) and ``rhs_late`` (``_phases``)
-    keeping the plan the model prices lowest. Returns (plan, report).
-    Raises ``ValueError`` on a tree of fewer than two groups (a chain):
-    with nothing to put beside its one warp there is no partition."""
+    keeping the plan the model prices lowest. A choice that ``layout``
+    refuses is skipped; ``report["cost_by_choice"]`` holds its error's
+    text in place of a cost. Returns (plan, report). Raises
+    ``ValueError`` on a tree of fewer than two groups (a chain): with
+    nothing to put beside its one warp there is no partition; and where
+    no choice lays out."""
     found = subtree_groups(tree.parents)
     if len(found) < 2:
         raise ValueError(
@@ -709,12 +712,32 @@ def plan_partition(prog: Program, owners: dict, tree: Tree, base: int):
                 sched = _phases(prog2, warp2, kind2, solve, rhs_late)
                 if sched.phases < 2:   # all on one warp: the lane layout
                     continue
-                lay = layout(prog2, sched, base, True)
-                costs[f"solve{solve}_cap{cap}_rhs{int(rhs_late)}"] = lay.cost
+                key = f"solve{solve}_cap{cap}_rhs{int(rhs_late)}"
+                # Where the solve's warp copies every value it would read
+                # from another warp (each weighs at most the cap: at 256,
+                # a small second tree such as hammer-v0's nail, whose mass
+                # block is its own), the whole substep runs on that warp
+                # in phase 0, which stores the tree root's new q. The
+                # originals of the copies are left with no reader, so
+                # ``_phases`` puts them in the last phase, where they would
+                # read that q's slot after its overwrite. ``layout``
+                # refuses the read; the choice is the lane program on one
+                # warp with dead ops beside it, and is skipped.
+                try:
+                    lay = layout(prog2, sched, base, True)
+                except ValueError as err:
+                    costs[key] = str(err)
+                    continue
+                costs[key] = lay.cost
                 if best is None or lay.cost < best[0].lay.cost:
                     best = (Plan(prog2, sched, lay),
                             dict(solve_warp=solve, replicate_cap=cap,
                                  rhs_late=rhs_late, copies=copies))
+    if best is None:
+        raise ValueError(
+            f"no choice of the subtree partition lays out: all "
+            f"{len(costs)} choices failed, the first with: "
+            f"{next(iter(costs.values()), 'no choice has two phases')}")
     plan_, report = best
     outs = set(plan_.prog.outputs)
     crossing = {x for st in plan_.lay.stores.values() for slot, x in st

@@ -98,7 +98,8 @@ class Walker:
     # the rollout kernel's split layout, its substep partitioned by the
     # body tree (split_layout.plan_partition): the torso's chain and each
     # leg on a warp of its own; faster than the lane and warp layouts on
-    # the card at the canonical N=256/H=30 (PERF.md section 6, row 1b)
+    # the card at the canonical N=256/H=30, and walker~walk, which inherits
+    # it, than the lane layout at its N=128/H=25 (PERF.md section 6, row 1b)
     scalar_kernel_layout = "split"
     scalar_split_partition = "subtree"
 
@@ -187,10 +188,6 @@ class WalkerWalk(Walker):
     stand_height: float = 1.0
 
     name = "walker~walk"
-    # walker2d's substep under its own reward and shape (N=128/H=25): the
-    # lane layout until the split layout is measured for it (ROADMAP queue 2)
-    scalar_kernel_layout = "lane"
-    scalar_split_partition = None
 
     def scalar_reward(self, m, q, qd, act):
         # dm_control's shaping has no control cost: ``act`` keeps the

@@ -3,7 +3,8 @@
     python -m ppi_tpu_torch.studies.split_layout [ENV ...]
 
 For each env (door-v0 and hammer-v0 unless named; relocate-v0, cheetah,
-walker2d and humanoid-standup take the subtree partition,
+walker2d, walker~walk, humanoid-standup and pen-v0-hand take the subtree
+partition,
 ``scalar_split_partition``), in one process
 on the card: first the host seconds to generate its bodies (the lane
 header; the split generator's search; the split header through an empty
@@ -23,7 +24,9 @@ split layout against the lane layout bit for bit at N=257 (ragged), H=3
 with a NaN lane; CUDA-event times in turns (lane, warp, split, split,
 warp, lane) at the env's canonical shape (``SHAPES``: N=64/H=30 for
 door-v0 and hammer-v0, N=256/H=20 for relocate-v0, N=256/H=30 for
-cheetah, walker2d and humanoid-standup), and for door-v0 and hammer-v0 lane, split, split, lane at
+cheetah, walker2d and humanoid-standup, N=128/H=25 for walker~walk,
+N=96/H=15 for pen-v0-hand), and for door-v0 and hammer-v0 lane, split,
+split, lane at
 N=1024/H=160, at N=4096/H=160 (a 4-rank shard of N=16384) and at
 N=16384/H=160; the other split builds at the canonical shape; the real
 step (N=1, H=1, host clock over 20 launches) in all three layouts; the
@@ -60,7 +63,8 @@ _DOOR_SHAPES = ((64, 30), (1024, 160), (4096, 160), (16384, 160))
 # each env's shapes, its canonical one (where its episodes run) first
 SHAPES = {"door-v0": _DOOR_SHAPES, "hammer-v0": _DOOR_SHAPES,
           "relocate-v0": ((256, 20),), "cheetah": ((256, 30),),
-          "walker2d": ((256, 30),), "humanoid-standup": ((256, 30),)}
+          "walker2d": ((256, 30),), "humanoid-standup": ((256, 30),),
+          "pen-v0-hand": ((96, 15),), "walker~walk": ((128, 25),)}
 FORCED = (2, 3, 4)
 PHASE_CLOCKS = "\n#define PPI_PHASE_CLOCKS 1\n"
 # the canonical door-v0 episode (make mpc-lbps), timed in turns

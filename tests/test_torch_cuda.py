@@ -678,33 +678,40 @@ LOCOMOTION_SCALE = 0.75
 
 
 @pytest.mark.parametrize("name", ["relocate-v0", "cheetah", "walker2d",
-                                  "humanoid-standup"])
+                                  "walker~walk", "humanoid-standup",
+                                  "pen-v0-hand"])
 def test_partitioned_split_layout_equals_lane_layout(name):
-    """relocate-v0, cheetah, walker2d and humanoid-standup route to the
-    split layout, their substep partitioned by the body tree: at N=257
-    (ragged), H=5, from a sampled goal or start, with a NaN lane, one
-    launch counted under ``rk.launch_key(env)`` (``rollout_split``);
-    rewards and final state bit for bit the lane
-    layout's (the NaN lane's too) and within 1e-4 of the plain version
-    (cheetah's control cost divides by 5,400: one ulp off plain on the
-    card); the NaN lane's rewards NaN and every other lane's finite; the
-    real step one split launch, bit for bit the lane layout's step."""
+    """relocate-v0, cheetah, walker2d, walker~walk, humanoid-standup and
+    pen-v0-hand route to the split layout, their substep partitioned by
+    the body tree: at N=257 (ragged), H=5, from a sampled goal or start
+    (pen-v0-hand: its PD targets about the digits' posture, as the scene
+    tests'), with a NaN lane, one launch counted under
+    ``rk.launch_key(env)`` (``rollout_split``); rewards and final state
+    bit for bit the lane layout's (the NaN lane's too) and within 1e-4 of
+    the plain version (cheetah's control cost divides by 5,400: one ulp
+    off plain on the card); the NaN lane's rewards NaN and every other
+    lane's finite; the real step one split launch, bit for bit the lane
+    layout's step."""
     dev = _device()
     env = _variant_b_env(name)
     assert rk.kernel_layout(env) == "split"
     assert rk.split_partition(env) == "subtree"
     key = rk.launch_key(env)
     assert key == "rollout_split"
-    s0 = env.reset(torch.Generator(dev).manual_seed(1), dev)
     n, h = 257, 5
-    rng = np.random.default_rng(2)
-    scale = (ACTION_SCALE[name] if name in ACTION_SCALE
-             else LOCOMOTION_SCALE * env.max_torque)
-    acts = torch.from_numpy((scale * rng.standard_normal(
-        (n, h, env.action_dim))).astype(np.float32)).to(dev)
-    q0 = s0.physics.qpos.expand(n, -1).clone()
+    if name in SCENE_ENVS:
+        s0, q0, qd0, acts = _scene_lanes(env, dev, n, h, SCENE_ENVS[name])
+        q0 = q0.clone()
+    else:
+        s0 = env.reset(torch.Generator(dev).manual_seed(1), dev)
+        rng = np.random.default_rng(2)
+        scale = (ACTION_SCALE[name] if name in ACTION_SCALE
+                 else LOCOMOTION_SCALE * env.max_torque)
+        acts = torch.from_numpy((scale * rng.standard_normal(
+            (n, h, env.action_dim))).astype(np.float32)).to(dev)
+        q0 = s0.physics.qpos.expand(n, -1).clone()
+        qd0 = s0.physics.qvel.expand(n, -1).contiguous()
     q0[100] = torch.nan
-    qd0 = s0.physics.qvel.expand(n, -1).contiguous()
     consts, _, _ = rk.kernel_operands(env, s0)
     before = rk.LAUNCHES[key]
     split = rk.env_rollout(env, s0, h)(q0, qd0, acts, consts=consts)

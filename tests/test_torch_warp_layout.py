@@ -45,7 +45,7 @@ ROUTED_WARP_ENVS = WARP_ENVS + ("pen-v0-adroit", "fetch-pick")
 # the envs that plan and step through the split layout
 # (tests/test_torch_split_layout.py, tests/test_torch_split_subtree.py)
 ROUTED_SPLIT_ENVS = ("door-v0", "relocate-v0", "cheetah", "walker2d",
-                     "humanoid-standup")
+                     "walker~walk", "humanoid-standup", "pen-v0-hand")
 N, H = 5, 2
 
 # sha256 of the warp headers as first generated: a change to the
@@ -394,9 +394,9 @@ def test_the_six_warp_envs_and_only_they_build_the_warp_layout(monkeypatch):
     relocate-v0-adroit, door-v0-hand, hammer-v0-hand, relocate-v0-hand,
     pen-v0-adroit and fetch-pick), the split skeleton for the split envs
     (door-v0, tests/test_torch_split_layout.py; relocate-v0, cheetah,
-    walker2d and humanoid-standup, tests/test_torch_split_subtree.py) and
-    the lane skeleton for every other env of the runner, pen-v0-hand,
-    hammer-v0 and walker~walk included."""
+    walker2d, walker~walk, humanoid-standup and pen-v0-hand,
+    tests/test_torch_split_subtree.py) and the lane skeleton for every
+    other env of the runner, hammer-v0 included."""
     built = {}
     monkeypatch.setattr(rk, "_env_header", lambda *a: "lane")
     monkeypatch.setattr(rk, "_warp_header", lambda *a: "warp")
