@@ -127,7 +127,9 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 summary. fetch-pick plans and steps through the warp
                 layout (phase 32's build), walker2d, walker~walk and
                 humanoid-standup through the split layout partitioned by
-                the body tree (phase 35's builds) in phases 22-24;
+                the body tree, fetch-push and hopper through it with their
+                heaviest chain of bodies cut into segments (phase 35's
+                builds) in phases 22-24;
  22. check   -- each of those bodies against its plain version on the card
                 at N=1000 (ragged), H=20: rewards and final state
                 bit-identical or within TOL, from lanes in contact (the
@@ -255,11 +257,13 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 the block's warps) of door-v0, which plans and steps
                 through it (phases 2-31 run it), of hammer-v0, which
                 keeps the lane layout, and of pen-v0-hand, relocate-v0,
-                cheetah, walker2d, walker~walk and humanoid-standup, whose
-                substep is partitioned by the body tree and which plan and
-                step through it (phases 10-12 run relocate-v0 and
-                cheetah, phases 18-20 pen-v0-hand, phases 22-24 the
-                others); generated and built with nvcc in phase 1
+                cheetah, walker2d, walker~walk, humanoid-standup,
+                fetch-push and hopper, whose substep is partitioned by the
+                body tree (fetch-push's and hopper's with their heaviest
+                chain cut into segments) and which plan and step through
+                it (phases 10-12 run relocate-v0 and cheetah, phases 18-20
+                pen-v0-hand, phases 22-24 the others); generated and
+                built with nvcc in phase 1
                 (door-v0's before phase 2, relocate-v0's and cheetah's
                 before phase 10, pen-v0-hand's before phase 18, the
                 others' before phase 22, with their warp bodies for phase
@@ -269,8 +273,8 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 lane layout's;
  36. check   -- on phase 2's (door-v0), phase 18's (hammer-v0), phase
                 10's (relocate-v0, cheetah), phase 18's (pen-v0-hand) and
-                phase 22's (walker2d, walker~walk, humanoid-standup) lanes,
-                N=1000, H=20: the split
+                phase 22's (walker2d, walker~walk, humanoid-standup,
+                fetch-push, hopper) lanes, N=1000, H=20: the split
                 layout bit for bit the lane kernel and within TOL
                 (SCENE_TOL) of the plain version; a NaN lane; the second
                 frame, board, goal or start with the mask, both layouts'
@@ -281,19 +285,20 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
  37. timings -- CUDA events in turns (lane, split, split, lane) at
                 N=64/H=30 (door-v0, hammer-v0), and (lane, warp, split,
                 split, warp, lane) at N=256/H=20 (relocate-v0),
-                N=256/H=30 (cheetah, walker2d, humanoid-standup),
-                N=96/H=15 (pen-v0-hand) and N=128/H=25 (walker~walk), and
-                for
+                N=256/H=30 (cheetah, walker2d, humanoid-standup, hopper),
+                N=96/H=15 (pen-v0-hand), N=128/H=25 (walker~walk) and
+                N=256/H=20 (fetch-push), and for
                 door-v0 at N=1024/H=160 (phase 3's north star),
                 N=4096/H=160 (phase 30's shard) and N=16384/H=160; the real step and a synced PPI
                 iteration in the lane and split layouts; the split
                 kernel's blocks an SM; then phase 4's door-v0 episode,
                 phase 12's relocate-v0 and cheetah episodes, phase 20's
-                pen-v0-hand episode and phase 24's walker2d, walker~walk
-                and humanoid-standup episodes once more through the lane
-                layout and phase 20's seed-0 hammer-v0 episode once more
-                through the split layout: exactly 800, 330, 350, 350, 350,
-                350, 350, 350 and 550 launches of it, the returns equal.
+                pen-v0-hand episode and phase 24's walker2d, walker~walk,
+                humanoid-standup, fetch-push and hopper (seed 0) episodes
+                once more through the lane layout and phase 20's seed-0
+                hammer-v0 episode once more through the split layout:
+                exactly 800, 330, 350, 350, 350, 350, 350, 350, 290, 350
+                and 550 launches of it, the returns equal.
 Then one JSON line with the kernels' numbers (each entry with the (N, H)
 of its ms and bound_ms, of its plain_ms, and the kernel's time at the
 latter; the rollout bodies of phase 35 with their registers and spills)
@@ -580,10 +585,12 @@ SOURCES = {"lane": "rollout.cu", "warp": "rollout_warp.cu",
            "split": "rollout_split.cu"}
 
 # phases 35-37: the split layout (csrc/rollout_split.cu) of door-v0,
-# hammer-v0, pen-v0-hand, relocate-v0, cheetah, walker2d, walker~walk and
-# humanoid-standup: each rollout's substep and reward spread over the warps
-# of a block (all but door-v0 and hammer-v0 partitioned by the body tree,
-# ``scalar_split_partition``). Per env:
+# hammer-v0, pen-v0-hand, relocate-v0, cheetah, walker2d, walker~walk,
+# humanoid-standup, fetch-push and hopper: each rollout's substep and
+# reward spread over the warps of a block (all but door-v0 and hammer-v0
+# partitioned by the body tree, fetch-push's and hopper's with their
+# heaviest chain of bodies cut into segments, ``scalar_split_partition``).
+# Per env:
 # the layout it is routed to, the canonical shape, the larger shapes it is
 # timed at in turns with the lane layout (door-v0's body also runs phase
 # 3's north star and phase 30's 4096-lane shard), whether the warp layout
@@ -607,7 +614,8 @@ SPLIT = {"door-v0": dict(routed="split", shape=(64, 30),
          **{name: dict(routed="split", shape=REST[name]["shape"], big=(),
                        warp=True, tol=TOL, episode=REST[name]["episode"],
                        launches=rest_launches(name))
-            for name in ("walker2d", "walker~walk", "humanoid-standup")}}
+            for name in ("walker2d", "walker~walk", "humanoid-standup",
+                         "fetch-push", "hopper")}}
 
 # phases 29-31: the sharded entry. The check's NaN lane lies in rank 2's
 # shard (lanes 500-749 of N_CHECK); the timing runs the configuration of
@@ -2141,7 +2149,8 @@ def check_split(name, env, dev, c):
     """Phase 36 for one env on a phase's lanes and plain results ``c``
     (door-v0: phase 2's, N=1000, H=20, the nominal frame; hammer-v0 and
     pen-v0-hand: phase 18's; relocate-v0 and cheetah: phase 10's;
-    walker2d, walker~walk and humanoid-standup: phase 22's): the split
+    walker2d, walker~walk, humanoid-standup, fetch-push and hopper: phase
+    22's): the split
     layout bit for
     bit the lane kernel (rewards, qf, qdf) and the plain version within
     SPLIT's tolerance (bit identity reported); a NaN lane (NaN alone, both

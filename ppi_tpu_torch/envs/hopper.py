@@ -106,6 +106,14 @@ class Hopper:
 
     # the control cost takes the step's action
     scalar_reward_takes_action = True
+    # the rollout kernel's split layout, its substep partitioned by the
+    # body tree with its one chain cut into segments
+    # (split_layout.plan_partition, "chain"): the root's two slides, the
+    # torso and thigh, the leg, and the foot each on a warp of its own, the
+    # solve on the first; timed against the lane layout on the card at
+    # the canonical N=256/H=30 (PERF.md section 6, row 1b)
+    scalar_kernel_layout = "split"
+    scalar_split_partition = "chain"
 
     def __post_init__(self):
         model = _build_model()

@@ -26,11 +26,13 @@ layout's own substep and reward over the block's warps, one stream a warp,
 values crossing streams through shared memory between barriers
 (``split_layout``); an env with ``scalar_kernel_layout = "split"``
 (door-v0, relocate-v0, cheetah, walker2d, walker~walk, humanoid-standup,
-pen-v0-hand) plans and
+pen-v0-hand, fetch-push, hopper) plans and
 steps through it, and one with ``scalar_split_partition = "subtree"``
-(the same but door-v0) has its
+(the same but door-v0, fetch-push and hopper) has its
 split body's substep partitioned by the body tree
-(``split_layout.plan_partition``). All three give the same
+(``split_layout.plan_partition``), one with ``"chain"`` (fetch-push,
+hopper) partitioned with its heaviest chain of bodies cut into segments
+over the free warps. All three give the same
 values bit for bit; every body of the runner has a lane and a warp body,
 and every one whose split plan fits a block's shared memory a split body.
 
@@ -142,7 +144,9 @@ def generate_split(model, dt: float, substeps: int, action_dim: int,
     the reward scheduled over the warps of a group by ``split_layout``:
     list-scheduled (``streams`` forces their number, for a study), or with
     ``partition="subtree"`` the substep partitioned by the model's body
-    tree (``split_layout.plan_partition``). The report is
+    tree (``split_layout.plan_partition``), with ``partition="chain"``
+    partitioned with its heaviest chain of bodies cut into segments. The
+    report is
     ``split_layout.plan_body``'s: the streams, phases, slots and carry
     registers chosen, the model's cost a step for each number of streams,
     the substep's and the reward's plans and the partition's report.
@@ -184,9 +188,9 @@ def _generate_body(model, dt, substeps, action_dim, torque_fn, reward_fn,
     """``_generate``'s (text, ops) and, with ``report``, the split layout's
     report (else None; without it the split body comes through
     ``SPLIT_CACHE``); ``partition`` as ``generate_split``'s."""
-    if partition not in (None, "subtree"):
-        raise ValueError(f"partition must be None or 'subtree', not "
-                         f"{partition!r}")
+    if partition not in (None, "subtree", "chain"):
+        raise ValueError(f"partition must be None, 'subtree' or 'chain', "
+                         f"not {partition!r}")
     m = SoaModel(model)
     nq, h = m.nq, dt / substeps
 
@@ -242,12 +246,12 @@ def _generate_body(model, dt, substeps, action_dim, torque_fn, reward_fn,
         if report:
             info = split_layout.plan_body(em_sub, q2, qd2, em, r, nq,
                                           substeps, ops["torque"], streams,
-                                          tree)
+                                          tree, partition)
             split_defines, reward = split_layout.emit_body(info)
         else:
             split_defines, reward = split_layout.cached_body(
                 SPLIT_CACHE, em_sub, q2, qd2, em, r, nq, substeps,
-                ops["torque"], tree)
+                ops["torque"], tree, partition)
         warp_defines = warp_defines + split_defines
     else:
         em.lines.append(f"  return {sm._operand(r)};")
@@ -418,7 +422,8 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
     block), "warp" ``csrc/rollout_warp.cu`` (one rollout a warp,
     ``warps`` of them a block), "split" ``csrc/rollout_split.cu`` (32
     rollouts a block, each spread over its warps: list-scheduled, or with
-    ``split_partition="subtree"`` partitioned by the body tree); all
+    ``split_partition="subtree"`` partitioned by the body tree, with
+    ``"chain"`` so and its heaviest chain cut into segments); all
     compute the same values bit for bit.
     ``horizon`` is only checked: the kernel takes it at run time, so one
     build serves every H. With ``n_consts`` the run takes the (n_consts,)
@@ -559,7 +564,8 @@ def kernel_layout(env) -> str:
 def split_partition(env):
     """How ``env``'s split body is planned: its ``scalar_split_partition``
     ("subtree": partitioned by the body tree, ``split_layout.
-    plan_partition``), else None (list-scheduled)."""
+    plan_partition``; "chain": so, with the heaviest chain of bodies cut
+    into segments), else None (list-scheduled)."""
     return getattr(env, "scalar_split_partition", None)
 
 

@@ -40,7 +40,7 @@ decide whether a split pays. The search takes seconds in Python, so
 The subtree partition (``plan_partition``), for a body whose env opts in
 (``scalar_split_partition = "subtree"``: relocate-v0, cheetah,
 walker2d, walker~walk, humanoid-standup, pen-v0-hand; a tree that is one
-chain has nothing to partition and is refused), places
+chain has nothing to partition in this mode and is refused), places
 the substep by the model's body tree instead: the scalar program records
 what each line computes for while it emits (``scalar_math.owner``: a
 body, a contact sphere or pair, a sum of the mass matrix or right-hand
@@ -57,6 +57,16 @@ into partial sums. Phases follow from the dependences that cross warps
 (``_phases``); the search over the solve's warp and the replication keeps
 the plan the model prices lowest.
 
+The chain cut (``plan_partition``'s "chain" mode, for an env with
+``scalar_split_partition = "chain"``: fetch-push, hopper) serves a tree
+whose work sits on one chain of bodies, which the subtree partition keeps
+on one warp (fetch-push's arm) or refuses (hopper's tree is one chain):
+the heaviest group that is a chain is cut into contiguous segments over
+the warps the groups leave free (``chain_cuts``), each segment a warp, the
+frames at a segment's top copied or sent from the warp above as a
+subtree's are; the search runs over every cut too, and skips a choice
+whose lower bound cannot beat the best plan found so far.
+
 Each stream's share of a phase is one generated function; the device runs
 stream w on warp w inside a warp-uniform ``if``/``else`` chain with
 ``PPI_BARRIER`` between phases, and the host-C build runs the phases in
@@ -69,6 +79,7 @@ the split kernel gives the lane kernel's bits.
 import dataclasses
 import hashlib
 import heapq
+import itertools
 import json
 import os
 import re
@@ -481,7 +492,7 @@ def plan(prog: Program, k: int, base: int, final_barrier: bool,
 
 # ---- the subtree partition ---------------------------------------------------
 
-# the caps tried for ``_replicate``: the most the ops another warp would
+# the caps tried for ``_copies``: the most the ops another warp would
 # send a value from may weigh for the reading warp to compute them itself
 # (past a few hundred the solve's warp copies every term it sums)
 REPLICATE_CAPS = (0, 64, 256)
@@ -584,12 +595,10 @@ def _assign(prog, owners, tree, groups, solve):
     return warp, kind
 
 
-def _replicate(prog, warp, kind, cap):
-    """``prog`` with the values a warp reads from another computed on it
-    again where the other warp's ops they need weigh at most ``cap``: each
-    such op gets a copy on the reading warp (its name with ``_w`` and the
-    warp's number), the same expression on the copies of its operands, so
-    the same bits. Returns (program, warp, kind, copies)."""
+def _copies(prog, warp, cap) -> list:
+    """For each warp, the ops of other warps that it computes again: those
+    that a value it reads from another warp needs, where they weigh at
+    most ``cap``."""
     n = len(prog.names)
     copies = [set() for _ in range(max(warp) + 1)]
     for v in range(n):
@@ -610,89 +619,182 @@ def _replicate(prog, warp, kind, cap):
                 stack.extend(prog.preds[x])
             if weight <= cap:
                 copies[h] |= need
-    rows, warp2, kind2 = [], [], []
+    return copies
+
+
+def _replicate(prog, warp, kind, copies):
+    """``prog`` with each op of ``copies[h]`` (``_copies``) computed again
+    on warp h: a copy of the op (its name with ``_w`` and the warp's
+    number), the same expression on the copies of its operands, so the
+    same bits. Returns (program, warp, kind)."""
+    if not any(copies):
+        return prog, warp, kind
+    n = len(prog.names)
+    index = {name: v for v, name in enumerate(prog.names)}
 
     def renamed(expr, h):
         return _NAME.sub(lambda m: (f"{m.group(1)}_w{h}"
                                     if index.get(m.group(1)) in copies[h]
                                     else m.group(1)), expr)
 
-    index = {name: v for v, name in enumerate(prog.names)}
+    # the new program's rows, (op, warp) each: an op, then its copies; a
+    # copy weighs and reads what its original does, its operands the
+    # copies on its warp where there are some (so each row's operands stay
+    # in ascending order)
+    rows, at, copy_at = [], [0] * n, [{} for _ in copies]
+    names, exprs, preds = [], [], []
     for v in range(n):
-        name, expr = prog.names[v], prog.exprs[v]
-        rows.append((name, expr if prog.literal[v] else renamed(expr,
-                                                                warp[v])))
-        warp2.append(warp[v])
-        kind2.append(kind[v])
-        for h in range(len(copies)):
-            if v in copies[h]:
-                rows.append((f"{name}_w{h}", renamed(expr, h)))
-                warp2.append(h)
-                kind2.append(kind[v])
-    return (_program(rows, prog.inputs, prog.input_slot, prog.outputs),
-            warp2, kind2, sum(len(c) for c in copies))
+        for h in [warp[v]] + [h for h, c in enumerate(copies) if v in c]:
+            here = copy_at[h]
+            if h == warp[v]:
+                at[v] = len(rows)
+                names.append(prog.names[v])
+            else:
+                here[v] = len(rows)
+                names.append(f"{prog.names[v]}_w{h}")
+            rows.append((v, h))
+            ps = prog.preds[v]
+            preds.append([here.get(u, at[u]) for u in ps])
+            exprs.append(renamed(prog.exprs[v], h)
+                         if any(u in here for u in ps) else prog.exprs[v])
+    ops = [v for v, _ in rows]
+    out = Program(prog.inputs, prog.input_slot, names, exprs,
+                  [prog.weights[v] for v in ops], preds,
+                  [prog.reads[v] for v in ops],
+                  [prog.literal[v] for v in ops], prog.outputs)
+    return out, [h for _, h in rows], [kind[v] for v in ops]
 
 
-def _phases(prog, warp, kind, solve, rhs_late) -> Schedule:
-    """The phases of ``prog`` on fixed warps: warp ``solve``'s ops as early
-    as their operands allow (a value of another warp one phase after its
-    producer's), with ``rhs_late`` its right-hand-side sums that read
-    another warp's terms no earlier than the phase after its mass-matrix
-    sums, so that the solve's elimination of the matrix runs while the
-    other warps compute those terms; then its sums and every other warp's
-    ops as late as their readers allow (a sum adds one term an op: late,
-    it lets the warps that send its terms send them late)."""
+def _phases(prog, warp, kind, solve) -> tuple:
+    """The phases of ``prog`` on fixed warps, without and with
+    ``rhs_late``: warp ``solve``'s ops as early as their operands allow (a
+    value of another warp one phase after its producer's), with
+    ``rhs_late`` its right-hand-side sums that read another warp's terms
+    no earlier than the phase after its mass-matrix sums, so that the
+    solve's elimination of the matrix runs while the other warps compute
+    those terms; then its sums and every other warp's ops as late as
+    their readers allow (a sum adds one term an op: late, it lets the
+    warps that send its terms send them late). Returns the two
+    ``Schedule``s."""
     n = len(prog.names)
     ops = [v for v in range(n) if not prog.literal[v]]
-    preds = [[u for u in prog.preds[v] if not prog.literal[u]]
-             for v in range(n)]
+    # each op's operands and readers that are ops, with whether the value
+    # crosses warps
+    preds = [()] * n
+    succs = [[] for _ in range(n)]
+    literal = prog.literal
+    for v in ops:
+        here = warp[v]
+        preds[v] = edges = [(u, warp[u] != here) for u in prog.preds[v]
+                            if not literal[u]]
+        for u, cross in edges:
+            succs[u].append((v, cross))
+    late = [v for v in reversed(ops) if warp[v] != solve
+            or kind[v] is not None]
 
     def earliest(release):
         at = [0] * n
         for v in ops:
-            at[v] = max([release.get(v, 0)]
-                        + [at[u] + (warp[u] != warp[v]) for u in preds[v]])
+            t = release.get(v, 0)
+            for u, cross in preds[v]:
+                if at[u] + cross > t:
+                    t = at[u] + cross
+            at[v] = t
         return at
 
+    def schedule_(at):
+        last = max(at[v] for v in ops)
+        for v in late:
+            t = last
+            for u, cross in succs[v]:
+                if at[u] - cross < t:
+                    t = at[u] - cross
+            at[v] = t
+        used = sorted({at[v] for v in ops})
+        renumber = {p: i for i, p in enumerate(used)}
+        stream, phase, order = [-1] * n, [-1] * n, {}
+        for v in ops:
+            stream[v], phase[v] = warp[v], renumber[at[v]]
+            order.setdefault((phase[v], stream[v]), []).append(v)
+        return Schedule(max(warp) + 1, len(used), stream, phase, order)
+
     at = earliest({})
-    if rhs_late:
-        mass = [at[v] for v in ops if warp[v] == solve and kind[v] == "mass"]
-        first = max(mass, default=0) + 1
-        at = earliest({v: first for v in ops
-                       if warp[v] == solve and kind[v] == "sum"
-                       and any(warp[u] != solve for u in preds[v])})
-    last = max(at[v] for v in ops)
-    succs = [[] for _ in range(n)]
-    for v in ops:
-        for u in preds[v]:
-            succs[u].append(v)
-    for v in reversed(ops):
-        if warp[v] != solve or kind[v] is not None:
-            at[v] = min([last] + [at[u] - (warp[u] != warp[v])
-                                  for u in succs[v]])
-    used = sorted({at[v] for v in ops})
-    renumber = {p: i for i, p in enumerate(used)}
-    stream, phase, order = [-1] * n, [-1] * n, {}
-    for v in ops:
-        stream[v], phase[v] = warp[v], renumber[at[v]]
-        order.setdefault((phase[v], stream[v]), []).append(v)
-    return Schedule(max(warp) + 1, len(used), stream, phase, order)
+    mass = [at[v] for v in ops if warp[v] == solve and kind[v] == "mass"]
+    first = max(mass, default=0) + 1
+    release = {v: first for v in ops if warp[v] == solve and kind[v] == "sum"
+               and any(cross for _, cross in preds[v])}
+    return schedule_(list(at)), schedule_(earliest(release))
 
 
-def plan_partition(prog: Program, owners: dict, tree: Tree, base: int):
-    """The subtree partition of the substep ``prog`` (its ops' owner tags
-    ``owners``, ``scalar_math.Emitter.owners``): one warp a group of
-    ``subtree_groups`` (past ``MAX_STREAMS`` groups the lightest merged,
-    ``_merge``), the search over the warp that runs the solve, the
-    replication cap (``REPLICATE_CAPS``) and ``rhs_late`` (``_phases``)
-    keeping the plan the model prices lowest. A choice that ``layout``
+def chain_cuts(groups, weight, parents) -> list:
+    """The groupings of the ``"chain"`` partition: ``groups`` with the
+    heaviest of them (by its bodies' ``weight``) that is a chain of two
+    bodies or more (each the parent of the next) cut into contiguous
+    segments, every cut from one segment up to the warps ``MAX_STREAMS``
+    leaves free, each grouping sorted; ``groups`` alone where no group is
+    such a chain."""
+    chains = [g for g in groups if len(g) > 1
+              and all(parents[b] == a for a, b in zip(g, g[1:]))]
+    if not chains:
+        return [groups]
+    chain = max(chains, key=lambda g: (sum(weight[b] for b in g), g))
+    rest = [g for g in groups if g is not chain]
+    out = []
+    for segs in range(1, min(len(chain), MAX_STREAMS - len(rest)) + 1):
+        for cut in itertools.combinations(range(1, len(chain)), segs - 1):
+            ends = (0, *cut, len(chain))
+            out.append(sorted(rest + [chain[a:b] for a, b in
+                                      zip(ends, ends[1:])]))
+    return out
+
+
+def _warp_bound(prog, warp, copies) -> int:
+    """The least cost ``layout`` can give ``prog`` on ``warp`` with
+    ``copies`` (``_copies``), before its phases are known: the largest
+    warp's weight, its copies' included, and the two barriers of the
+    fewest phases that split a substep."""
+    per = [0] * (max(warp) + 1)
+    for v, w in enumerate(warp):
+        per[w] += prog.weights[v]
+    for w, ops in enumerate(copies):
+        per[w] += sum(prog.weights[v] for v in ops)
+    return max(per) + 2 * BARRIER
+
+
+def _phase_bound(prog, sched: Schedule) -> int:
+    """The least cost ``layout`` can give ``sched``: each phase's largest
+    warp's weight and a barrier a phase (the exchanges left out)."""
+    work = [[0] * sched.k for _ in range(sched.phases)]
+    for v, s in enumerate(sched.stream):
+        if s >= 0:
+            work[sched.phase[v]][s] += prog.weights[v]
+    return sum(max(row) for row in work) + BARRIER * sched.phases
+
+
+def plan_partition(prog: Program, owners: dict, tree: Tree, base: int,
+                   mode: str = "subtree", prune=None):
+    """The partition of the substep ``prog`` by the body tree (its ops'
+    owner tags ``owners``, ``scalar_math.Emitter.owners``): one warp a
+    group of ``subtree_groups`` (past ``MAX_STREAMS`` groups the lightest
+    merged, ``_merge``); in ``mode`` "chain" each grouping of
+    ``chain_cuts`` in turn, the heaviest chain of bodies cut into segments
+    over the free warps. For each grouping, the search over the warp that
+    runs the solve, the replication cap (``REPLICATE_CAPS``) and
+    ``rhs_late`` (``_phases``) keeps the plan the model prices lowest (of
+    equal costs, the first in that order). A choice that ``layout``
     refuses is skipped; ``report["cost_by_choice"]`` holds its error's
-    text in place of a cost. Returns (plan, report). Raises
-    ``ValueError`` on a tree of fewer than two groups (a chain): with
-    nothing to put beside its one warp there is no partition; and where
-    no choice lays out."""
+    text in place of a cost (its key names the grouping first in "chain"
+    mode). ``prune`` (by default where more than one grouping is
+    searched) skips a choice whose lower bound (``_warp_bound``,
+    ``_phase_bound``) cannot beat the best plan found so far, and records
+    the bound in its place; the plan kept is the same. Returns (plan,
+    report). Raises ``ValueError`` in "subtree" mode on a tree of fewer
+    than two groups (a chain): with nothing to put beside its one warp
+    there is no partition; and where no choice lays out."""
+    if mode not in ("subtree", "chain"):
+        raise ValueError(f"mode must be 'subtree' or 'chain', not {mode!r}")
     found = subtree_groups(tree.parents)
-    if len(found) < 2:
+    if mode == "subtree" and len(found) < 2:
         raise ValueError(
             f"the subtree partition needs a fork in the body tree: this "
             f"tree gives {len(found)} group (a chain), which would put "
@@ -703,16 +805,52 @@ def plan_partition(prog: Program, owners: dict, tree: Tree, base: int):
         if tag[0] == "body":
             weight[tag[1]] += prog.weights[v]
     groups = _merge(found, weight)
+    groupings = (chain_cuts(groups, weight, tree.parents)
+                 if mode == "chain" else [groups])
+    if prune is None:
+        prune = len(groupings) > 1
+    # every (grouping, solve) in the enumeration's order, with the rank
+    # of its first choice there; pruned, the cheapest bound first
+    tasks = []
+    for gi, grouping in enumerate(groupings):
+        name = ("|".join(",".join(map(str, g)) for g in grouping) + "_"
+                if mode == "chain" else "")
+        for solve in range(len(grouping)):
+            warp, kind = _assign(prog, owners, tree, grouping, solve)
+            tasks.append((_warp_bound(prog, warp, ()) if prune else 0,
+                          (gi, solve), name, grouping, solve, warp, kind))
+    if prune:
+        tasks.sort(key=lambda t: t[:2])
     best, costs = None, {}
-    for solve in range(len(groups)):
-        warp, kind = _assign(prog, owners, tree, groups, solve)
-        for cap in REPLICATE_CAPS:
-            prog2, warp2, kind2, copies = _replicate(prog, warp, kind, cap)
-            for rhs_late in (False, True):
-                sched = _phases(prog2, warp2, kind2, solve, rhs_late)
+
+    def beaten(bound, rank):
+        return prune and best is not None and (bound, rank) > best[2]
+
+    for bound, rank, name, grouping, solve, warp, kind in tasks:
+        if beaten(bound, rank + (0, 0)):
+            costs.update({f"{name}solve{solve}_cap{cap}_rhs{r}":
+                          f"pruned: bound {bound}"
+                          for cap in REPLICATE_CAPS for r in (0, 1)})
+            continue
+        for ci, cap in enumerate(REPLICATE_CAPS):
+            copies = _copies(prog, warp, cap)
+            keys = [f"{name}solve{solve}_cap{cap}_rhs{r}" for r in (0, 1)]
+            low = _warp_bound(prog, warp, copies) if prune else 0
+            if beaten(low, rank + (ci, 0)):
+                for key in keys:
+                    costs[key] = f"pruned: bound {low}"
+                continue
+            prog2, warp2, kind2 = _replicate(prog, warp, kind, copies)
+            for rhs_late, sched in enumerate(_phases(prog2, warp2, kind2,
+                                                     solve)):
                 if sched.phases < 2:   # all on one warp: the lane layout
                     continue
-                key = f"solve{solve}_cap{cap}_rhs{int(rhs_late)}"
+                key, at = keys[rhs_late], rank + (ci, rhs_late)
+                if prune:
+                    low = _phase_bound(prog2, sched)
+                    if beaten(low, at):
+                        costs[key] = f"pruned: bound {low}"
+                        continue
                 # Where the solve's warp copies every value it would read
                 # from another warp (each weighs at most the cap: at 256,
                 # a small second tree such as hammer-v0's nail, whose mass
@@ -729,16 +867,19 @@ def plan_partition(prog: Program, owners: dict, tree: Tree, base: int):
                     costs[key] = str(err)
                     continue
                 costs[key] = lay.cost
-                if best is None or lay.cost < best[0].lay.cost:
+                if best is None or (lay.cost, at) < best[2]:
                     best = (Plan(prog2, sched, lay),
                             dict(solve_warp=solve, replicate_cap=cap,
-                                 rhs_late=rhs_late, copies=copies))
+                                 rhs_late=bool(rhs_late),
+                                 copies=sum(map(len, copies)),
+                                 groups=grouping),
+                            (lay.cost, at))
     if best is None:
         raise ValueError(
-            f"no choice of the subtree partition lays out: all "
+            f"no choice of the {mode} partition lays out: all "
             f"{len(costs)} choices failed, the first with: "
             f"{next(iter(costs.values()), 'no choice has two phases')}")
-    plan_, report = best
+    plan_, report, _ = best
     outs = set(plan_.prog.outputs)
     crossing = {x for st in plan_.lay.stores.values() for slot, x in st
                 if (slot, x) not in outs}
@@ -746,7 +887,7 @@ def plan_partition(prog: Program, owners: dict, tree: Tree, base: int):
     order, k = plan_.sched.order, plan_.sched.k
     weights = [[sum(plan_.prog.weights[v] for v in order.get((p, s), ()))
                 for s in range(k)] for p in range(plan_.sched.phases)]
-    report.update(groups=groups, phase_weights=weights,
+    report.update(mode=mode, groupings=len(groupings), phase_weights=weights,
                   exchanged=len(crossing),
                   loads=sum(1 for binds in plan_.lay.binds.values()
                             for _, e in binds if e.startswith("sh[")),
@@ -809,7 +950,8 @@ def emit(prefix: str, plan_: Plan, width: int, clock0: int,
 
 
 def plan_body(em_sub, q2, qd2, em_rew, r, nq: int, substeps: int,
-              torque_ops: int, streams=None, tree=None) -> dict:
+              torque_ops: int, streams=None, tree=None,
+              partition: str = "subtree") -> dict:
     """The split layout of one body, planned: its report (the streams,
     phases, slots and carry registers chosen, the model's cost a step for
     each number of streams, the substep's and the reward's plans, and with
@@ -832,9 +974,10 @@ def plan_body(em_sub, q2, qd2, em_rew, r, nq: int, substeps: int,
                 + [(slot_qd + j, qd2[j]) for j in range(nq)], in_slots)
     rew = parse(em_rew, [(slot_r, r)], in_slots)
     base = 2 * nq + 1
-    best, report, partition = None, {}, None
+    best, report, part_report = None, {}, None
     if tree is not None:
-        part, partition = plan_partition(sub, em_sub.owners, tree, base)
+        part, part_report = plan_partition(sub, em_sub.owners, tree, base,
+                                           partition)
         ks = [part.sched.k]
     else:
         ks = [streams] if streams else range(2, MAX_STREAMS + 1)
@@ -858,7 +1001,7 @@ def plan_body(em_sub, q2, qd2, em_rew, r, nq: int, substeps: int,
             "step_cost": step, "step_cost_by_streams": report,
             "substep_plan": ps, "reward_plan": pr,
             "slot_q": slot_q, "slot_qd": slot_qd, "slot_r": slot_r,
-            "partition": partition}
+            "partition": part_report}
 
 
 def emit_body(info: dict):
@@ -889,7 +1032,8 @@ def emit_body(info: dict):
 
 
 def cached_body(cache: Path, em_sub, q2, qd2, em_rew, r, nq: int,
-                substeps: int, torque_ops: int, tree=None):
+                substeps: int, torque_ops: int, tree=None,
+                partition: str = "subtree"):
     """``emit_body(plan_body(...))``, kept in ``cache`` under the sha256 of
     the two programs, their outputs, the partition's tree and owner tags
     (with ``tree``) and the generator's own source (this module and
@@ -900,7 +1044,7 @@ def cached_body(cache: Path, em_sub, q2, qd2, em_rew, r, nq: int,
         key.update(Path(module).read_bytes())
     outs = [x.name if isinstance(x, sm.Sym) else sm.f32_literal(x)
             for x in (*q2, *qd2, r)]
-    part = None if tree is None else [dataclasses.asdict(tree),
+    part = None if tree is None else [partition, dataclasses.asdict(tree),
                                       sorted(em_sub.owners.items())]
     key.update(json.dumps([em_sub.lines, em_rew.lines, outs, nq, substeps,
                            torque_ops, part]).encode())
@@ -909,7 +1053,8 @@ def cached_body(cache: Path, em_sub, q2, qd2, em_rew, r, nq: int,
         got = json.loads(path.read_text())
         return got["defines"], got["text"]
     defines, text = emit_body(plan_body(em_sub, q2, qd2, em_rew, r, nq,
-                                        substeps, torque_ops, tree=tree))
+                                        substeps, torque_ops, tree=tree,
+                                        partition=partition))
     cache.mkdir(parents=True, exist_ok=True)
     # a temporary of this process and thread: two may plan one body at once
     tmp = path.with_name(f".{path.name}.{os.getpid()}."

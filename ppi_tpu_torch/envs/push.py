@@ -97,6 +97,15 @@ class FetchPush:
 
     name = "fetch-push"
 
+    # the rollout kernel's split layout, its substep partitioned by the
+    # body tree with the arm's chain cut into segments
+    # (split_layout.plan_partition, "chain"): the yaw, the shoulder and
+    # elbow, and the wrist each on a warp of its own, the box's two slides
+    # on the fourth; timed against the lane layout on the card at
+    # the canonical N=256/H=20 (PERF.md section 6, row 1b)
+    scalar_kernel_layout = "split"
+    scalar_split_partition = "chain"
+
     def __post_init__(self):
         model, palm, box = _build_model()
         object.__setattr__(self, "_model", model)

@@ -4,8 +4,9 @@
 
 For each env (door-v0 and hammer-v0 unless named; relocate-v0, cheetah,
 walker2d, walker~walk, humanoid-standup and pen-v0-hand take the subtree
-partition,
-``scalar_split_partition``), in one process
+partition, fetch-push and hopper the chain cut,
+``scalar_split_partition``; reacher, which routes no partition, is
+studied with the chain cut, ``STUDY_PARTITION``), in one process
 on the card: first the host seconds to generate its bodies (the lane
 header; the split generator's search; the split header through an empty
 cache and through the filled one, ``split_layout.cached_body``; the lane
@@ -13,19 +14,22 @@ header again); then builds, in parallel, the lane layout
 (``csrc/rollout.cu``), the warp layout (``csrc/rollout_warp.cu``, its
 existing warp header), the split layout (``csrc/rollout_split.cu``) as the
 generator chooses it (for a partitioned env, the partition; its
-list-scheduled body too, "list") and forced to 2, 3 and 4 list-scheduled
-streams, and the clocked builds (the warp layout's ``PPI_STAGE_CLOCKS``,
-the split layout's ``PPI_PHASE_CLOCKS``); prints each build's ``-Xptxas
+list-scheduled body too, "list", and for a chain-cut env its subtree
+partition, "subtree", where that plans) and forced to 2, 3 and 4
+list-scheduled streams, and the clocked builds (the warp layout's
+``PPI_STAGE_CLOCKS``, the split layout's ``PPI_PHASE_CLOCKS``); prints each build's ``-Xptxas
 -v`` summary and the split generator's report (streams, phases, slots,
 carry registers, the model's cost a step for each number of streams; for
 a partition its groups, solve warp, replication, exchanged values and
-shared loads, and the model's cost of every choice it tried). Then: the
+shared loads, and the model's cost of every choice it tried, and for the
+chain cut each cut's cheapest choice, ``cost_by_cut``). Then: the
 split layout against the lane layout bit for bit at N=257 (ragged), H=3
 with a NaN lane; CUDA-event times in turns (lane, warp, split, split,
 warp, lane) at the env's canonical shape (``SHAPES``: N=64/H=30 for
 door-v0 and hammer-v0, N=256/H=20 for relocate-v0, N=256/H=30 for
 cheetah, walker2d and humanoid-standup, N=128/H=25 for walker~walk,
-N=96/H=15 for pen-v0-hand), and for door-v0 and hammer-v0 lane, split,
+N=96/H=15 for pen-v0-hand, N=256/H=20 for fetch-push, N=256/H=30 for
+hopper, N=64/H=20 for reacher), and for door-v0 and hammer-v0 lane, split,
 split, lane at
 N=1024/H=160, at N=4096/H=160 (a 4-rank shard of N=16384) and at
 N=16384/H=160; the other split builds at the canonical shape; the real
@@ -43,6 +47,7 @@ where the split layout's bits differ from the lane layout's, or where the
 episode's returns differ between the layouts.
 """
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -64,7 +69,12 @@ _DOOR_SHAPES = ((64, 30), (1024, 160), (4096, 160), (16384, 160))
 SHAPES = {"door-v0": _DOOR_SHAPES, "hammer-v0": _DOOR_SHAPES,
           "relocate-v0": ((256, 20),), "cheetah": ((256, 30),),
           "walker2d": ((256, 30),), "humanoid-standup": ((256, 30),),
-          "pen-v0-hand": ((96, 15),), "walker~walk": ((128, 25),)}
+          "pen-v0-hand": ((96, 15),), "walker~walk": ((128, 25),),
+          "fetch-push": ((256, 20),), "hopper": ((256, 30),),
+          "reacher": ((64, 20),)}
+# the partition studied where the env routes none: reacher's chain cut,
+# timed but not routed
+STUDY_PARTITION = {"reacher": "chain"}
 FORCED = (2, 3, 4)
 PHASE_CLOCKS = "\n#define PPI_PHASE_CLOCKS 1\n"
 # the canonical door-v0 episode (make mpc-lbps), timed in turns
@@ -149,6 +159,45 @@ def phase_cycles(env, state, split, n, h):
             "reward_total": float(c[ps:ps + pr, 0, 1].sum())}
 
 
+@contextlib.contextmanager
+def studied_partition(names):
+    """Inside the block, each env of ``names`` in ``STUDY_PARTITION``
+    plans its split body with that partition (the split layout's
+    ``rk.split_partition``)."""
+    saved = {}
+    for name in names:
+        if name in STUDY_PARTITION:
+            cls = ENVS[name]
+            saved[cls] = cls.__dict__.get("scalar_split_partition")
+            cls.scalar_split_partition = STUDY_PARTITION[name]
+    try:
+        yield
+    finally:
+        for cls, value in saved.items():
+            if value is None:
+                del cls.scalar_split_partition
+            else:
+                cls.scalar_split_partition = value
+
+
+def cost_by_cut(report):
+    """The chain cut's cheapest choice for each cut it searched: the model's
+    cost where one laid out, else the lowest bound it was skipped on."""
+    part = report.get("partition") or {}
+    if part.get("mode") != "chain":
+        return None
+    laid, bounds = {}, {}
+    for key, cost in part["cost_by_choice"].items():
+        cut = key.split("_solve")[0]
+        if not isinstance(cost, str):
+            laid[cut] = min(cost, laid.get(cut, cost))
+        elif cost.startswith("pruned: bound "):
+            bound = float(cost.split()[-1])
+            bounds[cut] = min(bound, bounds.get(cut, bound))
+    return {cut: laid[cut] if cut in laid else f"bound {bounds[cut]}"
+            for cut in {**bounds, **laid}}
+
+
 def generation_s(args, partition):
     """Host seconds to generate one body: the lane header, the split
     generator's search (``generate_split``), the split header through an
@@ -222,6 +271,7 @@ def study(name, dev, splits):
     chosen = splits[None]
     out["report"] = {key: value for key, value in chosen.report.items()
                      if not key.endswith("plan")}
+    out["cost_by_cut"] = cost_by_cut(chosen.report)
     out["blocks_per_sm"] = {str(k): s.blocks_per_sm
                             for k, s in splits.items()}
 
@@ -285,6 +335,13 @@ def main(names):
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
     names = names or list(ENV_NAMES)
+    with studied_partition(names):
+        return study_all(names, dev, smi)
+
+
+def study_all(names, dev, smi):
+    """``main``'s generation, builds and ``study`` of each env of
+    ``names``; 0 where every check held, else 1."""
     gen = {}
     for name in names:
         env = ENVS[name]()
@@ -311,6 +368,12 @@ def main(names):
             listed = chosen if partition is None else rk.generate_split(*args)
             if partition is not None:
                 made["list"] = listed
+            if partition == "chain":
+                try:
+                    made["subtree"] = rk.generate_split(*args,
+                                                        partition="subtree")
+                except ValueError as err:   # a chain: no subtree partition
+                    print(f"{name}: no subtree partition: {err}", flush=True)
             for k in FORCED:   # the list's number of warps is built once
                 made[k] = (listed if k == listed[1]["streams"]
                            else rk.generate_split(*args, streams=k))

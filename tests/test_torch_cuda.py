@@ -675,17 +675,24 @@ def test_split_layout_equals_lane_layout(name, monkeypatch):
 
 # the locomotion bodies' random torques: 0.75 of the box, as chip_smoke.py's
 LOCOMOTION_SCALE = 0.75
+# fetch-push's random PD targets about the arm's posture, as chip_smoke.py's
+PUSH_SCALE = 1.2
+# the partition each body routes to
+PARTITIONED = {"relocate-v0": "subtree", "cheetah": "subtree",
+               "walker2d": "subtree", "walker~walk": "subtree",
+               "humanoid-standup": "subtree", "pen-v0-hand": "subtree",
+               "fetch-push": "chain", "hopper": "chain"}
 
 
-@pytest.mark.parametrize("name", ["relocate-v0", "cheetah", "walker2d",
-                                  "walker~walk", "humanoid-standup",
-                                  "pen-v0-hand"])
+@pytest.mark.parametrize("name", list(PARTITIONED))
 def test_partitioned_split_layout_equals_lane_layout(name):
     """relocate-v0, cheetah, walker2d, walker~walk, humanoid-standup and
     pen-v0-hand route to the split layout, their substep partitioned by
-    the body tree: at N=257 (ragged), H=5, from a sampled goal or start
-    (pen-v0-hand: its PD targets about the digits' posture, as the scene
-    tests'), with a NaN lane, one launch counted under
+    the body tree, and fetch-push and hopper with their heaviest chain of
+    bodies cut into segments: at N=257 (ragged), H=5, from a sampled goal
+    or start (pen-v0-hand: its PD targets about the digits' posture, as
+    the scene tests'; fetch-push: about the arm's), with a NaN lane, one
+    launch counted under
     ``rk.launch_key(env)`` (``rollout_split``); rewards and final state
     bit for bit the lane layout's (the NaN lane's too) and within 1e-4 of
     the plain version (cheetah's control cost divides by 5,400: one ulp
@@ -695,7 +702,7 @@ def test_partitioned_split_layout_equals_lane_layout(name):
     dev = _device()
     env = _variant_b_env(name)
     assert rk.kernel_layout(env) == "split"
-    assert rk.split_partition(env) == "subtree"
+    assert rk.split_partition(env) == PARTITIONED[name]
     key = rk.launch_key(env)
     assert key == "rollout_split"
     n, h = 257, 5
@@ -706,9 +713,12 @@ def test_partitioned_split_layout_equals_lane_layout(name):
         s0 = env.reset(torch.Generator(dev).manual_seed(1), dev)
         rng = np.random.default_rng(2)
         scale = (ACTION_SCALE[name] if name in ACTION_SCALE
+                 else PUSH_SCALE if name == "fetch-push"
                  else LOCOMOTION_SCALE * env.max_torque)
         acts = torch.from_numpy((scale * rng.standard_normal(
             (n, h, env.action_dim))).astype(np.float32)).to(dev)
+        if name == "fetch-push":
+            acts = acts + s0.physics.qpos[:env.action_dim]
         q0 = s0.physics.qpos.expand(n, -1).clone()
         qd0 = s0.physics.qvel.expand(n, -1).contiguous()
     q0[100] = torch.nan

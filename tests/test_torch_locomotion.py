@@ -250,6 +250,39 @@ def test_host_c_build_matches_plain(name):
         CONTACT_QD_TOL if name in STIFF_LEGS else None)
 
 
+@functools.cache
+def _hopper_split_build():
+    """hopper's routed split body (the chain cut) as host C, generated and
+    built once."""
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    env = ENVS["hopper"]()
+    assert (rk.kernel_layout(env), rk.split_partition(env)) == (
+        "split", "chain")
+    return rk.load_host_split_rollout(rk.generate_split(
+        *rk.body_args(env, _state("hopper", "reset")),
+        partition=rk.split_partition(env))[0])
+
+
+@pytest.mark.parametrize("start", ["reset", "contact"])
+def test_hopper_routed_split_build_matches_reference(start):
+    """hopper routes to the split layout with its one chain cut into
+    segments: that body built as host C against ``ppi_tpu``'s rollout on
+    the same numpy inputs within the tolerances of the plain path's
+    comparison (the healthy gate's entries left out, the stiff contacts
+    at the measured contact bound)."""
+    from test_torch_warp_layout import _host_run, _needs_cc
+    _needs_cc()
+    env, s = ENVS["hopper"](), _state("hopper", start)
+    run = _hopper_split_build()
+    q0 = np.tile(to_np(s.physics.qpos), (N, 1))
+    qd0 = np.tile(to_np(s.physics.qvel), (N, 1))
+    masked = assert_rollout_close_off_thresholds(
+        _host_run(run, env, s, q0, qd0, _acts("hopper")),
+        reference("hopper")[start][1], _gate_margin("hopper", start),
+        CONTACT_QD_TOL if start == "contact" else None)
+    assert masked <= 2, f"{masked} reward entries at the healthy gate"
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_observe_matches_reference(name):
     jenv, env = JAX_ENVS[name](), ENVS[name]()

@@ -162,6 +162,31 @@ def test_host_c_build_matches_plain(reference, acts):
     assert_host_c_matches_plain(FetchPush(), s, acts, q0, qd0)
 
 
+def test_routed_split_build_matches_reference(reference, acts):
+    """fetch-push routes to the split layout with its arm's chain cut into
+    segments: that body built as host C against ``ppi_tpu``'s rollout on
+    the same numpy inputs, from each case, within the rollout tolerances
+    (the bonus radius's entries left out, as for the plain path)."""
+    from test_torch_warp_layout import _host_run, _needs_cc
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    _needs_cc()
+    env = FetchPush()
+    assert (rk.kernel_layout(env), rk.split_partition(env)) == (
+        "split", "chain")
+    header = rk.generate_split(*rk.body_args(env, _state(reference, "reset")),
+                               partition=rk.split_partition(env))[0]
+    run = rk.load_host_split_rollout(header)
+    for case in ("reset", "contact", "contact_goal"):
+        s = _state(reference, case)
+        q0 = np.tile(to_np(s.physics.qpos), (N, 1))
+        qd0 = np.tile(to_np(s.physics.qvel), (N, 1))
+        margin, _ = _bonus_margin(env, s, acts)
+        masked = assert_rollout_close_off_thresholds(
+            _host_run(run, env, s, q0, qd0, acts), reference[case][1],
+            margin)
+        assert masked <= 2, f"{case}: {masked} entries at the bonus radius"
+
+
 def test_observe_and_success_match_reference(reference):
     js = reference["contact_goal"][0]
     q = np.asarray(js.physics.qpos).copy()

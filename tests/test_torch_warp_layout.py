@@ -45,7 +45,8 @@ ROUTED_WARP_ENVS = WARP_ENVS + ("pen-v0-adroit", "fetch-pick")
 # the envs that plan and step through the split layout
 # (tests/test_torch_split_layout.py, tests/test_torch_split_subtree.py)
 ROUTED_SPLIT_ENVS = ("door-v0", "relocate-v0", "cheetah", "walker2d",
-                     "walker~walk", "humanoid-standup", "pen-v0-hand")
+                     "walker~walk", "humanoid-standup", "pen-v0-hand",
+                     "fetch-push", "hopper")
 N, H = 5, 2
 
 # sha256 of the warp headers as first generated: a change to the
@@ -395,7 +396,8 @@ def test_the_six_warp_envs_and_only_they_build_the_warp_layout(monkeypatch):
     pen-v0-adroit and fetch-pick), the split skeleton for the split envs
     (door-v0, tests/test_torch_split_layout.py; relocate-v0, cheetah,
     walker2d, walker~walk, humanoid-standup and pen-v0-hand,
-    tests/test_torch_split_subtree.py) and the lane skeleton for every
+    tests/test_torch_split_subtree.py; fetch-push and hopper,
+    tests/test_torch_split_chain.py) and the lane skeleton for every
     other env of the runner, hammer-v0 included."""
     built = {}
     monkeypatch.setattr(rk, "_env_header", lambda *a: "lane")
