@@ -38,8 +38,9 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 rollout kernel's lane layout (reward constants, action
                 reward) and build them with nvcc in parallel with phases 1
                 and 5; print each body's line count, nvcc seconds and
-                -Xptxas -v summary (relocate-v0 and cheetah route to their
-                split bodies, phases 35-37, which phases 10-12 run);
+                -Xptxas -v summary (relocate-v0, cheetah and pen-v0 route
+                to their split bodies, phases 35-37, which phases 10-12
+                run);
  10. check   -- each body against the plain version on the card at N=1000
                 (ragged), H=20: rewards and final state, a pre-poisoned NaN
                 lane, the horizon mask and two goals (pen-v0, relocate-v0)
@@ -127,9 +128,9 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 summary. fetch-pick plans and steps through the warp
                 layout (phase 32's build), walker2d, walker~walk and
                 humanoid-standup through the split layout partitioned by
-                the body tree, fetch-push and hopper through it with their
-                heaviest chain of bodies cut into segments (phase 35's
-                builds) in phases 22-24;
+                the body tree, fetch-push, hopper and reacher through it
+                with their heaviest chain of bodies cut into segments
+                (phase 35's builds) in phases 22-24;
  22. check   -- each of those bodies against its plain version on the card
                 at N=1000 (ragged), H=20: rewards and final state
                 bit-identical or within TOL, from lanes in contact (the
@@ -257,24 +258,26 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 the block's warps) of door-v0, which plans and steps
                 through it (phases 2-31 run it), of hammer-v0, which
                 keeps the lane layout, and of pen-v0-hand, relocate-v0,
-                cheetah, walker2d, walker~walk, humanoid-standup,
-                fetch-push and hopper, whose substep is partitioned by the
-                body tree (fetch-push's and hopper's with their heaviest
-                chain cut into segments) and which plan and step through
-                it (phases 10-12 run relocate-v0 and cheetah, phases 18-20
+                cheetah, pen-v0, walker2d, walker~walk, humanoid-standup,
+                fetch-push, hopper and reacher, whose substep is
+                partitioned by the body tree (pen-v0's, fetch-push's,
+                hopper's and reacher's with their heaviest chain cut into
+                segments) and which plan and step through it (phases
+                10-12 run relocate-v0, cheetah and pen-v0, phases 18-20
                 pen-v0-hand, phases 22-24 the others); generated and
                 built with nvcc in phase 1
-                (door-v0's before phase 2, relocate-v0's and cheetah's
-                before phase 10, pen-v0-hand's before phase 18, the
-                others' before phase 22, with their warp bodies for phase
-                37); print each
+                (door-v0's before phase 2, relocate-v0's, cheetah's and
+                pen-v0's before phase 10, pen-v0-hand's before phase 18,
+                the others' before phase 22, with their warp bodies for
+                phase 37); print each
                 body's line count, nvcc seconds, warps a group, phases,
                 shared memory a group and -Xptxas -v summary next to its
                 lane layout's;
  36. check   -- on phase 2's (door-v0), phase 18's (hammer-v0), phase
-                10's (relocate-v0, cheetah), phase 18's (pen-v0-hand) and
-                phase 22's (walker2d, walker~walk, humanoid-standup,
-                fetch-push, hopper) lanes, N=1000, H=20: the split
+                10's (relocate-v0, cheetah, pen-v0), phase 18's
+                (pen-v0-hand) and phase 22's (walker2d, walker~walk,
+                humanoid-standup, fetch-push, hopper, reacher) lanes,
+                N=1000, H=20: the split
                 layout bit for bit the lane kernel and within TOL
                 (SCENE_TOL) of the plain version; a NaN lane; the second
                 frame, board, goal or start with the mask, both layouts'
@@ -282,32 +285,41 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 padded with a sentinel past N that must stay; the real step
                 within the tolerance of ``plain_step`` and bit for bit both
                 layouts';
- 37. timings -- CUDA events in turns (lane, split, split, lane) at
-                N=64/H=30 (door-v0, hammer-v0), and (lane, warp, split,
-                split, warp, lane) at N=256/H=20 (relocate-v0),
-                N=256/H=30 (cheetah, walker2d, humanoid-standup, hopper),
-                N=96/H=15 (pen-v0-hand), N=128/H=25 (walker~walk) and
-                N=256/H=20 (fetch-push), and for
-                door-v0 at N=1024/H=160 (phase 3's north star),
-                N=4096/H=160 (phase 30's shard) and N=16384/H=160; the real step and a synced PPI
+ 37. timings -- at each body's canonical shape, the lane and split
+                kernels alone (lane-major inputs and outputs made once)
+                in turns (lane, split, split, lane) after 0.5 s of the
+                lane kernel's launches, 200 launches a reading; CUDA
+                events of the main path's whole call in turns (lane,
+                split, split, lane) at N=64/H=30 (door-v0, hammer-v0),
+                and (lane, warp, split, split, warp, lane) at N=256/H=20
+                (relocate-v0, fetch-push), N=256/H=30 (cheetah, walker2d,
+                humanoid-standup, hopper), N=96/H=15 (pen-v0-hand,
+                pen-v0), N=128/H=25 (walker~walk) and N=64/H=20
+                (reacher), and (lane, split, split, lane) for door-v0 at
+                N=1024/H=160 (phase 3's north star), N=4096/H=160 (phase
+                30's shard) and N=16384/H=160 and for pen-v0 at
+                N=1024/H=160; the real step and a synced PPI
                 iteration in the lane and split layouts; the split
                 kernel's blocks an SM; then phase 4's door-v0 episode,
-                phase 12's relocate-v0 and cheetah episodes, phase 20's
-                pen-v0-hand episode and phase 24's walker2d, walker~walk,
-                humanoid-standup, fetch-push and hopper (seed 0) episodes
-                once more through the lane layout and phase 20's seed-0
-                hammer-v0 episode once more through the split layout:
-                exactly 800, 330, 350, 350, 350, 350, 350, 350, 290, 350
-                and 550 launches of it, the returns equal.
+                phase 12's relocate-v0, cheetah and pen-v0 episodes,
+                phase 20's pen-v0-hand episode and phase 24's walker2d,
+                walker~walk, humanoid-standup, fetch-push, hopper and
+                reacher (seed 0) episodes once more through the lane
+                layout and phase 20's seed-0 hammer-v0 episode once more
+                through the split layout: exactly 800, 330, 350, 350,
+                350, 350, 350, 350, 290, 350, 210 and 550 launches of
+                it, the returns equal.
 Then one JSON line with the kernels' numbers (each entry with the (N, H)
 of its ms and bound_ms, of its plain_ms, and the kernel's time at the
-latter; the rollout bodies of phase 35 with their registers and spills)
+latter; the rollout bodies of phase 35 with their registers and spills,
+their ``ms`` the main path's call and ``kernel_alone_ms`` the kernel alone)
 and, last, the device line.
 All numbers also go to chip_smoke.json in the output directory.
 """
 
 import contextlib
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -585,15 +597,16 @@ SOURCES = {"lane": "rollout.cu", "warp": "rollout_warp.cu",
            "split": "rollout_split.cu"}
 
 # phases 35-37: the split layout (csrc/rollout_split.cu) of door-v0,
-# hammer-v0, pen-v0-hand, relocate-v0, cheetah, walker2d, walker~walk,
-# humanoid-standup, fetch-push and hopper: each rollout's substep and
-# reward spread over the warps of a block (all but door-v0 and hammer-v0
-# partitioned by the body tree, fetch-push's and hopper's with their
-# heaviest chain of bodies cut into segments, ``scalar_split_partition``).
-# Per env:
+# hammer-v0, pen-v0-hand, relocate-v0, cheetah, pen-v0, walker2d,
+# walker~walk, humanoid-standup, fetch-push, hopper and reacher: each
+# rollout's substep and reward spread over the warps of a block (all but
+# door-v0 and hammer-v0 partitioned by the body tree, pen-v0's,
+# fetch-push's, hopper's and reacher's with their heaviest chain of bodies
+# cut into segments, ``scalar_split_partition``). Per env:
 # the layout it is routed to, the canonical shape, the larger shapes it is
 # timed at in turns with the lane layout (door-v0's body also runs phase
-# 3's north star and phase 30's 4096-lane shard), whether the warp layout
+# 3's north star and phase 30's 4096-lane shard; pen-v0's phase 11's
+# N=1024/H=160), whether the warp layout
 # joins the turns at the canonical shape, the check's tolerance against
 # plain, and its episode (phase 4's, 20's, 12's or 24's seed 0) with its
 # launches, run once more through the other layout.
@@ -607,15 +620,16 @@ SPLIT = {"door-v0": dict(routed="split", shape=(64, 30),
             for name, routed in (("hammer-v0", "lane"),
                                  ("pen-v0-hand", "split"))},
          **{name: dict(routed="split", shape=VARIANT_B[name]["shape"],
-                       big=(), warp=True, tol=TOL,
+                       big=((1024, 160),) if name == "pen-v0" else (),
+                       warp=True, tol=TOL,
                        episode=VARIANT_B[name]["episode"],
                        launches=VARIANT_B[name]["launches"])
-            for name in ("relocate-v0", "cheetah")},
+            for name in ("relocate-v0", "cheetah", "pen-v0")},
          **{name: dict(routed="split", shape=REST[name]["shape"], big=(),
                        warp=True, tol=TOL, episode=REST[name]["episode"],
                        launches=rest_launches(name))
             for name in ("walker2d", "walker~walk", "humanoid-standup",
-                         "fetch-push", "hopper")}}
+                         "fetch-push", "hopper", "reacher")}}
 
 # phases 29-31: the sharded entry. The check's NaN lane lies in rank 2's
 # shard (lanes 500-749 of N_CHECK); the timing runs the configuration of
@@ -2103,10 +2117,11 @@ def time_warp(name, env, dev):
     return out
 
 
-def turns_mean(times, shape, layout):
-    """The mean of ``layout``'s two times in phase 37's turns at ``shape``."""
+def turns_mean(times, shape, layout, turns="turns_ms"):
+    """The mean of ``layout``'s two times in phase 37's ``turns`` (the
+    whole calls, or the kernels alone: "kernel_turns_ms") at ``shape``."""
     n, h = shape
-    return float(np.mean([ms for lay, ms in times[f"turns_ms_N{n}_H{h}"]
+    return float(np.mean([ms for lay, ms in times[f"{turns}_N{n}_H{h}"]
                           if lay == layout]))
 
 
@@ -2148,11 +2163,10 @@ def split_occupancy(lib):
 def check_split(name, env, dev, c):
     """Phase 36 for one env on a phase's lanes and plain results ``c``
     (door-v0: phase 2's, N=1000, H=20, the nominal frame; hammer-v0 and
-    pen-v0-hand: phase 18's; relocate-v0 and cheetah: phase 10's;
-    walker2d, walker~walk, humanoid-standup, fetch-push and hopper: phase
-    22's): the split
-    layout bit for
-    bit the lane kernel (rewards, qf, qdf) and the plain version within
+    pen-v0-hand: phase 18's; relocate-v0, cheetah and pen-v0: phase 10's;
+    walker2d, walker~walk, humanoid-standup, fetch-push, hopper and
+    reacher: phase 22's): the split layout bit for bit the lane kernel
+    (rewards, qf, qdf) and the plain version within
     SPLIT's tolerance (bit identity reported); a NaN lane (NaN alone, both
     layouts' bits equal); the second frame, board, goal or start with the
     mask on its costs, both layouts' bits equal and the costs moved (by
@@ -2244,16 +2258,21 @@ def check_split(name, env, dev, c):
 
 
 def time_split(name, env, dev):
-    """Phase 37's timings for one env: CUDA events in turns (lane, split,
-    split, lane; lane, warp, split, split, warp, lane for an env whose
-    SPLIT entry names the warp layout too) at the canonical shape and
-    lane, split, split, lane at SPLIT's larger shapes; the real step (host
-    clock) and a synced PPI iteration (the canonical solver and prior) in
-    the lane and split layouts; the bound at each shape."""
+    """Phase 37's timings for one env: the kernels alone (the wrapper's
+    ``run.launch`` on what its ``run.stage`` laid out once) in turns
+    (lane, split, split, lane) at the canonical shape after 0.5 s of the
+    lane kernel's launches, 200 launches a reading; CUDA events of the
+    main path's whole call in turns (lane, split, split, lane; lane, warp,
+    split, split, warp, lane for an env whose SPLIT entry names the warp
+    layout too) at the canonical shape and lane, split, split, lane at
+    SPLIT's larger shapes; the real step (host clock) and a synced PPI
+    iteration (the canonical solver and prior) in the lane and split
+    layouts; the bound at each shape."""
     from ppi_tpu_torch.algorithms import make_solver
     from ppi_tpu_torch.algorithms.base import _one_iteration
     from ppi_tpu_torch.envs.physics import rollout_kernel as rk
     from ppi_tpu_torch.policies import design_moments, make_policy
+    from ppi_tpu_torch.studies.split_layout import READING, warm
     from ppi_tpu_torch.studies.warp_layout import lanes as study_lanes
     cfg = SPLIT[name]
     n, h = cfg["shape"]
@@ -2261,6 +2280,17 @@ def time_split(name, env, dev):
     consts, _, dyn = rk.kernel_operands(env, s0)
     out = {"ops_per_lane_step": rk.ops_per_lane_step(*rk.body_args(
         env, env.reset(torch.Generator().manual_seed(0), "cpu")))}
+    q0, qd0, acts = study_lanes(env, s0, n, h, 0.3)
+    alone = {}
+    for lay in ("lane", "split"):
+        r = rk.env_rollout(env, s0, h, layout=lay)
+        alone[lay] = functools.partial(r.launch, r.stage(
+            q0, qd0, acts, consts=consts, dyn=dyn))
+        alone[lay]()   # loads the build: no reading times the load
+    warm(alone["lane"])
+    out[f"kernel_turns_ms_N{n}_H{h}"] = [
+        [lay, cuda_ms(alone[lay], READING, 0)]
+        for lay in ("lane", "split", "split", "lane")]
     for nn, hh in ((n, h), *cfg["big"]):
         q0, qd0, acts = study_lanes(env, s0, nn, hh, 0.3)
         turns = (("lane", "warp", "split") if cfg.get("warp") and nn == n
@@ -3104,8 +3134,8 @@ def run(pool):
                                "success": out["episode_success"],
                                "wall_s": out["episode_wall_s"],
                                "launches": out["episode_launches"]},
-                   "relocate-v0": episodes["relocate-v0"],
-                   "cheetah": episodes["cheetah"],
+                   **{name: episodes[name]
+                      for name in SPLIT if name in VARIANT_B},
                    **{name: scene_episodes[name][0]
                       for name in SPLIT if name in SCENES},
                    **{name: rest_episodes[name][0]
@@ -3197,7 +3227,8 @@ def run(pool):
         """The lane and split entries of a body with a split body: its
         phase 12's, 20's or 24's episodes through the routed layout
         (``routed_launches``), phase 37's through the other; times from
-        phase 37's turns, the plain rollout and bound from ``t`` (phase
+        phase 37's turns (``ms`` the main path's call, ``kernel_alone_ms``
+        the kernel alone), the plain rollout and bound from ``t`` (phase
         11's, 19's or 23's)."""
         n, h = SPLIT[env_name]["shape"]
         ran = {SPLIT[env_name]["routed"]: routed_launches,
@@ -3213,6 +3244,9 @@ def run(pool):
                  "replaces": "ppi_tpu/envs/physics/pallas_rollout.py:190",
                  "launches": ran[layout],
                  "max_abs_err": split_err[env_name][layout], "ms": ms,
+                 "kernel_alone_ms": turns_mean(split_times[env_name],
+                                               (n, h), layout,
+                                               "kernel_turns_ms"),
                  "plain_ms": t[f"plain_ms_N{n}_H{h}"],
                  "bound_ms": t[f"bound_ms_N{n}_H{h}"],
                  "bound_by": t["bound_by"], "library_ms": None,

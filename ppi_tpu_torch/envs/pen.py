@@ -134,6 +134,17 @@ class Pen:
 
     name = "pen-v0"
 
+    # the rollout kernel's split layout, its substep partitioned by the
+    # body tree with the pen's chain cut into segments
+    # (split_layout.plan_partition, "chain"): the pen's three slides and
+    # yaw hinge with the solve, its pitch hinge, and each fingertip's two
+    # slides each on a warp of its own; at the canonical N=96/H=15 on an
+    # H100 (80GB HBM3, 700 W; chip_smoke.py phase 37) the main path's call
+    # takes 0.336 ms against the lane layout's 0.390, the kernel alone
+    # 0.329 against 0.382 (PERF.md section 6, row 1b)
+    scalar_kernel_layout = "split"
+    scalar_split_partition = "chain"
+
     def __post_init__(self):
         model, ends, tips = _build_model()
         object.__setattr__(self, "_model", model)

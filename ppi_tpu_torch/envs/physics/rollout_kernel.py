@@ -26,13 +26,13 @@ layout's own substep and reward over the block's warps, one stream a warp,
 values crossing streams through shared memory between barriers
 (``split_layout``); an env with ``scalar_kernel_layout = "split"``
 (door-v0, relocate-v0, cheetah, walker2d, walker~walk, humanoid-standup,
-pen-v0-hand, fetch-push, hopper) plans and
-steps through it, and one with ``scalar_split_partition = "subtree"``
-(the same but door-v0, fetch-push and hopper) has its
+pen-v0-hand, fetch-push, hopper, pen-v0, reacher) plans and steps through
+it, and one with ``scalar_split_partition = "subtree"`` (relocate-v0,
+cheetah, walker2d, walker~walk, humanoid-standup, pen-v0-hand) has its
 split body's substep partitioned by the body tree
 (``split_layout.plan_partition``), one with ``"chain"`` (fetch-push,
-hopper) partitioned with its heaviest chain of bodies cut into segments
-over the free warps. All three give the same
+hopper, pen-v0, reacher) partitioned with its heaviest chain of bodies cut
+into segments over the free warps. All three give the same
 values bit for bit; every body of the runner has a lane and a warp body,
 and every one whose split plan fits a block's shared memory a split body.
 
@@ -406,8 +406,51 @@ def plain_rollout(model, dt: float, substeps: int, torque_fn, reward_fn,
 # kernel launch counters (``LAUNCHES``) of the three layouts
 LAUNCH_KEYS = {"lane": "rollout", "warp": "rollout_warp",
                "split": "rollout_split"}
+# each layout's launch function in its library, and the ints it takes after
+# its eight pointers (N, H and the lane and warp layouts' block size)
+LAUNCH_ENTRIES = {"lane": ("ppi_rollout_launch", 3),
+                  "warp": ("ppi_rollout_warp_launch", 3),
+                  "split": ("ppi_rollout_split_launch", 2)}
 # rollouts (warps) a block of the warp layout holds
 WARPS_PER_BLOCK = 1
+
+
+def load_launch(lib, layout):
+    """``layout``'s launch function of the built library ``lib``."""
+    entry, ints = LAUNCH_ENTRIES[layout]
+    return load_function(lib, entry, 8, ints, stream=True)
+
+
+def stage(q0, qd0, actions, dyn=None, consts=None):
+    """A launch's operands on the card: the (N, nq) lanes and (N, H, d_a)
+    actions copied to the kernel's lane-major layout (the Pallas layout),
+    ``dyn`` and ``consts`` as given, the (H, N) rewards and (nq, N) final
+    state allocated, and the eight pointers the kernel takes; ``launch``
+    may take them many times. Returns (pointers, outputs, inputs)."""
+    (n, h), nq, dev = actions.shape[:2], q0.shape[1], actions.device
+    ins = (q0.t().contiguous(), qd0.t().contiguous(),
+           actions.permute(1, 2, 0).contiguous(), dyn, consts)
+    outs = (torch.empty((h, n), dtype=torch.float32, device=dev),
+            torch.empty((nq, n), dtype=torch.float32, device=dev),
+            torch.empty((nq, n), dtype=torch.float32, device=dev))
+    ptrs = tuple([None if x is None else x.data_ptr() for x in ins + outs])
+    return ptrs, outs, ins
+
+
+def launch(fn, staged, layout, size=()):
+    """One launch of ``fn`` (``load_launch``'s for ``layout``) on
+    ``staged`` (``stage``'s) on the current stream, ``size`` the layout's
+    block size, counted in ``LAUNCHES``; returns (rewards (N, H), qpos_f
+    (N, nq), qvel_f (N, nq)), views of the staged outputs."""
+    ptrs, (rew, qf, qdf), _ = staged
+    h, n = rew.shape
+    with torch.cuda.device(rew.device):
+        err = fn(*ptrs, n, h, *size, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rollout kernel ({layout} layout) launch "
+                           f"failed: CUDA error {err}")
+    LAUNCHES[LAUNCH_KEYS[layout]] += 1
+    return rew.t(), qf.t(), qdf.t()
 
 
 def make_rollout(model, dt: float, substeps: int, horizon: int,
@@ -430,31 +473,42 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
     f32 reward constants ``consts`` on the actions' device;
     ``project_fn(m, q_prev, q, qd)`` is the per-step projection.
     ``run.load()`` builds and loads the kernel (the first CUDA launch does
-    it otherwise)."""
+    it otherwise). On the card ``run`` is ``run.launch(run.stage(...))``:
+    ``run.stage`` takes ``run``'s arguments, checks them and lays them out
+    (``stage``), and ``run.launch`` launches the kernel on what it staged,
+    as often as it is called."""
     if layout not in LAUNCH_KEYS:
         raise ValueError(f"layout must be one of {sorted(LAUNCH_KEYS)}, "
                          f"not {layout!r}")
     nq = model.nq
     fn = None
+    size = {"lane": (block,), "warp": (warps,), "split": ()}[layout]
     args = (model, dt, substeps, action_dim, torque_fn, reward_fn, dyn_body,
             n_consts, reward_takes_action, project_fn)
 
     def load():
         if layout == "warp":
-            return load_function(_warp_library(_warp_header(*args)),
-                                 "ppi_rollout_warp_launch", 8, 3,
-                                 stream=True)
-        if layout == "split":
-            return load_function(_split_library(_split_header(
-                *args, split_partition)),
-                                 "ppi_rollout_split_launch", 8, 2,
-                                 stream=True)
-        return load_function(_library(_env_header(*args)),
-                             "ppi_rollout_launch", 8, 3, stream=True)
+            lib = _warp_library(_warp_header(*args))
+        elif layout == "split":
+            lib = _split_library(_split_header(*args, split_partition))
+        else:
+            lib = _library(_env_header(*args))
+        return load_launch(lib, layout)
 
-    def launch(q0, qd0, actions, dyn, consts):
-        nonlocal fn
+    def checked_consts(consts, dev):
+        if not n_consts:
+            return None
+        if consts is None or consts.shape != (n_consts,) \
+                or consts.device != dev or consts.dtype != torch.float32:
+            raise ValueError(f"consts must be a ({n_consts},) float32 "
+                             f"tensor on {dev}")
+        return consts.contiguous()
+
+    def run_stage(q0, qd0, actions, consts=None, dyn=None):
         dev = actions.device
+        consts = checked_consts(consts, dev)
+        if dev.type != "cuda":
+            raise TypeError(f"no rollout kernel for {dev}")
         n = actions.shape[0]
         for name, x in (("q0", q0), ("qd0", qd0), ("actions", actions)):
             if x.device != dev or x.dtype != torch.float32:
@@ -468,57 +522,34 @@ def make_rollout(model, dt: float, substeps: int, horizon: int,
                 f"({n}, {horizon}, {action_dim})")
         if n == 0:
             raise ValueError("empty batch")
-        dyn_ptr = None
-        if dyn_body is not None:
-            if dyn is None or dyn.shape != (3,) or dyn.device != dev \
-                    or dyn.dtype != torch.float32:
-                raise ValueError("dyn must be a (3,) float32 tensor on "
-                                 f"{dev} for a scene with a dynamic body")
+        if dyn_body is None:
+            dyn = None
+        elif dyn is None or dyn.shape != (3,) or dyn.device != dev \
+                or dyn.dtype != torch.float32:
+            raise ValueError("dyn must be a (3,) float32 tensor on "
+                             f"{dev} for a scene with a dynamic body")
+        else:
             dyn = dyn.contiguous()
-            dyn_ptr = dyn.data_ptr()
-        consts_ptr = consts.data_ptr() if n_consts else None
+        return stage(q0, qd0, actions, dyn, consts)
+
+    def run_launch(staged):
+        nonlocal fn
         if fn is None:
             fn = load()
-        # the kernel's lane-major layout (the Pallas layout)
-        q0_t = q0.t().contiguous()
-        qd0_t = qd0.t().contiguous()
-        act_t = actions.permute(1, 2, 0).contiguous()
-        rew = torch.empty((horizon, n), dtype=torch.float32, device=dev)
-        qf = torch.empty((nq, n), dtype=torch.float32, device=dev)
-        qdf = torch.empty((nq, n), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            size = {"lane": (block,), "warp": (warps,), "split": ()}[layout]
-            err = fn(q0_t.data_ptr(), qd0_t.data_ptr(), act_t.data_ptr(),
-                     dyn_ptr, consts_ptr, rew.data_ptr(), qf.data_ptr(),
-                     qdf.data_ptr(), n, horizon, *size, stream)
-        if err != 0:
-            raise RuntimeError(f"rollout kernel ({layout} layout) launch "
-                               f"failed: CUDA error {err}")
-        LAUNCHES[LAUNCH_KEYS[layout]] += 1
-        return rew.t(), qf.t(), qdf.t()
+        return launch(fn, staged, layout, size)
 
     def run(q0, qd0, actions, consts=None, dyn=None):
-        if n_consts:
-            if consts is None or consts.shape != (n_consts,) \
-                    or consts.device != actions.device \
-                    or consts.dtype != torch.float32:
-                raise ValueError(
-                    f"consts must be a ({n_consts},) float32 tensor on "
-                    f"{actions.device}")
-            consts = consts.contiguous()
-        else:
-            consts = None
         if actions.device.type == "cpu":
             return plain_rollout(model, dt, substeps, torque_fn, reward_fn,
-                                 q0, qd0, actions, dyn_body, dyn, consts,
+                                 q0, qd0, actions, dyn_body, dyn,
+                                 checked_consts(consts, actions.device),
                                  reward_takes_action, project_fn)
-        if actions.device.type != "cuda":
-            raise TypeError(f"no rollout kernel for {actions.device}")
-        return launch(q0, qd0, actions, dyn, consts)
+        return run_launch(run_stage(q0, qd0, actions, consts, dyn))
 
     run.layout = layout
     run.load = load
+    run.stage = run_stage
+    run.launch = run_launch
     return run
 
 

@@ -58,9 +58,10 @@ into partial sums. Phases follow from the dependences that cross warps
 the plan the model prices lowest.
 
 The chain cut (``plan_partition``'s "chain" mode, for an env with
-``scalar_split_partition = "chain"``: fetch-push, hopper) serves a tree
-whose work sits on one chain of bodies, which the subtree partition keeps
-on one warp (fetch-push's arm) or refuses (hopper's tree is one chain):
+``scalar_split_partition = "chain"``: fetch-push, hopper, pen-v0,
+reacher) serves a tree whose work sits on one chain of bodies, which the
+subtree partition keeps on one warp (fetch-push's arm, pen-v0's pen) or
+refuses (hopper's and reacher's trees are one chain each):
 the heaviest group that is a chain is cut into contiguous segments over
 the warps the groups leave free (``chain_cuts``), each segment a warp, the
 frames at a segment's top copied or sent from the warp above as a

@@ -60,6 +60,16 @@ class Reacher:
 
     # the control cost penalizes the raw action
     scalar_reward_takes_action = True
+    # the rollout kernel's split layout, its one chain of two links cut in
+    # two (split_layout.plan_partition, "chain"): each link on a warp of
+    # its own, the solve on the second; at the canonical N=64/H=20 on an
+    # H100 (80GB HBM3, 700 W; chip_smoke.py phase 37) the kernel alone
+    # takes 0.034 ms against the lane layout's 0.052, but the main path's
+    # call costs ~0.10 ms in either layout (its checks, copies and
+    # allocations), so the synced PPI iteration and the real step do not
+    # move yet (PERF.md section 6, row 1b)
+    scalar_kernel_layout = "split"
+    scalar_split_partition = "chain"
 
     def __post_init__(self):
         model = _build_model()

@@ -4,9 +4,8 @@
 
 For each env (door-v0 and hammer-v0 unless named; relocate-v0, cheetah,
 walker2d, walker~walk, humanoid-standup and pen-v0-hand take the subtree
-partition, fetch-push and hopper the chain cut,
-``scalar_split_partition``; reacher, which routes no partition, is
-studied with the chain cut, ``STUDY_PARTITION``), in one process
+partition, fetch-push, hopper, pen-v0 and reacher the chain cut,
+``scalar_split_partition``), in one process
 on the card: first the host seconds to generate its bodies (the lane
 header; the split generator's search; the split header through an empty
 cache and through the filled one, ``split_layout.cached_body``; the lane
@@ -24,15 +23,22 @@ a partition its groups, solve warp, replication, exchanged values and
 shared loads, and the model's cost of every choice it tried, and for the
 chain cut each cut's cheapest choice, ``cost_by_cut``). Then: the
 split layout against the lane layout bit for bit at N=257 (ragged), H=3
-with a NaN lane; CUDA-event times in turns (lane, warp, split, split,
-warp, lane) at the env's canonical shape (``SHAPES``: N=64/H=30 for
-door-v0 and hammer-v0, N=256/H=20 for relocate-v0, N=256/H=30 for
-cheetah, walker2d and humanoid-standup, N=128/H=25 for walker~walk,
-N=96/H=15 for pen-v0-hand, N=256/H=20 for fetch-push, N=256/H=30 for
-hopper, N=64/H=20 for reacher), and for door-v0 and hammer-v0 lane, split,
-split, lane at
-N=1024/H=160, at N=4096/H=160 (a 4-rank shard of N=16384) and at
-N=16384/H=160; the other split builds at the canonical shape; the real
+with a NaN lane; CUDA-event times of the main path's whole call in turns
+(lane, warp, split, split, warp, lane) at the env's canonical shape
+(``SHAPES``: N=64/H=30 for door-v0 and hammer-v0, N=256/H=20 for
+relocate-v0 and fetch-push, N=256/H=30 for cheetah, walker2d,
+humanoid-standup and hopper, N=128/H=25 for walker~walk, N=96/H=15 for
+pen-v0-hand and pen-v0, N=64/H=20 for reacher), and lane, split, split,
+lane at the larger shapes (door-v0 and hammer-v0 at N=1024/H=160, at
+N=4096/H=160, a 4-rank shard of N=16384, and at N=16384/H=160; pen-v0 at
+N=1024/H=160); the other split builds at the canonical shape; the warmed
+turns there (``warmed_turns``: after 0.5 s of launches, 200 launches a
+reading, every candidate body with the kernel alone, lane, the list plans
+forced to 2, 3 and 4 warps, the split plan, a chain-cut env's subtree
+partition, and back; the lane body and the split plan also through the
+whole call, whose gap to the kernel alone is the wrapper's share; the
+lane's two readings' spread and whether the fastest candidate beats the
+lane by more than it); the real
 step (N=1, H=1, host clock over 20 launches) in all three layouts; the
 warp layout's SM cycles a stage and the split layout's a phase at the
 canonical shape (lane 0 of each warp: its work, then work and wait to
@@ -47,7 +53,7 @@ where the split layout's bits differ from the lane layout's, or where the
 episode's returns differ between the layouts.
 """
 
-import contextlib
+import functools
 import json
 import shutil
 import subprocess
@@ -71,11 +77,13 @@ SHAPES = {"door-v0": _DOOR_SHAPES, "hammer-v0": _DOOR_SHAPES,
           "walker2d": ((256, 30),), "humanoid-standup": ((256, 30),),
           "pen-v0-hand": ((96, 15),), "walker~walk": ((128, 25),),
           "fetch-push": ((256, 20),), "hopper": ((256, 30),),
-          "reacher": ((64, 20),)}
-# the partition studied where the env routes none: reacher's chain cut,
-# timed but not routed
-STUDY_PARTITION = {"reacher": "chain"}
+          "reacher": ((64, 20),), "pen-v0": ((96, 15), (1024, 160))}
 FORCED = (2, 3, 4)
+# the warmed, kernel-only turns (``warmed_turns``): the host seconds of
+# launches that warm the card before the first reading, and the launches
+# a reading
+WARM_S = 0.5
+READING = 200
 PHASE_CLOCKS = "\n#define PPI_PHASE_CLOCKS 1\n"
 # the canonical door-v0 episode (make mpc-lbps), timed in turns
 DOOR_EPISODE = ["Lbps", "door-v0", "SquaredExponentialKernel", "--delta",
@@ -105,29 +113,12 @@ class Split:
         return self
 
     def runner(self, q0, qd0, acts, consts, dyn):
-        return launcher(self.lib, q0, qd0, acts, consts, dyn)
-
-
-def launcher(lib, q0, qd0, acts, consts, dyn):
-    """A callable that launches ``lib``'s split kernel on the (N, nq)
-    lanes and (N, H, d_a) actions; it returns (rewards, qf, qdf)."""
-    fn = load_function(lib, "ppi_rollout_split_launch", 8, 2, stream=True)
-    n, h, nq = acts.shape[0], acts.shape[1], q0.shape[1]
-    dev = acts.device
-    ins = [q0.t().contiguous(), qd0.t().contiguous(),
-           acts.permute(1, 2, 0).contiguous()]
-    outs = [torch.empty((h, n), device=dev), torch.empty((nq, n), device=dev),
-            torch.empty((nq, n), device=dev)]
-    ptr = lambda x: None if x is None else x.data_ptr()
-
-    def run():
-        err = fn(*[x.data_ptr() for x in ins], ptr(dyn), ptr(consts),
-                 *[x.data_ptr() for x in outs], n, h,
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"split launch: CUDA error {err}")
-        return [x.t() for x in outs]
-    return run
+        """A callable that launches this build on the (N, nq) lanes and
+        (N, H, d_a) actions laid out once (``rk.stage``); it returns
+        (rewards, qf, qdf)."""
+        return functools.partial(rk.launch, rk.load_launch(self.lib, "split"),
+                                 rk.stage(q0, qd0, acts, dyn, consts),
+                                 "split")
 
 
 def phase_cycles(env, state, split, n, h):
@@ -157,27 +148,6 @@ def phase_cycles(env, state, split, n, h):
             "torque_and_latch": c[-1, :, 0].round(1).tolist(),
             "substep_total": float(c[:ps, 0, 1].sum()),
             "reward_total": float(c[ps:ps + pr, 0, 1].sum())}
-
-
-@contextlib.contextmanager
-def studied_partition(names):
-    """Inside the block, each env of ``names`` in ``STUDY_PARTITION``
-    plans its split body with that partition (the split layout's
-    ``rk.split_partition``)."""
-    saved = {}
-    for name in names:
-        if name in STUDY_PARTITION:
-            cls = ENVS[name]
-            saved[cls] = cls.__dict__.get("scalar_split_partition")
-            cls.scalar_split_partition = STUDY_PARTITION[name]
-    try:
-        yield
-    finally:
-        for cls, value in saved.items():
-            if value is None:
-                del cls.scalar_split_partition
-            else:
-                cls.scalar_split_partition = value
 
 
 def cost_by_cut(report):
@@ -263,6 +233,80 @@ def same(a, b):
     return all(wl.same_bits(x, y) for x, y in zip(a, b))
 
 
+def warm(fn, seconds=WARM_S):
+    """Launches of ``fn`` for ``seconds`` of the host's clock, 50 between
+    synchronizations: the card at its working clock before a reading.
+    Returns the launches."""
+    t0, launches = time.perf_counter(), 0
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        launches += 50
+    return launches
+
+
+def warmed_turns(env, state, splits, n, h):
+    """Each candidate body at N=n, H=h timed with the kernel alone (the
+    main path's ``run.launch`` on what its ``run.stage`` laid out once, or
+    ``Split.runner`` for a forced plan), and the lane body and the routed
+    split plan also through the whole ``run(...)`` call of the main path
+    (its checks, three layout copies and three allocations), ``READING``
+    launches a reading, after ``WARM_S`` host seconds of the lane kernel's
+    launches; turns lane, the list plans forced to each of ``FORCED``
+    warps, the split plan ("chain" or "subtree" where it is a partition),
+    the subtree partition of a chain-cut env, and the same in reverse. The bar: the lane body's two
+    kernel-only readings within 3%. A candidate wins where its mean
+    kernel-only time beats the lane body's by more than the lane's own
+    spread (the difference of its two readings)."""
+    consts, _, dyn = rk.kernel_operands(env, state)
+    q0, qd0, acts = wl.lanes(env, state, n, h, 0.3)
+    routed = rk.split_partition(env) or "list"
+    runs = {"lane": rollout(env, state, h, "lane"),
+            routed: rollout(env, state, h, "split")}
+
+    def alone(r):
+        return functools.partial(r.launch, r.stage(q0, qd0, acts,
+                                                   consts=consts, dyn=dyn))
+    kernel = {"lane": alone(runs["lane"]),
+              **{f"list-{k}": splits[k].runner(q0, qd0, acts, consts, dyn)
+                 for k in FORCED},
+              routed: alone(runs[routed])}
+    if "subtree" in splits:
+        kernel["subtree"] = splits["subtree"].runner(q0, qd0, acts, consts,
+                                                     dyn)
+    call = {label: (lambda r=r: r(q0, qd0, acts, consts=consts, dyn=dyn))
+            for label, r in runs.items()}
+    for fn in (*kernel.values(), *call.values()):   # load every build
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warmed = warm(kernel["lane"])
+    warm_s = time.perf_counter() - t0
+    order = list(kernel)
+    turns = [[label, wl.cuda_ms(kernel[label], READING, 0),
+              wl.cuda_ms(call[label], READING, 0) if label in call
+              else None]
+             for label in order + order[::-1]]
+    kern = {label: [t[1] for t in turns if t[0] == label] for label in order}
+    full = {label: [t[2] for t in turns if t[0] == label] for label in call}
+    mean = {label: float(np.mean(v)) for label, v in kern.items()}
+    lane = kern["lane"]
+    spread = abs(lane[0] - lane[1])
+    best = min((label for label in order if label != "lane"), key=mean.get)
+    return {"warm_launches": warmed, "warm_s": warm_s,
+            "launches_a_reading": READING,
+            "turns_kernel_whole_ms": turns, "kernel_ms": mean,
+            "whole_ms": {label: float(np.mean(v))
+                         for label, v in full.items()},
+            "gap_ms": {label: float(np.mean(full[label]) - mean[label])
+                       for label in call},
+            "lane_spread": spread / min(lane),
+            "meets_bar": spread / min(lane) <= 0.03,
+            "fastest": best,
+            "wins": mean["lane"] - mean[best] > spread}
+
+
 def study(name, dev, splits):
     env = ENVS[name]()
     state = env.reset(torch.Generator(dev).manual_seed(0), dev)
@@ -305,6 +349,7 @@ def study(name, dev, splits):
                 str(k): wl.cuda_ms(s.runner(q0, qd0, acts, consts, dyn),
                                    iters)
                 for k, s in splits.items() if k is not None and k != "clk"}
+    out[f"warmed_N{n0}_H{h0}"] = warmed_turns(env, state, splits, n0, h0)
     action = state.physics.qpos[:env.action_dim] + 0.1
     q1 = state.physics.qpos[None].contiguous()
     qd1 = state.physics.qvel[None].contiguous()
@@ -335,13 +380,6 @@ def main(names):
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
     names = names or list(ENV_NAMES)
-    with studied_partition(names):
-        return study_all(names, dev, smi)
-
-
-def study_all(names, dev, smi):
-    """``main``'s generation, builds and ``study`` of each env of
-    ``names``; 0 where every check held, else 1."""
     gen = {}
     for name in names:
         env = ENVS[name]()

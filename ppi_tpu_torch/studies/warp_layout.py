@@ -132,26 +132,15 @@ def stage_cycles(env, state, header, n, h, scale):
     H=h."""
     from ppi_tpu_torch.build import load_function
     lib = rk._warp_library(header + CLOCKS)
-    fn = load_function(lib, "ppi_rollout_warp_launch", 8, 3, stream=True)
+    fn = rk.load_launch(lib, "warp")
     take = load_function(lib, "ppi_stage_clocks_take", 1, 0, stream=False)
     consts, _, dyn = rk.kernel_operands(env, state)
-    q0, qd0, acts = lanes(env, state, n, h, scale)
-    nq = q0.shape[1]
-    ins = [q0.t().contiguous(), qd0.t().contiguous(),
-           acts.permute(1, 2, 0).contiguous()]
-    outs = [torch.empty((h, n), device=q0.device),
-            torch.empty((nq, n), device=q0.device),
-            torch.empty((nq, n), device=q0.device)]
-    ptr = lambda x: None if x is None else x.data_ptr()
+    staged = rk.stage(*lanes(env, state, n, h, scale), dyn, consts)
     clocks = np.zeros(len(STAGES), np.uint64)
     for _ in range(2):   # the first launch warms up; the second is read
         take(clocks.ctypes.data)
-        err = fn(*[x.data_ptr() for x in ins], ptr(dyn), ptr(consts),
-                 *[x.data_ptr() for x in outs], n, h, 1,
-                 torch.cuda.current_stream().cuda_stream)
+        rk.launch(fn, staged, "warp", (1,))
         torch.cuda.synchronize()
-        if err:
-            raise RuntimeError(f"clocked launch failed: CUDA error {err}")
     check = take(clocks.ctypes.data)
     if check:
         raise RuntimeError(f"reading the stage clocks: CUDA error {check}")

@@ -56,6 +56,31 @@ def test_kernel_matches_plain_and_counts_its_launch():
     assert _rel(qdf, qdf_p) <= 1e-4
 
 
+@pytest.mark.parametrize("layout", ["lane", "warp", "split"])
+def test_staged_launches_equal_the_call_and_count_each_launch(layout):
+    """``run.launch`` on what ``run.stage`` laid out once gives the call's
+    bits at every launch, into the same outputs, one count a launch."""
+    dev = _device()
+    door = Door(fixed_scene=True)
+    s0 = door.reset(None, dev)
+    acts = _acts(dev)
+    run = rk.env_rollout(door, s0, H, layout=layout)
+    q0 = torch.from_numpy(door_q0(N)).to(dev)
+    qd0 = torch.zeros_like(q0)
+    consts, _, dyn = rk.kernel_operands(door, s0)
+    want = run(q0, qd0, acts, consts=consts, dyn=dyn)
+    staged = run.stage(q0, qd0, acts, consts=consts, dyn=dyn)
+    key = rk.LAUNCH_KEYS[layout]
+    before = rk.LAUNCHES[key]
+    first = run.launch(staged)
+    again = run.launch(staged)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES[key] == before + 2
+    for a, b, c in zip(want, first, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+        assert b.data_ptr() == c.data_ptr()
+
+
 def test_kernel_isolates_a_nan_lane_and_masks_the_ragged_edge():
     dev = _device()
     door = Door(fixed_scene=True)
@@ -681,16 +706,17 @@ PUSH_SCALE = 1.2
 PARTITIONED = {"relocate-v0": "subtree", "cheetah": "subtree",
                "walker2d": "subtree", "walker~walk": "subtree",
                "humanoid-standup": "subtree", "pen-v0-hand": "subtree",
-               "fetch-push": "chain", "hopper": "chain"}
+               "fetch-push": "chain", "hopper": "chain", "pen-v0": "chain",
+               "reacher": "chain"}
 
 
 @pytest.mark.parametrize("name", list(PARTITIONED))
 def test_partitioned_split_layout_equals_lane_layout(name):
     """relocate-v0, cheetah, walker2d, walker~walk, humanoid-standup and
     pen-v0-hand route to the split layout, their substep partitioned by
-    the body tree, and fetch-push and hopper with their heaviest chain of
-    bodies cut into segments: at N=257 (ragged), H=5, from a sampled goal
-    or start (pen-v0-hand: its PD targets about the digits' posture, as
+    the body tree, and fetch-push, hopper, pen-v0 and reacher with their
+    heaviest chain of bodies cut into segments: at N=257 (ragged), H=5,
+    from a sampled goal or start (pen-v0-hand: its PD targets about the digits' posture, as
     the scene tests'; fetch-push: about the arm's), with a NaN lane, one
     launch counted under
     ``rk.launch_key(env)`` (``rollout_split``); rewards and final state

@@ -168,6 +168,41 @@ def test_kernel_wrapper_has_no_cpu_fallback_for_other_devices():
         m_projection(torch.zeros(3, device="meta"), meta, use_kernel="always")
 
 
+def test_rollout_stage_lays_out_the_kernel_operands():
+    """``stage`` copies the (N, nq) lanes and (N, H, d_a) actions to the
+    kernel's lane-major layout, allocates the (H, N) rewards and (nq, N)
+    final state that ``launch`` fills and takes the kernel's eight pointers
+    once; the wrapper's ``run.stage`` checks as ``run`` does and has no
+    path off the card."""
+    from ppi_tpu_torch.envs.door import Door
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    gen = torch.Generator().manual_seed(0)
+    q0 = torch.randn((5, 3), generator=gen)
+    qd0 = torch.randn((5, 3), generator=gen)
+    acts = torch.randn((5, 4, 2), generator=gen)
+    consts = torch.ones(2)
+    ptrs, outs, ins = rk.stage(q0, qd0, acts, None, consts)
+    q_t, qd_t, a_t, dyn, c = ins
+    assert torch.equal(q_t, q0.T) and torch.equal(qd_t, qd0.T)
+    assert torch.equal(a_t, acts.permute(1, 2, 0))
+    assert all(x.is_contiguous() for x in (q_t, qd_t, a_t))
+    assert dyn is None and c is consts
+    assert [tuple(x.shape) for x in outs] == [(4, 5), (3, 5), (3, 5)]
+    assert all(x.dtype == torch.float32 for x in outs)
+    assert ptrs == (q_t.data_ptr(), qd_t.data_ptr(), a_t.data_ptr(), None,
+                    consts.data_ptr(), *[x.data_ptr() for x in outs])
+    door = Door(fixed_scene=True)
+    run = rk.make_rollout(door._model, door.dt, door.substeps, 2, 4,
+                          door.scalar_torque, door.scalar_reward,
+                          dyn_body=4)
+    q, qd = torch.zeros((3, door._model.nq)), torch.zeros((3, door._model.nq))
+    with pytest.raises(TypeError, match="no rollout kernel for cpu"):
+        run.stage(q, qd, torch.zeros((3, 2, 4)))
+    meta = torch.zeros((3, door._model.nq), device="meta")
+    with pytest.raises(TypeError, match="no rollout kernel for meta"):
+        run.stage(meta, meta, torch.zeros((3, 2, 4), device="meta"))
+
+
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")

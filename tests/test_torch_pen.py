@@ -158,6 +158,26 @@ def test_host_c_build_matches_plain(reference):
     assert_host_c_matches_plain(Pen(), s, acts, q0, qd0)
 
 
+@pytest.mark.parametrize("goal", sorted(GOALS))
+def test_routed_split_build_matches_reference(reference, acts, goal):
+    """pen-v0 routes to the split layout with its pen's chain cut into
+    segments: that body built as host C against ``ppi_tpu``'s rollout on
+    the same numpy inputs, at each goal, within the rollout tolerances."""
+    from test_torch_warp_layout import _host_run, _needs_cc
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    _needs_cc()
+    env = Pen()
+    js, ref = reference[goal]
+    s = port_state(PenState, js)
+    assert (rk.kernel_layout(env), rk.split_partition(env)) == (
+        "split", "chain")
+    run = rk.load_host_split_rollout(rk.generate_split_header(
+        *rk.body_args(env, s), partition=rk.split_partition(env)))
+    q0 = np.tile(to_np(s.physics.qpos), (N, 1))
+    qd0 = np.tile(to_np(s.physics.qvel), (N, 1))
+    assert_rollout_close(_host_run(run, env, s, q0, qd0, acts), ref)
+
+
 def test_observe_and_success_match_reference(reference):
     jenv, env = JaxPen(), Pen()
     js = reference["a"][0]

@@ -1,22 +1,23 @@
 """The split layout's chain cut on the CPU (csrc/rollout_split.cu).
 
-fetch-push and hopper opt in (``scalar_split_partition = "chain"``): their
-split body's substep is partitioned by the body tree as in
-tests/test_torch_split_subtree.py, and then the heaviest group that is a
-chain of bodies is cut into contiguous segments over the warps that are
+fetch-push, hopper, pen-v0 and reacher opt in (``scalar_split_partition =
+"chain"``): their split body's substep is partitioned by the body tree as
+in tests/test_torch_split_subtree.py, and then the heaviest group that is
+a chain of bodies is cut into contiguous segments over the warps that are
 left (``split_layout.chain_cuts``): fetch-push's arm (yaw | shoulder and
 elbow | wrist) beside the box's slides, hopper's one chain (root slides |
-torso and thigh | leg | foot). The search tries every cut with every
-solve warp, replication cap and ``rhs_late``, and skips a choice whose
-lower bound cannot beat the best so far. Held here: the host-C chain
-builds of fetch-push, hopper, pen-v0 and finger~spin (the last two plan
-but are not routed) against the host-C lane builds bit for bit (a ragged
-group, a NaN lane, H=3) and the plain version within the rollout
-tolerances; the plans against the race and slot simulator of
+torso and thigh | leg | foot), pen-v0's pen (slides and yaw | pitch)
+beside each fingertip's slides, reacher's two links. The search tries
+every cut with every solve warp, replication cap and ``rhs_late``, and
+skips a choice whose lower bound cannot beat the best so far. Held here:
+the host-C chain builds of the four and of finger~spin (which plans but is
+not routed) against the host-C lane builds bit for bit (a ragged group, a
+NaN lane, H=3) and the plain version within the rollout tolerances; the
+plans against the race and slot simulator of
 tests/test_torch_split_layout.py; their groups, solve warps, phases,
 slots and model costs; the bounded search against the full enumeration;
-the cache entries of the two modes; the two routed headers by sha256; the
-routing; and the partition's name checked.
+the cache entries of the two modes; the four routed headers by sha256;
+the routing; and the partition's name checked.
 """
 
 import functools
@@ -34,15 +35,17 @@ from ppi_tpu_torch.envs.physics import rollout_kernel as rk
 from ppi_tpu_torch.envs.physics import split_layout as spl
 from ppi_tpu_torch.runners.run_mpc import ENVS
 
-ROUTED = ("fetch-push", "hopper")
-CHAIN_ENVS = ROUTED + ("pen-v0", "finger~spin")
+ROUTED = ("fetch-push", "hopper", "pen-v0", "reacher")
+CHAIN_ENVS = ROUTED + ("finger~spin",)
+# the trees that are one chain, which the subtree partition refuses
+ONE_CHAIN = ("hopper", "reacher")
 N, H = 37, 3   # one full group of 32 rollouts and a ragged one
 
 # per env: the chosen groups of bodies, the solve's warp, the replication
 # cap, rhs_late, phases a substep, slots a group, the model's step cost,
 # the groupings searched, and the most that cost may be as a share of the
-# body's cheapest earlier plan (the subtree partition's, or for hopper,
-# whose tree the subtree partition refuses, the list plan's)
+# body's cheapest earlier plan (the subtree partition's, or for a tree that
+# is one chain, which the subtree partition refuses, the list plan's)
 PLANS = {
     "fetch-push": ([[0], [1, 2], [3], [4, 5]], 0, 64, True, 4, 68, 5335.65,
                    7, 0.8),
@@ -51,14 +54,19 @@ PLANS = {
     "pen-v0": ([[0, 1, 2, 3], [4], [5, 6], [7, 8]], 0, 64, True, 3, 52,
                18628.75, 5, 0.85),
     "finger~spin": ([[0], [1], [2]], 2, 64, False, 3, 33, 2748.3, 2, 0.9),
+    "reacher": ([[0], [1]], 1, 64, False, 2, 8, 2041.75, 2, 0.75),
 }
 
-# sha256 of the two routed chain headers as first generated
+# sha256 of the routed chain headers as first generated
 CHAIN_SHA256 = {
     "fetch-push":
         "223266de643010a6f0bc97041ce877eea9626a8dc2e4418be07e4e4d3536130a",
     "hopper":
         "d9a306fdc177c4194a8ecf9ea8286450ddfaa05c5082851724a2ee459ba90409",
+    "pen-v0":
+        "123f5a83da9474cd4aafe7d7606000a8b2fd2250d5beb5ce5d92d826d8ff3462",
+    "reacher":
+        "4863e7928a4cf9732876c4afa80952bc3d31ca4111ea63a79c05ca9f4f6bef7a",
 }
 
 
@@ -137,14 +145,14 @@ def test_the_chain_plans(chain, name):
     laid = [c for c in costs.values() if not isinstance(c, str)]
     assert min(laid) == info["substep_cost"]
     assert len({k.split("_solve")[0] for k in costs}) == cuts
-    if name == "hopper":
+    if name in ONE_CHAIN:
         earlier = rk.generate_split(*_args(name))[1]
     else:
         earlier = rk.generate_split(*_args(name), partition="subtree")[1]
     assert info["step_cost"] < share * earlier["step_cost"]
 
 
-@pytest.mark.parametrize("name", ROUTED)
+@pytest.mark.parametrize("name", ("fetch-push", "hopper"))
 def test_the_bounded_search_finds_the_full_enumerations_plan(
         chain, name, monkeypatch):
     """The search that skips a choice whose lower bound cannot beat the
@@ -203,17 +211,18 @@ def test_chain_headers_are_pinned(chain, name):
 
 
 def test_fetch_push_and_hopper_route_to_the_chain_cut():
-    """fetch-push and hopper route to the split layout with the chain cut;
-    pen-v0 and finger~spin plan under it but keep the lane layout."""
+    """Every env of ``ROUTED`` (fetch-push and hopper, then pen-v0 and
+    reacher) routes to the split layout with the chain cut; finger~spin
+    plans under it but keeps the lane layout."""
     for name in ROUTED:
         env = ENVS[name]()
         assert (rk.kernel_layout(env), rk.split_partition(env)) == (
             "split", "chain"), name
         assert rk.launch_key(env) == "rollout_split"
-    for name in ("pen-v0", "finger~spin"):
-        env = ENVS[name]()
-        assert (rk.kernel_layout(env), rk.split_partition(env)) == (
-            "lane", None), name
+        assert rk.env_rollout(env, _state(name), 2).layout == "split"
+    env = ENVS["finger~spin"]()
+    assert (rk.kernel_layout(env), rk.split_partition(env)) == (
+        "lane", None)
 
 
 def test_an_unknown_partition_raises():

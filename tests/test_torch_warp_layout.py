@@ -43,10 +43,11 @@ WARP_ENVS = ("door-v0-adroit", "hammer-v0-adroit", "relocate-v0-adroit",
 # (tests/test_torch_warp_pivot.py)
 ROUTED_WARP_ENVS = WARP_ENVS + ("pen-v0-adroit", "fetch-pick")
 # the envs that plan and step through the split layout
-# (tests/test_torch_split_layout.py, tests/test_torch_split_subtree.py)
+# (tests/test_torch_split_layout.py, tests/test_torch_split_subtree.py,
+# tests/test_torch_split_chain.py)
 ROUTED_SPLIT_ENVS = ("door-v0", "relocate-v0", "cheetah", "walker2d",
                      "walker~walk", "humanoid-standup", "pen-v0-hand",
-                     "fetch-push", "hopper")
+                     "fetch-push", "hopper", "pen-v0", "reacher")
 N, H = 5, 2
 
 # sha256 of the warp headers as first generated: a change to the
