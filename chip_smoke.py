@@ -20,16 +20,24 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 iterations, seed 0): finite return, exactly 800 kernel
                 launches of door-v0's routed layout (the split layout,
                 phases 35-37; each real step is one), the door open;
-  5. build   -- the moment-match kernel's build time and -Xptxas -v summary;
+  5. build   -- the moment-match kernels' build time, -Xptxas -v summary
+                of each (prologue, main at tiles 128 and 64, epilogue) and
+                the HGMMA (wgmma, tensor-core) instructions in their SASS;
   6. check   -- the moment-match kernel against its plain version and both
                 against a float64 oracle on the card: (4096, 64) with
                 heavy-tailed weights and 0-3 quarters masked, (4000, 640),
                 (1000, 17), (256, 9) with a mean offset of 100, and every
-                lane but one at -inf (ESS 1); two launches bit-identical;
+                lane but one at -inf (ESS 1); sigma exactly symmetric; two
+                launches bit-identical;
   7. timings -- the kernel, the single-pass plain version and the two-pass
                 m_projection (CUDA events) at (100, 20), (4096, 64),
-                (4096, 640) and (16384, 640); ms per optimization iteration
-                at d=640, N=4096 (sample, NoisySphere, Reps, Gaussian update);
+                (4096, 640) and (16384, 640); at (4096, 640) the kernel and
+                ``torch.cov`` in turns (kernel, cov, cov, kernel) and each
+                of the wrapper's three launches' device time
+                (``torch.profiler``); both bounds (the f32 SIMT one and the
+                tensor cores' for three TF32 products); ms per
+                optimization iteration at d=640, N=4096 (sample,
+                NoisySphere, Reps, Gaussian update);
   8. runs    -- three black-box runs through the port's run_opt (Reps,
                 NoisySphere, 50 iterations, seed 0): d=640 and d=64 at
                 N=4096 (exactly 50 kernel launches each), and the canonical
@@ -42,14 +50,15 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 to their split bodies, phases 35-37, which phases 10-12
                 run);
  10. check   -- each body against the plain version on the card at N=1000
-                (ragged), H=20: rewards and final state, a pre-poisoned NaN
+                (ragged), H=10: rewards and final state, a pre-poisoned NaN
                 lane, the horizon mask and two goals (pen-v0, relocate-v0)
                 over the first 5 steps, actions past the torque box
                 (cheetah), and the real step through the kernel (N=1, H=1)
                 against the eager step;
- 11. timings -- each body's kernel time (CUDA events) and the plain
-                rollout's at its canonical shape (pen-v0 N=96/H=15,
-                relocate-v0 N=256/H=20, cheetah N=256/H=30; pen-v0 also at
+ 11. timings -- each body's kernel time (CUDA events) at its canonical
+                shape and, with the plain rollout's, at its N and H_PLAIN
+                (pen-v0 N=96/H=15, relocate-v0 N=256/H=20, cheetah
+                N=256/H=30; pen-v0 also at
                 N=1024/H=160), one synced PPI iteration at each canonical
                 shape and one real env step of each env through the kernel
                 and one eager;
@@ -74,11 +83,13 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 door and lanes where the latch is pressed and it does not
                 (both sets must be non-empty), a pre-poisoned NaN lane,
                 the horizon mask in the objective and a second sampled
-                frame (H=5), and the real step through the kernel (N=1,
+                frame (H=5; door-v0-adroit H=2, as the other Adroit-class
+                bodies), and the real step through the kernel (N=1,
                 H=1) against the eager step;
  15. timings -- each body's kernel time at N=64 and N=1024, H=30
                 (door-v0-adroit H=10), the plain rollout and the kernel at
-                N=64/H=10, one synced PPI iteration at the canonical shape
+                N=64/H=H_PLAIN (door-v0-adroit H=1, as the other Adroit-class
+                bodies), one synced PPI iteration at the canonical shape
                 (H=30), one real step through the kernel, one eager real
                 step and one observation;
  16. episodes -- the canonical config (Lbps, SE, delta 0.9, 2 iters, anneal
@@ -96,7 +107,7 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 the split layout partitioned by the body tree (phase 35's
                 build) in phases 18-20;
  18. check   -- each of those bodies against its plain version on the card
-                at N=1000 (ragged), H=20 (relocate-v0-hand H=10): rewards
+                at N=1000 (ragged), H=10: rewards
                 and final state bit-identical or within 1e-6, from lanes in
                 which the object is in contact (the nail under the head, the
                 hammer dropped on the nail, the digits on the pen and over
@@ -104,8 +115,9 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 be none), a pre-poisoned NaN lane, the horizon mask in the
                 objective and a second board or goal (H=5), and the real
                 step through the kernel (N=1, H=1) against the eager step;
- 19. timings -- each body's kernel time and plain rollout at its canonical
-                shape (hammer-v0 N=64/H=30, pen-v0-hand N=96/H=15,
+ 19. timings -- each body's kernel time at its canonical shape and, with
+                the plain rollout's, at its N and H_PLAIN (hammer-v0
+                N=64/H=30, pen-v0-hand N=96/H=15,
                 relocate-v0-hand N=256/H=20, hammer-v0-hand N=128/H=30),
                 ops per lane step and the bound, one synced PPI iteration
                 with the canonical solver and prior, one real step through
@@ -116,7 +128,7 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 (Lbps, SE, T=100, H=15, N=96) and relocate-v0-hand (Mppi,
                 ColouredNoise, T=140, H=20, N=256) at seed 0 to success with
                 exactly 350 and 330 launches; hammer-v0-hand (Lbps, SE,
-                T=400, H=30, N=128) at seed 0 with exactly 1250 launches
+                T=50, H=30, N=128) at seed 0 with exactly 200 launches
                 and a finite return (nail depth, lifted and success
                 printed, success not required); and one T=20 door-v0
                 episode with each prior no other phase runs (Lbps; 90
@@ -128,11 +140,11 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 summary. fetch-pick plans and steps through the warp
                 layout (phase 32's build), walker2d, walker~walk and
                 humanoid-standup through the split layout partitioned by
-                the body tree, fetch-push, hopper and reacher through it
-                with their heaviest chain of bodies cut into segments
-                (phase 35's builds) in phases 22-24;
+                the body tree, fetch-push, hopper, reacher and finger~spin
+                through it with their heaviest chain of bodies cut into
+                segments (phase 35's builds) in phases 22-24;
  22. check   -- each of those bodies against its plain version on the card
-                at N=1000 (ragged), H=20: rewards and final state
+                at N=1000 (ragged), H=10: rewards and final state
                 bit-identical or within TOL, from lanes in contact (the
                 fingertip on the paddle, the paddle against the box, a
                 fingertip against the ball; the lanes where the object
@@ -142,8 +154,9 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 fetch-push, fetch-pick; H=5), actions past the torque or
                 action box, and the real step through the kernel (N=1,
                 H=1) against the eager step;
- 23. timings -- each body's kernel time and plain rollout at its canonical
-                shape, ops per lane step and the bound, one synced PPI
+ 23. timings -- each body's kernel time at its canonical shape and, with
+                the plain rollout's, at its N and H_PLAIN, ops per lane
+                step and the bound, one synced PPI
                 iteration with the canonical solver and prior, one real
                 step through the kernel and one observation;
  24. episodes -- the eight envs through the port's run_mpc at the JAX
@@ -182,8 +195,8 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 0: pen-v0-adroit (Lbps, SE, T=100, H=15, N=96) and
                 relocate-v0-adroit (Mppi, ColouredNoise, T=140, H=20,
                 N=256) to success with exactly 350 and 330 launches,
-                hammer-v0-adroit (Lbps, SE, T=400, H=30, N=128) with
-                exactly 1250 launches and a finite return (nail depth,
+                hammer-v0-adroit (Lbps, SE, T=50, H=30, N=128) with
+                exactly 200 launches and a finite return (nail depth,
                 lifted and success printed, success not required: the JAX
                 package's rate is 0).
  29. check   -- the sharded entry (``sharded_pallas_mpc_objective``): one
@@ -249,7 +262,7 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 step and a synced PPI iteration (the canonical solver and
                 prior) in both layouts; then phase 16's, 20's, 24's and
                 28's seed-0 episodes of the eight once more through the
-                lane layout: exactly 800, 1250, 330, 800, 1250, 330, 350
+                lane layout: exactly 800, 200, 330, 800, 200, 330, 350
                 and 410 launches of it, the returns equal the warp
                 layout's, the doors open, the ball and the pen at their
                 goals.
@@ -259,10 +272,10 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 through it (phases 2-31 run it), of hammer-v0, which
                 keeps the lane layout, and of pen-v0-hand, relocate-v0,
                 cheetah, pen-v0, walker2d, walker~walk, humanoid-standup,
-                fetch-push, hopper and reacher, whose substep is
-                partitioned by the body tree (pen-v0's, fetch-push's,
-                hopper's and reacher's with their heaviest chain cut into
-                segments) and which plan and step through it (phases
+                fetch-push, hopper, reacher and finger~spin, whose substep
+                is partitioned by the body tree (pen-v0's, fetch-push's,
+                hopper's, reacher's and finger~spin's with their heaviest
+                chain cut into segments) and which plan and step through it (phases
                 10-12 run relocate-v0, cheetah and pen-v0, phases 18-20
                 pen-v0-hand, phases 22-24 the others); generated and
                 built with nvcc in phase 1
@@ -276,8 +289,9 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
  36. check   -- on phase 2's (door-v0), phase 18's (hammer-v0), phase
                 10's (relocate-v0, cheetah, pen-v0), phase 18's
                 (pen-v0-hand) and phase 22's (walker2d, walker~walk,
-                humanoid-standup, fetch-push, hopper, reacher) lanes,
-                N=1000, H=20: the split
+                humanoid-standup, fetch-push, hopper, reacher,
+                finger~spin) lanes,
+                N=1000, H=20 (door-v0) or 10: the split
                 layout bit for bit the lane kernel and within TOL
                 (SCENE_TOL) of the plain version; a NaN lane; the second
                 frame, board, goal or start with the mask, both layouts'
@@ -294,8 +308,8 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 and (lane, warp, split, split, warp, lane) at N=256/H=20
                 (relocate-v0, fetch-push), N=256/H=30 (cheetah, walker2d,
                 humanoid-standup, hopper), N=96/H=15 (pen-v0-hand,
-                pen-v0), N=128/H=25 (walker~walk) and N=64/H=20
-                (reacher), and (lane, split, split, lane) for door-v0 at
+                pen-v0), N=128/H=25 (walker~walk), N=64/H=20
+                (reacher) and N=128/H=20 (finger~spin), and (lane, split, split, lane) for door-v0 at
                 N=1024/H=160 (phase 3's north star), N=4096/H=160 (phase
                 30's shard) and N=16384/H=160 and for pen-v0 at
                 N=1024/H=160; the real step and a synced PPI
@@ -303,12 +317,12 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 kernel's blocks an SM; then phase 4's door-v0 episode,
                 phase 12's relocate-v0, cheetah and pen-v0 episodes,
                 phase 20's pen-v0-hand episode and phase 24's walker2d,
-                walker~walk, humanoid-standup, fetch-push, hopper and
-                reacher (seed 0) episodes once more through the lane
-                layout and phase 20's seed-0 hammer-v0 episode once more
-                through the split layout: exactly 800, 330, 350, 350,
-                350, 350, 350, 350, 290, 350, 210 and 550 launches of
-                it, the returns equal.
+                walker~walk, humanoid-standup, fetch-push, hopper, reacher
+                and finger~spin (seed 0) episodes once more through the
+                lane layout and phase 20's seed-0 hammer-v0 episode once
+                more through the split layout: exactly 800, 330, 350,
+                350, 350, 350, 350, 350, 290, 350, 210, 290 and 550
+                launches of it, the returns equal.
 Then one JSON line with the kernels' numbers (each entry with the (N, H)
 of its ms and bound_ms, of its plain_ms, and the kernel's time at the
 latter; the rollout bodies of phase 35 with their registers and spills,
@@ -332,6 +346,15 @@ import numpy as np
 import torch
 
 N_CHECK, H_CHECK = 1000, 20
+# the horizon of phases 10, 18 and 22's checks (phase 2's and 29's keep
+# H_CHECK): the plain version runs one eager op per scalar op, and the
+# checks against it were 43% of the script at H=20 on an H100 (PERF.md)
+H_EAGER = 10
+# the horizon at which phases 11, 15, 19 and 23 time the plain rollout: one
+# eager op per scalar op, the script's dearest part on a slow host (at the
+# canonical horizons, 10-30, the script passed its 1,200 s on a host 1.4-2.5x
+# slower in it)
+H_PLAIN = 5
 TOL = 1e-4  # max of |kernel - plain| / (1 + |plain|), elementwise
 # moment match: the kernel against its plain version (f32 sums in another
 # order: mu and sigma absolute, ESS relative) ...
@@ -347,11 +370,12 @@ FINAL_RATIO = 0.5  # d=640: final cost <= this x the first iteration's
 # tensor cores and device-memory bandwidth; a kernel's bound is the larger
 # of its operations and its bytes over these
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
+PEAK_TF32_FLOPS = 495e12   # dense TF32 on the tensor cores
 
 # phases 9-12: the variant-(b) envs. Per env: the scale of the random check
 # actions (cheetah's reach past its +-30 box), two pinned goals away from
 # the reward's bonus thresholds (pen-v0: yaw/pitch with a similarity below
-# 0.6 to the reset axis, which stays below 0.75 in the check's 20 steps;
+# 0.6 to the reset axis, which stays below 0.75 over the check's steps;
 # relocate-v0: goals more than 0.25 from the ball, which falls freely from
 # 0.9 above the table, clear of the gripper, and stays 0.1 above the lift
 # gate), the canonical kernel shape, and the runner's arguments for the
@@ -390,10 +414,10 @@ DOOR_CEM = dict(episode=["Cem", "door-v0", "WhiteNoiseIid", "--n-elites",
 # episode runs the canonical config (``goal_success.py:63-66,74-77``); seed
 # 0 launches the kernel 50 + 250 x 2 + 250 times (its real step is one
 # launch too).
-HAND = {"door-v0-hand": dict(h_check=20, seeds=range(2), successes=1,
-                             h_time=30, h_plain=10),
-        "door-v0-adroit": dict(h_check=5, seeds=range(1), successes=1,
-                               h_time=10, h_plain=10)}
+HAND = {"door-v0-hand": dict(h_check=20, h_frame=5, seeds=range(2),
+                             successes=1, h_time=30, h_plain=H_PLAIN),
+        "door-v0-adroit": dict(h_check=5, h_frame=2, seeds=range(1),
+                               successes=1, h_time=10, h_plain=1)}
 HAND_EPISODE = ["Lbps", "SquaredExponentialKernel", "--delta", "0.9",
                 "--n-iters", "2", "--anneal", "0.5", "--lengthscale", "0.08",
                 "--timesteps", "250", "--horizon", "30"]
@@ -409,34 +433,39 @@ H_FRAME = 5  # horizon of the mask and second-frame checks
 # the launches of each episode (warm start + iterations + real steps, which
 # are launches too) and how many episodes must succeed.
 SCENE_TOL = 1e-6  # max of |kernel - plain| / (1 + |plain|), elementwise
+# the hammer scenes' episodes (hammer-v0-hand, hammer-v0-adroit): 50 of
+# the canonical 400 steps. Their success is not gated (the JAX package's
+# rates are ~1/5-3/5 and 0), and at 400 steps they were the script's
+# dearest episodes, run in both layouts
+T_HAMMER = 50
 _LBPS_SE = ["SquaredExponentialKernel", "--delta", "0.9", "--n-iters", "2",
             "--anneal", "0.5", "--lengthscale", "0.08"]
 SCENES = {
     "hammer-v0": dict(
-        h_check=20, scale=0.4, moved=(4,), shape=(64, 30),
+        h_check=H_EAGER, scale=0.4, moved=(4,), shape=(64, 30),
         family=("Essps", "RffFeatures", {"lengthscale": 0.15}),
         episode=["Essps", "hammer-v0", "RffFeatures", "--n-elites", "10",
                  "--lengthscale", "0.15"],
         seeds=range(3), launches=50 + 250 + 250, successes=2),
     "pen-v0-hand": dict(
-        h_check=20, scale=0.5, moved=(3, 4), shape=(96, 15),
+        h_check=H_EAGER, scale=0.5, moved=(3, 4), shape=(96, 15),
         family=("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08}),
         episode=["Lbps", "pen-v0-hand", *_LBPS_SE, "--timesteps", "100",
                  "--horizon", "15"],
         seeds=range(1), launches=50 + 100 * 2 + 100, successes=1),
     "relocate-v0-hand": dict(
-        h_check=10, scale=0.3, moved=(10, 11), shape=(256, 20),
+        h_check=H_EAGER, scale=0.3, moved=(10, 11), shape=(256, 20),
         family=("Mppi", "ColouredNoise", {"beta": 2.0}),
         episode=["Mppi", "relocate-v0-hand", "ColouredNoise", "--beta", "2",
                  "--alpha", "10", "--anneal", "0.9", "--timesteps", "140",
                  "--horizon", "20"],
         seeds=range(1), launches=50 + 140 + 140, successes=1),
     "hammer-v0-hand": dict(
-        h_check=20, scale=0.3, moved=(9,), shape=(128, 30),
+        h_check=H_EAGER, scale=0.3, moved=(9,), shape=(128, 30),
         family=("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08}),
-        episode=["Lbps", "hammer-v0-hand", *_LBPS_SE, "--timesteps", "400",
-                 "--horizon", "30"],
-        seeds=range(1), launches=50 + 400 * 2 + 400, successes=0),
+        episode=["Lbps", "hammer-v0-hand", *_LBPS_SE, "--timesteps",
+                 str(T_HAMMER), "--horizon", "30"],
+        seeds=range(1), launches=50 + T_HAMMER * 3, successes=0),
 }
 # phase 20's short episodes: the priors that no other phase runs (with
 # --beta 0.5, the smoothing coefficient of the two smoothed-noise priors)
@@ -556,8 +585,8 @@ ADROIT = {
         shape=(128, 30), plain_shape=(64, 1), eager_step=False,
         family=("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08}),
         episode=["Lbps", "hammer-v0-adroit", *_LBPS_SE, "--timesteps",
-                 "400", "--horizon", "30"],
-        launches=50 + 400 * 2 + 400, success=False),
+                 str(T_HAMMER), "--horizon", "30"],
+        launches=50 + T_HAMMER * 3, success=False),
 }
 
 
@@ -598,11 +627,12 @@ SOURCES = {"lane": "rollout.cu", "warp": "rollout_warp.cu",
 
 # phases 35-37: the split layout (csrc/rollout_split.cu) of door-v0,
 # hammer-v0, pen-v0-hand, relocate-v0, cheetah, pen-v0, walker2d,
-# walker~walk, humanoid-standup, fetch-push, hopper and reacher: each
-# rollout's substep and reward spread over the warps of a block (all but
-# door-v0 and hammer-v0 partitioned by the body tree, pen-v0's,
-# fetch-push's, hopper's and reacher's with their heaviest chain of bodies
-# cut into segments, ``scalar_split_partition``). Per env:
+# walker~walk, humanoid-standup, fetch-push, hopper, reacher and
+# finger~spin: each rollout's substep and reward spread over the warps of
+# a block (all but door-v0 and hammer-v0 partitioned by the body tree,
+# pen-v0's, fetch-push's, hopper's, reacher's and finger~spin's with their
+# heaviest chain of bodies cut into segments, ``scalar_split_partition``).
+# Per env:
 # the layout it is routed to, the canonical shape, the larger shapes it is
 # timed at in turns with the lane layout (door-v0's body also runs phase
 # 3's north star and phase 30's 4096-lane shard; pen-v0's phase 11's
@@ -629,7 +659,7 @@ SPLIT = {"door-v0": dict(routed="split", shape=(64, 30),
                        warp=True, tol=TOL, episode=REST[name]["episode"],
                        launches=rest_launches(name))
             for name in ("walker2d", "walker~walk", "humanoid-standup",
-                         "fetch-push", "hopper", "reacher")}}
+                         "fetch-push", "hopper", "reacher", "finger~spin")}}
 
 # phases 29-31: the sharded entry. The check's NaN lane lies in rank 2's
 # shard (lanes 500-749 of N_CHECK); the timing runs the configuration of
@@ -722,10 +752,11 @@ def env_header(env):
     return rk.generate_env_header(*rk.body_args(env, state))
 
 
-def least_time(ops, nbytes):
+def least_time(ops, nbytes, peak=PEAK_F32_FLOPS):
     """(least time in ms, what bounds it): the larger of the operations over
-    the f32 SIMT peak and the bytes over the memory rate."""
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    ``peak`` (the f32 SIMT peak unless given) and the bytes over the memory
+    rate."""
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -754,10 +785,10 @@ def check_variant_b(name, env, dev):
     cfg = VARIANT_B[name]
     rng = np.random.default_rng(1)
     acts = torch.from_numpy((cfg["scale"] * rng.standard_normal(
-        (N_CHECK, H_CHECK, env.action_dim))).astype(np.float32)).to(dev)
+        (N_CHECK, H_EAGER, env.action_dim))).astype(np.float32)).to(dev)
     s0 = variant_b_state(env, name, dev)
     consts, _, _ = rk.kernel_operands(env, s0)
-    run = rk.env_rollout(env, s0, H_CHECK)
+    run = rk.env_rollout(env, s0, H_EAGER)
     q0, qd0 = lanes(s0, N_CHECK)
     rew, qf, qdf = run(q0, qd0, acts, consts=consts)
     rew_p, qf_p, qdf_p = rk.env_plain_rollout(env, s0, q0, qd0, acts)
@@ -826,9 +857,10 @@ def check_variant_b(name, env, dev):
 
 
 def time_variant_b(name, env, dev):
-    """Phase 11 for one env: kernel and plain rollout at the canonical
-    shape, one synced PPI iteration there, one real env step through the
-    kernel and one eager."""
+    """Phase 11 for one env: the kernel at the canonical shape (and
+    pen-v0's at N=1024/H=160), the kernel and the plain rollout at the
+    canonical N and H_PLAIN, one synced PPI iteration at the canonical
+    shape, one real env step through the kernel and one eager."""
     from ppi_tpu_torch.algorithms import make_solver
     from ppi_tpu_torch.algorithms.base import _one_iteration
     from ppi_tpu_torch.envs.physics import rollout_kernel as rk
@@ -848,15 +880,19 @@ def time_variant_b(name, env, dev):
             lambda: r(qn, qdn, a, consts=consts), 20)
         out[f"bound_ms_N{n}_H{h}"], out["bound_by"] = rollout_bound(env, n,
                                                                     h)
-    n, h = cfg["shape"]
+    n, h = cfg["shape"][0], H_PLAIN   # the plain rollout's shape
     a = torch.from_numpy((cfg["scale"] * rng.standard_normal(
         (n, h, env.action_dim))).astype(np.float32)).to(dev)
     qn, qdn = lanes(s0, n)
+    r = rk.env_rollout(env, s0, h)
+    out[f"kernel_ms_N{n}_H{h}"] = cuda_ms(
+        lambda: r(qn, qdn, a, consts=consts), 20)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rk.env_plain_rollout(env, s0, qn, qdn, a)
     torch.cuda.synchronize()
     out[f"plain_ms_N{n}_H{h}"] = 1e3 * (time.perf_counter() - t0)
+    n, h = cfg["shape"]
 
     alg, policy, kwargs = cfg["family"]
     mean, cov_in, cov_out = design_moments(env.action_low, env.action_high,
@@ -916,13 +952,13 @@ def hand_lanes(env, dev, n, h, seed=1):
 def check_hand(name, env, dev):
     """Phase 14 for one env: (errors, max abs error, clamp counts)."""
     from ppi_tpu_torch.envs.physics import rollout_kernel as rk
-    h = HAND[name]["h_check"]
+    h, hf = HAND[name]["h_check"], HAND[name]["h_frame"]
     s0, q0, qd0, acts = hand_lanes(env, dev, N_CHECK, h)
     run = rk.env_rollout(env, s0, h)
     rew, qf, qdf = run(q0, qd0, acts, dyn=s0.frame)
     rew_p, qf_p, qdf_p = rk.env_plain_rollout(env, s0, q0, qd0, acts)
     torch.cuda.synchronize()
-    CHECKED[name] = dict(s0=s0, q0=q0, qd0=qd0, acts=acts, h_frame=H_FRAME,
+    CHECKED[name] = dict(s0=s0, q0=q0, qd0=qd0, acts=acts, h_frame=hf,
                          s1=env.reset(torch.Generator(dev).manual_seed(2),
                                       dev),
                          out=(rew, qf, qdf), plain=(rew_p, qf_p, qdf_p))
@@ -953,10 +989,10 @@ def check_hand(name, env, dev):
           f"{name}: a NaN lane must go NaN alone")
 
     # the objective from the reset state: the mask, and a second frame
-    a = acts[:, :H_FRAME].contiguous()
-    mask = (torch.arange(H_FRAME, device=dev) < H_FRAME - 2).float()
-    c_k = rk.kernel_mpc_objective(env, s0, H_FRAME, mask)(None, a)
-    c_full = rk.kernel_mpc_objective(env, s0, H_FRAME)(None, a)
+    a = acts[:, :hf].contiguous()
+    mask = (torch.arange(hf, device=dev) < max(hf - 2, 1)).float()
+    c_k = rk.kernel_mpc_objective(env, s0, hf, mask)(None, a)
+    c_full = rk.kernel_mpc_objective(env, s0, hf)(None, a)
     q_r, qd_r = lanes(s0, N_CHECK)
     r_p = rk.env_plain_rollout(env, s0, q_r, qd_r, a)[0]
     errs["masked_costs"] = rel_err(c_k, -(r_p * mask).sum(1))
@@ -965,7 +1001,7 @@ def check_hand(name, env, dev):
     s1 = env.reset(torch.Generator(dev).manual_seed(2), dev)
     check(not bool(torch.equal(s1.frame, s0.frame)), f"{name}: frame not "
           "sampled")
-    c_k1 = rk.kernel_mpc_objective(env, s1, H_FRAME)(None, a)
+    c_k1 = rk.kernel_mpc_objective(env, s1, hf)(None, a)
     r_p1 = rk.env_plain_rollout(env, s1, q_r, qd_r, a)[0]
     errs["second_frame_costs"] = rel_err(c_k1, -r_p1.sum(1))
     check(errs["second_frame_costs"] <= TOL
@@ -1228,7 +1264,7 @@ def check_scene(name, env, dev, table=None, lanes_fn=None, state_fn=None):
 
 def time_scene(name, env, dev, table=None, lanes_fn=None):
     """Phase 19 (and 27) for one env; the plain rollout at the config's
-    ``plain_shape`` (the kernel's canonical shape by default), the eager
+    ``plain_shape`` (the canonical N at H_PLAIN by default), the eager
     real step unless ``eager_step`` is false."""
     from ppi_tpu_torch.algorithms import make_solver
     from ppi_tpu_torch.algorithms.base import _one_iteration
@@ -1246,7 +1282,7 @@ def time_scene(name, env, dev, table=None, lanes_fn=None):
     out[f"kernel_ms_N{n}_H{h}"] = cuda_ms(
         lambda: r(qn, qdn, a, consts=consts, dyn=dyn), 20)
     out[f"bound_ms_N{n}_H{h}"], out["bound_by"] = rollout_bound(env, n, h)
-    pn, ph = cfg.get("plain_shape", (n, h))
+    pn, ph = cfg.get("plain_shape", (n, H_PLAIN))
     if (pn, ph) != (n, h):   # the kernel at the plain rollout's shape too
         r2, a2 = rk.env_rollout(env, s0, ph), a[:pn, :ph].contiguous()
         out[f"kernel_ms_N{pn}_H{ph}"] = cuda_ms(
@@ -1307,7 +1343,8 @@ def rest_state(env, name, dev, second=False):
     """Phase 22's initial state: a reset at seed 0 (the locomotion envs and
     reacher), or a contact start; with ``second`` the second target or
     goal pinned instead of the sampled one, or where the env has none the
-    reset at seed 1 (a second start)."""
+    reset at seed 1 (a second start; finger~spin's not pinned to the
+    contact pose, which would be the first start again)."""
     from ppi_tpu_torch.envs.physics.engine import PhysicsState
     pin = REST[name]["second"] if second else None
     gen = torch.Generator(dev).manual_seed(
@@ -1319,7 +1356,7 @@ def rest_state(env, name, dev, second=False):
     if name == "fetch-pick":
         return env.reset(gen, dev, target=pin, start=PICK_CONTACT_START)
     s = env.reset(gen, dev)
-    if name == "finger~spin":
+    if name == "finger~spin" and not second:
         s = dataclasses.replace(s, physics=PhysicsState(
             qpos=torch.tensor(FINGER_CONTACT_Q, device=dev),
             qvel=torch.zeros(3, device=dev)))
@@ -1346,9 +1383,9 @@ def check_rest(name, env, dev):
     cfg = REST[name]
     s0 = rest_state(env, name, dev)
     q0, qd0 = lanes(s0, N_CHECK)
-    acts = rest_actions(env, name, q0, N_CHECK, H_CHECK)
+    acts = rest_actions(env, name, q0, N_CHECK, H_EAGER)
     consts, _, _ = rk.kernel_operands(env, s0)
-    run = rk.env_rollout(env, s0, H_CHECK)
+    run = rk.env_rollout(env, s0, H_EAGER)
     rew, qf, qdf = run(q0, qd0, acts, consts=consts)
     rew_p, qf_p, qdf_p = rk.env_plain_rollout(env, s0, q0, qd0, acts)
     torch.cuda.synchronize()
@@ -1417,7 +1454,7 @@ def check_rest(name, env, dev):
     mask = (torch.arange(H_FRAME, device=dev) < H_FRAME - 2).float()
     c_k = rk.kernel_mpc_objective(env, s0, H_FRAME, mask)(None, a)
     c_full = rk.kernel_mpc_objective(env, s0, H_FRAME)(None, a)
-    r_p = rk.env_plain_rollout(env, s0, q0, qd0, a)[0]
+    r_p = rew_p[:, :H_FRAME]   # the plain rollout's: same lanes and actions
     errs["masked_costs"] = rel_err(c_k, -(r_p * mask).sum(1))
     check(errs["masked_costs"] <= TOL
           and not bool(torch.allclose(c_k, c_full)),
@@ -1460,11 +1497,15 @@ def time_rest(name, env, dev):
     out[f"kernel_ms_N{n}_H{h}"] = cuda_ms(
         lambda: r(qn, qdn, a, consts=consts), 20)
     out[f"bound_ms_N{n}_H{h}"], out["bound_by"] = rollout_bound(env, n, h)
+    ap = a[:, :H_PLAIN].contiguous()   # the plain rollout's shape
+    rp = rk.env_rollout(env, s0, H_PLAIN)
+    out[f"kernel_ms_N{n}_H{H_PLAIN}"] = cuda_ms(
+        lambda: rp(qn, qdn, ap, consts=consts), 20)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rk.env_plain_rollout(env, s0, qn, qdn, a)
+    rk.env_plain_rollout(env, s0, qn, qdn, ap)
     torch.cuda.synchronize()
-    out[f"plain_ms_N{n}_H{h}"] = 1e3 * (time.perf_counter() - t0)
+    out[f"plain_ms_N{n}_H{H_PLAIN}"] = 1e3 * (time.perf_counter() - t0)
 
     alg, policy, kwargs, alpha = cfg["family"]
     mean, cov_in, cov_out = design_moments(env.action_low, env.action_high,
@@ -2137,6 +2178,20 @@ def regs_spills(ptxas):
             "spill_loads_bytes": int(loads.group(1)) if loads else None}
 
 
+def ptxas_by_kernel(lib):
+    """{entry function: {registers, spill_stores_bytes, spill_loads_bytes}}
+    from a build's ``-Xptxas -v`` log."""
+    lines, name = {}, None
+    for ln in (lib.parent / "build.log").read_text().splitlines():
+        entry = re.search(r"entry function '(\w+)'", ln)
+        if entry:
+            name = entry.group(1)
+            lines[name] = []
+        elif name and ("registers" in ln or "spill" in ln):
+            lines[name].append(ln.strip())
+    return {name: regs_spills(v) for name, v in lines.items()}
+
+
 def split_build(env):
     """(library, nvcc seconds, header) of ``env``'s split-layout body,
     through the wrapper's own caches (so the main path reuses the build)."""
@@ -2164,9 +2219,9 @@ def check_split(name, env, dev, c):
     """Phase 36 for one env on a phase's lanes and plain results ``c``
     (door-v0: phase 2's, N=1000, H=20, the nominal frame; hammer-v0 and
     pen-v0-hand: phase 18's; relocate-v0, cheetah and pen-v0: phase 10's;
-    walker2d, walker~walk, humanoid-standup, fetch-push, hopper and
-    reacher: phase 22's): the split layout bit for bit the lane kernel
-    (rewards, qf, qdf) and the plain version within
+    walker2d, walker~walk, humanoid-standup, fetch-push, hopper, reacher
+    and finger~spin: phase 22's): the split layout bit for bit the lane
+    kernel (rewards, qf, qdf) and the plain version within
     SPLIT's tolerance (bit identity reported); a NaN lane (NaN alone, both
     layouts' bits equal); the second frame, board, goal or start with the
     mask on its costs, both layouts' bits equal and the costs moved (by
@@ -2378,6 +2433,14 @@ def run(pool):
     print(f"device: {kind}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     out = {"card": smi, "device": kind}
+    # each phase's seconds, from its marker to the next (phase 0: the
+    # imports and nvidia-smi); printed before the kernels line
+    phase_s, lap = {}, ["0", t_start]
+
+    def mark_phase(name):
+        now = time.perf_counter()
+        phase_s[lap[0]] = now - lap[1]
+        lap[:] = [name, now]
 
     from ppi_tpu_torch.algorithms import make_solver
     from ppi_tpu_torch.algorithms.base import _one_iteration
@@ -2392,8 +2455,10 @@ def run(pool):
     from ppi_tpu_torch.policies.gaussian import Gaussian
     from ppi_tpu_torch.runners import run_mpc, run_opt
     from ppi_tpu_torch.runners.run_mpc import ENVS
+    from ppi_tpu_torch.studies.moment_match import launch_device_us
 
     # ---- 1. build (both kernels, in parallel) ------------------------------
+    mark_phase("1")
     door = Door(fixed_scene=True)
     t0 = time.perf_counter()
     # phase 25's three bodies are the largest (nvcc ~1 min each): they
@@ -2441,6 +2506,7 @@ def run(pool):
                                d.scalar_reward, dyn_body=DOOR)
 
     # ---- 2. kernel vs plain ----------------------------------------------------
+    mark_phase("2")
     # the objectives below launch door-v0's routed layout: its build first
     split_builds["door-v0"].result()
     rng = np.random.default_rng(0)
@@ -2498,6 +2564,7 @@ def run(pool):
                               h_frame=H_FRAME, plain=(rew_p, qf_p, qdf_p))
 
     # ---- 3. timings ------------------------------------------------------------
+    mark_phase("3")
     timings = {}
     for n, h, iters in ((1024, 160, 20), (64, 30, 200), (1024, 20, 20)):
         a = torch.from_numpy((0.4 * rng.standard_normal(
@@ -2523,6 +2590,7 @@ def run(pool):
     out.update(timings=timings)
 
     # ---- 4. the canonical episode ----------------------------------------------
+    mark_phase("4")
     args = run_mpc.build_parser().parse_args(door_args(250))
     LAUNCHES.clear()
     t0 = time.perf_counter()
@@ -2544,13 +2612,22 @@ def run(pool):
                episode_wall_s=wall, episode_launches=launches)
 
     # ---- 5. build the moment-match kernel ---------------------------------------
+    mark_phase("5")
     mm_lib, mm_build_s = mm_build.result()
-    mm_ptxas = ptxas_summary(mm_lib)
+    mm_ptxas = ptxas_by_kernel(mm_lib)
+    # the tensor cores' wgmma instructions in the main kernel's SASS
+    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
+                           str(mm_lib)], capture_output=True, text=True,
+                          check=True).stdout
+    mm_hgmma = len(re.findall(r"\bHGMMA\.", sass))
+    check(mm_hgmma > 0, "no HGMMA instruction in the moment-match kernels")
     print(f"mm build: {mm_build_s:.1f} s (in parallel with phase 1); "
-          f"ptxas: {' | '.join(mm_ptxas)}", flush=True)
-    out.update(mm_build_s=mm_build_s, mm_ptxas=mm_ptxas)
+          f"ptxas: {json.dumps(mm_ptxas)}; {mm_hgmma} HGMMA instructions in "
+          "the SASS", flush=True)
+    out.update(mm_build_s=mm_build_s, mm_ptxas=mm_ptxas, mm_hgmma=mm_hgmma)
 
     # ---- 6. moment match: kernel vs plain vs float64 oracle ----------------------
+    mark_phase("6")
     def mm_inputs(n, d, seed, masked_q=0, offset=0.0, one_lane=False):
         g = torch.Generator(dev).manual_seed(seed)
         x = offset + torch.randn(n, d, generator=g, device=dev)
@@ -2596,6 +2673,8 @@ def run(pool):
                       f"moment match {case}: {label} lost the covariance")
         if case.endswith("one_lane"):
             check(float(k[2]) == 1.0, f"one live lane: ESS {float(k[2])}")
+        check(bool(torch.equal(k[1], k[1].T)),
+              f"moment match {case}: sigma not exactly symmetric")
         mm_errs[case] = {"kernel_vs_plain": kp, "ess_rel": ess_rel}
         print(f"mm check {case}: kernel vs plain mu/sigma {kp[0]:.3g}/"
               f"{kp[1]:.3g}, ESS rel {ess_rel:.3g}", flush=True)
@@ -2610,6 +2689,7 @@ def run(pool):
     out.update(mm_check=mm_errs, mm_max_abs_err=mm_max_abs)
 
     # ---- 7. moment-match timings -------------------------------------------------
+    mark_phase("7")
     mm_times = {}
     for n, d in ((100, 20), (4096, 64), (4096, 640), (16384, 640)):
         lw, x = mm_inputs(n, d, 30)
@@ -2618,17 +2698,31 @@ def run(pool):
                 ("plain", m_projection_plain),
                 ("two_pass", lambda l, s: m_projection(l, s, "never"))):
             mm_times[f"{label}_ms_{n}x{d}"] = cuda_ms(lambda: fn(lw, x), 50)
-    # the library's nearest single call: the weighted covariance alone
+    # the library's nearest single call, the weighted covariance alone, in
+    # turns with the kernel (kernel, cov, cov, kernel)
     lw, x = mm_inputs(4096, 640, 30)
     w = torch.exp(lw - lw.max())
-    mm_times["library_ms_4096x640"] = cuda_ms(
-        lambda: torch.cov(x.T, correction=0, aweights=w), 50)
-    # its work: the upper triangle of S2 (one FMA per sample and pair),
-    # S1, the weights; each input read once, mu, sigma and ESS written once
+    turns = {"kernel": lambda: m_projection_cuda(lw, x),
+             "cov": lambda: torch.cov(x.T, correction=0, aweights=w)}
+    mm_times["turns_ms_4096x640"] = [
+        [label, cuda_ms(turns[label], 50)]
+        for label in ("kernel", "cov", "cov", "kernel")]
+    mm_times["library_ms_4096x640"] = float(np.mean(
+        [ms for label, ms in mm_times["turns_ms_4096x640"]
+         if label == "cov"]))
+    # each of the wrapper's three launches, device time from the profiler
+    mm_times["launch_us_4096x640"] = launch_device_us(turns["kernel"], 20)
+    # the function's work: the upper triangle of S2 (one FMA per sample and
+    # pair), S1, the weights, over the f32 SIMT peak; each input read once,
+    # mu, sigma and ESS written once
     n, d = 4096, 640
+    mm_bytes = 4 * (n * d + n + d * d + d + 1)
     mm_times["bound_ms_4096x640"], mm_bound_by = least_time(
-        n * d * (d + 1) + 2 * n * d + 4 * n,
-        4 * (n * d + n + d * d + d + 1))
+        n * d * (d + 1) + 2 * n * d + 4 * n, mm_bytes)
+    # the landed design's: three TF32 products a term of the same upper
+    # triangle, with S1 and the weights, over the TF32 tensor-core peak
+    mm_times["bound_tc_ms_4096x640"], mm_bound_tc_by = least_time(
+        3 * n * d * (d + 1) + 2 * n * d + 4 * n, mm_bytes, PEAK_TF32_FLOPS)
     d, n = 640, 4096
     fam = Gaussian(dim=d)
     state = fam.init(torch.ones(d, device=dev),
@@ -2649,6 +2743,7 @@ def run(pool):
     out.update(mm_timings=mm_times)
 
     # ---- 8. black-box runs through run_opt ---------------------------------------
+    mark_phase("8")
     runs, mm_launches = {}, 0
     for dim, n_samples, expected, bound in RUNS:
         args = run_opt.build_parser().parse_args([
@@ -2679,6 +2774,7 @@ def run(pool):
     out.update(runs=runs)
 
     # ---- 9. build the variant-(b) bodies -----------------------------------
+    mark_phase("9")
     body_info = {}
     for name, fut in body_builds.items():
         if name not in VARIANT_B:
@@ -2693,6 +2789,7 @@ def run(pool):
     out.update(bodies=body_info)
 
     # ---- 10. variant (b): kernel vs plain ------------------------------------
+    mark_phase("10")
     for name in VARIANT_B:   # relocate-v0's and cheetah's routed bodies
         if name in SPLIT:
             split_builds[name].result()
@@ -2700,13 +2797,14 @@ def run(pool):
     for name in VARIANT_B:
         b_errs[name], b_max_abs[name] = check_variant_b(name, ENVS[name](),
                                                         dev)
-        print(f"check {name}: N={N_CHECK} H={H_CHECK} errors "
+        print(f"check {name}: N={N_CHECK} H={H_EAGER} errors "
               f"{json.dumps(b_errs[name])} (tol {TOL}); max abs err "
               f"{b_max_abs[name]:.3g}; NaN lane isolated; mask applied",
               flush=True)
     out.update(variant_b_check=b_errs, variant_b_max_abs_err=b_max_abs)
 
     # ---- 11. variant (b): timings --------------------------------------------
+    mark_phase("11")
     b_times = {}
     for name in VARIANT_B:
         b_times[name] = time_variant_b(name, ENVS[name](), dev)
@@ -2717,6 +2815,7 @@ def run(pool):
     out.update(variant_b_timings=b_times)
 
     # ---- 12. episodes -----------------------------------------------------------
+    mark_phase("12")
     episodes = {}
     for name in [*VARIANT_B, "door-v0 cem"]:
         cfg = DOOR_CEM if name == "door-v0 cem" else VARIANT_B[name]
@@ -2737,6 +2836,7 @@ def run(pool):
     out.update(episodes=episodes)
 
     # ---- 13. build the hand bodies -------------------------------------------
+    mark_phase("13")
     for name in HAND:
         body_lib, secs = body_builds[name].result()
         info = {"lines": len(bodies[name].splitlines()), "nvcc_s": secs,
@@ -2750,6 +2850,7 @@ def run(pool):
         warp_builds[name].result()
 
     # ---- 14. hand bodies: kernel vs plain --------------------------------------
+    mark_phase("14")
     hand_errs, hand_max_abs = {}, {}
     for name, cfg in HAND.items():
         hand_errs[name], hand_max_abs[name], clamp = check_hand(
@@ -2762,6 +2863,7 @@ def run(pool):
     out.update(hand_check=hand_errs, hand_max_abs_err=hand_max_abs)
 
     # ---- 15. hand bodies: timings -------------------------------------------
+    mark_phase("15")
     hand_times = {}
     for name in HAND:
         hand_times[name] = time_hand(name, ENVS[name](), dev)
@@ -2769,6 +2871,7 @@ def run(pool):
     out.update(hand_timings=hand_times)
 
     # ---- 16. hand episodes ------------------------------------------------------
+    mark_phase("16")
     hand_episodes = {}
     for name, cfg in HAND.items():
         runs = []
@@ -2792,6 +2895,7 @@ def run(pool):
     out.update(hand_episodes=hand_episodes)
 
     # ---- 17. build the hammer-v0 and 3-digit hand bodies ----------------------
+    mark_phase("17")
     for name in SCENES:
         body_lib, secs = body_builds[name].result()
         info = {"lines": len(bodies[name].splitlines()), "nvcc_s": secs,
@@ -2808,6 +2912,7 @@ def run(pool):
             split_builds[name].result()
 
     # ---- 18. those bodies: kernel vs plain ------------------------------------
+    mark_phase("18")
     scene_errs, scene_max_abs = {}, {}
     for name, cfg in SCENES.items():
         scene_errs[name], scene_max_abs[name], moved = check_scene(
@@ -2820,6 +2925,7 @@ def run(pool):
     out.update(scene_check=scene_errs, scene_max_abs_err=scene_max_abs)
 
     # ---- 19. those bodies: timings --------------------------------------------
+    mark_phase("19")
     scene_times = {}
     for name in SCENES:
         scene_times[name] = time_scene(name, ENVS[name](), dev)
@@ -2827,6 +2933,7 @@ def run(pool):
     out.update(scene_timings=scene_times)
 
     # ---- 20. episodes -------------------------------------------------------------
+    mark_phase("20")
     scene_episodes = {}
     for name, cfg in SCENES.items():
         n_samples, last = cfg["shape"][0], {}
@@ -2872,6 +2979,7 @@ def run(pool):
     out.update(scene_episodes=scene_episodes, short_episodes=short)
 
     # ---- 21. build the remaining variant-(b) bodies ---------------------------
+    mark_phase("21")
     for name in REST:
         body_lib, secs = body_builds[name].result()
         info = {"lines": len(bodies[name].splitlines()), "nvcc_s": secs,
@@ -2888,11 +2996,12 @@ def run(pool):
             split_builds[name].result()
 
     # ---- 22. those bodies: kernel vs plain --------------------------------------
+    mark_phase("22")
     rest_errs, rest_max_abs, rest_contact = {}, {}, {}
     for name in REST:
         rest_errs[name], rest_max_abs[name], rest_contact[name] = check_rest(
             name, ENVS[name](), dev)
-        print(f"check {name}: N={N_CHECK} H={H_CHECK} errors "
+        print(f"check {name}: N={N_CHECK} H={H_EAGER} errors "
               f"{json.dumps(rest_errs[name])} (tol {TOL}); max abs err "
               f"{rest_max_abs[name]:.3g}; lanes in contact "
               f"{rest_contact[name]}; NaN lane isolated; mask applied; "
@@ -2901,6 +3010,7 @@ def run(pool):
                rest_contact_lanes=rest_contact)
 
     # ---- 23. those bodies: timings ----------------------------------------------
+    mark_phase("23")
     rest_times = {}
     for name in REST:
         rest_times[name] = time_rest(name, ENVS[name](), dev)
@@ -2908,6 +3018,7 @@ def run(pool):
     out.update(rest_timings=rest_times)
 
     # ---- 24. episodes -------------------------------------------------------------
+    mark_phase("24")
     rest_episodes = {}
     for name, cfg in REST.items():
         env, last = ENVS[name](), {}
@@ -2942,6 +3053,7 @@ def run(pool):
     out.update(rest_episodes=rest_episodes)
 
     # ---- 25. build the Adroit-class bodies ----------------------------------
+    mark_phase("25")
     for name in ADROIT:
         body_lib, secs = body_builds[name].result()
         info = {"lines": len(bodies[name].splitlines()), "nvcc_s": secs,
@@ -2956,6 +3068,7 @@ def run(pool):
             warp_builds[name].result()
 
     # ---- 26. those bodies: kernel vs plain ----------------------------------
+    mark_phase("26")
     adroit_errs, adroit_max_abs = {}, {}
     for name, cfg in ADROIT.items():
         adroit_errs[name], adroit_max_abs[name], moved = check_scene(
@@ -2969,6 +3082,7 @@ def run(pool):
     out.update(adroit_check=adroit_errs, adroit_max_abs_err=adroit_max_abs)
 
     # ---- 27. those bodies: timings ------------------------------------------
+    mark_phase("27")
     adroit_times = {}
     for name in ADROIT:
         adroit_times[name] = time_scene(name, ENVS[name](), dev, ADROIT,
@@ -2978,6 +3092,7 @@ def run(pool):
     out.update(adroit_timings=adroit_times)
 
     # ---- 28. episodes -------------------------------------------------------
+    mark_phase("28")
     adroit_episodes = {}
     for name, cfg in ADROIT.items():
         env, last = ENVS[name](), {}
@@ -3005,10 +3120,12 @@ def run(pool):
     out.update(adroit_episodes=adroit_episodes)
 
     # ---- 29-31. the sharded entry: 4 ranks on the card, 1 nccl rank --------
+    mark_phase("29-31")
     mesh_out, mesh_kernel = sharded_phases(door, dev, out["episode_return"])
     out.update(mesh_out)
 
     # ---- 32. the warp layout's builds -------------------------------------
+    mark_phase("32")
     warp_info = {}
     for name in WARP:
         lib, secs = warp_builds[name].result()
@@ -3029,6 +3146,7 @@ def run(pool):
     out.update(warp_builds=warp_info)
 
     # ---- 33. the warp layout: bits against plain and the lane layout ------
+    mark_phase("33")
     warp_check, warp_err = {}, {}
     for name in WARP:
         warp_check[name], warp_err[name] = check_warp(name, ENVS[name](),
@@ -3041,6 +3159,7 @@ def run(pool):
     out.update(warp_check=warp_check, warp_max_abs_err=warp_err)
 
     # ---- 34. timings, and the episodes once more through the lane layout --
+    mark_phase("34")
     warp_times = {}
     for name in WARP:
         warp_times[name] = time_warp(name, ENVS[name](), dev)
@@ -3095,6 +3214,7 @@ def run(pool):
     out.update(lane_episodes=lane_episodes)
 
     # ---- 35. the split layout's builds --------------------------------------
+    mark_phase("35")
     split_info = {}
     for name in SPLIT:
         lib, secs, header = split_builds[name].result()
@@ -3118,6 +3238,7 @@ def run(pool):
               f"{' | '.join(info['lane_ptxas'])}", flush=True)
 
     # ---- 36. the split layout: bits against the lane kernel and plain ----
+    mark_phase("36")
     split_check, split_err = {}, {}
     for name in SPLIT:
         split_check[name], split_err[name] = check_split(
@@ -3129,6 +3250,7 @@ def run(pool):
               f"{split_err[name]['lane']:.3g}", flush=True)
 
     # ---- 37. timings, and the episodes once more through the other layout
+    mark_phase("37")
     split_times, other_runs = {}, {}
     routed_runs = {"door-v0": {"return": out["episode_return"],
                                "success": out["episode_success"],
@@ -3176,10 +3298,12 @@ def run(pool):
               f"{name}: {other} layout's return {ret!r} ({success}), the "
               f"{cfg['routed']} layout's {routed['return']!r} "
               f"({routed['success']})")
+    mark_phase("end")
     out.update(split_builds=split_info, split_check=split_check,
                split_max_abs_err=split_err, split_timings=split_times,
-               split_other_episodes=other_runs,
+               split_other_episodes=other_runs, phase_s=phase_s,
                total_s=time.perf_counter() - t_start)
+    print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
     print(f"total: {out['total_s']:.0f} s, the kernels' builds included",
           flush=True)
 
@@ -3219,8 +3343,14 @@ def run(pool):
          "launches": mm_launches, "max_abs_err": mm_max_abs,
          "ms": mm_times["kernel_ms_4096x640"],
          "plain_ms": mm_times["plain_ms_4096x640"],
-         "bound_ms": mm_times["bound_ms_4096x640"], "bound_by": mm_bound_by,
+         "bound_ms": mm_times["bound_tc_ms_4096x640"],
+         "bound_by": mm_bound_tc_by,
+         "bound_simt_ms": mm_times["bound_ms_4096x640"],
+         "bound_simt_by": mm_bound_by,
          "library_ms": mm_times["library_ms_4096x640"],
+         "launch_device_us": mm_times["launch_us_4096x640"],
+         **next(v for k, v in ptxas_by_kernel(mm_lib).items()
+                if "mm_mainILi128" in k),
          **shapes((4096, 640), (4096, 640), mm_times["kernel_ms_4096x640"])}]
 
     def split_pair(env_name, stem, t, routed_launches):
@@ -3247,12 +3377,14 @@ def run(pool):
                  "kernel_alone_ms": turns_mean(split_times[env_name],
                                                (n, h), layout,
                                                "kernel_turns_ms"),
-                 "plain_ms": t[f"plain_ms_N{n}_H{h}"],
+                 "plain_ms": t[f"plain_ms_N{n}_H{H_PLAIN}"],
                  "bound_ms": t[f"bound_ms_N{n}_H{h}"],
                  "bound_by": t["bound_by"], "library_ms": None,
                  **regs_spills(split_info[env_name][
                      "ptxas" if layout == "split" else "lane_ptxas"]),
-                 **shapes((n, h), (n, h), ms)})
+                 **shapes((n, h), (n, H_PLAIN),
+                          t[f"kernel_ms_N{n}_H{H_PLAIN}"]
+                          if layout == SPLIT[env_name]["routed"] else None)})
 
     for env_name, cfg in VARIANT_B.items():
         n, h = cfg["shape"]
@@ -3268,10 +3400,11 @@ def run(pool):
              "launches": episodes[env_name]["launches"],
              "max_abs_err": b_max_abs[env_name],
              "ms": t[f"kernel_ms_N{n}_H{h}"],
-             "plain_ms": t[f"plain_ms_N{n}_H{h}"],
+             "plain_ms": t[f"plain_ms_N{n}_H{H_PLAIN}"],
              "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
              "library_ms": None,
-             **shapes((n, h), (n, h), t[f"kernel_ms_N{n}_H{h}"])})
+             **shapes((n, h), (n, H_PLAIN),
+                      t[f"kernel_ms_N{n}_H{H_PLAIN}"])})
     for env_name, cfg in SCENES.items():
         if env_name in WARP:
             continue
@@ -3289,10 +3422,11 @@ def run(pool):
              "launches": sum(r["launches"] for r in scene_episodes[env_name]),
              "max_abs_err": scene_max_abs[env_name],
              "ms": t[f"kernel_ms_N{n}_H{h}"],
-             "plain_ms": t[f"plain_ms_N{n}_H{h}"],
+             "plain_ms": t[f"plain_ms_N{n}_H{H_PLAIN}"],
              "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
              "library_ms": None,
-             **shapes((n, h), (n, h), t[f"kernel_ms_N{n}_H{h}"])})
+             **shapes((n, h), (n, H_PLAIN),
+                      t[f"kernel_ms_N{n}_H{H_PLAIN}"])})
     for env_name, cfg in ADROIT.items():
         if env_name in WARP:
             continue
@@ -3327,10 +3461,11 @@ def run(pool):
              "launches": sum(r["launches"] for r in rest_episodes[env_name]),
              "max_abs_err": rest_max_abs[env_name],
              "ms": t[f"kernel_ms_N{n}_H{h}"],
-             "plain_ms": t[f"plain_ms_N{n}_H{h}"],
+             "plain_ms": t[f"plain_ms_N{n}_H{H_PLAIN}"],
              "bound_ms": t[f"bound_ms_N{n}_H{h}"], "bound_by": t["bound_by"],
              "library_ms": None,
-             **shapes((n, h), (n, h), t[f"kernel_ms_N{n}_H{h}"])})
+             **shapes((n, h), (n, H_PLAIN),
+                      t[f"kernel_ms_N{n}_H{H_PLAIN}"])})
     # the eight warp-layout bodies: the lane layout's entry (phase 34's
     # episodes, block 128) beside the warp layout's (phases 16, 20, 24 and
     # 28)
@@ -3343,7 +3478,7 @@ def run(pool):
             warp_launches = sum(r["launches"]
                                 for r in hand_episodes[env_name])
         elif env_name in SCENES or env_name in REST:
-            pn, ph = n, h
+            pn, ph = n, H_PLAIN
             routed = (scene_times if env_name in SCENES
                       else rest_times)[env_name]
             warp_launches = sum(r["launches"] for r in (

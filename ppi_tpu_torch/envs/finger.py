@@ -78,6 +78,18 @@ class FingerSpin:
 
     # the control cost takes the step's action
     scalar_reward_takes_action = True
+    # the rollout kernel's split layout, its bodies cut into a chain of
+    # segments (split_layout.plan_partition, "chain"): each finger body and
+    # the spinner on a warp of its own, the solve on the spinner's; at the
+    # canonical N=128/H=20 on an H100 (80GB HBM3, 700 W) the kernel alone
+    # takes 0.0652 ms against the lane layout's 0.0670
+    # (studies/split_layout.py, warmed) and 0.0669 against 0.0681
+    # (chip_smoke.py phase 37). The main path's call and the synced PPI
+    # iteration did not separate the two layouts across two runs of phase
+    # 37 (each ordered them differently), so the gain is not shown to reach
+    # the main path (PERF.md section 6, row 1b)
+    scalar_kernel_layout = "split"
+    scalar_split_partition = "chain"
 
     def __post_init__(self):
         model = _build_model()

@@ -2,9 +2,13 @@
 
 Counterpart of ``ppi_tpu/ops/pallas_ops.py``. ``m_projection_cuda`` runs
 the whole weighted moment match -- weight exponentiation, the weighted
-first and second moments of the centred samples and the ESS sums -- in one
-kernel (``ppi_tpu_torch/csrc/moment_match.cu``, two passes, no atomics),
-built with ``nvcc`` for ``sm_90a`` at first use and bound with ``ctypes``.
+first and second moments of the centred samples, the ESS sums and the
+epilogue -- in three launches of ``ppi_tpu_torch/csrc/moment_match.cu``
+(prologue: column sums and the max log-weight; main: S2 on the tensor
+cores in three TF32 products a term, reduced over a thread-block cluster;
+epilogue: mu, sigma and ESS), no atomics, built with ``nvcc`` for
+``sm_90a`` at first use and bound with ``ctypes``. The wrapper allocates
+one buffer and runs no other device operation.
 
 Single-pass formulation (shift by max(log_w), centre by the batch mean):
     w_i = exp(log_w_i - shift)          W = sum w        W2 = sum w^2
@@ -13,7 +17,7 @@ Single-pass formulation (shift by max(log_w), centre by the batch mean):
 
 ``m_projection_plain`` is the same formula in torch f32: the wrapper takes
 it for CPU tensors only; for a CUDA tensor it launches the kernel or
-raises. ``LAUNCHES["moment_match"]`` counts the launches.
+raises. ``LAUNCHES["moment_match"]`` counts the calls.
 """
 
 import functools
@@ -22,27 +26,29 @@ import torch
 
 from ppi_tpu_torch.build import LAUNCHES, build_library, load_function
 
-TILE, CHUNK = 64, 32   # as MM_TILE and MM_CHUNK in moment_match.cu
-SM_COUNT = 132         # an H100's SMs: pass 1 aims at 4 blocks on each
+CHUNK = 32             # as MM_CHUNK in moment_match.cu
+MAX_CLUSTER = 8        # the most blocks of a portable thread-block cluster
+SM_COUNT = 132         # an H100's SMs: the main kernel aims at one block each
+PART_ROWS_MIN, MAX_PARTS = 256, 32   # the prologue's row partition
 
 
 def plan(n: int, d: int):
-    """(rows, splits): pass 1 splits N into ``splits`` ranges of ``rows``
-    rows (a multiple of the 32-row chunk). From the shape only: enough
-    blocks to fill the card, and at least 64 rows a split."""
-    t = -(-d // TILE)
+    """(tile, rows, splits, parts, part_rows), from the shape only.
+
+    The main kernel computes ``tile`` x ``tile`` tiles of the upper
+    triangle (128, or 64 for d <= 64), each over a cluster of ``splits``
+    blocks, rank s summing rows [s * rows, (s + 1) * rows) (a multiple of
+    the 32-row chunk): enough blocks to fill the card, at most 8 a
+    cluster, at least 64 rows a block. The prologue splits N into
+    ``parts`` ranges of ``part_rows`` rows."""
+    tile = 64 if d <= 64 else 128
+    t = -(-d // tile)
     pairs = t * (t + 1) // 2
-    splits = max(1, min(-(-4 * SM_COUNT // pairs), -(-n // 64)))
+    splits = max(1, min(MAX_CLUSTER, -(-SM_COUNT // pairs), -(-n // 64)))
     rows = -(-(-(-n // splits)) // CHUNK) * CHUNK
-    return rows, -(-n // rows)
-
-
-def _moments(s1, s2, w_total, w_sq, centre):
-    """The epilogue: (mu, sigma, ess) from the centred sums."""
-    mu_c = s1 / w_total
-    sigma = s2 / w_total - torch.outer(mu_c, mu_c)
-    sigma = 0.5 * (sigma + sigma.T)
-    return mu_c + centre, sigma, w_total * w_total / w_sq
+    parts = max(1, min(MAX_PARTS, -(-n // PART_ROWS_MIN)))
+    part_rows = -(-n // parts)
+    return tile, rows, -(-n // rows), -(-n // part_rows), part_rows
 
 
 def m_projection_plain(log_w: torch.Tensor, samples: torch.Tensor):
@@ -52,7 +58,11 @@ def m_projection_plain(log_w: torch.Tensor, samples: torch.Tensor):
     centre = samples.mean(0)
     xc = samples - centre
     xw = xc * w[:, None]
-    return _moments(xw.sum(0), xw.T @ xc, w.sum(), (w * w).sum(), centre)
+    w_total = w.sum()
+    mu_c = xw.sum(0) / w_total
+    sigma = (xw.T @ xc) / w_total - torch.outer(mu_c, mu_c)
+    sigma = 0.5 * (sigma + sigma.T)
+    return mu_c + centre, sigma, w_total * w_total / (w * w).sum()
 
 
 def _check(log_w, samples):
@@ -76,30 +86,26 @@ def _kernel(host: bool):
     """The built and loaded launcher (``host``: the host-C build)."""
     if host:
         return load_function(build_library("moment_match.cu", host=True),
-                             "ppi_mm_host", 8, 4, stream=False)
+                             "ppi_mm_host", 3, 7, stream=False)
     return load_function(build_library("moment_match.cu"), "ppi_mm_launch",
-                         8, 4, stream=True)
+                         3, 7, stream=True)
 
 
 def _launch(fn, log_w, samples, stream=None):
     """Run ``fn`` (the CUDA launcher or the host-C build) on ``samples``'
-    device: returns (s1, s2, w_total, w_sq, centre)."""
+    device: returns (mu, sigma, ess), views of one buffer that also holds
+    the kernels' scratch."""
     n, d = samples.shape
-    rows, splits = plan(n, d)
-    shift = torch.max(log_w).reshape(1)
-    centre = samples.mean(0)
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32,
-                                     device=samples.device)
-    s2p, s1p, s2, s1w = (new(splits, d, d), new(splits, d + 2), new(d, d),
-                         new(d + 2))
-    ptrs = [t.data_ptr() for t in (log_w, samples, centre, shift, s2p, s1p,
-                                   s2, s1w)]
+    tile, rows, splits, parts, part_rows = plan(n, d)
+    out = torch.empty(d * d + d + 1 + parts * (d + 1) + 2 * d + 2,
+                      dtype=torch.float32, device=samples.device)
     extra = () if stream is None else (stream,)
-    err = fn(*ptrs, n, d, rows, splits, *extra)
+    err = fn(log_w.data_ptr(), samples.data_ptr(), out.data_ptr(), n, d,
+             tile, rows, splits, parts, part_rows, *extra)
     if err != 0:
         raise RuntimeError(f"moment-match kernel launch failed: CUDA error "
                            f"{err}")
-    return s1w[:d], s2, s1w[d], s1w[d + 1], centre
+    return out[d * d:d * d + d], out[:d * d].view(d, d), out[d * d + d]
 
 
 def m_projection_cuda(log_w: torch.Tensor, samples: torch.Tensor):
@@ -115,15 +121,18 @@ def m_projection_cuda(log_w: torch.Tensor, samples: torch.Tensor):
         raise TypeError(f"no moment-match kernel for {dev}")
     _check(log_w, samples)
     with torch.cuda.device(dev):
-        sums = _launch(_kernel(False), log_w, samples,
-                       torch.cuda.current_stream(dev).cuda_stream)
+        moments = _launch(_kernel(False), log_w, samples,
+                          torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES["moment_match"] += 1
-    return _moments(*sums)
+    return moments
 
 
 def m_projection_host(log_w: torch.Tensor, samples: torch.Tensor):
-    """The kernel's host-C build (``cc``) on CPU tensors: the same blocks,
-    chunk loads, accumulation order and pass-2 sums, one after the other.
-    For the CPU tests of the kernel's partition and masking."""
+    """The kernels' host-C build (``cc``) on CPU tensors, the CPU model of
+    the design: the same prologue, tile pairs, cluster ranks, chunks, TF32
+    split, products of 8 samples and reduction orders, one after the
+    other. For the CPU tests of the kernel's partition, masking and
+    precision."""
     _check(log_w, samples)
-    return _moments(*_launch(_kernel(True), log_w, samples))
+    return _launch(_kernel(True), log_w, samples)
+

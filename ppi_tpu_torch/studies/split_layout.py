@@ -4,8 +4,8 @@
 
 For each env (door-v0 and hammer-v0 unless named; relocate-v0, cheetah,
 walker2d, walker~walk, humanoid-standup and pen-v0-hand take the subtree
-partition, fetch-push, hopper, pen-v0 and reacher the chain cut,
-``scalar_split_partition``), in one process
+partition, fetch-push, hopper, pen-v0, reacher and finger~spin the chain
+cut, ``scalar_split_partition``), in one process
 on the card: first the host seconds to generate its bodies (the lane
 header; the split generator's search; the split header through an empty
 cache and through the filled one, ``split_layout.cached_body``; the lane
@@ -28,7 +28,8 @@ with a NaN lane; CUDA-event times of the main path's whole call in turns
 (``SHAPES``: N=64/H=30 for door-v0 and hammer-v0, N=256/H=20 for
 relocate-v0 and fetch-push, N=256/H=30 for cheetah, walker2d,
 humanoid-standup and hopper, N=128/H=25 for walker~walk, N=96/H=15 for
-pen-v0-hand and pen-v0, N=64/H=20 for reacher), and lane, split, split,
+pen-v0-hand and pen-v0, N=64/H=20 for reacher, N=128/H=20 for
+finger~spin), and lane, split, split,
 lane at the larger shapes (door-v0 and hammer-v0 at N=1024/H=160, at
 N=4096/H=160, a 4-rank shard of N=16384, and at N=16384/H=160; pen-v0 at
 N=1024/H=160); the other split builds at the canonical shape; the warmed
@@ -77,7 +78,8 @@ SHAPES = {"door-v0": _DOOR_SHAPES, "hammer-v0": _DOOR_SHAPES,
           "walker2d": ((256, 30),), "humanoid-standup": ((256, 30),),
           "pen-v0-hand": ((96, 15),), "walker~walk": ((128, 25),),
           "fetch-push": ((256, 20),), "hopper": ((256, 30),),
-          "reacher": ((64, 20),), "pen-v0": ((96, 15), (1024, 160))}
+          "reacher": ((64, 20),), "finger~spin": ((128, 20),),
+          "pen-v0": ((96, 15), (1024, 160))}
 FORCED = (2, 3, 4)
 # the warmed, kernel-only turns (``warmed_turns``): the host seconds of
 # launches that warm the card before the first reading, and the launches

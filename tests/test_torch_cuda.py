@@ -200,6 +200,32 @@ def test_moment_match_kernel_is_deterministic():
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
+def test_moment_match_makes_three_launches_and_no_other_device_op():
+    """One call at (4096, 640) under ``torch.profiler``: the card runs the
+    three kernels of ``moment_match.cu`` (prologue, main, epilogue) and
+    nothing else -- no PyTorch kernel, copy or memset -- and the launch
+    counter adds one."""
+    dev = _device()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ppi_tpu_torch.build import LAUNCHES
+    from ppi_tpu_torch.ops.cuda_ops import m_projection_cuda
+    lw, x = _mm_inputs(dev, 4096, 640)
+    m_projection_cuda(lw, x)   # builds and loads the kernels first
+    torch.cuda.synchronize()
+    before = LAUNCHES["moment_match"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        m_projection_cuda(lw, x)
+        torch.cuda.synchronize()
+    assert LAUNCHES["moment_match"] == before + 1
+    on_card = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(on_card) == 3, on_card
+    for stem in ("mm_prologue", "mm_main", "mm_epilogue"):
+        assert sum(stem in name for name in on_card) == 1, on_card
+
+
 def test_moment_match_kernel_rejects_bad_inputs():
     dev = _device()
     from ppi_tpu_torch.ops.cuda_ops import m_projection_cuda
@@ -707,15 +733,16 @@ PARTITIONED = {"relocate-v0": "subtree", "cheetah": "subtree",
                "walker2d": "subtree", "walker~walk": "subtree",
                "humanoid-standup": "subtree", "pen-v0-hand": "subtree",
                "fetch-push": "chain", "hopper": "chain", "pen-v0": "chain",
-               "reacher": "chain"}
+               "reacher": "chain", "finger~spin": "chain"}
 
 
 @pytest.mark.parametrize("name", list(PARTITIONED))
 def test_partitioned_split_layout_equals_lane_layout(name):
     """relocate-v0, cheetah, walker2d, walker~walk, humanoid-standup and
     pen-v0-hand route to the split layout, their substep partitioned by
-    the body tree, and fetch-push, hopper, pen-v0 and reacher with their
-    heaviest chain of bodies cut into segments: at N=257 (ragged), H=5,
+    the body tree, and fetch-push, hopper, pen-v0, reacher and finger~spin
+    with their heaviest chain of bodies cut into segments: at N=257
+    (ragged), H=5,
     from a sampled goal or start (pen-v0-hand: its PD targets about the digits' posture, as
     the scene tests'; fetch-push: about the arm's), with a NaN lane, one
     launch counted under

@@ -120,6 +120,27 @@ def test_host_c_build_matches_plain(reference, acts):
     assert_host_c_matches_plain(FingerSpin(), s, acts, q0, qd0)
 
 
+@pytest.mark.parametrize("start", ["reset", "contact"])
+def test_routed_split_build_matches_the_pallas_kernel(reference, acts,
+                                                      start):
+    """finger~spin routes to the split layout with its three bodies cut
+    into a chain of segments: that body built as host C against JAX's
+    kernel body on the same numpy inputs, from each start, within the
+    rollout tolerances."""
+    from test_torch_warp_layout import _host_run, _needs_cc
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    _needs_cc()
+    env, s = FingerSpin(), _state(reference, start)
+    assert (rk.kernel_layout(env), rk.split_partition(env)) == (
+        "split", "chain")
+    run = rk.load_host_split_rollout(rk.generate_split_header(
+        *rk.body_args(env, s), partition=rk.split_partition(env)))
+    q0 = np.tile(to_np(s.physics.qpos), (N, 1))
+    qd0 = np.tile(to_np(s.physics.qvel), (N, 1))
+    assert_rollout_close(_host_run(run, env, s, q0, qd0, acts),
+                         reference[start][1])
+
+
 def test_observe_matches_reference(reference):
     for name in ("reset", "contact"):
         js = reference[name][0]

@@ -5,10 +5,13 @@ tests/test_ops.py runs it; its tolerances are those of test_ops.py's
 TestPallasMomentMatch. The port's plain versions (the kernel's single-pass
 formula and the two-pass path) are also held to the float64 oracle of
 tests/test_fuzz_solvers.py with its bounds. The kernel's source compiled as
-host C (where ``cc`` exists) runs the same blocks, chunks and pass-2 sums as
-the CUDA kernel and is held to the plain version: mu and sigma to 1e-5
-absolute (f32 sums of unit-scale data in another order), ESS to 1e-5
-relative.
+host C (where ``cc`` exists) is the CPU model of the CUDA design: the same
+prologue, tile pairs, cluster ranks, chunks, TF32 split into three
+products and reduction orders. It is held to the plain version (mu and
+sigma to 1e-5 absolute: f32 sums of unit-scale data in another order, and
+products of TF32 parts whose dropped bits lie below 2^-22 of each value;
+ESS to 1e-5 relative) and to the JAX kernel in interpret mode with
+test_ops.py's tolerances. Its TF32 rounding is pinned on edge values.
 """
 
 import shutil
@@ -22,7 +25,7 @@ import torch
 from torch_helpers import to_np, to_torch
 from ppi_tpu import ops as jops
 from ppi_tpu.ops.pallas_ops import m_projection_pallas
-from ppi_tpu_torch.build import LAUNCHES
+from ppi_tpu_torch.build import LAUNCHES, build_library, load_function
 from ppi_tpu_torch.ops import m_projection
 from ppi_tpu_torch.ops.cuda_ops import (
     m_projection_cuda, m_projection_host, m_projection_plain, plan)
@@ -132,38 +135,55 @@ def test_dispatch_on_cpu_tensors():
 @pytest.mark.parametrize("n, d", [(4096, 64), (4000, 640), (1000, 17),
                                   (100, 20), (16384, 640), (7, 3)])
 def test_plan_covers_every_row_once(n, d):
-    rows, splits = plan(n, d)
+    """The main kernel's ranks cover every row once in whole chunks, at
+    most 8 a cluster and one block an SM or fewer; the prologue's parts
+    cover every row once."""
+    tile, rows, splits, parts, part_rows = plan(n, d)
+    assert tile == (64 if d <= 64 else 128)
     assert rows % 32 == 0 and (splits - 1) * rows < n <= splits * rows
-    pairs = (-(-d // 64)) * (-(-d // 64) + 1) // 2
-    assert pairs * splits <= 4 * 132 + pairs and splits < 65536
+    pairs = (-(-d // tile)) * (-(-d // tile) + 1) // 2
+    assert 1 <= splits <= 8 and pairs * splits <= 132 + pairs
+    assert (parts - 1) * part_rows < n <= parts * part_rows <= n + parts
+    assert 1 <= parts <= 32
+    if (n, d) == (4096, 640):
+        assert (tile, pairs, splits) == (128, 15, 8)
 
 
+# the cases of the host-C model: ragged N and d, masked lanes, several
+# ranks and several tiles (37 x 130 and 333 x 260: wider than a 128 tile)
 HOST_CASES = CASES + [("random", 129, 65), ("masked_q", 4096, 64),
-                      ("random", 37, 130), ("one_lane", 512, 64)]
+                      ("random", 37, 130), ("one_lane", 512, 64),
+                      ("random", 333, 260)]
+
+
+def _host_inputs(name, n, d):
+    if name not in ("masked_q", "one_lane"):
+        return _inputs(name, n, d)
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    lw = rng.normal(scale=3.0, size=n).astype(np.float32)
+    if name == "masked_q":
+        lw[rng.permutation(n)[: n // 4]] = -np.inf
+    else:
+        lw[:] = -np.inf
+        lw[7] = 0.0
+    return lw, x
 
 
 @pytest.mark.parametrize("name, n, d", HOST_CASES)
 def test_host_c_build_matches_plain(name, n, d):
-    """Ragged N and d, masked lanes, several splits and several tiles."""
+    """Ragged N and d, masked lanes, several ranks and several tiles; two
+    runs bit-identical, sigma exactly symmetric, one live lane ESS 1."""
     if shutil.which("cc") is None:
         pytest.skip("no host C compiler")
-    if name in ("masked_q", "one_lane"):
-        rng = np.random.default_rng(2)
-        x = rng.normal(size=(n, d)).astype(np.float32)
-        lw = rng.normal(scale=3.0, size=n).astype(np.float32)
-        if name == "masked_q":
-            lw[rng.permutation(n)[: n // 4]] = -np.inf
-        else:
-            lw[:] = -np.inf
-            lw[7] = 0.0
-    else:
-        lw, x = _inputs(name, n, d)
+    lw, x = _host_inputs(name, n, d)
     got = m_projection_host(to_torch(lw), to_torch(x))
     again = m_projection_host(to_torch(lw), to_torch(x))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     mu, sigma, ess = (to_np(v) for v in got)
     mu0, sigma0, ess0 = (to_np(v) for v in m_projection_plain(
         to_torch(lw), to_torch(x)))
+    assert mu.shape == (d,) and sigma.shape == (d, d) and ess.shape == ()
     np.testing.assert_allclose(mu, mu0, rtol=1e-6, atol=1e-5)
     np.testing.assert_allclose(sigma, sigma0, atol=1e-5)
     np.testing.assert_allclose(ess, ess0, rtol=1e-5)
@@ -171,6 +191,66 @@ def test_host_c_build_matches_plain(name, n, d):
     if name == "one_lane":
         assert float(ess) == 1.0
         np.testing.assert_allclose(mu, x[7], atol=1e-6)
+
+
+@pytest.mark.parametrize("name, n, d", HOST_CASES)
+def test_host_c_model_matches_pallas_interpret(name, n, d):
+    """The host-C model against ``m_projection_pallas`` in interpret mode
+    on the same inputs, with the tolerances of the plain version's test
+    (``_check_against``: test_ops.py's)."""
+    if shutil.which("cc") is None:
+        pytest.skip("no host C compiler")
+    lw, x = _host_inputs(name, n, d)
+    ref = jax.device_get(m_projection_pallas(jnp.asarray(lw), jnp.asarray(x),
+                                             interpret=True))
+    _check_against(m_projection_host(to_torch(lw), to_torch(x)), ref,
+                   "offset" if name == "offset" else "random")
+
+
+def tf32_host(values):
+    """The host-C build's ``mm_tf32`` on f32 ``values``."""
+    src = np.ascontiguousarray(values, dtype=np.float32)
+    out = np.empty_like(src)
+    fn = load_function(build_library("moment_match.cu", host=True),
+                       "ppi_mm_tf32", 2, 1, stream=False)
+    assert fn(src.ctypes.data, out.ctypes.data, src.size) == 0
+    return out
+
+
+def test_tf32_rounding_of_edge_values():
+    """``mm_tf32`` keeps the sign, exponent and 10 mantissa bits, rounding
+    the 13 dropped bits to nearest with ties away from zero (as
+    ``cvt.rna.tf32.f32``): a tie rounds up in magnitude for both signs,
+    below a tie it rounds down; a subnormal rounds on the same bits;
+    +-inf and +-0 pass through, NaN stays NaN; and a value and its TF32
+    rounding differ by at most 2^-11 of the value."""
+    if shutil.which("cc") is None:
+        pytest.skip("no host C compiler")
+    bits = np.array([
+        0x3F800000,   # 1.0: exact
+        0x3F801000,   # 1 + 2^-11: a tie, up to 1 + 2^-10
+        0x3F800FFF,   # just below the tie: down to 1.0
+        0x3F803000,   # 1 + 3 * 2^-11: a tie, up (away from zero)
+        0xBF801000,   # -(1 + 2^-11): a tie, away from zero
+        0xC0490FDB,   # -pi
+        0x00001000,   # a subnormal at a tie
+        0x00000FFF,   # a subnormal below it: 0
+        0x7F800000, 0xFF800000,   # +inf, -inf
+        0x00000000, 0x80000000,   # +0, -0
+    ], dtype=np.uint32)
+    want = np.array([
+        0x3F800000, 0x3F802000, 0x3F800000, 0x3F804000, 0xBF802000,
+        0xC0490000, 0x00002000, 0x00000000, 0x7F800000, 0xFF800000,
+        0x00000000, 0x80000000], dtype=np.uint32)
+    got = tf32_host(bits.view(np.float32)).view(np.uint32)
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(tf32_host(np.array([np.nan, -np.nan], np.float32))).all()
+    v = np.random.default_rng(3).normal(size=4096).astype(np.float32)
+    r = tf32_host(v)
+    assert not (r.view(np.uint32) & 0x1FFF).any()
+    assert (np.abs(r - v) <= np.abs(v) * 2.0 ** -11).all()
+    hi_lo = r + tf32_host(v - r)
+    assert (np.abs(hi_lo - v) <= np.abs(v) * 2.0 ** -21).all()
 
 
 def test_host_c_build_rejects_bad_inputs():

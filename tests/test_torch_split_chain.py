@@ -1,23 +1,26 @@
 """The split layout's chain cut on the CPU (csrc/rollout_split.cu).
 
-fetch-push, hopper, pen-v0 and reacher opt in (``scalar_split_partition =
-"chain"``): their split body's substep is partitioned by the body tree as
-in tests/test_torch_split_subtree.py, and then the heaviest group that is
+fetch-push, hopper, pen-v0, reacher and finger~spin opt in
+(``scalar_split_partition = "chain"``): their split body's substep is
+partitioned by the body tree as in tests/test_torch_split_subtree.py, and
+then the heaviest group that is
 a chain of bodies is cut into contiguous segments over the warps that are
 left (``split_layout.chain_cuts``): fetch-push's arm (yaw | shoulder and
 elbow | wrist) beside the box's slides, hopper's one chain (root slides |
 torso and thigh | leg | foot), pen-v0's pen (slides and yaw | pitch)
-beside each fingertip's slides, reacher's two links. The search tries
+beside each fingertip's slides, reacher's two links, finger~spin's three
+bodies (each finger body, the spinner with the solve). The search tries
 every cut with every solve warp, replication cap and ``rhs_late``, and
 skips a choice whose lower bound cannot beat the best so far. Held here:
-the host-C chain builds of the four and of finger~spin (which plans but is
-not routed) against the host-C lane builds bit for bit (a ragged group, a
-NaN lane, H=3) and the plain version within the rollout tolerances; the
+the host-C chain builds of the five against the host-C lane builds bit
+for bit (a ragged group, a NaN lane, H=3) and the plain version within
+the rollout tolerances; the
 plans against the race and slot simulator of
 tests/test_torch_split_layout.py; their groups, solve warps, phases,
 slots and model costs; the bounded search against the full enumeration;
-the cache entries of the two modes; the four routed headers by sha256;
-the routing; and the partition's name checked.
+the cache entries of the two modes; the five routed headers by sha256;
+the routing (and hammer-v0's lane route beside it); and the partition's
+name checked.
 """
 
 import functools
@@ -35,8 +38,7 @@ from ppi_tpu_torch.envs.physics import rollout_kernel as rk
 from ppi_tpu_torch.envs.physics import split_layout as spl
 from ppi_tpu_torch.runners.run_mpc import ENVS
 
-ROUTED = ("fetch-push", "hopper", "pen-v0", "reacher")
-CHAIN_ENVS = ROUTED + ("finger~spin",)
+ROUTED = ("fetch-push", "hopper", "pen-v0", "reacher", "finger~spin")
 # the trees that are one chain, which the subtree partition refuses
 ONE_CHAIN = ("hopper", "reacher")
 N, H = 37, 3   # one full group of 32 rollouts and a ragged one
@@ -67,6 +69,8 @@ CHAIN_SHA256 = {
         "123f5a83da9474cd4aafe7d7606000a8b2fd2250d5beb5ce5d92d826d8ff3462",
     "reacher":
         "4863e7928a4cf9732876c4afa80952bc3d31ca4111ea63a79c05ca9f4f6bef7a",
+    "finger~spin":
+        "415225dbe74c344e5078128aba83339277eb60a6550dedb38d119c2bd06a5676",
 }
 
 
@@ -86,7 +90,7 @@ def chain():
         lambda name: rk.generate_split(*_args(name), partition="chain"))
 
 
-@pytest.mark.parametrize("name", CHAIN_ENVS)
+@pytest.mark.parametrize("name", ROUTED)
 def test_host_c_chain_build_equals_lane_build(chain, name):
     """N=37 (a full group and a ragged one), H=3 from the seed-0 state with
     a NaN lane: the chain-cut build's rewards and final state are the lane
@@ -112,14 +116,14 @@ def test_host_c_chain_build_equals_lane_build(chain, name):
     np.testing.assert_allclose(got[2][keep], plain[2], **REW_TOL)
 
 
-@pytest.mark.parametrize("name", CHAIN_ENVS)
+@pytest.mark.parametrize("name", ROUTED)
 def test_the_chain_plans_keep_the_invariants(chain, name):
     """The chain-cut substep's and the reward's plans pass the race and
     slot simulator (``_check_body``)."""
     _check_body(name, chain(name)[1])
 
 
-@pytest.mark.parametrize("name", CHAIN_ENVS)
+@pytest.mark.parametrize("name", ROUTED)
 def test_the_chain_plans(chain, name):
     """Each body's cut, solve warp, replication, phases, slots and model
     cost a step as the generator chose them, below its cheapest earlier
@@ -210,19 +214,23 @@ def test_chain_headers_are_pinned(chain, name):
         == CHAIN_SHA256[name]
 
 
-def test_fetch_push_and_hopper_route_to_the_chain_cut():
+@pytest.mark.parametrize("name", ROUTED + ("hammer-v0",))
+def test_env_routes_to_its_layout(name):
     """Every env of ``ROUTED`` (fetch-push and hopper, then pen-v0 and
-    reacher) routes to the split layout with the chain cut; finger~spin
-    plans under it but keeps the lane layout."""
-    for name in ROUTED:
-        env = ENVS[name]()
+    reacher, then finger~spin) routes to the split layout with the chain
+    cut, its launches counted under ``rollout_split``; hammer-v0, whose
+    split body was slower than its lane body, keeps the lane layout."""
+    env = ENVS[name]()
+    if name == "hammer-v0":
         assert (rk.kernel_layout(env), rk.split_partition(env)) == (
-            "split", "chain"), name
-        assert rk.launch_key(env) == "rollout_split"
-        assert rk.env_rollout(env, _state(name), 2).layout == "split"
-    env = ENVS["finger~spin"]()
+            "lane", None)
+        assert rk.launch_key(env) == "rollout"
+        assert rk.env_rollout(env, _state(name), 2).layout == "lane"
+        return
     assert (rk.kernel_layout(env), rk.split_partition(env)) == (
-        "lane", None)
+        "split", "chain")
+    assert rk.launch_key(env) == "rollout_split"
+    assert rk.env_rollout(env, _state(name), 2).layout == "split"
 
 
 def test_an_unknown_partition_raises():

@@ -47,7 +47,8 @@ ROUTED_WARP_ENVS = WARP_ENVS + ("pen-v0-adroit", "fetch-pick")
 # tests/test_torch_split_chain.py)
 ROUTED_SPLIT_ENVS = ("door-v0", "relocate-v0", "cheetah", "walker2d",
                      "walker~walk", "humanoid-standup", "pen-v0-hand",
-                     "fetch-push", "hopper", "pen-v0", "reacher")
+                     "fetch-push", "hopper", "pen-v0", "reacher",
+                     "finger~spin")
 N, H = 5, 2
 
 # sha256 of the warp headers as first generated: a change to the
