@@ -229,7 +229,17 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 rank 0's; two T=20 door-v0 episodes on
                 ``make_multislice_mesh(2, 2)`` (``mesh_axis=("slices",
                 "samples")`` and ``"samples"``), each the unsharded T=20
-                return with exactly 110 launches a rank.
+                return with exactly 110 launches a rank. In the same
+                4-rank group, the generic sharded objective
+                (``parallel.sharded_objective``): ``run_opt
+                --mesh-devices 4`` (Reps, NoisySphere, d=64, N=4096, 10
+                iterations: the moment-match kernel's shape) and three
+                iterations of ``run_policy_search --mesh-devices 4``
+                (make policy-search's config, 32 trajectories a rank):
+                the final policy state, every stat of the trace and the
+                generator's state bit-identical to the unsharded runs
+                (made in this process before the group starts), exactly
+                10 moment-match and 3 ball-in-a-cup launches a rank.
  32. build   -- the warp layout (``csrc/rollout_warp.cu``: one rollout a
                 warp, the mass matrix and the solve spread over its lanes)
                 of door-v0-adroit, hammer-v0-adroit, relocate-v0-adroit,
@@ -323,6 +333,42 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 more through the split layout: exactly 800, 330, 350,
                 350, 350, 350, 350, 350, 290, 350, 210, 290 and 550
                 launches of it, the returns equal.
+ 38. build   -- generate the ball-in-a-cup kernel's body
+                (``envs/physics/bic_kernel.py``: the canonical 12-particle
+                string, 15 Jacobi sweeps, the same-step coupling) and
+                build ``csrc/bic_rollout.cu`` with nvcc in phase 1 beside
+                the others (before phase 29, whose ranks launch it);
+                print its line count, f32 ops a lane step, nvcc seconds
+                and -Xptxas -v summary (registers, spills);
+ 39. check   -- the kernel against its plain version (the eager scalar
+                program) on the card at N=1000 (31 blocks of 32 and one of
+                8) over 10 stabilize + 20 trajectory + 10 cool-down steps:
+                the final lane states, rewards and success flags within
+                BIC_TOL, BIC_STATS_TOL and BIC_REACTION_ATOL, a NaN
+                setpoint in one lane that stays in it, and one launch into
+                outputs padded with a sentinel past N that must stay, bit
+                for bit the wrapper's; the plain version's and the
+                kernel's time at this shape;
+ 40. timings -- the kernel at the canonical search's shape (N=128, 250 +
+                1000 + 350 steps; CUDA events over 5 launches), f32 ops a
+                lane step and the bound;
+ 41. search  -- ``make policy-search`` (Reps, BallInACup, RbfFeatures,
+                epsilon 2.0, 40 iterations, MonteCarlo, N=128, seed 0)
+                through the port's run_policy_search: the success rate
+                reaches 1.00 within the 40 iterations (the JAX package
+                does at seeds 0-4, RESULTS.md:118-128), exactly 40 kernel
+                launches (one an evaluation), the curve at iterations 0,
+                10, 20, 30 and 39 and the wall time; then the Test env
+                through the same runner (Reps, epsilon 2.0, N=64, 20
+                iterations): its final mean cost below 0.3 of its first,
+                no launch;
+ 42. episodes -- the pendulum swing-up (tests/test_mpc.py: Mppi alpha 10,
+                WhiteNoiseIid, H=20, T=60, N=64, no warm start, seed 0):
+                the last five rewards average above -1.0 and above the
+                first five by 5.0; one cartpole episode (T=100, 10
+                warm-start iterations) with a finite return; both plan
+                through the eager objective (no kernel in either
+                package), so no launch.
 Then one JSON line with the kernels' numbers (each entry with the (N, H)
 of its ms and bound_ms, of its plain_ms, and the kernel's time at the
 latter; the rollout bodies of phase 35 with their registers and spills,
@@ -674,6 +720,60 @@ N_MESH, H_MESH, H_MESH_PLAIN, MESH_ITERS = 16384, 160, 20, 10
 DOOR_ARGS = ["Lbps", "door-v0", "SquaredExponentialKernel", "--delta", "0.9",
              "--n-iters", "2", "--anneal", "0.5", "--lengthscale", "0.08",
              "--horizon", "30"]
+
+
+# phases 38-42: the ball-in-a-cup kernel, make policy-search and the classic
+# envs. The check's phases (stabilize, trajectory, cool-down) are cut from
+# the canonical 250 + 1000 + 350 steps: its plain version is ~23k eager ops
+# a lane step. Its tolerances, kernel against plain: the coordinates, the
+# particles and the reward to BIC_TOL of 1 + |plain| (PyTorch on the card
+# divides by a Python scalar as a product with its reciprocal, the kernel
+# divides), the statistics (sums of squared velocities, differences over
+# dt) to BIC_STATS_TOL, the string's reaction (a second difference over
+# dt^2) to BIC_REACTION_ATOL newtons, the success flags exactly
+BIC_N_CHECK, BIC_PHASES, BIC_NAN_LANE = 1000, (10, 20, 10), 321
+BIC_TOL, BIC_STATS_TOL, BIC_REACTION_ATOL = 1e-4, 1e-3, 1e-2
+# the branch check: BIC_BRANCH_N lanes that hold a raised elbow
+# (BIC_CATCH_RANGE: the shoulder's and the elbow's setpoints) over 60
+# trajectory steps, where some catch the ball and some hit the arm with
+# it, against the plain version on the host's CPU (~23k eager ops a step
+# cost less there than launched on the card), to the check's tolerances
+# and the success and violation flags exactly. In this regime the swing
+# on a slack string amplifies a last-bit difference (sinf, a division)
+# some ten-fold every 10 steps after the first 20: the card read 1.0e-5,
+# 4.0e-4 and 1.8e-3 N on these lanes (NVIDIA H100 80GB HBM3, 700.00 W),
+# the host-C build on a CPU up to 1.3e-4 and 2.3e-2 N on other seeds
+BIC_BRANCH_N, BIC_BRANCH_PHASES = 64, (5, 60, 5)
+BIC_CATCH_RANGE = ((0.2, 1.2), (2.4, 2.9))
+BIC_Q_START = (0.0, 0.0, 0.0, 1.5707)
+# the canonical search (make policy-search, RESULTS.md:118-128): 128
+# trajectories of 250 + 1000 + 350 steps an iteration, 40 iterations
+BIC_N_TIME, BIC_T = 128, 1000
+POLICY_SEARCH = ["Reps", "BallInACup", "RbfFeatures", "--epsilon", "2.0",
+                 "--n-iters", "40", "--seed", "0", "--device", "cuda",
+                 "MonteCarlo", "--n-samples", "128"]
+TEST_SEARCH = ["Reps", "Test", "RbfFeatures", "--epsilon", "2.0",
+               "--n-iters", "20", "--seed", "0", "--device", "cuda",
+               "MonteCarlo", "--n-samples", "64"]
+# tests/test_mpc.py's pendulum swing-up (Mppi alpha 10, WhiteNoiseIid,
+# H=20, T=60, N=64, no warm start) and one cartpole episode
+PENDULUM = ["Mppi", "pendulum", "WhiteNoiseIid", "--alpha", "10",
+            "--timesteps", "60", "--horizon", "20", "--n-warmstart-iters",
+            "0", "--seed", "0", "--device", "cuda", "MonteCarlo",
+            "--n-samples", "64"]
+CARTPOLE = ["Mppi", "cartpole", "WhiteNoiseIid", "--alpha", "10",
+            "--timesteps", "100", "--horizon", "20", "--n-warmstart-iters",
+            "10", "--seed", "0", "--device", "cuda", "MonteCarlo",
+            "--n-samples", "64"]
+# phase 31's group also runs run_opt --mesh-devices 4 at a shape that
+# takes the moment-match kernel (N d = KERNEL_MIN_ELEMENTS, d >= 8) and a
+# few iterations of the sharded search; the parent runs both unsharded
+MESH_OPT = ["Reps", "NoisySphere", "--dimension", "64", "--n-iter", "10",
+            "--seed", "0", "--device", "cuda", "--mesh-devices", "4", "mc",
+            "--n-samples", "4096"]
+MESH_SEARCH = POLICY_SEARCH[:5] + ["--n-iters", "3", "--seed", "0",
+                                   "--device", "cuda", "--mesh-devices",
+                                   "4", "MonteCarlo", "--n-samples", "128"]
 
 
 def door_args(timesteps, device="cuda"):
@@ -1772,7 +1872,329 @@ def mesh_phases(rank, cfg):
                 launches=per_rank(LAUNCHES[rk.launch_key(door)], mesh),
                 agree=replicas_agree([carry.policy, track["action"],
                                       env_state.physics.qpos], mesh))
+    # the generic sharded objective: run_opt and run_policy_search over
+    # this group (only the 4-rank group)
+    if cfg.get("opt"):
+        out.update(sharded_runs(mesh, cfg))
     return out if rank == 0 else None
+
+
+def sharded_runs(mesh, cfg):
+    """Phase 31's run_opt and run_policy_search on this rank of ``mesh``
+    (``parallel.sharded_objective``): the final state, the trace, the
+    generator's state and each rank's kernel launches (moment match, ball
+    in a cup)."""
+    from ppi_tpu_torch.build import LAUNCHES
+    from ppi_tpu_torch.envs.physics.bic_kernel import LAUNCH_KEY
+    from ppi_tpu_torch.parallel.mesh import per_rank, replicas_agree
+    from ppi_tpu_torch.runners import run_opt, run_policy_search as rps
+    import torch.distributed as dist
+    out = {}
+    LAUNCHES.clear()
+    dist.barrier()
+    t0 = time.perf_counter()
+    state, trace, gen = run_opt.optimize(
+        run_opt.build_parser().parse_args(cfg["opt"]), mesh)
+    torch.cuda.synchronize()
+    out["opt"] = dict(
+        state=run_state(state), trace={k: v.cpu() for k, v in trace.items()},
+        generator=gen.get_state(), wall_s=time.perf_counter() - t0,
+        launches=per_rank(LAUNCHES["moment_match"], mesh),
+        agree=replicas_agree(state, mesh))
+    LAUNCHES.clear()
+    dist.barrier()
+    t0 = time.perf_counter()
+    policy, trace, gen, _ = rps.search(
+        rps.build_parser().parse_args(cfg["search"]), mesh)
+    torch.cuda.synchronize()
+    out["search"] = dict(
+        state=run_state(policy), trace={k: v.cpu() for k, v in trace.items()},
+        generator=gen.get_state(), wall_s=time.perf_counter() - t0,
+        launches=per_rank(LAUNCHES[LAUNCH_KEY], mesh),
+        agree=replicas_agree(policy, mesh))
+    return out
+
+
+def run_state(state):
+    """A policy state's tensors, on the host, by field."""
+    return {f.name: getattr(state, f.name).cpu()
+            for f in dataclasses.fields(state)
+            if isinstance(getattr(state, f.name), torch.Tensor)}
+
+
+def check_sharded_runs(res, refs):
+    """Phase 31's sharded run_opt and run_policy_search against the
+    unsharded runs of the parent (``refs``): bit for bit in the final
+    state, every stat of the trace and the generator's state, with the
+    kernels' launches a rank."""
+    from ppi_tpu_torch.parallel.mesh import _bits
+    w = res["ranks"]
+    for key, kernel, want in (("opt", "moment_match", 10),
+                              ("search", "bic_rollout", 3)):
+        got, ref = res[key], refs[key]
+        tag = f"sharded {key} ({w} ranks)"
+        check(got["agree"], f"{tag}: the ranks' states differ")
+        check(got["launches"] == [float(want)] * w,
+              f"{tag}: {kernel} launches per rank {got['launches']}, "
+              f"expected {want}")
+        check(torch.equal(got["generator"], ref["generator"]),
+              f"{tag}: generator state differs from unsharded")
+        check(sorted(got["trace"]) == sorted(ref["trace"]),
+              f"{tag}: trace keys")
+        for part in ("trace", "state"):
+            for k, v in ref[part].items():
+                check(torch.equal(_bits(got[part][k]), _bits(v)),
+                      f"{tag}: {part} {k} differs from unsharded")
+        print(f"check sharded {key} ({w} ranks, gloo, one card): final "
+              f"state, trace ({', '.join(sorted(ref['trace']))}) and "
+              f"generator state bit-identical to the unsharded run; "
+              f"{kernel} launches per rank {got['launches']}; wall "
+              f"{got['wall_s']:.2f} s (unsharded {ref['wall_s']:.2f} s)",
+              flush=True)
+
+
+def unsharded_runs():
+    """The unsharded references of phase 31's sharded runs, in this
+    process (which built both kernels)."""
+    from ppi_tpu_torch.runners import run_opt, run_policy_search as rps
+    refs = {}
+    for key, argv, fn in (("opt", MESH_OPT, run_opt.optimize),
+                          ("search", MESH_SEARCH, rps.search)):
+        args = (run_opt if key == "opt" else rps).build_parser().parse_args(
+            argv)
+        args.mesh_devices = 0
+        t0 = time.perf_counter()
+        state, trace, gen = fn(args)[:3]
+        torch.cuda.synchronize()
+        refs[key] = dict(state=run_state(state),
+                         trace={k: v.cpu() for k, v in trace.items()},
+                         generator=gen.get_state(),
+                         wall_s=time.perf_counter() - t0)
+    return refs
+
+
+def bic_actions(n, horizon, seed, dev):
+    """(N, T, 4) setpoints about the canonical start: the shoulder and
+    the elbow's positions, held over the trajectory, and their
+    velocities. Over the check's 40 steps no lane catches the ball or
+    hits the arm: ``catch_actions`` takes those branches."""
+    rng = np.random.default_rng(seed)
+    a = np.zeros((n, horizon, 4), np.float32)
+    a[..., 0] = BIC_Q_START[1] + 0.4 * rng.standard_normal((n, 1))
+    a[..., 1] = BIC_Q_START[3] + 0.4 * rng.standard_normal((n, 1))
+    a[..., 2:] = 3.0 * rng.standard_normal((n, horizon, 2))
+    return torch.from_numpy(a).to(dev)
+
+
+def catch_actions(n, horizon, seed, dev):
+    """(N, T, 4) setpoints that hold the shoulder and the elbow at a
+    position drawn from BIC_CATCH_RANGE, at rest: the elbow raised past
+    the canonical start's, so that within 60 steps a few lanes catch the
+    ball and others hit the arm with it."""
+    rng = np.random.default_rng(seed)
+    a = np.zeros((n, horizon, 4), np.float32)
+    for k, (lo, hi) in enumerate(BIC_CATCH_RANGE):
+        a[..., k] = rng.uniform(lo, hi, (n, 1))
+    return torch.from_numpy(a).to(dev)
+
+
+def bic_errors(sim, got, plain):
+    """(errors by group, max abs of the reward) of the kernel's outputs
+    against the plain version's, NaN lanes aside (which must match)."""
+    st, r, ok = got
+    pst, pr, pok = plain
+    L = sim.layout
+    check(torch.equal(torch.isnan(st), torch.isnan(pst))
+          and torch.equal(torch.isnan(r), torch.isnan(pr)),
+          "ball-in-a-cup: NaN lanes differ from plain")
+    a, b = st.double().nan_to_num(0.0), pst.double().nan_to_num(0.0)
+    rel = (a - b).abs() / (1.0 + b.abs())
+    rr, pp = r.double().nan_to_num(0.0), pr.double().nan_to_num(0.0)
+    errs = {"state": float(rel[:, :L.FORCE].max()),
+            "stats": float(rel[:, L.MAX_POT:].max()),
+            "reaction_abs": float((a - b)[:, L.FORCE:L.MAX_POT].abs().max()),
+            "reward": float(((rr - pp).abs() / (1.0 + pp.abs())).max())}
+    check(errs["state"] <= BIC_TOL and errs["reward"] <= BIC_TOL
+          and errs["stats"] <= BIC_STATS_TOL
+          and errs["reaction_abs"] <= BIC_REACTION_ATOL,
+          f"ball-in-a-cup kernel vs plain {errs}")
+    check(torch.equal(ok, pok), "ball-in-a-cup: success flags differ")
+    check(torch.equal(st[:, L.VIOLATED], pst[:, L.VIOLATED]),
+          "ball-in-a-cup: violation flags differ")
+    return errs, float((rr - pp).abs().max())
+
+
+def check_bic(dev):
+    """Phase 39: the ball-in-a-cup kernel against its plain version at
+    N=1000 over BIC_PHASES steps, a NaN setpoint in one lane, and a padded
+    launch whose sentinels past N must stay. Returns the numbers and the
+    kernel's and the plain version's times at this shape."""
+    from ppi_tpu_torch.envs.ball_in_a_cup import BallInCupSim
+    from ppi_tpu_torch.envs.physics import bic_kernel as bk
+    n_stab, horizon, n_cool = BIC_PHASES
+    sim = BallInCupSim(stabilize_steps=n_stab, cooldown_steps=n_cool)
+    acts = bic_actions(BIC_N_CHECK, horizon, 39, dev)
+    acts[BIC_NAN_LANE, 3, 0] = float("nan")
+    q = torch.tensor(BIC_Q_START, device=dev)
+    run = bk.make_bic_rollout(sim)
+    got = run(q, acts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = bk.plain_bic_rollout(sim, q, acts)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    errs, max_abs = bic_errors(sim, got, plain)
+    bad = torch.isnan(got[0]).any(1).nonzero().flatten().tolist()
+    check(bad == [BIC_NAN_LANE], f"ball-in-a-cup: NaN lanes {bad}")
+    # the launch itself into padded outputs (31 full blocks of 32 and one
+    # of 8), against the wrapper's outputs
+    fn = run.load()
+    size = sim.layout.size
+    act = acts.permute(1, 2, 0).contiguous()
+    state = torch.full((size * BIC_N_CHECK + SENTINEL_PAD,), SENTINEL,
+                       device=dev)
+    score = torch.full((2 * BIC_N_CHECK + SENTINEL_PAD,), SENTINEL,
+                       device=dev)
+    err = fn(q.data_ptr(), act.data_ptr(), state.data_ptr(),
+             score.data_ptr(), BIC_N_CHECK, horizon, n_stab, n_cool,
+             bk.BLOCK, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    check(err == 0, f"ball-in-a-cup padded launch: CUDA error {err}")
+    kept = bool((state[-SENTINEL_PAD:] == SENTINEL).all()
+                and (score[-SENTINEL_PAD:] == SENTINEL).all())
+    check(kept, "ball-in-a-cup: a lane past N was written")
+    check(same_bits(state[:size * BIC_N_CHECK].view(size, BIC_N_CHECK).t(),
+                    got[0])
+          and same_bits(score[:2 * BIC_N_CHECK].view(2, BIC_N_CHECK)[0],
+                        got[1]),
+          "ball-in-a-cup: the padded launch differs from the wrapper's")
+    kernel_ms = cuda_ms(lambda: run(q, acts), 5, warmup=1)
+    return dict(errors=errs, max_abs_err=max_abs, nan_lanes=bad,
+                sentinels_kept=kept, successes=int(got[2].sum()),
+                violated=int((got[0][:, sim.layout.VIOLATED] != 0).sum()),
+                plain_ms=plain_ms, kernel_ms=kernel_ms)
+
+
+def check_bic_branches(dev):
+    """Phase 39's branch check: the kernel on BIC_BRANCH_N lanes of
+    ``catch_actions`` over BIC_BRANCH_PHASES steps against the plain
+    version on the CPU, the success and violation flags exactly; both
+    branches must be taken and some lanes must take neither."""
+    from ppi_tpu_torch.envs.ball_in_a_cup import BallInCupSim
+    from ppi_tpu_torch.envs.physics import bic_kernel as bk
+    n_stab, horizon, n_cool = BIC_BRANCH_PHASES
+    sim = BallInCupSim(stabilize_steps=n_stab, cooldown_steps=n_cool)
+    acts = catch_actions(BIC_BRANCH_N, horizon, 39, dev)
+    q = torch.tensor(BIC_Q_START, device=dev)
+    got = bk.make_bic_rollout(sim)(q, acts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = bk.plain_bic_rollout(sim, q.cpu(), acts.cpu())
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    errs, _ = bic_errors(sim, tuple(x.cpu() for x in got), plain)
+    successes = int(plain[2].sum())
+    violated = int((plain[0][:, sim.layout.VIOLATED] != 0).sum())
+    check(0 < successes and 0 < violated
+          and successes + violated < BIC_BRANCH_N,
+          f"ball-in-a-cup branch check: {successes} successes and "
+          f"{violated} violated of {BIC_BRANCH_N}: a branch is not taken")
+    return dict(errors=errs, successes=successes, violated=violated,
+                plain_cpu_ms=plain_ms)
+
+
+def time_bic(dev):
+    """Phase 40: the ball-in-a-cup kernel at the canonical search's shape
+    (N=128, 250 + 1000 + 350 steps), CUDA events over 5 launches, and its
+    bound: the f32 operations of N x 1,600 lane steps over the f32 peak
+    against the bytes it must move (the setpoints in, the final states
+    and scores out) over the memory rate."""
+    from ppi_tpu_torch.envs.ball_in_a_cup import BallInCupSim
+    from ppi_tpu_torch.envs.physics import bic_kernel as bk
+    sim = BallInCupSim()
+    steps = sim.stabilize_steps + BIC_T + sim.cooldown_steps
+    acts = bic_actions(BIC_N_TIME, BIC_T, 40, dev)
+    q = torch.tensor(BIC_Q_START, device=dev)
+    run = bk.make_bic_rollout(sim)
+    ms = cuda_ms(lambda: run(q, acts), 5, warmup=1)
+    ops_step = bk.ops_per_lane_step(sim)
+    nbytes = 4 * (4 + BIC_N_TIME * BIC_T * 4
+                  + BIC_N_TIME * (sim.layout.size + 2))
+    bound_ms, bound_by = least_time(ops_step * BIC_N_TIME * steps, nbytes)
+    return dict(kernel_ms=ms, ops_per_lane_step=ops_step, steps=steps,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def policy_search_phase():
+    """Phase 41: ``make policy-search`` through the port's runner on the
+    card (every evaluation one launch of the ball-in-a-cup kernel): success
+    rate 1.00 within its 40 iterations with exactly 40 launches, the curve
+    at iterations 0, 10, 20, 30 and 39 and the wall time; then the Test
+    env through the same runner, its final mean cost below 0.3 of its
+    first, with no launch."""
+    from ppi_tpu_torch.build import LAUNCHES
+    from ppi_tpu_torch.envs.physics.bic_kernel import LAUNCH_KEY
+    from ppi_tpu_torch.runners import run_policy_search as rps
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    _, trace, rate = rps.main(rps.build_parser().parse_args(POLICY_SEARCH))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = LAUNCHES[LAUNCH_KEY]
+    curve = {i: {"success_rate": rate[i], "mean_cost": float(trace["mean"][i])}
+             for i in (0, 10, 20, 30, 39)}
+    first = rate.index(1.0) if 1.0 in rate else None
+    res = dict(launches=launches, wall_s=wall, curve=curve,
+               first_iteration_at_1=first, final_success_rate=rate[-1],
+               success_rate=rate)
+    print(f"make policy-search (Reps BallInACup RbfFeatures, epsilon 2.0, "
+          f"40 iterations, N=128, seed 0): success rate 1.00 first at "
+          f"iteration {first}; curve {json.dumps(curve)}; {launches} kernel "
+          f"launches; wall {wall:.2f} s", flush=True)
+    check(launches == 40, f"policy search: {launches} launches, expected 40")
+    check(first is not None, f"policy search: success rate never 1.00 "
+          f"({rate})")
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    _, trace, _ = rps.main(rps.build_parser().parse_args(TEST_SEARCH))
+    torch.cuda.synchronize()
+    first_cost, final_cost = float(trace["mean"][0]), float(trace["mean"][-1])
+    res["test_env"] = dict(first=first_cost, final=final_cost,
+                           wall_s=time.perf_counter() - t0)
+    print(f"Test env (Reps, epsilon 2.0, N=64, 20 iterations): mean cost "
+          f"{first_cost:.5g} -> {final_cost:.5g}; "
+          f"{sum(LAUNCHES.values())} kernel launches", flush=True)
+    check(final_cost < 0.3 * first_cost,
+          f"Test env: final cost {final_cost} not below 0.3 x {first_cost}")
+    check(sum(LAUNCHES.values()) == 0, "Test env: a kernel was launched")
+    return res
+
+
+def classic_phase():
+    """Phase 42: the pendulum swing-up (tests/test_mpc.py's gate: the last
+    five rewards average above -1.0 and above the first five by 5.0) and
+    one cartpole episode (a finite return) through the port's run_mpc on
+    the card; the eager objective plans them, so no kernel launches."""
+    from ppi_tpu_torch.build import LAUNCHES
+    from ppi_tpu_torch.runners import run_mpc
+    res = {}
+    for name, argv in (("pendulum", PENDULUM), ("cartpole", CARTPOLE)):
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        ret, _, track = run_mpc.main(run_mpc.build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        rewards = track["reward"].cpu().numpy()
+        res[name] = dict(ret=ret, first5=float(rewards[:5].mean()),
+                         last5=float(rewards[-5:].mean()),
+                         wall_s=time.perf_counter() - t0,
+                         launches=sum(LAUNCHES.values()))
+        print(f"episode {name}: {json.dumps(res[name])}", flush=True)
+        check(np.isfinite(ret), f"{name}: return {ret}")
+        check(res[name]["launches"] == 0, f"{name}: a kernel was launched")
+    p = res["pendulum"]
+    check(p["last5"] > -1.0 and p["last5"] > p["first5"] + 5.0,
+          f"pendulum: no swing-up (first five {p['first5']}, last five "
+          f"{p['last5']})")
+    return res
 
 
 def sharded_phases(door, dev, ret4):
@@ -1828,15 +2250,21 @@ def sharded_phases(door, dev, ret4):
     mesh_t["bound_ms_shard"], mesh_bound_by = rollout_bound(door, shard,
                                                             H_MESH)
     mesh_t["bound_ms_batch"] = rollout_bound(door, N_MESH, H_MESH)[0]
+    # the unsharded references of the 4-rank group's run_opt and
+    # run_policy_search (this process built both kernels in phase 1)
+    run_refs = unsharded_runs()
     cfg = dict(device="cuda", acts=acts.cpu().numpy(),
                mask=mask.cpu().numpy(), episode=door_args(250),
                short=door_args(20), episodes=True,
                warp_board=s_w.board.cpu().numpy(),
-               warp_acts=acts_w.cpu().numpy())
+               warp_acts=acts_w.cpu().numpy(), opt=MESH_OPT,
+               search=MESH_SEARCH)
     t0 = time.perf_counter()
     groups = {"4 ranks": spawn(mesh_phases, MESH_RANKS, cfg)}
-    groups["1 rank"] = spawn(mesh_phases, 1, dict(cfg, episodes=False))
+    groups["1 rank"] = spawn(mesh_phases, 1, dict(cfg, episodes=False,
+                                                  opt=None))
     mesh_s = time.perf_counter() - t0
+    check_sharded_runs(groups["4 ranks"], run_refs)
 
     mesh_max_abs, warp_sharded = None, {}
     for label, res in groups.items():
@@ -1923,9 +2351,15 @@ def sharded_phases(door, dev, ret4):
         # ms and bound_ms: one rank's shard; plain_ms: the batch on 4 ranks
         **shapes((N_MESH // MESH_RANKS, H_MESH), (N_MESH, H_MESH_PLAIN),
                  None)}
+    sharded_runs_out = {
+        key: {"launches": groups["4 ranks"][key]["launches"],
+              "wall_s": groups["4 ranks"][key]["wall_s"],
+              "unsharded_wall_s": run_refs[key]["wall_s"]}
+        for key in ("opt", "search")}
     return dict(mesh_timings=mesh_t, mesh_episodes=episodes_m,
                 mesh_max_abs_err=mesh_max_abs, mesh_s=mesh_s,
-                mesh_warp_check=warp_sharded), kernel
+                mesh_warp_check=warp_sharded,
+                mesh_sharded_runs=sharded_runs_out), kernel
 
 
 def shapes(shape, plain_shape, ms_at_plain_shape):
@@ -2485,6 +2919,12 @@ def run(pool):
     rollout_build = pool.submit(build_timed, "rollout.cu",
                                 {"env_body.h": header})
     mm_build = pool.submit(build_timed, "moment_match.cu")
+    # phase 38's ball-in-a-cup kernel (its body generated in ~0.1 s)
+    from ppi_tpu_torch.envs.ball_in_a_cup import BallInCupSim
+    from ppi_tpu_torch.envs.physics import bic_kernel as bk
+    bic_header = bk.generate_bic_header(BallInCupSim())
+    bic_build = pool.submit(build_timed, "bic_rollout.cu",
+                            {"bic_body.h": bic_header})
     # phase 9's bodies build beside phases 1 and 5, and phase 13's, 17's
     # and 21's: all twenty-two builds at once
     rest = {name: env_header(ENVS[name]())
@@ -3121,6 +3561,8 @@ def run(pool):
 
     # ---- 29-31. the sharded entry: 4 ranks on the card, 1 nccl rank --------
     mark_phase("29-31")
+    # the ranks launch the ball-in-a-cup kernel that phase 1 builds
+    bic_build.result()
     mesh_out, mesh_kernel = sharded_phases(door, dev, out["episode_return"])
     out.update(mesh_out)
 
@@ -3298,6 +3740,57 @@ def run(pool):
               f"{name}: {other} layout's return {ret!r} ({success}), the "
               f"{cfg['routed']} layout's {routed['return']!r} "
               f"({routed['success']})")
+    # ---- 38. the ball-in-a-cup kernel's build ---------------------------
+    mark_phase("38")
+    bic_lib, bic_s = bic_build.result()
+    bic_info = {"lines": len(bic_header.splitlines()), "nvcc_s": bic_s,
+                "ptxas": ptxas_summary(bic_lib),
+                "ops_per_lane_step": bk.ops_per_lane_step(BallInCupSim())}
+    bic_info.update(regs_spills(bic_info["ptxas"]))
+    print(f"body build ball-in-a-cup: {bic_info['lines']} generated lines, "
+          f"{bic_info['ops_per_lane_step']} f32 ops a lane step, nvcc "
+          f"{bic_s:.1f} s (in parallel with phase 1); ptxas: "
+          f"{' | '.join(bic_info['ptxas'])}", flush=True)
+
+    # ---- 39. the ball-in-a-cup kernel vs plain ------------------------------
+    mark_phase("39")
+    bic_check = check_bic(dev)
+    print(f"check ball-in-a-cup: N={BIC_N_CHECK} (ragged: 31 blocks of 32 "
+          f"and one of 8), {BIC_PHASES} stabilize/trajectory/cool-down "
+          f"steps: errors {json.dumps(bic_check['errors'])} (tol "
+          f"{BIC_TOL}, statistics {BIC_STATS_TOL}, reaction "
+          f"{BIC_REACTION_ATOL} N), reward max abs "
+          f"{bic_check['max_abs_err']:.3g}; success flags equal "
+          f"({bic_check['successes']} successes, {bic_check['violated']} "
+          f"violated); NaN lanes {bic_check['nan_lanes']}; sentinels past "
+          f"N kept; kernel {bic_check['kernel_ms']:.3f} ms, plain "
+          f"{bic_check['plain_ms']:.1f} ms", flush=True)
+    bic_branches = check_bic_branches(dev)
+    print(f"check ball-in-a-cup branches: N={BIC_BRANCH_N}, "
+          f"{BIC_BRANCH_PHASES} steps, the elbow raised: "
+          f"{bic_branches['successes']} successes and "
+          f"{bic_branches['violated']} violated, flags equal; errors "
+          f"{json.dumps(bic_branches['errors'])} (the check's "
+          f"tolerances); plain on the CPU "
+          f"{bic_branches['plain_cpu_ms']:.1f} ms", flush=True)
+
+    # ---- 40. the ball-in-a-cup kernel's time --------------------------------
+    mark_phase("40")
+    bic_time = time_bic(dev)
+    print(f"timings ball-in-a-cup (N={BIC_N_TIME}, {bic_time['steps']} "
+          f"steps): {json.dumps(bic_time)}", flush=True)
+
+    # ---- 41. make policy-search ---------------------------------------------
+    mark_phase("41")
+    search_out = policy_search_phase()
+
+    # ---- 42. the classic envs -----------------------------------------------
+    mark_phase("42")
+    classic_out = classic_phase()
+    out.update(bic_build=bic_info, bic_check=bic_check,
+               bic_branches=bic_branches, bic_timings=bic_time,
+               policy_search=search_out, classic_episodes=classic_out)
+
     mark_phase("end")
     out.update(split_builds=split_info, split_check=split_check,
                split_max_abs_err=split_err, split_timings=split_times,
@@ -3513,6 +4006,22 @@ def run(pool):
                  "bound_by": t["bound_by"], "library_ms": None,
                  **shapes((n, h), (pn, ph), at_plain[layout])})
     kernels.append(mesh_kernel)
+    kernels.append(
+        {"name": "bic_rollout", "route": "cuda",
+         "source": "ppi_tpu_torch/csrc/bic_rollout.cu",
+         "replaces": "ppi_tpu/envs/episodic.py BallInACup.evaluate: "
+                     "jax.vmap of BallInCupSim.execute_trajectory "
+                     "(ppi_tpu/envs/ball_in_a_cup.py:341), an XLA scan; "
+                     "no Pallas kernel",
+         "launches": search_out["launches"],
+         "max_abs_err": bic_check["max_abs_err"],
+         "ms": bic_time["kernel_ms"], "plain_ms": bic_check["plain_ms"],
+         "bound_ms": bic_time["bound_ms"], "bound_by": bic_time["bound_by"],
+         "library_ms": None,
+         **{k: bic_info[k] for k in ("registers", "spill_stores_bytes",
+                                     "spill_loads_bytes")},
+         **shapes((BIC_N_TIME, bic_time["steps"]),
+                  (BIC_N_CHECK, sum(BIC_PHASES)), bic_check["kernel_ms"])})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,6 +8,8 @@ same numbers through these.
 import numpy as np
 import torch
 
+from ppi_tpu_torch.envs.ball_in_a_cup import BicState
+from ppi_tpu_torch.envs.classic import ClassicState
 from ppi_tpu_torch.envs.physics.engine import (
     MODEL_FIELDS, ArticulatedModel, PhysicsState)
 from ppi_tpu_torch.policies.features import FeatureState
@@ -74,3 +76,33 @@ def env_state_from_numpy(state_cls, fields: dict, device):
     rest = {k: torch.tensor(np.asarray(v, np.float32), device=device)
             for k, v in fields.items()}
     return state_cls(physics=physics, t=t, **rest)
+
+
+def classic_state_from_numpy(fields: dict, device) -> ClassicState:
+    """A pendulum's or cartpole's ``ClassicState`` on ``device`` from
+    ``qpos``, ``qvel`` and optionally ``t`` as numpy arrays."""
+    return ClassicState(
+        qpos=torch.tensor(np.asarray(fields["qpos"], np.float32),
+                          device=device),
+        qvel=torch.tensor(np.asarray(fields["qvel"], np.float32),
+                          device=device),
+        t=torch.tensor(np.asarray(fields.get("t", 0), np.int32),
+                       device=device))
+
+
+def bic_state_from_numpy(fields: dict, device) -> BicState:
+    """A ball-in-a-cup ``BicState`` on ``device`` from the JAX state's
+    fields as numpy arrays: ``qpos`` and ``qvel`` (its ``arm``), the
+    particles, the statistics, ``q0``, ``violated`` and ``t``."""
+    fields = dict(fields)
+    arm = PhysicsState(
+        qpos=torch.tensor(np.asarray(fields.pop("qpos"), np.float32),
+                          device=device),
+        qvel=torch.tensor(np.asarray(fields.pop("qvel"), np.float32),
+                          device=device))
+    violated = torch.tensor(np.asarray(fields.pop("violated"), bool),
+                            device=device)
+    t = torch.tensor(np.asarray(fields.pop("t", 0), np.int32), device=device)
+    rest = {k: torch.tensor(np.asarray(v, np.float32), device=device)
+            for k, v in fields.items()}
+    return BicState(arm=arm, violated=violated, t=t, **rest)

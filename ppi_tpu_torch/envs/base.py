@@ -67,7 +67,12 @@ def rollout(env, states, actions, guard: bool = True):
 
 
 def broadcast_state(state, n: int):
-    """Give the physics of a single state a leading axis of n lanes."""
+    """Give the coordinates of a single state a leading axis of n lanes:
+    those of its ``physics`` (the articulated envs), or its own ``qpos``
+    and ``qvel`` (``envs.classic.ClassicState``)."""
+    if not hasattr(state, "physics"):
+        return dataclasses.replace(state, qpos=state.qpos.expand(n, -1),
+                                   qvel=state.qvel.expand(n, -1))
     phys = state.physics
     return dataclasses.replace(state, physics=dataclasses.replace(
         phys, qpos=phys.qpos.expand(n, -1), qvel=phys.qvel.expand(n, -1)))

@@ -101,11 +101,20 @@ class NoisySphere:
     def x_opt(self):
         return np.zeros((self.dim,))
 
-    def __call__(self, generator, x):
+    # ``parallel.sharded_objective`` passes all N samples and this rank's
+    # ``rows``: the costs are computed for all N, as unsharded, so a row's
+    # bits do not depend on the shard (the einsum's per-row result can
+    # depend on the batch size)
+    takes_rows = True
+
+    def __call__(self, generator, x, rows=None):
+        """(N, d) samples -> (N,) costs; with ``rows=(lo, hi)`` rows
+        lo..hi-1 of the (N,) costs."""
         noise = self.noise_std * torch.randn(x.shape[0], generator=generator,
                                              device=x.device)
         quad = torch.einsum("bi,ij,bj->b", x, self.quadratic(x.device), x)
-        return quad + noise - self.f_opt
+        costs = quad + noise - self.f_opt
+        return costs if rows is None else costs[rows[0]:rows[1]]
 
 
 FUNCTIONS = {

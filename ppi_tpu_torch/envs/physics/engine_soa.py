@@ -636,6 +636,30 @@ def make_sites_soa(model: ArticulatedModel, dyn_body=None):
     return sites
 
 
+def make_body_frames_soa(model: ArticulatedModel, dyn_body=None):
+    """``qpos (..., nq)[, body_pos (..., 3)] -> (rot (..., nb, 3, 3), pos
+    (..., nb, 3))``: each body's world rotation and joint origin, from
+    ``fk_soa`` (the JAX function is unbatched; this one takes any leading
+    batch shape). With ``dyn_body`` the frames take a trailing runtime
+    offset for that body."""
+    m = SoaModel(model)
+
+    def frames(qpos, body_pos=None):
+        mm = m
+        if dyn_body is not None and body_pos is not None:
+            mm = m.with_body_offset(dyn_body, body_pos.unbind(-1))
+        rots, poss, _, _ = fk_soa(mm, qpos.unbind(-1))
+        like = qpos[..., 0]
+        rot = torch.stack([stack_lanes((like,) + tuple(r))[..., 1:]
+                           for r in rots], -2)
+        pos = torch.stack([stack_lanes((like,) + tuple(p))[..., 1:]
+                           for p in poss], -2)
+        return (rot.reshape(*rot.shape[:-1], 3, 3).to(qpos.dtype),
+                pos.to(qpos.dtype))
+
+    return frames
+
+
 def stack_lanes(xs, dim: int = -1) -> torch.Tensor:
     """Stack scalars of the program into one tensor. Entries that stayed
     Python constants (a coordinate no joint moves) are broadcast to the

@@ -16,6 +16,7 @@ is spawned: ``parallel.mesh.make_mesh`` joins the launcher's group with the
 same rule.
 """
 
+import os
 import tempfile
 from pathlib import Path
 
@@ -54,6 +55,19 @@ def join_group(rank: int, n_ranks: int, init_method: str, device) -> None:
     dist.init_process_group(backend_for(dev, n_ranks),
                             init_method=init_method, world_size=n_ranks,
                             rank=rank)
+
+
+def in_group() -> bool:
+    """Whether this process is a rank of a process group already: one
+    started by ``spawn`` or by ``torchrun``."""
+    return dist.is_initialized() or "RANK" in os.environ
+
+
+def call_main(rank, main, args):
+    """A spawned rank of a runner: its ``main(args)`` (which, in the group,
+    makes the mesh over it)."""
+    del rank
+    return main(args)
 
 
 def _rank_main(rank, fn, n_ranks, workdir, device, args):

@@ -29,7 +29,9 @@ the same order.
 ``sharded_mpc_objective`` is the eager path on each shard (the counterpart
 of the JAX package's XLA-scan path) and the plain version of
 ``envs.physics.rollout_kernel.sharded_kernel_mpc_objective``, the kernel
-on each shard.
+on each shard. ``sharded_objective`` shards any black-box or episodic
+objective the same way (``runners/run_opt.py`` and
+``runners/run_policy_search.py`` with ``--mesh-devices``).
 """
 
 import dataclasses
@@ -183,13 +185,53 @@ def shard_bounds(n: int, mesh: Mesh, axis: Axis = SAMPLE_AXIS):
 
 
 def gather_costs(local, n: int, mesh: Mesh, axis: Axis = SAMPLE_AXIS):
-    """The full (n,) costs on every rank of ``axis`` from each rank's
-    shard: one ``all_reduce(SUM)`` of a vector that is zero outside it."""
+    """The full (n, ...) rows (the costs, or any per-sample tensor) on every
+    rank of ``axis`` from each rank's shard: one ``all_reduce(SUM)`` of a
+    tensor that is zero outside it. A float tensor keeps its dtype; any
+    other (a success flag) is summed as float32 and cast back, which is
+    exact for 0/1 and small integers."""
     lo, hi = shard_bounds(n, mesh, axis)
-    full = torch.zeros(n, dtype=local.dtype, device=local.device)
+    dtype = local.dtype if local.is_floating_point() else torch.float32
+    full = torch.zeros((n, *local.shape[1:]), dtype=dtype,
+                       device=local.device)
     full[lo:hi] = local
     dist.all_reduce(full, group=mesh.group(axis))
-    return full
+    return full.to(local.dtype)
+
+
+def sharded_objective(f, mesh: Mesh, axis: Axis = SAMPLE_AXIS):
+    """Shard the leading (sample) axis of any ``f(generator, actions) ->
+    costs`` or ``-> (costs, aux)`` objective over the mesh (the black-box
+    functions, the episodic envs): each rank evaluates ``f`` on its rows
+    ``shard_bounds(n, mesh, axis)`` and ``gather_costs`` gives every rank
+    the full (N,) costs and every per-sample aux tensor (the success flags
+    that the solver loop averages over all N).
+
+    Randomness: the generator is a replica, advanced identically on every
+    rank. An objective that draws from it (``NoisySphere``'s evaluation
+    noise) declares ``takes_rows = True`` and is called with all N actions
+    and ``rows=(lo, hi)``: it draws the full (N, ...) noise, as unsharded,
+    and returns its rows (``NoisySphere`` computes all N costs and slices
+    them, so its sharded run equals the unsharded one at every shape). A
+    shard-local draw would give every shard the same noise and advance the
+    generator by N/W instead of N. Any other ``f`` sees only its rows, so
+    a run on W ranks equals the unsharded run bit for bit wherever ``f``'s
+    value of a row does not depend on the batch around it."""
+
+    def g(generator, actions):
+        n = actions.shape[0]
+        lo, hi = shard_bounds(n, mesh, axis)
+        if getattr(f, "takes_rows", False):
+            out = f(generator, actions, rows=(lo, hi))
+        else:
+            out = f(generator, actions[lo:hi])
+        if not isinstance(out, tuple):
+            return gather_costs(out, n, mesh, axis)
+        costs, aux = out
+        return (gather_costs(costs, n, mesh, axis),
+                {k: gather_costs(v, n, mesh, axis) for k, v in aux.items()})
+
+    return g
 
 
 def _tensors(tree):

@@ -15,12 +15,13 @@ priors use, with the same positional layout plus ``--device``:
     python -m ppi_tpu_torch.runners.run_mpc Essps hammer-v0 RffFeatures \\
         --n-elites 10 --lengthscale 0.15 MonteCarlo --n-samples 64
 
-Envs: door-v0, door-v0-hand, door-v0-adroit, pen-v0, pen-v0-hand,
-pen-v0-adroit, relocate-v0, relocate-v0-hand, relocate-v0-adroit,
-hammer-v0, hammer-v0-hand, hammer-v0-adroit, cheetah, reacher,
-finger~spin, fetch-push, fetch-pick, hopper, walker2d, walker~walk,
-humanoid-standup; ``--lengthscale 0.08`` is the hand scenes' canonical
-"4dt". Every prior of the JAX package's registry runs;
+Envs: pendulum, cartpole, door-v0, door-v0-hand, door-v0-adroit, pen-v0,
+pen-v0-hand, pen-v0-adroit, relocate-v0, relocate-v0-hand,
+relocate-v0-adroit, hammer-v0, hammer-v0-hand, hammer-v0-adroit, cheetah,
+reacher, finger~spin, fetch-push, fetch-pick, hopper, walker2d,
+walker~walk, humanoid-standup (the JAX runner's 23); ``--lengthscale
+0.08`` is the hand scenes' canonical "4dt". Every prior of the JAX
+package's registry runs;
 ``--n-features`` and ``--order`` size the RBF and RFF bases, and RBF
 features span the episode while every other prior spans the horizon.
 ``--alpha``, ``--epsilon``, ``--n-elites``, ``--delta`` and ``--beta`` go
@@ -29,8 +30,10 @@ particle reuse and acts on the MAP sequence. ``--risk-weight`` blends the
 CVaR of the per-step costs at ``--risk-quantile`` into each plan's cost
 (``envs.base.risk_aggregate``). ``--device cuda`` (the default) needs a
 CUDA card and rolls out through the hand-written kernel (the real env step
-of every env too: one launch at N=1, H=1); ``--device cpu`` runs the eager
-plain version. With ``--dir`` the run writes
+of every env too: one launch at N=1, H=1); pendulum and cartpole, which
+have no kernel in either package, plan through the eager objective on the
+card; ``--device cpu`` runs the eager plain version. With ``--dir`` the
+run writes
 ``args.json``, its ``log`` and ``data.npz`` (the JAX runner's keys) under
 ``<dir>/<algorithm>_<env>_<policy>_<sampling>_<n>_<seed>_<name>``, and a
 second run there stops unless ``--force``. Plots, rendering, checkpoints,
@@ -47,6 +50,7 @@ import torch
 
 from ppi_tpu_torch.algorithms import ALGORITHMS, make_solver
 from ppi_tpu_torch.envs.cheetah import Cheetah
+from ppi_tpu_torch.envs.classic import Cartpole, Pendulum
 from ppi_tpu_torch.envs.door import Door
 from ppi_tpu_torch.envs.door_adroit import DoorAdroit
 from ppi_tpu_torch.envs.door_hand import DoorHand
@@ -72,17 +76,23 @@ from ppi_tpu_torch.samplers import BY_NAME as SAMPLER_NAMES
 from ppi_tpu_torch.utils import (
     experiment_dir, save_results, setup_logging, write_args)
 
-ENVS = {"reacher": Reacher, "door-v0": Door, "door-v0-hand": DoorHand,
-        "door-v0-adroit": DoorAdroit, "cheetah": Cheetah,
-        "finger~spin": FingerSpin, "hammer-v0": Hammer,
-        "hammer-v0-hand": HammerHand, "hammer-v0-adroit": HammerAdroit,
-        "hopper": Hopper, "pen-v0": Pen, "pen-v0-hand": PenHand,
-        "pen-v0-adroit": PenAdroit, "relocate-v0": Relocate,
-        "relocate-v0-hand": RelocateHand,
-        "relocate-v0-adroit": RelocateAdroit,
-        "humanoid-standup": HumanoidStandup, "fetch-push": FetchPush,
-        "fetch-pick": FetchPickAndPlace, "walker2d": Walker,
-        "walker~walk": WalkerWalk}
+# the envs with no scalar kernel contract: planned through the eager
+# objective on every device
+EAGER_ENVS = {"pendulum": Pendulum, "cartpole": Cartpole}
+# the envs whose rollouts and real steps run through the rollout kernel
+KERNEL_ENVS = {"reacher": Reacher, "door-v0": Door, "door-v0-hand": DoorHand,
+               "door-v0-adroit": DoorAdroit, "cheetah": Cheetah,
+               "finger~spin": FingerSpin, "hammer-v0": Hammer,
+               "hammer-v0-hand": HammerHand,
+               "hammer-v0-adroit": HammerAdroit, "hopper": Hopper,
+               "pen-v0": Pen, "pen-v0-hand": PenHand,
+               "pen-v0-adroit": PenAdroit, "relocate-v0": Relocate,
+               "relocate-v0-hand": RelocateHand,
+               "relocate-v0-adroit": RelocateAdroit,
+               "humanoid-standup": HumanoidStandup, "fetch-push": FetchPush,
+               "fetch-pick": FetchPickAndPlace, "walker2d": Walker,
+               "walker~walk": WalkerWalk}
+ENVS = {**EAGER_ENVS, **KERNEL_ENVS}
 
 
 def build_parser():

@@ -9,8 +9,13 @@ sampler subcommands (mc / qmc / quad carrying --n-samples), plus
 
 ``--device cuda`` (the default) needs a CUDA card; there every moment match
 above the dispatch threshold goes through the hand-written kernel.
-``--device cpu`` runs the plain versions. Plots and sharding over several
-devices are not ported yet.
+``--device cpu`` runs the plain versions. ``--mesh-devices W`` shards the
+sample axis of the evaluation over W ranks (``parallel.sharded_objective``):
+the runner starts them (``parallel.launch.spawn``; on one card they share
+it over gloo) or, started under ``torchrun``, joins the launcher's group;
+every rank holds a replica of the solver and the generator, and rank 0
+alone writes ``args.json``, the ``log`` and ``data.npz``. The sharded run
+equals the unsharded one bit for bit. Plots are not ported yet.
 """
 
 import argparse
@@ -22,6 +27,8 @@ import torch
 
 from ppi_tpu_torch.algorithms import ALGORITHMS, make_solver, solve
 from ppi_tpu_torch.envs.functions import FUNCTIONS, make_function
+from ppi_tpu_torch.parallel import make_mesh, sharded_objective, spawn
+from ppi_tpu_torch.parallel.launch import call_main, in_group
 from ppi_tpu_torch.policies.gaussian import Gaussian
 from ppi_tpu_torch.samplers import BY_NAME as SAMPLER_NAMES
 from ppi_tpu_torch.utils import (
@@ -52,6 +59,9 @@ def build_parser():
     parser.add_argument("--device", default="cuda",
                         help="cuda (the moment-match kernel) or cpu (the "
                              "plain versions)")
+    parser.add_argument("--mesh-devices", type=int, default=0,
+                        help="shard the sample axis over this many ranks "
+                             "(0 = one process)")
 
     sub = parser.add_subparsers(title="sampling", dest="sampling",
                                 required=True)
@@ -61,27 +71,20 @@ def build_parser():
     return parser
 
 
-def main(args):
-    """Run one optimization; returns (final state, trace as numpy), or None
-    when the result directory already holds results."""
-    device = torch.device(args.device)
+def optimize(args, mesh=None):
+    """The optimization of ``args`` on ``args.device`` (or, with a
+    ``mesh``, the mesh rank's device, the evaluation sharded over it);
+    returns (final state, trace as tensors, the generator after the
+    last iteration)."""
+    device = torch.device(args.device) if mesh is None else mesh.device
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")
     # f32 everywhere: TF32 matmuls and convolutions off
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    filepath = None
-    if args.dir is not None:
-        name = (f"{args.algorithm}_{args.function}_{args.sampling}_"
-                f"{args.seed}_{args.name}")
-        filepath = experiment_dir(Path(args.dir), name, args.force)
-        if filepath is None:
-            print("experiment done!")
-            return None
-        write_args(args, filepath)
-    setup_logging(filepath, args)
-
     function = make_function(args.function, args.dimension, seed=args.seed)
+    objective = (function if mesh is None
+                 else sharded_objective(function, mesh))
     # iCEM reuses elites through the Particles sampler (MC + injection)
     sampler = (SAMPLER_NAMES["Particles"] if args.algorithm == "iCem"
                else SAMPLER_NAMES[args.sampling])
@@ -96,21 +99,59 @@ def main(args):
         args.algorithm, n_elites=args.n_elites, alpha=args.alpha,
         epsilon=args.epsilon, delta=args.delta, dimension=dim,
         base_entropy=args.base_entropy, entropy_rate=args.entropy_rate)
+    generator = torch.Generator(device).manual_seed(args.seed)
+    state, trace = solve(solver, family, state, objective, generator,
+                         n_samples(args), args.n_iter)
+    return state, trace, generator
 
-    n_samples = (2 * dim if args.sampling in ("quad", "CubatureQuadrature")
-                 else args.n_samples)
-    state, trace = solve(solver, family, state, function,
-                         torch.Generator(device).manual_seed(args.seed),
-                         n_samples, args.n_iter)
+
+def n_samples(args) -> int:
+    """The batch size: 2 d sigma points for the cubature sampler."""
+    return (2 * args.dimension
+            if args.sampling in ("quad", "CubatureQuadrature")
+            else args.n_samples)
+
+
+def main(args):
+    """Run one optimization; returns (final state, trace as numpy), or None
+    when the result directory already holds results. With
+    ``--mesh-devices`` outside a process group it starts the ranks and
+    returns rank 0's result."""
+    mesh_devices = getattr(args, "mesh_devices", 0)
+    if mesh_devices and not in_group():
+        return spawn(call_main, mesh_devices, main, args,
+                     device=args.device)
+    mesh = make_mesh(mesh_devices, device=args.device) if mesh_devices \
+        else None
+    lead = mesh is None or mesh.rank == 0
+    filepath = None
+    if args.dir is not None:
+        name = (f"{args.algorithm}_{args.function}_{args.sampling}_"
+                f"{args.seed}_{args.name}")
+        # every rank reads the same answer: results are written only after
+        # the last iteration, which every rank must reach first
+        filepath = experiment_dir(Path(args.dir), name, args.force)
+        if filepath is None:
+            print("experiment done!")
+            return None
+        if lead:
+            write_args(args, filepath)
+    if lead:
+        setup_logging(filepath, args)
+
+    state, trace, _ = optimize(args, mesh)
     trace = {k: v.cpu().numpy() for k, v in trace.items()}
-    mu = state.mu.cpu().numpy()
-    logging.info("final cost %.5g (from %.5g), |mu - x_opt| = %.4g",
-                 trace["mean"][-1], trace["mean"][0],
-                 float(np.linalg.norm(mu - getattr(function, "x_opt", 0.0))))
-
-    if filepath is not None:
-        trace["episodes"] = n_samples * np.arange(args.n_iter)
-        save_results(filepath, **trace)
+    if lead:
+        function = make_function(args.function, args.dimension,
+                                 seed=args.seed)
+        mu = state.mu.cpu().numpy()
+        logging.info(
+            "final cost %.5g (from %.5g), |mu - x_opt| = %.4g",
+            trace["mean"][-1], trace["mean"][0],
+            float(np.linalg.norm(mu - getattr(function, "x_opt", 0.0))))
+        if filepath is not None:
+            trace["episodes"] = n_samples(args) * np.arange(args.n_iter)
+            save_results(filepath, **trace)
     return state, trace
 
 

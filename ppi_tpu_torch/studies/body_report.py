@@ -35,7 +35,7 @@ import torch
 
 import ppi_tpu_torch.build as build
 from ppi_tpu_torch.envs.physics import rollout_kernel as rk
-from ppi_tpu_torch.runners.run_mpc import ENVS
+from ppi_tpu_torch.runners.run_mpc import ENVS, KERNEL_ENVS
 
 SCALE = {"door-v0": 0.4, "pen-v0": 0.12, "relocate-v0": 0.3,
          "cheetah": 25.0, "door-v0-hand": 0.3, "door-v0-adroit": 0.3,
@@ -123,7 +123,7 @@ def stage_ops(name):
 
 
 def report_stages(names):
-    for name in names or ENVS:
+    for name in names or KERNEL_ENVS:
         c = stage_ops(name)
         parts = ", ".join(f"{k} {c[k]}" for k in STAGES.values())
         line = (f"{name}: {c['lane step']} ops a lane step; a substep "
@@ -142,7 +142,7 @@ def main(names):
     rng = np.random.default_rng(2)
     build.BUILD_ROOT = Path(tempfile.mkdtemp(prefix="body_report_"))
     try:
-        for name in names or ENVS:
+        for name in names or KERNEL_ENVS:
             env = ENVS[name]()
             state = env.reset(torch.Generator().manual_seed(1), "cpu")
             args = rk.body_args(env, state)

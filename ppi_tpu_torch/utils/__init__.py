@@ -1,6 +1,9 @@
 """Experiment I/O and logging."""
 
-from ppi_tpu_torch.utils.io import experiment_dir, save_results, write_args
+from ppi_tpu_torch.utils.io import (
+    experiment_dir, load_checkpoint, save_checkpoint, save_results,
+    write_args)
 from ppi_tpu_torch.utils.logs import setup_logging
 
-__all__ = ["experiment_dir", "save_results", "setup_logging", "write_args"]
+__all__ = ["experiment_dir", "load_checkpoint", "save_checkpoint",
+           "save_results", "setup_logging", "write_args"]

@@ -824,3 +824,37 @@ def test_sharded_kernel_objective_equals_unsharded(n_ranks, tmp_path):
     assert got["launches"] == [1.0] * n_ranks
     assert got["agree"]
     assert torch.equal(torch.from_numpy(got["costs"]), ref.cpu())
+
+
+def test_ball_in_a_cup_kernel_matches_plain_and_counts_its_launch():
+    """The ball-in-a-cup kernel against its plain version on the card (64
+    lanes, 3 + 5 + 2 steps, a NaN setpoint in lane 7), one counted launch;
+    tolerances as ``chip_smoke.py``'s phase 39 (the states and the reward
+    1e-4 of 1 + |plain|, the statistics 1e-3, the reaction 1e-2 N), the
+    success flags equal."""
+    from ppi_tpu_torch.envs.ball_in_a_cup import BallInCupSim
+    from ppi_tpu_torch.envs.physics import bic_kernel as bk
+    dev = _device()
+    sim = BallInCupSim(stabilize_steps=3, cooldown_steps=2)
+    rng = np.random.default_rng(5)
+    a = np.zeros((64, 5, 4), np.float32)
+    a[..., 0] = 0.4 * rng.standard_normal((64, 1))
+    a[..., 1] = 1.5707 + 0.4 * rng.standard_normal((64, 1))
+    a[..., 2:] = 3.0 * rng.standard_normal((64, 5, 2))
+    a[7, 2, 0] = np.nan
+    acts = torch.from_numpy(a).to(dev)
+    q = torch.tensor([0.0, 0.0, 0.0, 1.5707], device=dev)
+    before = rk.LAUNCHES[bk.LAUNCH_KEY]
+    st, r, ok = bk.make_bic_rollout(sim)(q, acts)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES[bk.LAUNCH_KEY] == before + 1
+    pst, pr, pok = bk.plain_bic_rollout(sim, q, acts)
+    L = sim.layout
+    assert torch.isnan(st).any(1).nonzero().flatten().tolist() == [7]
+    assert torch.equal(torch.isnan(st), torch.isnan(pst))
+    x, y = st.nan_to_num(0.0), pst.nan_to_num(0.0)
+    assert _rel(x[:, :L.FORCE], y[:, :L.FORCE]) <= 1e-4
+    assert _rel(x[:, L.MAX_POT:], y[:, L.MAX_POT:]) <= 1e-3
+    assert float((x - y)[:, L.FORCE:L.MAX_POT].abs().max()) <= 1e-2
+    assert _rel(r.nan_to_num(0.0), pr.nan_to_num(0.0)) <= 1e-4
+    assert torch.equal(ok, pok)

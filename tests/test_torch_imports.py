@@ -17,6 +17,9 @@ SLICE_MODULES = [
     "ppi_tpu_torch.convert",
     "ppi_tpu_torch.samplers",
     "ppi_tpu_torch.envs.base",
+    "ppi_tpu_torch.envs.classic",
+    "ppi_tpu_torch.envs.ball_in_a_cup",
+    "ppi_tpu_torch.envs.episodic",
     "ppi_tpu_torch.envs.door",
     "ppi_tpu_torch.envs.hand",
     "ppi_tpu_torch.envs.door_hand",
@@ -44,6 +47,8 @@ SLICE_MODULES = [
     "ppi_tpu_torch.envs.physics.scalar_math",
     "ppi_tpu_torch.envs.physics.rollout_kernel",
     "ppi_tpu_torch.envs.physics.warp_layout",
+    "ppi_tpu_torch.envs.physics.split_layout",
+    "ppi_tpu_torch.envs.physics.bic_kernel",
     "ppi_tpu_torch.envs.functions",
     "ppi_tpu_torch.ops",
     "ppi_tpu_torch.ops.cuda_ops",
@@ -64,11 +69,14 @@ SLICE_MODULES = [
     "ppi_tpu_torch.utils",
     "ppi_tpu_torch.runners.run_mpc",
     "ppi_tpu_torch.runners.run_opt",
+    "ppi_tpu_torch.runners.run_policy_search",
     "ppi_tpu_torch.studies.body_report",
     "ppi_tpu_torch.studies.episode_trace",
     "ppi_tpu_torch.studies.fma_contraction",
+    "ppi_tpu_torch.studies.moment_match",
     "ppi_tpu_torch.studies.replan_trace",
     "ppi_tpu_torch.studies.seed_sweep",
+    "ppi_tpu_torch.studies.split_layout",
     "ppi_tpu_torch.studies.warp_layout",
 ]
 

@@ -97,7 +97,7 @@ def test_the_header_cache_holds_every_registered_body():
     """Generating every kernel env's body twice misses the cache once per
     env: none is evicted."""
     bodies = []
-    for name, cls in sorted(run_mpc.ENVS.items()):
+    for name, cls in sorted(run_mpc.KERNEL_ENVS.items()):
         env = cls()
         assert rk.supports_kernel(env), name
         state = env.reset(torch.Generator().manual_seed(0), "cpu")

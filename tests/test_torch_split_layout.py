@@ -37,7 +37,7 @@ from ppi_tpu_torch.envs.door import DoorState
 from ppi_tpu_torch.envs.hammer import HammerState
 from ppi_tpu_torch.envs.physics import rollout_kernel as rk
 from ppi_tpu_torch.envs.physics import split_layout as spl
-from ppi_tpu_torch.runners.run_mpc import ENVS
+from ppi_tpu_torch.runners.run_mpc import ENVS, KERNEL_ENVS
 
 SPLIT_ENVS = ("door-v0", "hammer-v0")
 N, H = 37, 3   # one full group of 32 rollouts and a ragged one
@@ -211,7 +211,7 @@ def _check_body(name, info):
     assert "env_sub_0_0" in spl.emit_body(info)[1]
 
 
-@pytest.mark.parametrize("name", sorted(ENVS))
+@pytest.mark.parametrize("name", sorted(KERNEL_ENVS))
 def test_schedule_invariants(name):
     """Every body of the runner, from the generator alone (no compile; at 4
     streams): ``_check_body``."""

@@ -34,7 +34,7 @@ from ppi_tpu_torch.envs.physics.engine_soa import (
     SoaModel, assemble_soa, bias_wrench_soa, fk_soa, integrate_soa,
     jacobian_column, m3_vec, solve_pd_scalar, substep_soa,
     velocity_kinematics_soa, world_inertia_soa)
-from ppi_tpu_torch.runners.run_mpc import ENVS
+from ppi_tpu_torch.runners.run_mpc import ENVS, KERNEL_ENVS
 
 WARP_ENVS = ("door-v0-adroit", "hammer-v0-adroit", "relocate-v0-adroit",
              "door-v0-hand", "hammer-v0-hand", "relocate-v0-hand")
@@ -417,7 +417,7 @@ def test_the_six_warp_envs_and_only_they_build_the_warp_layout(monkeypatch):
                       "rollout_warp"),
              "split": ("rollout_split.cu", "ppi_rollout_split_launch",
                        "rollout_split")}
-    for name, cls in ENVS.items():
+    for name, cls in KERNEL_ENVS.items():
         env = cls()
         built["current"] = []
         symbol = rk.env_rollout(env, env.reset(
@@ -429,10 +429,10 @@ def test_the_six_warp_envs_and_only_they_build_the_warp_layout(monkeypatch):
         assert symbol == launch
         assert rk.kernel_layout(env) == want
         assert rk.launch_key(env) == key
-    assert len(ENVS) == 21
+    assert len(KERNEL_ENVS) == 21
 
 
-@pytest.mark.parametrize("name", sorted(set(ENVS) - set(WARP_ENVS)))
+@pytest.mark.parametrize("name", sorted(set(KERNEL_ENVS) - set(WARP_ENVS)))
 def test_which_bodies_the_warp_generator_takes(name):
     """The warp generator takes every body of the runner outside the six
     pinned below, none declined: fetch-pick, pen-v0-adroit, relocate-v0,

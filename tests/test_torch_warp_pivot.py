@@ -28,7 +28,7 @@ from ppi_tpu_torch.envs.physics import rollout_kernel as rk
 from ppi_tpu_torch.envs.physics import scalar_math as sm
 from ppi_tpu_torch.envs.physics.engine_soa import (
     SoaModel, assemble_soa, gauss_jordan_step, solve_pd_scalar)
-from ppi_tpu_torch.runners.run_mpc import ENVS
+from ppi_tpu_torch.runners.run_mpc import ENVS, KERNEL_ENVS
 
 NEW_WARP_ENVS = ("pen-v0-adroit", "fetch-pick")
 
@@ -174,7 +174,7 @@ def _folded_pivots(mass):
     return k
 
 
-@pytest.mark.parametrize("name", sorted(ENVS))
+@pytest.mark.parametrize("name", sorted(KERNEL_ENVS))
 def test_every_body_yields_a_warp_header(name):
     """Every body of the runner, either layout, yields a warp header; its
     solve's constant head is as long as the lane program's run of folded

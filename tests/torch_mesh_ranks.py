@@ -1,4 +1,5 @@
-"""Rank side of tests/test_torch_mesh.py: every case, run once in each
+"""Rank side of tests/test_torch_mesh.py and
+tests/test_torch_sharded_objective.py: every case, run once in each
 process of one 4-rank gloo group on the CPU
 (``ppi_tpu_torch.parallel.spawn``).
 
@@ -179,3 +180,40 @@ def card_objective_case(rank, acts, horizon):
         return None
     return dict(costs=_np(costs), backend=mesh.backend, launches=launches,
                 agree=agree)
+
+
+def sharded_objective_cases(rank, acts, opt_argv, search_argv):
+    """The generic ``sharded_objective`` (tests/test_torch_sharded_objective
+    .py) on every rank of one gloo group: Pendulum's eager MPC objective on
+    ``acts``, a run_opt optimization and a TestEnv policy search, each
+    sharded over the group. Rank 0 returns numpy results, with each run's
+    generator state after its last iteration."""
+    from ppi_tpu_torch.envs.base import mpc_objective as eager_objective
+    from ppi_tpu_torch.envs.classic import Pendulum
+    from ppi_tpu_torch.parallel import sharded_objective
+    from ppi_tpu_torch.runners import run_opt, run_policy_search
+    torch.set_num_threads(1)
+    mesh = make_mesh(device="cpu")
+    out = {"ranks": mesh.size()}
+    env = Pendulum()
+    f = eager_objective(env, env.reset(None, "cpu"))
+    out["pendulum"] = sharded_objective(f, mesh)(None, torch.from_numpy(acts))
+    state, trace, gen = run_opt.optimize(
+        run_opt.build_parser().parse_args(opt_argv), mesh)
+    out["opt"] = dict(state=_flat(state), trace=trace,
+                      generator=gen.get_state(),
+                      agree=replicas_agree(state, mesh))
+    policy, trace, gen, _ = run_policy_search.search(
+        run_policy_search.build_parser().parse_args(search_argv), mesh)
+    out["search"] = dict(state=_flat(policy), trace=trace,
+                         generator=gen.get_state(),
+                         agree=replicas_agree(policy, mesh))
+    if rank:
+        return None
+
+    def numpy_tree(x):
+        if isinstance(x, dict):
+            return {k: numpy_tree(v) for k, v in x.items()}
+        return _np(x) if isinstance(x, torch.Tensor) else x
+
+    return numpy_tree(out)
