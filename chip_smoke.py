@@ -333,35 +333,51 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 more through the split layout: exactly 800, 330, 350,
                 350, 350, 350, 350, 350, 290, 350, 210, 290 and 550
                 launches of it, the returns equal.
- 38. build   -- generate the ball-in-a-cup kernel's body
+ 38. build   -- generate the ball-in-a-cup kernel's two bodies
                 (``envs/physics/bic_kernel.py``: the canonical 12-particle
                 string, 15 Jacobi sweeps, the same-step coupling) and
-                build ``csrc/bic_rollout.cu`` with nvcc in phase 1 beside
-                the others (before phase 29, whose ranks launch it);
-                print its line count, f32 ops a lane step, nvcc seconds
-                and -Xptxas -v summary (registers, spills);
- 39. check   -- the kernel against its plain version (the eager scalar
-                program) on the card at N=1000 (31 blocks of 32 and one of
-                8) over 10 stabilize + 20 trajectory + 10 cool-down steps:
-                the final lane states, rewards and success flags within
-                BIC_TOL, BIC_STATS_TOL and BIC_REACTION_ATOL, a NaN
-                setpoint in one lane that stays in it, and one launch into
-                outputs padded with a sentinel past N that must stay, bit
-                for bit the wrapper's; the plain version's and the
-                kernel's time at this shape;
- 40. timings -- the kernel at the canonical search's shape (N=128, 250 +
-                1000 + 350 steps; CUDA events over 5 launches), f32 ops a
-                lane step and the bound;
+                build both layouts with nvcc in phase 1 beside the others
+                (before phase 29, whose ranks launch the routed one): the
+                one-thread layout ``csrc/bic_rollout.cu`` and the warp
+                layout ``csrc/bic_rollout_warp.cu`` (a warp a trajectory,
+                a point of the string a lane); print each one's line
+                count, f32 ops a lane step, nvcc seconds, -Xptxas -v
+                summary (registers, spills) and SASS counts (instructions,
+                division checks, calls, local loads and stores), and the
+                route (``bic_kernel.route``);
+ 39. check   -- the kernel as routed against its plain version (the eager
+                scalar program) on the card at N=1000 over 10 stabilize +
+                20 trajectory + 10 cool-down steps: the final lane states,
+                rewards and success flags within BIC_TOL, BIC_STATS_TOL
+                and BIC_REACTION_ATOL, a NaN setpoint in one lane that
+                stays in it, and one launch into outputs padded with a
+                sentinel past N that must stay (BIC_PAD_BLOCK a block, so
+                the last block runs past N), bit for bit the wrapper's;
+                the other layout bit for bit the routed one, NaN lane and
+                all; the plain version's and the kernel's time at this
+                shape; then the branch check on the raised-elbow lanes,
+                both layouts bit for bit there too;
+ 40. timings -- both layouts through the wrapper in turns (thread, warp,
+                warp, thread; CUDA events over BIC_TURN_LAUNCHES calls a
+                reading) at the canonical search's shape (N=128, 250 +
+                1000 + 350 steps) and at the check's, f32 ops a lane step
+                and the bound;
  41. search  -- ``make policy-search`` (Reps, BallInACup, RbfFeatures,
                 epsilon 2.0, 40 iterations, MonteCarlo, N=128, seed 0)
-                through the port's run_policy_search: the success rate
+                through the port's run_policy_search and the routed
+                layout: the success rate
                 reaches 1.00 within the 40 iterations (the JAX package
                 does at seeds 0-4, RESULTS.md:118-128), exactly 40 kernel
-                launches (one an evaluation), the curve at iterations 0,
+                launches (one an evaluation), all of the routed layout's
+                kernel (each layout has its own counter), the curve at iterations 0,
                 10, 20, 30 and 39 and the wall time; then the Test env
                 through the same runner (Reps, epsilon 2.0, N=64, 20
                 iterations): its final mean cost below 0.3 of its first,
-                no launch;
+                no launch; then three iterations of the canonical search
+                through each layout (``bic_kernel.route`` patched for the
+                run): the final state, the trace and the generator's state
+                bit-identical, three launches of that layout's kernel and
+                none of the other's;
  42. episodes -- the pendulum swing-up (tests/test_mpc.py: Mppi alpha 10,
                 WhiteNoiseIid, H=20, T=60, N=64, no warm start, seed 0):
                 the last five rewards average above -1.0 and above the
@@ -749,6 +765,13 @@ BIC_Q_START = (0.0, 0.0, 0.0, 1.5707)
 # the canonical search (make policy-search, RESULTS.md:118-128): 128
 # trajectories of 250 + 1000 + 350 steps an iteration, 40 iterations
 BIC_N_TIME, BIC_T = 128, 1000
+# phase 40's calls a reading, each layout's, in turns (thread, warp, warp,
+# thread): the one-thread layout takes ~0.74 s a call at N=128
+BIC_TURN_LAUNCHES = {"thread": 2, "warp": 5}
+# the trajectories a block of phase 39's padded launch: neither divides
+# N=1000, so its last block runs past N (31 blocks of 32 and one of 8; 333
+# of 3 and one of 1)
+BIC_PAD_BLOCK = {"thread": 32, "warp": 3}
 POLICY_SEARCH = ["Reps", "BallInACup", "RbfFeatures", "--epsilon", "2.0",
                  "--n-iters", "40", "--seed", "0", "--device", "cuda",
                  "MonteCarlo", "--n-samples", "128"]
@@ -1885,7 +1908,8 @@ def sharded_runs(mesh, cfg):
     generator's state and each rank's kernel launches (moment match, ball
     in a cup)."""
     from ppi_tpu_torch.build import LAUNCHES
-    from ppi_tpu_torch.envs.physics.bic_kernel import LAUNCH_KEY
+    from ppi_tpu_torch.envs.ball_in_a_cup import BallInCupSim
+    from ppi_tpu_torch.envs.physics import bic_kernel as bk
     from ppi_tpu_torch.parallel.mesh import per_rank, replicas_agree
     from ppi_tpu_torch.runners import run_opt, run_policy_search as rps
     import torch.distributed as dist
@@ -1910,7 +1934,8 @@ def sharded_runs(mesh, cfg):
     out["search"] = dict(
         state=run_state(policy), trace={k: v.cpu() for k, v in trace.items()},
         generator=gen.get_state(), wall_s=time.perf_counter() - t0,
-        launches=per_rank(LAUNCHES[LAUNCH_KEY], mesh),
+        launches=per_rank(LAUNCHES[bk.LAUNCH_KEYS[bk.route(BallInCupSim())]],
+                          mesh),
         agree=replicas_agree(policy, mesh))
     return out
 
@@ -2025,10 +2050,12 @@ def bic_errors(sim, got, plain):
 
 
 def check_bic(dev):
-    """Phase 39: the ball-in-a-cup kernel against its plain version at
-    N=1000 over BIC_PHASES steps, a NaN setpoint in one lane, and a padded
-    launch whose sentinels past N must stay. Returns the numbers and the
-    kernel's and the plain version's times at this shape."""
+    """Phase 39: the ball-in-a-cup kernel as routed against its plain
+    version at N=1000 over BIC_PHASES steps, a NaN setpoint in one lane,
+    and a padded launch whose sentinels past N must stay; the routed
+    layout against the other bit for bit, NaN lane and all. Returns the
+    numbers and the kernel's and the plain version's times at this
+    shape."""
     from ppi_tpu_torch.envs.ball_in_a_cup import BallInCupSim
     from ppi_tpu_torch.envs.physics import bic_kernel as bk
     n_stab, horizon, n_cool = BIC_PHASES
@@ -2046,8 +2073,14 @@ def check_bic(dev):
     errs, max_abs = bic_errors(sim, got, plain)
     bad = torch.isnan(got[0]).any(1).nonzero().flatten().tolist()
     check(bad == [BIC_NAN_LANE], f"ball-in-a-cup: NaN lanes {bad}")
-    # the launch itself into padded outputs (31 full blocks of 32 and one
-    # of 8), against the wrapper's outputs
+    other = "thread" if run.layout == "warp" else "warp"
+    ref = bk.make_bic_rollout(sim, other)(q, acts)
+    torch.cuda.synchronize()
+    check(all(same_bits(x, y) for x, y in zip(got, ref)),
+          f"ball-in-a-cup: the {run.layout} layout's bits differ from the "
+          f"{other} layout's")
+    # the launch itself into padded outputs (ragged: the last block
+    # partly past N), against the wrapper's outputs
     fn = run.load()
     size = sim.layout.size
     act = acts.permute(1, 2, 0).contiguous()
@@ -2057,7 +2090,8 @@ def check_bic(dev):
                        device=dev)
     err = fn(q.data_ptr(), act.data_ptr(), state.data_ptr(),
              score.data_ptr(), BIC_N_CHECK, horizon, n_stab, n_cool,
-             bk.BLOCK, torch.cuda.current_stream().cuda_stream)
+             BIC_PAD_BLOCK[run.layout],
+             torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     check(err == 0, f"ball-in-a-cup padded launch: CUDA error {err}")
     kept = bool((state[-SENTINEL_PAD:] == SENTINEL).all()
@@ -2069,25 +2103,34 @@ def check_bic(dev):
                         got[1]),
           "ball-in-a-cup: the padded launch differs from the wrapper's")
     kernel_ms = cuda_ms(lambda: run(q, acts), 5, warmup=1)
-    return dict(errors=errs, max_abs_err=max_abs, nan_lanes=bad,
-                sentinels_kept=kept, successes=int(got[2].sum()),
+    return dict(layout=run.layout, errors=errs, max_abs_err=max_abs,
+                nan_lanes=bad, sentinels_kept=kept,
+                bits_equal_other_layout=True, other_layout=other,
+                successes=int(got[2].sum()),
                 violated=int((got[0][:, sim.layout.VIOLATED] != 0).sum()),
                 plain_ms=plain_ms, kernel_ms=kernel_ms)
 
 
 def check_bic_branches(dev):
-    """Phase 39's branch check: the kernel on BIC_BRANCH_N lanes of
-    ``catch_actions`` over BIC_BRANCH_PHASES steps against the plain
+    """Phase 39's branch check: the kernel as routed on BIC_BRANCH_N lanes
+    of ``catch_actions`` over BIC_BRANCH_PHASES steps against the plain
     version on the CPU, the success and violation flags exactly; both
-    branches must be taken and some lanes must take neither."""
+    branches must be taken and some lanes must take neither; the other
+    layout's bits the same."""
     from ppi_tpu_torch.envs.ball_in_a_cup import BallInCupSim
     from ppi_tpu_torch.envs.physics import bic_kernel as bk
     n_stab, horizon, n_cool = BIC_BRANCH_PHASES
     sim = BallInCupSim(stabilize_steps=n_stab, cooldown_steps=n_cool)
     acts = catch_actions(BIC_BRANCH_N, horizon, 39, dev)
     q = torch.tensor(BIC_Q_START, device=dev)
-    got = bk.make_bic_rollout(sim)(q, acts)
+    run = bk.make_bic_rollout(sim)
+    got = run(q, acts)
+    other = "thread" if run.layout == "warp" else "warp"
+    ref = bk.make_bic_rollout(sim, other)(q, acts)
     torch.cuda.synchronize()
+    check(all(same_bits(x, y) for x, y in zip(got, ref)),
+          f"ball-in-a-cup branches: the {run.layout} layout's bits differ "
+          f"from the {other} layout's")
     t0 = time.perf_counter()
     plain = bk.plain_bic_rollout(sim, q.cpu(), acts.cpu())
     plain_ms = 1e3 * (time.perf_counter() - t0)
@@ -2098,30 +2141,100 @@ def check_bic_branches(dev):
           and successes + violated < BIC_BRANCH_N,
           f"ball-in-a-cup branch check: {successes} successes and "
           f"{violated} violated of {BIC_BRANCH_N}: a branch is not taken")
-    return dict(errors=errs, successes=successes, violated=violated,
+    return dict(layout=run.layout, errors=errs, successes=successes,
+                violated=violated, bits_equal_other_layout=True,
                 plain_cpu_ms=plain_ms)
 
 
 def time_bic(dev):
-    """Phase 40: the ball-in-a-cup kernel at the canonical search's shape
-    (N=128, 250 + 1000 + 350 steps), CUDA events over 5 launches, and its
-    bound: the f32 operations of N x 1,600 lane steps over the f32 peak
-    against the bytes it must move (the setpoints in, the final states
-    and scores out) over the memory rate."""
+    """Phase 40: both layouts of the ball-in-a-cup kernel through the
+    wrapper in turns (thread, warp, warp, thread; CUDA events over
+    BIC_TURN_LAUNCHES calls a reading after one) at the canonical
+    search's shape (N=128, 250 + 1000 + 350 steps) and at the check's
+    (N=1000, 10 + 20 + 10), and the bound: the f32 operations of the
+    scalar program's N x steps lane steps over the f32 peak against the
+    bytes it must move (the setpoints in, the final states and scores
+    out) over the memory rate. ``kernel_ms`` is the routed layout's mean
+    of its two turns at the canonical shape."""
     from ppi_tpu_torch.envs.ball_in_a_cup import BallInCupSim
     from ppi_tpu_torch.envs.physics import bic_kernel as bk
-    sim = BallInCupSim()
-    steps = sim.stabilize_steps + BIC_T + sim.cooldown_steps
-    acts = bic_actions(BIC_N_TIME, BIC_T, 40, dev)
-    q = torch.tensor(BIC_Q_START, device=dev)
-    run = bk.make_bic_rollout(sim)
-    ms = cuda_ms(lambda: run(q, acts), 5, warmup=1)
-    ops_step = bk.ops_per_lane_step(sim)
-    nbytes = 4 * (4 + BIC_N_TIME * BIC_T * 4
-                  + BIC_N_TIME * (sim.layout.size + 2))
-    bound_ms, bound_by = least_time(ops_step * BIC_N_TIME * steps, nbytes)
-    return dict(kernel_ms=ms, ops_per_lane_step=ops_step, steps=steps,
-                bound_ms=bound_ms, bound_by=bound_by)
+    out = {}
+    for n, phases in ((BIC_N_TIME, None), (BIC_N_CHECK, BIC_PHASES)):
+        sim = (BallInCupSim() if phases is None else BallInCupSim(
+            stabilize_steps=phases[0], cooldown_steps=phases[2]))
+        horizon = BIC_T if phases is None else phases[1]
+        steps = sim.stabilize_steps + horizon + sim.cooldown_steps
+        acts = bic_actions(n, horizon, 40, dev)
+        q = torch.tensor(BIC_Q_START, device=dev)
+        runs = {lay: bk.make_bic_rollout(sim, lay)
+                for lay in ("thread", "warp")}
+        turns = [[lay, cuda_ms(functools.partial(runs[lay], q, acts),
+                               BIC_TURN_LAUNCHES[lay], warmup=1)]
+                 for lay in ("thread", "warp", "warp", "thread")]
+        key = f"N{n}_steps{steps}"
+        out[f"turns_ms_{key}"] = turns
+        for lay in runs:
+            out[f"{lay}_ms_{key}"] = float(np.mean(
+                [ms for name, ms in turns if name == lay]))
+        if phases is None:
+            routed = bk.route(sim)
+            ops_step = bk.ops_per_lane_step(sim)
+            nbytes = 4 * (4 + n * horizon * 4 + n * (sim.layout.size + 2))
+            bound_ms, bound_by = least_time(ops_step * n * steps, nbytes)
+            out.update(layout=routed, kernel_ms=out[f"{routed}_ms_{key}"],
+                       ops_per_lane_step=ops_step, steps=steps,
+                       bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
+def search_layouts():
+    """Phase 41's three iterations of the canonical search (MESH_SEARCH,
+    unsharded) through each layout of the ball-in-a-cup kernel
+    (``bic_kernel.route`` patched for the run): the final state, the trace
+    and the generator's state bit-identical, three launches of that
+    layout's kernel and none of the other's."""
+    from ppi_tpu_torch.build import LAUNCHES
+    from ppi_tpu_torch.envs.physics import bic_kernel as bk
+    from ppi_tpu_torch.parallel.mesh import _bits
+    from ppi_tpu_torch.runners import run_policy_search as rps
+    runs = {}
+    route = bk.route
+    try:
+        for layout in ("thread", "warp"):
+            bk.route = lambda sim, layout=layout: layout
+            args = rps.build_parser().parse_args(MESH_SEARCH)
+            args.mesh_devices = 0
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            policy, trace, gen = rps.search(args)[:3]
+            torch.cuda.synchronize()
+            runs[layout] = dict(
+                state=run_state(policy),
+                trace={k: v.cpu() for k, v in trace.items()},
+                generator=gen.get_state(), wall_s=time.perf_counter() - t0,
+                launches={lay: LAUNCHES[key]
+                          for lay, key in bk.LAUNCH_KEYS.items()})
+    finally:
+        bk.route = route
+    for layout, run in runs.items():
+        want = {lay: 3 if lay == layout else 0 for lay in bk.LAUNCH_KEYS}
+        check(run["launches"] == want,
+              f"search through the {layout} layout: launches "
+              f"{run['launches']}, expected {want}")
+    a, b = runs["thread"], runs["warp"]
+    check(torch.equal(a["generator"], b["generator"]),
+          "search through each layout: the generator states differ")
+    for part in ("trace", "state"):
+        for k, v in a[part].items():
+            check(torch.equal(_bits(b[part][k]), _bits(v)),
+                  f"search through each layout: {part} {k} differs")
+    res = {lay: dict(wall_s=r["wall_s"], launches=r["launches"])
+           for lay, r in runs.items()}
+    print(f"search through each layout (3 iterations of make "
+          f"policy-search): final state, trace ({', '.join(sorted(a['trace']))}"
+          f") and generator state bit-identical; {json.dumps(res)}",
+          flush=True)
+    return res
 
 
 def policy_search_phase():
@@ -2130,27 +2243,36 @@ def policy_search_phase():
     rate 1.00 within its 40 iterations with exactly 40 launches, the curve
     at iterations 0, 10, 20, 30 and 39 and the wall time; then the Test
     env through the same runner, its final mean cost below 0.3 of its
-    first, with no launch."""
+    first, with no launch. The launches are counted by layout: the routed
+    layout's kernel must take all 40, the other none."""
     from ppi_tpu_torch.build import LAUNCHES
-    from ppi_tpu_torch.envs.physics.bic_kernel import LAUNCH_KEY
+    from ppi_tpu_torch.envs.ball_in_a_cup import BallInCupSim
+    from ppi_tpu_torch.envs.physics import bic_kernel as bk
     from ppi_tpu_torch.runners import run_policy_search as rps
     LAUNCHES.clear()
     t0 = time.perf_counter()
     _, trace, rate = rps.main(rps.build_parser().parse_args(POLICY_SEARCH))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = LAUNCHES[LAUNCH_KEY]
+    by_layout = {lay: LAUNCHES[key] for lay, key in bk.LAUNCH_KEYS.items()}
+    counted = [lay for lay, k in by_layout.items() if k]
+    layout = counted[0] if len(counted) == 1 else None
+    launches = by_layout[layout] if layout else sum(by_layout.values())
     curve = {i: {"success_rate": rate[i], "mean_cost": float(trace["mean"][i])}
              for i in (0, 10, 20, 30, 39)}
     first = rate.index(1.0) if 1.0 in rate else None
-    res = dict(launches=launches, wall_s=wall, curve=curve,
+    res = dict(launches=launches, layout=layout,
+               launches_by_layout=by_layout, wall_s=wall, curve=curve,
                first_iteration_at_1=first, final_success_rate=rate[-1],
                success_rate=rate)
     print(f"make policy-search (Reps BallInACup RbfFeatures, epsilon 2.0, "
           f"40 iterations, N=128, seed 0): success rate 1.00 first at "
-          f"iteration {first}; curve {json.dumps(curve)}; {launches} kernel "
-          f"launches; wall {wall:.2f} s", flush=True)
-    check(launches == 40, f"policy search: {launches} launches, expected 40")
+          f"iteration {first}; curve {json.dumps(curve)}; kernel launches "
+          f"by layout {json.dumps(by_layout)}; wall {wall:.2f} s", flush=True)
+    routed = bk.route(BallInCupSim())
+    check(layout == routed and launches == 40,
+          f"policy search: launches by layout {by_layout}, expected 40 of "
+          f"the {routed} layout's kernel and none of the other's")
     check(first is not None, f"policy search: success rate never 1.00 "
           f"({rate})")
     LAUNCHES.clear()
@@ -2919,12 +3041,15 @@ def run(pool):
     rollout_build = pool.submit(build_timed, "rollout.cu",
                                 {"env_body.h": header})
     mm_build = pool.submit(build_timed, "moment_match.cu")
-    # phase 38's ball-in-a-cup kernel (its body generated in ~0.1 s)
+    # phase 38's ball-in-a-cup kernel in both layouts (each body generated
+    # in ~0.1 s; the one-thread layout's nvcc ~160 s)
     from ppi_tpu_torch.envs.ball_in_a_cup import BallInCupSim
     from ppi_tpu_torch.envs.physics import bic_kernel as bk
-    bic_header = bk.generate_bic_header(BallInCupSim())
-    bic_build = pool.submit(build_timed, "bic_rollout.cu",
-                            {"bic_body.h": bic_header})
+    bic_headers = {"thread": bk.generate_bic_header(BallInCupSim()),
+                   "warp": bk.generate_warp_header(BallInCupSim())}
+    bic_builds = {lay: pool.submit(build_timed, bk.SOURCES[lay][0],
+                                   {bk.SOURCES[lay][1]: h})
+                  for lay, h in bic_headers.items()}
     # phase 9's bodies build beside phases 1 and 5, and phase 13's, 17's
     # and 21's: all twenty-two builds at once
     rest = {name: env_header(ENVS[name]())
@@ -3562,7 +3687,8 @@ def run(pool):
     # ---- 29-31. the sharded entry: 4 ranks on the card, 1 nccl rank --------
     mark_phase("29-31")
     # the ranks launch the ball-in-a-cup kernel that phase 1 builds
-    bic_build.result()
+    for build in bic_builds.values():
+        build.result()
     mesh_out, mesh_kernel = sharded_phases(door, dev, out["episode_return"])
     out.update(mesh_out)
 
@@ -3742,34 +3868,45 @@ def run(pool):
               f"({routed['success']})")
     # ---- 38. the ball-in-a-cup kernel's build ---------------------------
     mark_phase("38")
-    bic_lib, bic_s = bic_build.result()
-    bic_info = {"lines": len(bic_header.splitlines()), "nvcc_s": bic_s,
-                "ptxas": ptxas_summary(bic_lib),
+    from ppi_tpu_torch.studies.bic_layout import sass_counts
+    bic_info = {}
+    for lay, build in bic_builds.items():
+        bic_lib, bic_s = build.result()
+        info = {"lines": len(bic_headers[lay].splitlines()), "nvcc_s": bic_s,
+                "ptxas": ptxas_summary(bic_lib), "sass": sass_counts(bic_lib),
                 "ops_per_lane_step": bk.ops_per_lane_step(BallInCupSim())}
-    bic_info.update(regs_spills(bic_info["ptxas"]))
-    print(f"body build ball-in-a-cup: {bic_info['lines']} generated lines, "
-          f"{bic_info['ops_per_lane_step']} f32 ops a lane step, nvcc "
-          f"{bic_s:.1f} s (in parallel with phase 1); ptxas: "
-          f"{' | '.join(bic_info['ptxas'])}", flush=True)
+        info.update(regs_spills(info["ptxas"]))
+        bic_info[lay] = info
+        print(f"body build ball-in-a-cup, {lay} layout "
+              f"({bk.SOURCES[lay][0]}): {info['lines']} generated lines, "
+              f"{info['ops_per_lane_step']} f32 ops a lane step, nvcc "
+              f"{bic_s:.1f} s (in parallel with phase 1); ptxas: "
+              f"{' | '.join(info['ptxas'])}; SASS {json.dumps(info['sass'])}",
+              flush=True)
+    print(f"ball-in-a-cup route: {bk.route(BallInCupSim())} layout",
+          flush=True)
 
     # ---- 39. the ball-in-a-cup kernel vs plain ------------------------------
     mark_phase("39")
     bic_check = check_bic(dev)
-    print(f"check ball-in-a-cup: N={BIC_N_CHECK} (ragged: 31 blocks of 32 "
-          f"and one of 8), {BIC_PHASES} stabilize/trajectory/cool-down "
-          f"steps: errors {json.dumps(bic_check['errors'])} (tol "
+    print(f"check ball-in-a-cup, {bic_check['layout']} layout: "
+          f"N={BIC_N_CHECK}, {BIC_PHASES} stabilize/trajectory/cool-down "
+          f"steps: bit for bit the {bic_check['other_layout']} layout, NaN "
+          f"lane and all; errors {json.dumps(bic_check['errors'])} (tol "
           f"{BIC_TOL}, statistics {BIC_STATS_TOL}, reaction "
           f"{BIC_REACTION_ATOL} N), reward max abs "
           f"{bic_check['max_abs_err']:.3g}; success flags equal "
           f"({bic_check['successes']} successes, {bic_check['violated']} "
           f"violated); NaN lanes {bic_check['nan_lanes']}; sentinels past "
-          f"N kept; kernel {bic_check['kernel_ms']:.3f} ms, plain "
+          f"N kept (padded launch at {BIC_PAD_BLOCK[bic_check['layout']]} "
+          f"a block); kernel {bic_check['kernel_ms']:.3f} ms, plain "
           f"{bic_check['plain_ms']:.1f} ms", flush=True)
     bic_branches = check_bic_branches(dev)
-    print(f"check ball-in-a-cup branches: N={BIC_BRANCH_N}, "
-          f"{BIC_BRANCH_PHASES} steps, the elbow raised: "
+    print(f"check ball-in-a-cup branches, {bic_branches['layout']} layout: "
+          f"N={BIC_BRANCH_N}, {BIC_BRANCH_PHASES} steps, the elbow raised: "
           f"{bic_branches['successes']} successes and "
-          f"{bic_branches['violated']} violated, flags equal; errors "
+          f"{bic_branches['violated']} violated, flags equal, bit for bit "
+          f"the other layout; errors "
           f"{json.dumps(bic_branches['errors'])} (the check's "
           f"tolerances); plain on the CPU "
           f"{bic_branches['plain_cpu_ms']:.1f} ms", flush=True)
@@ -3777,12 +3914,13 @@ def run(pool):
     # ---- 40. the ball-in-a-cup kernel's time --------------------------------
     mark_phase("40")
     bic_time = time_bic(dev)
-    print(f"timings ball-in-a-cup (N={BIC_N_TIME}, {bic_time['steps']} "
-          f"steps): {json.dumps(bic_time)}", flush=True)
+    print(f"timings ball-in-a-cup (both layouts in turns, the {bic_time['layout']} "
+          f"layout routed): {json.dumps(bic_time)}", flush=True)
 
     # ---- 41. make policy-search ---------------------------------------------
     mark_phase("41")
     search_out = policy_search_phase()
+    search_out["layouts"] = search_layouts()
 
     # ---- 42. the classic envs -----------------------------------------------
     mark_phase("42")
@@ -4006,20 +4144,24 @@ def run(pool):
                  "bound_by": t["bound_by"], "library_ms": None,
                  **shapes((n, h), (pn, ph), at_plain[layout])})
     kernels.append(mesh_kernel)
+    # the layout whose counter the main path's run moved
+    routed = search_out["layout"]
     kernels.append(
-        {"name": "bic_rollout", "route": "cuda",
-         "source": "ppi_tpu_torch/csrc/bic_rollout.cu",
+        {"name": "bic_rollout", "route": "cuda", "layout": routed,
+         "source": f"ppi_tpu_torch/csrc/{bk.SOURCES[routed][0]}",
          "replaces": "ppi_tpu/envs/episodic.py BallInACup.evaluate: "
                      "jax.vmap of BallInCupSim.execute_trajectory "
                      "(ppi_tpu/envs/ball_in_a_cup.py:341), an XLA scan; "
                      "no Pallas kernel",
          "launches": search_out["launches"],
          "max_abs_err": bic_check["max_abs_err"],
-         "ms": bic_time["kernel_ms"], "plain_ms": bic_check["plain_ms"],
+         "ms": bic_time[f"{routed}_ms_N{BIC_N_TIME}_steps{bic_time['steps']}"],
+         "plain_ms": bic_check["plain_ms"],
          "bound_ms": bic_time["bound_ms"], "bound_by": bic_time["bound_by"],
          "library_ms": None,
-         **{k: bic_info[k] for k in ("registers", "spill_stores_bytes",
-                                     "spill_loads_bytes")},
+         **{k: bic_info[routed][k] for k in ("registers",
+                                             "spill_stores_bytes",
+                                             "spill_loads_bytes")},
          **shapes((BIC_N_TIME, bic_time["steps"]),
                   (BIC_N_CHECK, sum(BIC_PHASES)), bic_check["kernel_ms"])})
     print(json.dumps({"kernels": kernels}))

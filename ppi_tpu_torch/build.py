@@ -37,7 +37,8 @@ HOST_CC_FLAGS = ("-x", "c", "-std=c99", "-O2", "-ffp-contract=off",
 SOURCE_NVCC_FLAGS = {"rollout.cu": ("-fmad=false",),
                      "rollout_warp.cu": ("-fmad=false",),
                      "rollout_split.cu": ("-fmad=false",),
-                     "bic_rollout.cu": ("-fmad=false",)}
+                     "bic_rollout.cu": ("-fmad=false",),
+                     "bic_rollout_warp.cu": ("-fmad=false",)}
 
 # kernel name -> launches in this process
 LAUNCHES = collections.Counter()

@@ -30,9 +30,10 @@
 // scalar f32 operations (some 20 thousand a step, 1,600 steps) on a state
 // of ~100 floats held in registers, with four loads a step and no other
 // memory traffic; so it is latency-bound, and at the canonical 128 lanes
-// (4 warps on 132 SMs) it uses a sliver of the card. Making it fast --
-// splitting a trajectory's particles over a warp's lanes, more
-// trajectories a launch -- is later work.
+// (4 warps on 132 SMs) it uses a sliver of the card. bic_rollout_warp.cu
+// spreads a trajectory's string over a warp's lanes and is the route
+// wherever the string fits a warp; this layout stays the reference it
+// equals bit for bit, and the route for a longer string.
 //
 // The file also compiles as host C (no __CUDACC__): the lane loop then runs
 // on the CPU through ppi_bic_host, which the CPU tests call to check the
@@ -50,17 +51,46 @@
 
 #include "bic_body.h"
 
+// Step clocks, for a study's build only (the header defines
+// PPI_BIC_CLOCKS; the main path's never does): lane 0 of every warp adds
+// the SM cycles of each call of a step to ppi_bic_clocks[k], read and
+// zeroed by ppi_bic_clocks_take: 0 bic_arm and 1 bic_string of the first
+// pass, 2 and 3 of the second (PPI_BIC_SAME_STEP), 4 bic_commit.
+#define PPI_BIC_N_CLOCKS 5
+#if defined(__CUDACC__) && defined(PPI_BIC_CLOCKS)
+__device__ unsigned long long ppi_bic_clocks[PPI_BIC_N_CLOCKS];
+#define PPI_CLOCK_START long long ppi_t0 = clock64()
+#define PPI_CLOCK(i)                                                  \
+  do {                                                                \
+    if ((threadIdx.x & 31u) == 0u) {                                  \
+      const long long ppi_t1 = clock64();                             \
+      atomicAdd(&ppi_bic_clocks[i],                                   \
+                (unsigned long long)(ppi_t1 - ppi_t0));               \
+      ppi_t0 = ppi_t1;                                                \
+    }                                                                 \
+  } while (0)
+#else
+#define PPI_CLOCK_START
+#define PPI_CLOCK(i) ((void)0)
+#endif
+
 // One control step of the lane state s toward (qdes, qddes), as
 // BallInCupSim.step_soa composes it.
 PPI_QUAL void ppi_bic_step(float* s, const float* qdes, const float* qddes) {
   float arm[8], str[PPI_BIC_NSTR];
+  PPI_CLOCK_START;
   bic_arm(s, qdes, qddes, s + PPI_BIC_FORCE, arm);
+  PPI_CLOCK(0);
   bic_string(s, arm, str);
+  PPI_CLOCK(1);
 #if PPI_BIC_SAME_STEP
   bic_arm(s, qdes, qddes, str + PPI_BIC_STR_REACTION, arm);
+  PPI_CLOCK(2);
   bic_string(s, arm, str);
+  PPI_CLOCK(3);
 #endif
   bic_commit(s, arm, str);
+  PPI_CLOCK(4);
 }
 
 // One trajectory: lane `lane` of n.
@@ -121,6 +151,18 @@ extern "C" int ppi_bic_launch(const float* q_start, const float* act,
       q_start, act, state, score, n, horizon, n_stab, n_cool);
   return (int)cudaGetLastError();
 }
+
+#ifdef PPI_BIC_CLOCKS
+// Copies the step clocks to `out` (PPI_BIC_N_CLOCKS counts) and zeroes
+// them.
+extern "C" int ppi_bic_clocks_take(unsigned long long* out) {
+  const size_t bytes = sizeof(unsigned long long) * PPI_BIC_N_CLOCKS;
+  cudaError_t e = cudaMemcpyFromSymbol(out, ppi_bic_clocks, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[PPI_BIC_N_CLOCKS] = {0};
+  return (int)cudaMemcpyToSymbol(ppi_bic_clocks, zero, bytes);
+}
+#endif
 
 #else
 

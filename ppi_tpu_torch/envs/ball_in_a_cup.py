@@ -317,50 +317,44 @@ class BallInCupSim:
         q_new = tuple(q[j] + self.dt * qd_new[j] for j in range(4))
         return q_new + qd_new
 
-    def pbd_soa(self, particles, prev, anchor, frame):
-        """One Verlet + distance-projection step of the particle chain
-        (lists of points): particle 0 pinned to ``anchor``, the last the
-        ball, projected against the cup solid of ``frame`` = (bottom, top,
-        up). Returns the new particles."""
-        n, dt = self.n_particles, self.dt
-        seg = self._string_rest_lengths()
-        w, _, denom = self._inverse_masses()
+    def predict_soa(self, p, prev):
+        """The Verlet prediction of one particle (not the anchor: its
+        prediction is the anchor itself) from its position ``p`` and its
+        previous one, with a little damping."""
+        dt = self.dt
         acc_z = _f32_mul(GRAVITY, dt, dt)
-        # Verlet with a little damping; the anchor's prediction is replaced
-        # by the anchor itself
-        pred = [anchor]
-        for i in range(1, n + 1):
-            vel = tuple((particles[i][c] - prev[i][c]) / dt for c in range(3))
-            p = tuple(particles[i][c] + vel[c] * dt * 0.995 for c in range(3))
-            pred.append((p[0], p[1], p[2] + acc_z))
-        # Jacobi sweeps: both endpoint corrections of each segment, from the
-        # same positions, added as (pred + da) + db; the anchor re-pinned
-        for _ in range(self._effective_pbd_iterations):
-            da, db = [None] * (n + 1), [None] * (n + 1)
-            for i in range(n):
-                diff = v3_sub(pred[i + 1], pred[i])
-                dist = _norm(diff) + 1e-9
-                stretch = sm.maximum(dist - seg, 0.0)
-                corr = tuple(stretch * diff[c] / dist for c in range(3))
-                if i:  # the anchor's correction is pinned away
-                    da[i] = tuple(corr[c] * w[i] / denom[i]
-                                  for c in range(3))
-                db[i + 1] = tuple(-corr[c] * w[i + 1] / denom[i]
-                                  for c in range(3))
-            new = [anchor]
-            for i in range(1, n + 1):
-                p = pred[i]
-                if da[i] is not None:
-                    p = v3_add(p, da[i])
-                new.append(v3_add(p, db[i]))
-            pred = new
+        vel = tuple((p[c] - prev[c]) / dt for c in range(3))
+        q = tuple(p[c] + vel[c] * dt * 0.995 for c in range(3))
+        return (q[0], q[1], q[2] + acc_z)
 
-        # the ball against the cup solid: the wall is an annulus [inner,
-        # wall_r] over the height band; its inner face holds a ball that
-        # came in through the mouth, its outer face repels one from the side
-        # (chosen by the wall's midline)
+    def segment_soa(self, a, b, seg, w_a, w_b, denom, pinned=False):
+        """One Jacobi correction of the segment from point ``a`` to point
+        ``b`` (rest length ``seg``, inverse masses ``w_a``, ``w_b``,
+        denominator ``denom``): (da, db), each endpoint's correction; da is
+        None where ``a`` is ``pinned`` (the anchor)."""
+        diff = v3_sub(b, a)
+        dist = _norm(diff) + 1e-9
+        stretch = sm.maximum(dist - seg, 0.0)
+        corr = tuple(stretch * diff[c] / dist for c in range(3))
+        da = None if pinned else tuple(corr[c] * w_a / denom
+                                       for c in range(3))
+        db = tuple(-corr[c] * w_b / denom for c in range(3))
+        return da, db
+
+    def correct_soa(self, p, da, db):
+        """A point after a sweep: ``(p + da) + db``, with ``da`` its
+        correction as a segment's first point (None for the ball) and
+        ``db`` as the previous segment's second."""
+        if da is not None:
+            p = v3_add(p, da)
+        return v3_add(p, db)
+
+    def contact_soa(self, ball, frame):
+        """The ball against the cup solid of ``frame`` = (bottom, top, up):
+        the wall is an annulus [inner, wall_r] over the height band; its
+        inner face holds a ball that came in through the mouth, its outer
+        face repels one from the side (chosen by the wall's midline)."""
         bottom, _, up = frame
-        ball = pred[n]
         rel = v3_sub(ball, bottom)
         h = v3_dot(rel, up)
         radial = v3_sub(rel, v3_scale(h, up))
@@ -391,9 +385,46 @@ class BallInCupSim:
             sm.logical_and(le(r_norm, CUP_INNER_RADIUS), ge(h, 0.0)),
             sm.lt(h, BALL_RADIUS))
         d_inside = sm.where(inside, BALL_RADIUS - h, 0.0)
-        ball = tuple(ball[c] + d_inside * up[c] for c in range(3))
-        pred[n] = ball
+        return tuple(ball[c] + d_inside * up[c] for c in range(3))
+
+    def pbd_soa(self, particles, prev, anchor, frame):
+        """One Verlet + distance-projection step of the particle chain
+        (lists of points): particle 0 pinned to ``anchor``, the last the
+        ball, projected against the cup solid of ``frame`` = (bottom, top,
+        up). Returns the new particles. Each sweep's segments read the
+        previous sweep's points only, so the warp layout of the kernel
+        runs a segment a lane (``bic_kernel.generate_warp_header``)."""
+        n = self.n_particles
+        seg = self._string_rest_lengths()
+        w, _, denom = self._inverse_masses()
+        pred = [anchor] + [self.predict_soa(particles[i], prev[i])
+                           for i in range(1, n + 1)]
+        # Jacobi sweeps: both endpoint corrections of each segment, from the
+        # same positions, added as (pred + da) + db; the anchor re-pinned
+        for _ in range(self._effective_pbd_iterations):
+            da, db = [None] * (n + 1), [None] * (n + 1)
+            for i in range(n):
+                da[i], db[i + 1] = self.segment_soa(
+                    pred[i], pred[i + 1], seg, w[i], w[i + 1], denom[i],
+                    pinned=i == 0)
+            pred = [anchor] + [self.correct_soa(pred[i], da[i], db[i])
+                               for i in range(1, n + 1)]
+        pred[n] = self.contact_soa(pred[n], frame)
         return pred
+
+    def reaction_term_soa(self, mass, new, part, prev):
+        """A particle's term, in one coordinate, of the string's change of
+        momentum over a step: its mass times its change of velocity."""
+        dt = self.dt
+        return mass * ((new - part) / dt - (part - prev) / dt)
+
+    def reaction_soa(self, dp):
+        """The string's reaction on the arm from ``dp`` (the change of its
+        momentum over a step, over dt): F_anchor->string = dp/dt - m g,
+        reaction = -F, clipped to +-30 N."""
+        g_z = _f32_mul(GRAVITY, float(STRING_MASS + BALL_MASS))
+        reaction = (-dp[0], -dp[1], -(dp[2] - g_z))
+        return tuple(sm.clip(r, -30.0, 30.0) for r in reaction)
 
     def string_soa(self, s, arm):
         """The string's pass at the arm's new coordinates (``arm_soa``'s
@@ -407,17 +438,15 @@ class BallInCupSim:
         prev = [L.point(s, L.PREV, i) for i in range(n + 1)]
         new = self.pbd_soa(parts, prev, frame[0], frame)
         # the string's reaction on the arm (Newton on the particles past the
-        # anchor): F_anchor->string = dp/dt - m g, reaction = -F
+        # anchor), the terms summed left to right
         _, masses, _ = self._inverse_masses()
         dp = []
         for c in range(3):
-            terms = [masses[i] * ((new[i][c] - parts[i][c]) / dt
-                                  - (parts[i][c] - prev[i][c]) / dt)
+            terms = [self.reaction_term_soa(masses[i], new[i][c],
+                                            parts[i][c], prev[i][c])
                      for i in range(1, n + 1)]
             dp.append(_sum(terms) / dt)
-        g_z = _f32_mul(GRAVITY, float(STRING_MASS + BALL_MASS))
-        reaction = (-dp[0], -dp[1], -(dp[2] - g_z))
-        reaction = tuple(sm.clip(r, -30.0, 30.0) for r in reaction)
+        reaction = self.reaction_soa(dp)
         flat = tuple(x for p in new for x in p)
         return flat + reaction + frame[0] + frame[1]
 
@@ -438,16 +467,12 @@ class BallInCupSim:
             hit = flag if hit is None else sm.maximum(hit, flag)
         return hit
 
-    def commit_soa(self, s, arm, st):
-        """The lane state after a step: the arm's new coordinates, the
-        string's new particles (the old ones its previous positions) and
-        reaction, and the reward statistics, which a violated lane no
-        longer accumulates."""
+    def stats_soa(self, s, q_new, qd_new, bottom, top, ball):
+        """The reward statistics after a step of the lane state ``s`` to
+        (``q_new``, ``qd_new``), the cup at (``bottom``, ``top``), the
+        ball at ``ball``: (max_pot, sum_vel, sum_pos, sum_ball, n_steps,
+        violated); a violated lane no longer accumulates them."""
         L, n, dt = self.layout, self.n_particles, self.dt
-        q_new, qd_new = tuple(arm[:4]), tuple(arm[4:8])
-        bottom = tuple(st[L.STR_BOTTOM:L.STR_BOTTOM + 3])
-        top = tuple(st[L.STR_TOP:L.STR_TOP + 3])
-        ball = tuple(st[3 * n:3 * n + 3])
         axis = v3_sub(top, bottom)
         norm = _norm(axis) + 1e-9
         axis = tuple(axis[c] / norm for c in range(3))
@@ -459,11 +484,7 @@ class BallInCupSim:
                            sm.maximum(s[L.MAX_POT], pot_m))
         q0 = tuple(s[L.Q0 + j] for j in range(4))
         ball_prev = L.point(s, L.PARTICLES, n)
-        out = list(q_new + qd_new)
-        out += list(st[:3 * (n + 1)])
-        out += list(s[L.PARTICLES:L.PARTICLES + 3 * (n + 1)])
-        out += list(st[L.STR_REACTION:L.STR_REACTION + 3])
-        out += [
+        return (
             max_pot,
             s[L.SUM_VEL] + live * _sum([v * v for v in qd_new]),
             s[L.SUM_POS] + live * _sum([(q_new[j] - q0[j]) * (q_new[j]
@@ -473,8 +494,24 @@ class BallInCupSim:
                                          * ((ball[c] - ball_prev[c]) / dt)
                                          for c in range(3)]),
             s[L.N_STEPS] + live,
-            violated]
-        out += list(q0)
+            violated)
+
+    def commit_soa(self, s, arm, st):
+        """The lane state after a step: the arm's new coordinates, the
+        string's new particles (the old ones its previous positions) and
+        reaction, and the reward statistics (``stats_soa``)."""
+        L, n = self.layout, self.n_particles
+        q_new, qd_new = tuple(arm[:4]), tuple(arm[4:8])
+        bottom = tuple(st[L.STR_BOTTOM:L.STR_BOTTOM + 3])
+        top = tuple(st[L.STR_TOP:L.STR_TOP + 3])
+        ball = tuple(st[3 * n:3 * n + 3])
+        stats = self.stats_soa(s, q_new, qd_new, bottom, top, ball)
+        out = list(q_new + qd_new)
+        out += list(st[:3 * (n + 1)])
+        out += list(s[L.PARTICLES:L.PARTICLES + 3 * (n + 1)])
+        out += list(st[L.STR_REACTION:L.STR_REACTION + 3])
+        out += list(stats)
+        out += [s[L.Q0 + j] for j in range(4)]
         return tuple(out)
 
     def step_soa(self, s, q_des, qd_des):
@@ -494,18 +531,26 @@ class BallInCupSim:
             st = self.string_soa(s, arm)
         return self.commit_soa(s, arm, st)
 
+    def hang_drops(self):
+        """Each point's drop below the cup's bottom in the hanging string
+        (``linspace`` over the string's length, folded in float32)."""
+        n = self.n_particles
+        step = np.float32(1.0) / np.float32(n)
+        return [_f32_mul(1.0 if i == n else float(np.float32(i) * step),
+                         -STRING_LENGTH) for i in range(n + 1)]
+
+    def hang_soa(self, bottom, drop):
+        """A point of the hanging string: ``drop`` below ``bottom``."""
+        return (bottom[0], bottom[1], bottom[2] + drop)
+
     def reset_soa(self, q0):
         """The lane state at rest at ``q0``, the string hanging straight
         down from the cup's bottom, the statistics at 0 and ``max_pot_m``
         at -inf (a Python float: the kernel's skeleton writes it)."""
-        n = self.n_particles
         bottom, _, _ = self.cup_frame_soa(q0)
-        step = np.float32(1.0) / np.float32(n)
         parts = []
-        for i in range(n + 1):
-            ts = 1.0 if i == n else float(np.float32(i) * step)
-            parts += [bottom[0], bottom[1],
-                      bottom[2] + _f32_mul(ts, -STRING_LENGTH)]
+        for drop in self.hang_drops():
+            parts += list(self.hang_soa(bottom, drop))
         return (tuple(q0) + (0.0,) * 4 + tuple(parts) + tuple(parts)
                 + (0.0,) * 3 + (-math.inf,) + (0.0,) * 5 + tuple(q0))
 

@@ -9,7 +9,7 @@ action (joint-trajectory) sequences to episodic costs.
     the solver loop with no simulation.
   * ``BallInACup`` -- the ball-in-a-cup task: on a CUDA device one
     evaluation is one launch of the ball-in-a-cup kernel
-    (``envs/physics/bic_kernel.py``), a thread a trajectory; on the CPU its
+    (``envs/physics/bic_kernel.py``), a warp a trajectory; on the CPU its
     plain version, the eager scalar program (slow: tests use short
     phases). Costs are the negated rewards shifted by -100, as the
     reference's.

@@ -168,12 +168,12 @@ def test_wrapper_routes_by_device():
     sim = BallInCupSim(stabilize_steps=2, cooldown_steps=1)
     run = bk.make_bic_rollout(sim)
     acts = _actions(4, 2, 2)
-    before = LAUNCHES[bk.LAUNCH_KEY]
+    before = {k: LAUNCHES[k] for k in bk.LAUNCH_KEYS.values()}
     st, r, ok = run(Q_START, acts)
     pst, pr, pok = bk.plain_bic_rollout(sim, Q_START, acts)
     assert torch.equal(st, pst) and torch.equal(r, pr) and torch.equal(ok,
                                                                       pok)
-    assert LAUNCHES[bk.LAUNCH_KEY] == before
+    assert {k: LAUNCHES[k] for k in bk.LAUNCH_KEYS.values()} == before
     meta = torch.zeros((4, 2, 4), device="meta")
     with pytest.raises(TypeError, match="no ball-in-a-cup kernel"):
         run(Q_START.to("meta"), meta)

@@ -844,10 +844,11 @@ def test_ball_in_a_cup_kernel_matches_plain_and_counts_its_launch():
     a[7, 2, 0] = np.nan
     acts = torch.from_numpy(a).to(dev)
     q = torch.tensor([0.0, 0.0, 0.0, 1.5707], device=dev)
-    before = rk.LAUNCHES[bk.LAUNCH_KEY]
+    key = bk.LAUNCH_KEYS[bk.route(sim)]
+    before = rk.LAUNCHES[key]
     st, r, ok = bk.make_bic_rollout(sim)(q, acts)
     torch.cuda.synchronize()
-    assert rk.LAUNCHES[bk.LAUNCH_KEY] == before + 1
+    assert rk.LAUNCHES[key] == before + 1
     pst, pr, pok = bk.plain_bic_rollout(sim, q, acts)
     L = sim.layout
     assert torch.isnan(st).any(1).nonzero().flatten().tolist() == [7]
@@ -858,3 +859,34 @@ def test_ball_in_a_cup_kernel_matches_plain_and_counts_its_launch():
     assert float((x - y)[:, L.FORCE:L.MAX_POT].abs().max()) <= 1e-2
     assert _rel(r.nan_to_num(0.0), pr.nan_to_num(0.0)) <= 1e-4
     assert torch.equal(ok, pok)
+
+
+def test_ball_in_a_cup_warp_layout_equals_the_thread_layout():
+    """The warp layout (one warp a trajectory, the route) against the
+    one-thread layout on the card: 96 lanes over 3 + 5 + 2 steps, a NaN
+    setpoint in lane 7, bit for bit (the card's NaN is canonical, so the
+    NaN lane too), one counted launch each."""
+    from ppi_tpu_torch.envs.ball_in_a_cup import BallInCupSim
+    from ppi_tpu_torch.envs.physics import bic_kernel as bk
+    dev = _device()
+    sim = BallInCupSim(stabilize_steps=3, cooldown_steps=2)
+    rng = np.random.default_rng(6)
+    a = np.zeros((96, 5, 4), np.float32)
+    a[..., 0] = 0.4 * rng.standard_normal((96, 1))
+    a[..., 1] = 1.5707 + 0.4 * rng.standard_normal((96, 1))
+    a[..., 2:] = 3.0 * rng.standard_normal((96, 5, 2))
+    a[7, 2, 0] = np.nan
+    acts = torch.from_numpy(a).to(dev)
+    q = torch.tensor([0.0, 0.0, 0.0, 1.5707], device=dev)
+    assert bk.make_bic_rollout(sim).layout == "warp"
+    keys = [bk.LAUNCH_KEYS[lay] for lay in ("thread", "warp")]
+    before = [rk.LAUNCHES[k] for k in keys]
+    got = {lay: bk.make_bic_rollout(sim, lay)(q, acts)
+           for lay in ("thread", "warp")}
+    torch.cuda.synchronize()
+    assert [rk.LAUNCHES[k] for k in keys] == [b + 1 for b in before]
+    assert torch.isnan(got["warp"][0]).any(1).nonzero().flatten().tolist() \
+        == [7]
+    for x, y in zip(got["warp"], got["thread"]):
+        assert torch.equal(x.contiguous().view(torch.int32),
+                           y.contiguous().view(torch.int32))
