@@ -77,7 +77,7 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 summary. Both plan and step through the warp layout
                 (phase 32's builds) in phases 14-16;
  14. check   -- each body against its plain version on the card at N=1000
-                (ragged), H=20 (door-v0-adroit H=5: its plain rollout is
+                (ragged), H=10 (door-v0-adroit H=3: its plain rollout is
                 ~200k eager launches a step): rewards and final state from
                 a sampled frame, with lanes where the bolt clamp holds the
                 door and lanes where the latch is pressed and it does not
@@ -107,14 +107,15 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 the split layout partitioned by the body tree (phase 35's
                 build) in phases 18-20;
  18. check   -- each of those bodies against its plain version on the card
-                at N=1000 (ragged), H=10: rewards
+                at N=1000 (ragged), H=5: rewards
                 and final state bit-identical or within 1e-6, from lanes in
                 which the object is in contact (the nail under the head, the
                 hammer dropped on the nail, the digits on the pen and over
                 the ball; the lanes where it moved are counted and must not
                 be none), a pre-poisoned NaN lane, the horizon mask in the
-                objective and a second board or goal (H=5), and the real
-                step through the kernel (N=1, H=1) against the eager step;
+                objective and a second board or goal (H=3; relocate-v0-hand
+                H=5), and the real step through the kernel (N=1, H=1)
+                against the eager step;
  19. timings -- each body's kernel time at its canonical shape and, with
                 the plain rollout's, at its N and H_PLAIN (hammer-v0
                 N=64/H=30, pen-v0-hand N=96/H=15,
@@ -239,7 +240,11 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 the final policy state, every stat of the trace and the
                 generator's state bit-identical to the unsharded runs
                 (made in this process before the group starts), exactly
-                10 moment-match and 3 ball-in-a-cup launches a rank.
+                10 moment-match and 3 ball-in-a-cup launches a rank; and
+                ``goal_success --env pen-v0 --resets 4 --mesh-devices 4
+                --timesteps 10`` (one episode a rank): every episode's
+                return, success and goal bit-identical to the unsharded
+                sweep of the same four resets, 80 launches a rank.
  32. build   -- the warp layout (``csrc/rollout_warp.cu``: one rollout a
                 warp, the mass matrix and the solve spread over its lanes)
                 of door-v0-adroit, hammer-v0-adroit, relocate-v0-adroit,
@@ -249,8 +254,8 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 bodies, first of all builds; print each body's line count,
                 nvcc seconds, shared memory a rollout and a block and
                 -Xptxas -v summary next to its lane layout's;
- 33. check   -- on phase 14's, 18's, 22's and 26's lanes (N=1000, H=5, 3,
-                3, 20, 10, 20, 3 and 20): the warp layout bit for bit the
+ 33. check   -- on phase 14's, 18's, 22's and 26's lanes (N=1000, H=3, 3,
+                3, 10, 5, 5, 3 and 10): the warp layout bit for bit the
                 lane kernel,
                 and the plain version bit for bit (the relocate bodies'
                 rewards within 1e-6: their division by the number of tip
@@ -385,6 +390,34 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 warm-start iterations) with a finite return; both plan
                 through the eager objective (no kernel in either
                 package), so no launch.
+ 43. resume  -- phase 4's episode through ``run_mpc --checkpoint-every 50
+                --dir``, stopped by a hook that raises after the checkpoint
+                at step 100, then ``--resume`` to the end: the joined track
+                (action, reward, obs, ess, alpha, qpos) and the final env
+                state bit for bit phase 4's, exactly 350 + 450 launches;
+                then the crash window (the track of all 250 steps beside
+                the checkpoint of step 200) resumed: trimmed to step 200,
+                the same bits, 150 launches;
+ 44. prior   -- ``run_mpc --optimize-prior`` at phase 4's config: the
+                hyperparameters change and stay inside ``param_bounds``,
+                the fit launches no kernel (53 launches by the end of
+                step 0), exactly 800 launches, the door open; the old and
+                new hyperparameters and the fit's time printed; then
+                ``model_selection --expert`` on phase 43's data.npz (phase
+                4's actions; H=30, door-v0's dt; the SE family, the one
+                run_mpc plans with, ``--kernels``) and ``run_mpc
+                --model-selection`` with its artifact: finite return,
+                exactly 800 launches, the fitted SE parameters, KL and
+                success printed (success not gated);
+ 45. runners -- ``goal_success --env pen-v0 --resets 3`` (success rate >=
+                2/3, the goals spread, 350 launches an episode);
+                ``multi_start --env door-v0 --restarts 2`` (both restarts
+                end on the task's frame, 800 launches each; returns and
+                any-success printed); ``profile_mpc`` on one triple
+                (door-v0, SE, Lbps, N=64: ms per control step, 21
+                launches); ``corl_curves --seeds 1 --timesteps 60`` on
+                door-v0 (three finite returns, overlay.png written, 570
+                launches). Each of phases 43-45 prints its wall time.
 Then one JSON line with the kernels' numbers (each entry with the (N, H)
 of its ms and bound_ms, of its plain_ms, and the kernel's time at the
 latter; the rollout bodies of phase 35 with their registers and spills,
@@ -408,8 +441,8 @@ import numpy as np
 import torch
 
 N_CHECK, H_CHECK = 1000, 20
-# the horizon of phases 10, 18 and 22's checks (phase 2's and 29's keep
-# H_CHECK): the plain version runs one eager op per scalar op, and the
+# the horizon of phases 10 and 22's checks (phase 2's and 29's keep
+# H_CHECK; phase 18's is H_SCENE): the plain version runs one eager op per scalar op, and the
 # checks against it were 43% of the script at H=20 on an H100 (PERF.md)
 H_EAGER = 10
 # the horizon at which phases 11, 15, 19 and 23 time the plain rollout: one
@@ -476,9 +509,9 @@ DOOR_CEM = dict(episode=["Cem", "door-v0", "WhiteNoiseIid", "--n-elites",
 # episode runs the canonical config (``goal_success.py:63-66,74-77``); seed
 # 0 launches the kernel 50 + 250 x 2 + 250 times (its real step is one
 # launch too).
-HAND = {"door-v0-hand": dict(h_check=20, h_frame=5, seeds=range(2),
+HAND = {"door-v0-hand": dict(h_check=10, h_frame=5, seeds=range(2),
                              successes=1, h_time=30, h_plain=H_PLAIN),
-        "door-v0-adroit": dict(h_check=5, h_frame=2, seeds=range(1),
+        "door-v0-adroit": dict(h_check=3, h_frame=2, seeds=range(1),
                                successes=1, h_time=10, h_plain=1)}
 HAND_EPISODE = ["Lbps", "SquaredExponentialKernel", "--delta", "0.9",
                 "--n-iters", "2", "--anneal", "0.5", "--lengthscale", "0.08",
@@ -502,28 +535,37 @@ SCENE_TOL = 1e-6  # max of |kernel - plain| / (1 + |plain|), elementwise
 T_HAMMER = 50
 _LBPS_SE = ["SquaredExponentialKernel", "--delta", "0.9", "--n-iters", "2",
             "--anneal", "0.5", "--lengthscale", "0.08"]
+# the horizons of phase 18's check against the eager plain rollout and of
+# its mask and second board or goal, below H_EAGER and H_FRAME to keep the
+# script inside its 1,200 s on a slow host. relocate-v0-hand's
+# mask and second goal keep H_FRAME: within 3 steps no lane lifts the ball
+# to where the goal enters the reward
+H_SCENE, H_SCENE_FRAME = 5, 3
 SCENES = {
     "hammer-v0": dict(
-        h_check=H_EAGER, scale=0.4, moved=(4,), shape=(64, 30),
+        h_check=H_SCENE, h_frame=H_SCENE_FRAME, scale=0.4, moved=(4,),
+        shape=(64, 30),
         family=("Essps", "RffFeatures", {"lengthscale": 0.15}),
         episode=["Essps", "hammer-v0", "RffFeatures", "--n-elites", "10",
                  "--lengthscale", "0.15"],
         seeds=range(3), launches=50 + 250 + 250, successes=2),
     "pen-v0-hand": dict(
-        h_check=H_EAGER, scale=0.5, moved=(3, 4), shape=(96, 15),
+        h_check=H_SCENE, h_frame=H_SCENE_FRAME, scale=0.5, moved=(3, 4),
+        shape=(96, 15),
         family=("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08}),
         episode=["Lbps", "pen-v0-hand", *_LBPS_SE, "--timesteps", "100",
                  "--horizon", "15"],
         seeds=range(1), launches=50 + 100 * 2 + 100, successes=1),
     "relocate-v0-hand": dict(
-        h_check=H_EAGER, scale=0.3, moved=(10, 11), shape=(256, 20),
+        h_check=H_SCENE, scale=0.3, moved=(10, 11), shape=(256, 20),
         family=("Mppi", "ColouredNoise", {"beta": 2.0}),
         episode=["Mppi", "relocate-v0-hand", "ColouredNoise", "--beta", "2",
                  "--alpha", "10", "--anneal", "0.9", "--timesteps", "140",
                  "--horizon", "20"],
         seeds=range(1), launches=50 + 140 + 140, successes=1),
     "hammer-v0-hand": dict(
-        h_check=H_EAGER, scale=0.3, moved=(9,), shape=(128, 30),
+        h_check=H_SCENE, h_frame=H_SCENE_FRAME, scale=0.3, moved=(9,),
+        shape=(128, 30),
         family=("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08}),
         episode=["Lbps", "hammer-v0-hand", *_LBPS_SE, "--timesteps",
                  str(T_HAMMER), "--horizon", "30"],
@@ -1896,10 +1938,37 @@ def mesh_phases(rank, cfg):
                 agree=replicas_agree([carry.policy, track["action"],
                                       env_state.physics.qpos], mesh))
     # the generic sharded objective: run_opt and run_policy_search over
-    # this group (only the 4-rank group)
+    # this group, and goal_success's episodes split over it (only the
+    # 4-rank group)
     if cfg.get("opt"):
         out.update(sharded_runs(mesh, cfg))
+    if cfg.get("goals"):
+        out["goals"] = goal_sweep(cfg["goals"], mesh)
     return out if rank == 0 else None
+
+
+def goal_sweep(goals, mesh=None):
+    """Phase 31's goal sweep (``MESH_GOALS``) through goal_success, its
+    episodes split over ``mesh`` (in its group) or all in this process:
+    the episodes, the launches of pen-v0's routed layout (each rank's) and
+    the wall time."""
+    from ppi_tpu_torch.build import LAUNCHES
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    from ppi_tpu_torch.parallel.mesh import per_rank
+    from ppi_tpu_torch.runners import goal_success
+    from ppi_tpu_torch.runners.run_mpc import ENVS
+    key = rk.launch_key(ENVS[goals["env"]]())
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    summary = goal_success.run(
+        goals["env"], goals["resets"],
+        overrides=dict(timesteps=goals["timesteps"]),
+        mesh_devices=0 if mesh is None else mesh.size(), device="cuda")
+    torch.cuda.synchronize()
+    return dict(episodes=summary["episodes"],
+                launches=(LAUNCHES[key] if mesh is None
+                          else per_rank(LAUNCHES[key], mesh)),
+                wall_s=time.perf_counter() - t0)
 
 
 def sharded_runs(mesh, cfg):
@@ -2372,21 +2441,41 @@ def sharded_phases(door, dev, ret4):
     mesh_t["bound_ms_shard"], mesh_bound_by = rollout_bound(door, shard,
                                                             H_MESH)
     mesh_t["bound_ms_batch"] = rollout_bound(door, N_MESH, H_MESH)[0]
-    # the unsharded references of the 4-rank group's run_opt and
-    # run_policy_search (this process built both kernels in phase 1)
+    # the unsharded references of the 4-rank group's run_opt,
+    # run_policy_search and goal sweep (this process built both kernels in
+    # phase 1 and pen-v0's body in phase 9)
     run_refs = unsharded_runs()
+    goals_ref = goal_sweep(MESH_GOALS)
     cfg = dict(device="cuda", acts=acts.cpu().numpy(),
                mask=mask.cpu().numpy(), episode=door_args(250),
                short=door_args(20), episodes=True,
                warp_board=s_w.board.cpu().numpy(),
                warp_acts=acts_w.cpu().numpy(), opt=MESH_OPT,
-               search=MESH_SEARCH)
+               search=MESH_SEARCH, goals=MESH_GOALS)
     t0 = time.perf_counter()
     groups = {"4 ranks": spawn(mesh_phases, MESH_RANKS, cfg)}
     groups["1 rank"] = spawn(mesh_phases, 1, dict(cfg, episodes=False,
-                                                  opt=None))
+                                                  opt=None, goals=None))
     mesh_s = time.perf_counter() - t0
     check_sharded_runs(groups["4 ranks"], run_refs)
+    goals_m = groups["4 ranks"]["goals"]
+    per_episode = 50 + MESH_GOALS["timesteps"] * 3
+    check(goals_m["episodes"] == goals_ref["episodes"],
+          "sharded goal sweep: the episodes differ from the unsharded "
+          f"sweep's: {goals_m['episodes']} against {goals_ref['episodes']}")
+    check(goals_m["launches"] == [float(per_episode)] * MESH_RANKS
+          and goals_ref["launches"] == per_episode * MESH_GOALS["resets"],
+          f"sharded goal sweep: launches {goals_m['launches']} a rank, "
+          f"{goals_ref['launches']} unsharded")
+    print(f"check sharded goal sweep ({MESH_RANKS} ranks, gloo, one card): "
+          f"goal_success {MESH_GOALS['env']} --resets "
+          f"{MESH_GOALS['resets']} --timesteps {MESH_GOALS['timesteps']}: "
+          "every episode's return, success and goal bit-identical to the "
+          f"unsharded sweep's ({[e['return'] for e in goals_ref['episodes']]}"
+          f", successes {[e['success'] for e in goals_ref['episodes']]}); "
+          f"launches per rank {goals_m['launches']}; wall "
+          f"{goals_m['wall_s']:.2f} s (unsharded {goals_ref['wall_s']:.2f} "
+          "s)", flush=True)
 
     mesh_max_abs, warp_sharded = None, {}
     for label, res in groups.items():
@@ -2478,6 +2567,9 @@ def sharded_phases(door, dev, ret4):
               "wall_s": groups["4 ranks"][key]["wall_s"],
               "unsharded_wall_s": run_refs[key]["wall_s"]}
         for key in ("opt", "search")}
+    sharded_runs_out["goals"] = {
+        "launches": goals_m["launches"], "wall_s": goals_m["wall_s"],
+        "unsharded_wall_s": goals_ref["wall_s"]}
     return dict(mesh_timings=mesh_t, mesh_episodes=episodes_m,
                 mesh_max_abs_err=mesh_max_abs, mesh_s=mesh_s,
                 mesh_warp_check=warp_sharded,
@@ -2966,6 +3058,317 @@ def time_split(name, env, dev):
     return out
 
 
+# phases 43-45: resume, prior fitting and the evaluation runners. Phase
+# 43 stops phase 4's episode after the checkpoint at RESUME_STOP (of one
+# every RESUME_EVERY steps) and resumes it; its crash-window case resumes
+# from the checkpoint at RESUME_TRIM with the track of the whole episode.
+RESUME_EVERY, RESUME_STOP, RESUME_TRIM = 50, 100, 200
+# phase 45: goal_success's pen-v0 sweep, multi_start's door-v0 restarts,
+# one profile_mpc triple, corl_curves' smoke grid
+GOAL_ENV, GOAL_RESETS = "pen-v0", 3
+RESTART_ENV, RESTARTS = "door-v0", 2
+PROFILE_RUNS = 20
+PROFILE = ["--env", "door-v0", "--combos", "Lbps/SquaredExponentialKernel",
+           "--n-samples", "64", "--runs", str(PROFILE_RUNS)]
+CORL_T = 60
+# phase 44's model selection fits the family run_mpc then plans with (each
+# family is 1,500 Adam steps of a few hundred small launches: 45 s for all
+# four on a slow host)
+MS_KERNELS = ["SquaredExponentialKernel"]
+# phase 31's sharded goal sweep: pen-v0, one reset a rank, T=10
+MESH_GOALS = dict(env="pen-v0", resets=4, timesteps=10)
+
+
+class Crash(Exception):
+    """The stop of phase 43's first run, after a checkpoint."""
+
+
+def state_tensors(state, prefix=""):
+    """An env state's tensors by dotted field name (nested dataclasses)."""
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, torch.Tensor):
+            out[prefix + f.name] = v
+        elif dataclasses.is_dataclass(v):
+            out.update(state_tensors(v, f"{prefix}{f.name}."))
+    return out
+
+
+def same_run(track, state, ref_track, ref_state, tag):
+    """Check a run's track (every key of the reference's) and final env
+    state bit for bit against the reference's."""
+    check(sorted(track) == sorted(ref_track), f"{tag}: track keys "
+          f"{sorted(track)}")
+    for k, v in ref_track.items():
+        check(same_bits(track[k], v), f"{tag}: track {k} differs")
+    ref = state_tensors(ref_state)
+    got = state_tensors(state)
+    check(sorted(got) == sorted(ref), f"{tag}: state fields")
+    for k, v in ref.items():
+        check(torch.equal(v, got[k]) if not v.is_floating_point()
+              else same_bits(got[k], v), f"{tag}: final state {k} differs")
+
+
+def door_run_argv(tmp, *extra, timesteps=250):
+    """door_args(timesteps) with a result directory and ``extra`` before
+    the sampler."""
+    argv = door_args(timesteps)
+    i = argv.index("MonteCarlo")
+    return argv[:i] + ["--dir", str(tmp), *extra] + argv[i:]
+
+
+def resume_phase(ref_track, ref_state, tmp):
+    """Phase 43: phase 4's episode with a checkpoint every RESUME_EVERY
+    steps, stopped after the one at RESUME_STOP and resumed, and the
+    crash window (the whole track beside the checkpoint at RESUME_TRIM)
+    resumed: both bit for bit phase 4's track and final state, with their
+    launches."""
+    import shutil
+    from ppi_tpu_torch.build import LAUNCHES
+    from ppi_tpu_torch.envs.door import Door
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    from ppi_tpu_torch.runners import run_mpc
+    key = rk.launch_key(Door())
+    ckpt = ["--checkpoint-every", str(RESUME_EVERY)]
+    parse = lambda *extra: run_mpc.build_parser().parse_args(
+        door_run_argv(tmp, *ckpt, *extra))
+    out = {}
+
+    def stop(t, carry, state):
+        if t == RESUME_STOP:
+            raise Crash
+
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    stopped = False
+    try:
+        run_mpc.main(parse(), on_checkpoint=stop)
+    except Crash:
+        stopped = True
+    torch.cuda.synchronize()
+    out["stopped_wall_s"] = time.perf_counter() - t0
+    check(stopped, "phase 43: the first run did not stop at its checkpoint")
+    out["launches_before"] = LAUNCHES[key]
+    (run_dir,) = [d for d in Path(tmp).iterdir() if d.is_dir()]
+    snap = Path(tmp) / "at_trim"
+    final = {}
+
+    def keep(t, carry, state):
+        if t == RESUME_TRIM:
+            snap.mkdir()
+            shutil.copy(run_dir / "episode_checkpoint.npz", snap)
+        final.update(t=t, state=state)
+
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    ret, success, track = run_mpc.main(parse("--resume"), on_checkpoint=keep)
+    torch.cuda.synchronize()
+    out.update(resumed_wall_s=time.perf_counter() - t0,
+               launches_after=LAUNCHES[key], ret=ret, success=success)
+    same_run(track, final["state"], ref_track, ref_state, "phase 43 resume")
+    check(final["t"] == 250, f"phase 43: last checkpoint at {final['t']}")
+    check(out["launches_before"] == 50 + RESUME_STOP * 3
+          and out["launches_after"] == (250 - RESUME_STOP) * 3,
+          f"phase 43: launches {out['launches_before']} + "
+          f"{out['launches_after']}, expected 350 + 450")
+    # the crash window: the track written at step 250, the checkpoint of
+    # step RESUME_TRIM (a crash between the last two writes)
+    shutil.copy(snap / "episode_checkpoint.npz", run_dir)
+    rows = np.load(run_dir / "episode_track.npz")
+    check(len(rows["reward"]) == 250, "phase 43: the whole track not kept")
+    LAUNCHES.clear()
+    ret_t, _, track_t = run_mpc.main(parse("--resume"),
+                                     on_checkpoint=keep)
+    same_run(track_t, final["state"], ref_track, ref_state,
+             "phase 43 crash window")
+    out["trim_launches"] = LAUNCHES[key]
+    check(out["trim_launches"] == (250 - RESUME_TRIM) * 3,
+          f"phase 43: crash-window resume {out['trim_launches']} launches")
+    out["data_npz"] = str(run_dir / "data.npz")
+    print(f"resume (phase 43): door-v0 checkpointed every {RESUME_EVERY} "
+          f"steps, stopped after step {RESUME_STOP} "
+          f"({out['launches_before']} launches, {out['stopped_wall_s']:.1f} "
+          f"s), resumed to 250 ({out['launches_after']} launches, "
+          f"{out['resumed_wall_s']:.1f} s): track and final state bit for "
+          f"bit phase 4's, return {ret!r}, success {success}; the track of "
+          f"250 rows beside the checkpoint of step {RESUME_TRIM} trimmed and "
+          f"resumed ({out['trim_launches']} launches) to the same bits",
+          flush=True)
+    return out
+
+
+def log_line(run_dir, pattern):
+    """The groups of the first line of a run's ``log`` matching
+    ``pattern``."""
+    m = re.search(pattern, (Path(run_dir) / "log").read_text())
+    check(m is not None, f"no {pattern!r} in {run_dir}/log")
+    return m.groups()
+
+
+def prior_phase(expert_npz, tmp):
+    """Phase 44: ``run_mpc --optimize-prior`` at the canonical door-v0
+    config, then ``model_selection`` on phase 43's data.npz (phase 4's
+    episode) and ``run_mpc --model-selection`` with its artifact."""
+    from ppi_tpu_torch import model_selection
+    from ppi_tpu_torch.build import LAUNCHES
+    from ppi_tpu_torch.envs.door import Door
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    from ppi_tpu_torch.policies.kernels import BaseKernel
+    from ppi_tpu_torch.runners import run_mpc
+    key = rk.launch_key(Door())
+    out = {}
+    at_first = []
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    ret, success, track = run_mpc.main(
+        run_mpc.build_parser().parse_args(door_run_argv(
+            Path(tmp) / "opt", "--optimize-prior")),
+        lambda t, state, row: t == 0 and at_first.append(LAUNCHES[key]))
+    torch.cuda.synchronize()
+    (run_dir,) = (Path(tmp) / "opt").iterdir()
+    old, new, fit_s = log_line(
+        run_dir, r"optimize-prior: hyper (\[[^\]]*\]) -> (\[[^\]]*\]), "
+        r"fit ([0-9.]+) s")
+    old, new = json.loads(old), json.loads(new)
+    bounds = BaseKernel(horizon=30, action_dim=4).param_bounds
+    out["optimize_prior"] = dict(
+        ret=ret, success=success, launches=LAUNCHES[key], hyper_old=old,
+        hyper_new=new, fit_s=float(fit_s), first_step_launches=at_first[0],
+        wall_s=time.perf_counter() - t0)
+    check(np.isfinite(ret) and bool(torch.isfinite(track["action"]).all()),
+          f"phase 44: --optimize-prior return {ret}")
+    check(new != old, f"phase 44: hyperparameters unchanged {old}")
+    check(all(lo <= v <= hi for v, (lo, hi) in zip(new, bounds)),
+          f"phase 44: hyperparameters {new} outside {bounds}")
+    check(out["optimize_prior"]["launches"] == 800,
+          f"phase 44: {out['optimize_prior']['launches']} launches")
+    # the warm start's 50, then step 0's two iterations and real step: the
+    # fit between them launches nothing
+    check(at_first[0] == 50 + 3, f"phase 44: {at_first[0]} launches by step "
+          "0: the fit launched a kernel")
+    check(success, f"phase 44: --optimize-prior did not open the door "
+          f"(return {ret:.2f})")
+    print(f"prior fit (phase 44): run_mpc --optimize-prior, hyper {old} -> "
+          f"{new} (fit {float(fit_s):.3f} s, no launch), return {ret:.2f}, "
+          f"success {success}, {out['optimize_prior']['launches']} launches",
+          flush=True)
+
+    artifact = Path(tmp) / "model_selection.npz"
+    t0 = time.perf_counter()
+    payload = model_selection.main(model_selection.build_parser().parse_args(
+        ["--expert", str(expert_npz), "--horizon", "30", "--dt",
+         str(Door().dt), "--out", str(artifact), "--kernels",
+         *MS_KERNELS]))
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    se = payload["SquaredExponentialKernel"]
+    check(all(np.all(np.isfinite(e["param"])) and np.isfinite(e["kl"])
+              for e in payload.values()), "phase 44: model selection not "
+          "finite")
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    ret_ms, success_ms, track_ms = run_mpc.main(
+        run_mpc.build_parser().parse_args(door_run_argv(
+            Path(tmp) / "ms", "--model-selection", str(artifact))))
+    torch.cuda.synchronize()
+    out["model_selection"] = dict(
+        fit_wall_s=fit_wall, param=se["param"].tolist(), kl=se["kl"],
+        params={k: e["param"].tolist() for k, e in payload.items()},
+        kls={k: e["kl"] for k, e in payload.items()}, ret=ret_ms,
+        success=success_ms, launches=LAUNCHES[key],
+        wall_s=time.perf_counter() - t0)
+    check(np.isfinite(ret_ms)
+          and bool(torch.isfinite(track_ms["action"]).all()),
+          f"phase 44: --model-selection return {ret_ms}")
+    check(out["model_selection"]["launches"] == 800,
+          f"phase 44: --model-selection {LAUNCHES[key]} launches")
+    print(f"prior fit (phase 44): model_selection on phase 4's actions "
+          f"({fit_wall:.2f} s, {len(payload)} kernel(s) x 1,500 Adam steps): "
+          f"SE param "
+          f"{se['param'].tolist()} kl {se['kl']:.4f}; run_mpc "
+          f"--model-selection return {ret_ms:.2f}, success {success_ms} "
+          f"(reported, not gated), {LAUNCHES[key]} launches", flush=True)
+    return out
+
+
+def runner_phase(tmp):
+    """Phase 45: goal_success, multi_start, profile_mpc and corl_curves
+    through their CLIs on the card."""
+    from ppi_tpu_torch.build import LAUNCHES
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    from ppi_tpu_torch.runners import (
+        corl_curves, goal_success, multi_start, profile_mpc)
+    from ppi_tpu_torch.runners.run_mpc import ENVS
+    out = {}
+    pen_key = rk.launch_key(ENVS[GOAL_ENV]())
+    door_key = rk.launch_key(ENVS[RESTART_ENV]())
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    goals = goal_success.main(["--env", GOAL_ENV, "--resets",
+                               str(GOAL_RESETS)])
+    torch.cuda.synchronize()
+    out["goal_success"] = dict(
+        success_rate=goals["success_rate"], goal_spread=goals["goal_spread"],
+        returns=[e["return"] for e in goals["episodes"]],
+        launches=LAUNCHES[pen_key], wall_s=time.perf_counter() - t0)
+    check(goals["success_rate"] >= 2 / 3, f"phase 45: {GOAL_ENV} success "
+          f"rate {goals['success_rate']}")
+    check(goals["goal_spread"] > 0.0, "phase 45: the goals did not differ")
+    check(LAUNCHES[pen_key] == GOAL_RESETS * 350,
+          f"phase 45: goal sweep {LAUNCHES[pen_key]} launches, expected "
+          f"{GOAL_RESETS} x 350")
+
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    restarts = multi_start.main(["--env", RESTART_ENV, "--restarts",
+                                 str(RESTARTS)])
+    torch.cuda.synchronize()
+    frame = ENVS[RESTART_ENV]().reset(
+        torch.Generator("cuda").manual_seed(0), "cuda").frame
+    out["multi_start"] = dict(
+        returns=restarts["returns"], success_any=restarts["success_any"],
+        n_success=restarts["n_success"], goal=restarts["goal"],
+        launches=LAUNCHES[door_key], wall_s=time.perf_counter() - t0)
+    check(np.allclose(restarts["goal"], frame.cpu().numpy(), atol=1e-4),
+          f"phase 45: restarts faced {restarts['goal']}, not the task's "
+          "frame")
+    check(LAUNCHES[door_key] == RESTARTS * 800,
+          f"phase 45: restarts {LAUNCHES[door_key]} launches")
+
+    LAUNCHES.clear()
+    prof = profile_mpc.main(profile_mpc.build_parser().parse_args(PROFILE))
+    (ms_step,) = [1e3 * v for v in prof["timings_s"].values()]
+    out["profile_mpc"] = dict(ms_per_control_step=ms_step,
+                              launches=LAUNCHES[door_key])
+    check(np.isfinite(ms_step) and ms_step > 0.0
+          and LAUNCHES[door_key] == 1 + PROFILE_RUNS,
+          f"phase 45: profile_mpc {ms_step} ms, {LAUNCHES[door_key]} "
+          "launches")
+
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    rows = corl_curves.main(corl_curves.build_parser().parse_args(
+        ["--seeds", "1", "--timesteps", str(CORL_T), "--dir",
+         str(Path(tmp) / "corl")]))
+    torch.cuda.synchronize()
+    out["corl_curves"] = dict(
+        returns={k: r["return_mean"] for k, r in rows.items()},
+        success={k: r["success_rate"] for k, r in rows.items()},
+        launches=LAUNCHES[door_key], wall_s=time.perf_counter() - t0)
+    # Cem and Essps one iteration a step, Lbps two; a warm start of 50
+    want = 3 * (50 + CORL_T) + CORL_T * (1 + 2 + 1)
+    check(len(rows) == 3 and all(np.isfinite(r["return_mean"])
+                                 for r in rows.values()),
+          f"phase 45: corl_curves returns {out['corl_curves']['returns']}")
+    check((Path(tmp) / "corl" / "overlay.png").stat().st_size > 0,
+          "phase 45: no overlay.png")
+    check(LAUNCHES[door_key] == want, f"phase 45: corl_curves "
+          f"{LAUNCHES[door_key]} launches, expected {want}")
+    print(f"runners (phase 45): {json.dumps(out)}", flush=True)
+    return out
+
+
 def main():
     # one nvcc for each source, all started together
     with ThreadPoolExecutor(max_workers=32) as pool:
@@ -3157,9 +3560,11 @@ def run(pool):
     # ---- 4. the canonical episode ----------------------------------------------
     mark_phase("4")
     args = run_mpc.build_parser().parse_args(door_args(250))
+    final4 = {}   # the final env state, which phase 43 is held to
     LAUNCHES.clear()
     t0 = time.perf_counter()
-    ret, success, track = run_mpc.main(args)
+    ret, success, track = run_mpc.main(
+        args, lambda t, state, row: final4.update(state=state))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = LAUNCHES[rk.launch_key(door)]
@@ -3929,12 +4334,28 @@ def run(pool):
                bic_branches=bic_branches, bic_timings=bic_time,
                policy_search=search_out, classic_episodes=classic_out)
 
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 43. resume phase 4's episode from a checkpoint ---------------
+        mark_phase("43")
+        resume_out = resume_phase(track, final4["state"], Path(tmp) / "ckpt")
+        # ---- 44. prior fitting ---------------------------------------------
+        mark_phase("44")
+        prior_out = prior_phase(resume_out["data_npz"], Path(tmp) / "prior")
+        # ---- 45. the evaluation runners -----------------------------------
+        mark_phase("45")
+        runners_out = runner_phase(Path(tmp) / "runners")
+    out.update(resume=resume_out, prior_fit=prior_out,
+               evaluation_runners=runners_out)
+
     mark_phase("end")
     out.update(split_builds=split_info, split_check=split_check,
                split_max_abs_err=split_err, split_timings=split_times,
                split_other_episodes=other_runs, phase_s=phase_s,
                total_s=time.perf_counter() - t_start)
     print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
+    for name in ("43", "44", "45"):
+        print(f"phase {name} wall: {phase_s[name]:.1f} s", flush=True)
     print(f"total: {out['total_s']:.0f} s, the kernels' builds included",
           flush=True)
 
@@ -3943,9 +4364,19 @@ def run(pool):
     # door-v0's split layout ran on three paths: phase 4's Lbps episode,
     # make mpc-cem's episode in phase 12 and phase 20's short episodes;
     # its lane layout phase 37's episode
+    # and phases 43-45's runs of run_mpc and the evaluation runners
     door_launches = {"split": launches + episodes["door-v0 cem"]["launches"]
-                     + sum(r["launches"] for r in short.values()),
+                     + sum(r["launches"] for r in short.values())
+                     + resume_out["launches_before"]
+                     + resume_out["launches_after"]
+                     + resume_out["trim_launches"]
+                     + sum(prior_out[k]["launches"] for k in prior_out)
+                     + sum(runners_out[k]["launches"]
+                           for k in ("multi_start", "profile_mpc",
+                                     "corl_curves")),
                      "lane": other_runs["door-v0"]["launches"]}
+    # pen-v0's routed layout: phase 12's episode and phase 45's goal sweep
+    episodes[GOAL_ENV]["launches"] += runners_out["goal_success"]["launches"]
     kernels = [
         {"name": "door_rollout", "route": "cuda",
          "source": "ppi_tpu_torch/csrc/rollout.cu",

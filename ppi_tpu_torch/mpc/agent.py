@@ -140,20 +140,69 @@ class Mpc:
         carry, trace, _ = self.optimize(carry, env_state, 0, n_iters)
         return carry, trace
 
-    def run_episode(self, carry: MpcCarry, env_state, callback=None):
+    def _step(self, carry: MpcCarry, env_state, t: int, collect: bool):
+        """One closed-loop step at time index ``t``: plan, act, observe.
+        Returns (carry, env_state, row); the row holds the action, reward,
+        ess, alpha, observation, ``qpos`` for an env with physics and, with
+        ``collect``, the (N,) costs of the last iteration."""
+        action, carry, stats = self.control_step(carry, env_state, t)
+        env_state, reward = self.env.step(env_state, action)
+        row = dict(action=action, reward=reward, ess=stats["ess"],
+                   alpha=stats["alpha"], obs=self.env.observe(env_state))
+        if hasattr(env_state, "physics"):
+            row["qpos"] = env_state.physics.qpos
+        if collect:
+            row["costs"] = stats["costs"]
+        return carry, env_state, row
+
+    def run_episode(self, carry: MpcCarry, env_state, callback=None,
+                    collect: bool = False):
         """The closed-loop episode; returns (carry, env_state, track) with
-        the per-step action, reward, ess, alpha, observation and (for an
-        env with physics) the coordinates ``qpos`` stacked."""
+        the rows of ``_step`` stacked over time (``costs`` (T, N) with
+        ``collect``). ``callback(t, env_state, row)`` sees every step and
+        ends the episode by returning True."""
         track = []
         for t in range(self.timesteps):
-            action, carry, stats = self.control_step(carry, env_state, t)
-            env_state, reward = self.env.step(env_state, action)
-            row = dict(action=action, reward=reward, ess=stats["ess"],
-                       alpha=stats["alpha"], obs=self.env.observe(env_state))
-            if hasattr(env_state, "physics"):
-                row["qpos"] = env_state.physics.qpos
+            carry, env_state, row = self._step(carry, env_state, t, collect)
             track.append(row)
             if callback is not None and callback(t, env_state, row):
                 break
-        stacked = {k: torch.stack([r[k] for r in track]) for k in track[0]}
-        return carry, env_state, stacked
+        return carry, env_state, _stack(track)
+
+    def _episode_chunk(self, carry: MpcCarry, env_state, t0: int,
+                       length: int, callback=None):
+        """``length`` steps from time index ``t0``, each the step of
+        ``run_episode``: returns ((carry, env_state), track)."""
+        track = []
+        for t in range(t0, t0 + length):
+            carry, env_state, row = self._step(carry, env_state, t, False)
+            track.append(row)
+            if callback is not None:
+                callback(t, env_state, row)
+        return (carry, env_state), _stack(track)
+
+    def run_episode_resumable(self, carry: MpcCarry, env_state,
+                              start: int = 0, chunk: int = 50,
+                              on_chunk=None, callback=None):
+        """The episode from step ``start`` in chunks of ``chunk`` steps;
+        ``on_chunk(t, carry, env_state, tracks)`` fires after each chunk
+        with the chunk tracks so far (the checkpoint hook of ``run_mpc
+        --checkpoint-every``). A chunk is the same per-step program as
+        ``run_episode``, so an episode resumed from a saved (carry,
+        env_state, t) is bit for bit the uninterrupted one."""
+        tracks, t = [], start
+        while t < self.timesteps:
+            n = min(chunk, self.timesteps - t)
+            (carry, env_state), tr = self._episode_chunk(
+                carry, env_state, t, n, callback)
+            tracks.append(tr)
+            t += n
+            if on_chunk is not None:
+                on_chunk(t, carry, env_state, tracks)
+        track = ({k: torch.cat([tr[k] for tr in tracks]) for k in tracks[0]}
+                 if tracks else {})
+        return carry, env_state, track
+
+
+def _stack(rows):
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}

@@ -6,9 +6,10 @@ system (integrator chain) kernel. The prior over an action sequence is a
 GP on the H planning timesteps, so U = K(t, t) is (H, H); the
 receding-horizon shift conditions through the cached prior Cholesky with
 triangular solves. The LGDS Gram is closed form: one masked (H, H) product
-of the chain's impulse responses. The marginal-likelihood fit of the
-hyperparameters (``optimize_hyper``, ``hyper_nll``, ``param_bounds``) is
-not ported yet.
+of the chain's impulse responses. The hyperparameters live in the state
+(``hyper``), so their marginal-likelihood fit (``optimize_hyper``, a fixed
+Adam loop on ``hyper_nll`` within ``param_bounds``) differentiates through
+the Gram with ``torch.autograd``.
 """
 
 import dataclasses
@@ -164,6 +165,15 @@ class BaseKernel(MatrixPolicyBase):
                              f"of {[*KERNELS, LGDS]}")
 
     @property
+    def param_bounds(self):
+        """Box of each hyperparameter for the marginal-likelihood fit."""
+        return {
+            "SquaredExponentialKernel": ((1e-5, 1e6), (1e-5, 1e3)),
+            "PeriodicKernel": ((1e-3, 1e6), (1e-4, 1e3), (1e-3, 1e3)),
+            "WhiteNoiseKernel": ((1e-5, 1e6),),
+        }.get(self.kernel, ((1e-5, 1e6), (1e-3, 1e3)))
+
+    @property
     def dim_features(self) -> int:
         return self.horizon
 
@@ -304,6 +314,50 @@ class BaseKernel(MatrixPolicyBase):
         """Exact GP conditioning of the prior on (t, action) observations."""
         return self._conditioned(state, self.k(state, t, t),
                                  self.k(state, state.t, t), action)
+
+    def optimize_hyper(self, state: KernelState, target_matrix,
+                       steps: int = 200, lr: float = 0.05) -> KernelState:
+        """Fit the hyperparameters to a target (H, d_a) action matrix:
+        ``steps`` Adam steps (0.9, 0.999, 1e-8) on ``hyper_nll`` over
+        log-hyper, each clamped to ``param_bounds``, a non-finite gradient
+        taken as 0; then the prior grams rebuilt at the optimum."""
+        bounds = torch.tensor(self.param_bounds, dtype=torch.float32,
+                              device=state.hyper.device)
+        lo, hi = bounds[:state.hyper.shape[0]].unbind(1)
+        target = target_matrix.detach()
+        x = torch.log(torch.clamp(state.hyper, lo, hi))
+        m, v = torch.zeros_like(x), torch.zeros_like(x)
+        for i in range(steps):
+            x_ = x.detach().requires_grad_(True)
+            hyper = torch.clamp(torch.exp(x_), lo, hi)
+            g, = torch.autograd.grad(self.hyper_nll(state, hyper, target),
+                                     x_)
+            g = torch.where(torch.isfinite(g), g, 0.0)
+            m = 0.9 * m + 0.1 * g
+            v = 0.999 * v + 0.001 * g * g
+            mhat = m / (1.0 - 0.9 ** (i + 1))
+            vhat = v / (1.0 - 0.999 ** (i + 1))
+            x = x - lr * mhat / (torch.sqrt(vhat) + 1e-8)
+        trial = state.replace(hyper=torch.clamp(torch.exp(x), lo, hi))
+        cov = self.k(trial, state.t, state.t)
+        chol, _ = ops.safe_cholesky(cov, jitter=0.0)
+        return trial.replace(cov_in=cov, chol_in=chol, cov_in_init=cov,
+                             cov_prior=cov, chol_prior=chol)
+
+    def hyper_nll(self, state: KernelState, hyper, target_matrix):
+        """Negative log-density of a target (H, d_a) matrix under MN(0,
+        K_hyper(t, t), V): a function of ``hyper`` that autograd
+        differentiates."""
+        d_a, h = self.action_dim, self.horizon
+        chol_in, _ = ops.safe_cholesky(
+            self.k(state.replace(hyper=hyper), state.t, state.t))
+        v_inv = _cho_solve(state.chol_out, torch.eye(
+            d_a, dtype=target_matrix.dtype, device=target_matrix.device))
+        quad = torch.sum(target_matrix
+                         * (_cho_solve(chol_in, target_matrix) @ v_inv))
+        logdet = lambda chol: 2.0 * torch.sum(torch.log(torch.diagonal(chol)))
+        return 0.5 * (quad + d_a * logdet(chol_in) + h * logdet(state.chol_out)
+                      + self.dim_sample * math.log(2.0 * math.pi))
 
     def loglikelihood(self, state: KernelState, x):
         """Average matrix-normal log-likelihood of (n, H, d_a) samples."""

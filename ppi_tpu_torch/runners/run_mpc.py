@@ -36,11 +36,18 @@ card; ``--device cpu`` runs the eager plain version. With ``--dir`` the
 run writes
 ``args.json``, its ``log`` and ``data.npz`` (the JAX runner's keys) under
 ``<dir>/<algorithm>_<env>_<policy>_<sampling>_<n>_<seed>_<name>``, and a
-second run there stops unless ``--force``. Plots, rendering, checkpoints,
-model selection and ``--optimize-prior`` are not ported yet.
+second run there stops unless ``--force``. ``--checkpoint-every K`` (with
+``--dir``) writes the episode's track, then a checkpoint of the agent's
+carry (its generator by state) and the env state, every K control steps;
+``--resume`` continues from the checkpoint, bit for bit the uninterrupted
+episode. ``--optimize-prior`` refits a kernel prior's hyperparameters to
+the warm-started plan by marginal likelihood; ``--model-selection`` builds
+the prior from a ``model_selection`` artifact (``--ms-fitted-scale`` keeps
+the expert's action variance). Plots and rendering are not ported yet.
 """
 
 import argparse
+import dataclasses
 import logging
 import time
 from pathlib import Path
@@ -70,11 +77,13 @@ from ppi_tpu_torch.envs.relocate_adroit import RelocateAdroit
 from ppi_tpu_torch.envs.relocate_hand import RelocateHand
 from ppi_tpu_torch.envs.standup import HumanoidStandup
 from ppi_tpu_torch.envs.walker import Walker, WalkerWalk
+from ppi_tpu_torch.model_selection import fitted_prior
 from ppi_tpu_torch.mpc import Mpc, fft_smoothness, signal_power
 from ppi_tpu_torch.policies import POLICY_NAMES, design_moments, make_policy
 from ppi_tpu_torch.samplers import BY_NAME as SAMPLER_NAMES
 from ppi_tpu_torch.utils import (
-    experiment_dir, save_results, setup_logging, write_args)
+    checked_device, experiment_dir, load_checkpoint, save_checkpoint,
+    save_results, setup_logging, write_args)
 
 # the envs with no scalar kernel contract: planned through the eager
 # objective on every device
@@ -110,6 +119,26 @@ def build_parser():
     parser.add_argument("--force", action="store_true",
                         help="rerun even if results exist")
     parser.add_argument("--anneal", type=float, default=1.0)
+    parser.add_argument("--checkpoint-every", type=int, default=0,
+                        help="every N control steps write the track, then "
+                             "a checkpoint of the agent's carry and the env "
+                             "state (needs --dir); resume with --resume")
+    parser.add_argument("--resume", action="store_true",
+                        help="continue an interrupted episode from the "
+                             "experiment dir's checkpoint (implies --force "
+                             "for the exists-guard)")
+    parser.add_argument("--model-selection", type=str, default=None,
+                        help="npz from ppi_tpu_torch.model_selection: the "
+                             "prior from fitted (mean, covariance_out, "
+                             "kernel params) instead of design_moments")
+    parser.add_argument("--ms-fitted-scale", action="store_true",
+                        help="with --model-selection, keep the expert's "
+                             "action variance instead of the actuator-box "
+                             "exploration scale")
+    parser.add_argument("--optimize-prior", action="store_true",
+                        help="after the warm start, refit the kernel "
+                             "hyperparameters to the warm-started posterior "
+                             "mean by marginal likelihood (kernel families)")
     parser.add_argument("--risk-quantile", type=float, default=0.25,
                         help="CVaR quantile over per-step plan costs "
                              "(active only with --risk-weight > 0)")
@@ -138,26 +167,30 @@ def build_parser():
     return parser
 
 
-def setup(args):
-    """(agent, carry, env_state) for the parsed arguments: the env, prior,
-    solver and agent on ``args.device``, the carry and the reset state both
-    seeded with ``args.seed``."""
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available")
-    # f32 everywhere: TF32 matmuls and convolutions off
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
+def build(args):
+    """(agent, initial policy state) for the parsed arguments: the env,
+    prior, solver and agent on ``args.device``."""
+    device = checked_device(args.device)
     env = ENVS[args.env]()
     mean, cov_in, cov_out = design_moments(env.action_low, env.action_high,
                                            ratio=1000.0)
+    lengthscale, period = args.lengthscale, env.dt
+    if args.model_selection is not None:
+        mean, cov_in, cov_out, param, kl = fitted_prior(
+            args.model_selection, args.policy, env.action_low,
+            env.action_high, args.ms_fitted_scale)
+        if param.shape[0] > 1:
+            lengthscale = float(param[1])
+        if param.shape[0] > 2:
+            period = float(param[2])
+        logging.info("model selection: %s param=%s kl=%.4f", args.policy,
+                     param.tolist(), kl)
     use_particles = args.algorithm == "iCem"
     # RBF features span the whole episode; everything else the horizon
     span = args.timesteps if args.policy == "RbfFeatures" else args.horizon
     family, policy = make_policy(
         args.policy, env.dt * torch.arange(span), env.action_dim,
-        mean, cov_in, cov_out, lengthscale=args.lengthscale, period=env.dt,
+        mean, cov_in, cov_out, lengthscale=lengthscale, period=period,
         n_features=args.n_features, order=args.order,
         sampler="Particles" if use_particles else args.sampling,
         beta=args.beta, lower=env.action_low, upper=env.action_high,
@@ -181,23 +214,30 @@ def setup(args):
                 anneal=args.anneal, use_map=use_particles, device=device,
                 risk_quantile=args.risk_quantile,
                 risk_weight=args.risk_weight)
-    carry = agent.init(policy,
-                       torch.Generator(device).manual_seed(args.seed))
-    env_state = env.reset(torch.Generator(device).manual_seed(args.seed),
-                          device)
-    return agent, carry, env_state
+    return agent, policy
 
 
-def main(args, callback=None):
+def setup(args):
+    """(agent, carry, env_state) for the parsed arguments (``build``), the
+    carry and the reset state both seeded with ``args.seed``."""
+    agent, policy = build(args)
+    gen = lambda: torch.Generator(agent.device).manual_seed(args.seed)
+    return (agent, agent.init(policy, gen()),
+            agent.env.reset(gen(), agent.device))
+
+
+def main(args, callback=None, on_checkpoint=None):
     """Run one episode; returns (return, success, track), or None when the
     result directory already holds results; success is None for an env
     without a success test (cheetah). ``callback(t, env_state, row)`` sees
-    every control step (``Mpc.run_episode``)."""
+    every control step (``Mpc.run_episode``); ``on_checkpoint(t, carry,
+    env_state)`` runs after each checkpoint is written."""
     filepath = None
     if args.dir is not None:
         name = (f"{args.algorithm}_{args.env}_{args.policy}_{args.sampling}_"
                 f"{args.n_samples}_{args.seed}_{args.name}")
-        filepath = experiment_dir(Path(args.dir), name, args.force)
+        filepath = experiment_dir(Path(args.dir), name,
+                                  args.force or args.resume)
         if filepath is None:
             print("experiment done!")
             return None
@@ -206,13 +246,78 @@ def main(args, callback=None):
     agent, carry, env_state = setup(args)
     env, device = agent.env, agent.device
 
+    ckpt_path = filepath / "episode_checkpoint.npz" if filepath else None
+    track_path = filepath / "episode_track.npz" if filepath else None
+    start_step = 0
+    if args.resume and ckpt_path is not None and ckpt_path.exists():
+        (carry, env_state), start_step = load_checkpoint(
+            ckpt_path, (carry, env_state))
+        # the policy's window is the last control step's
+        carry = dataclasses.replace(carry, window=start_step - 1)
+        logging.info("resumed from %s at control step %d", ckpt_path,
+                     start_step)
+
     t0 = time.perf_counter()
-    if args.n_warmstart_iters > 0:
+    if args.n_warmstart_iters > 0 and start_step == 0:
         carry, wtrace = agent.warm_start(carry, env_state,
                                          args.n_warmstart_iters)
         logging.info("Warm start: %.2f +/- %.2f",
                      float(wtrace["mean"][-1]), float(wtrace["std"][-1]))
-    carry, env_state, track = agent.run_episode(carry, env_state, callback)
+    if args.optimize_prior and start_step == 0:
+        if not hasattr(agent.family, "optimize_hyper"):
+            raise SystemExit("--optimize-prior requires a kernel policy "
+                             f"family, got {args.policy!r}")
+        old = carry.policy.hyper.tolist()
+        t_fit = time.perf_counter()
+        carry = dataclasses.replace(carry, policy=agent.family.optimize_hyper(
+            carry.policy, carry.policy.mean))
+        logging.info("optimize-prior: hyper %s -> %s, fit %.3f s", old,
+                     carry.policy.hyper.tolist(),
+                     time.perf_counter() - t_fit)
+
+    if args.checkpoint_every and filepath is not None:
+        prev = None
+        if start_step > 0:
+            if not track_path.exists():
+                raise SystemExit(
+                    f"--resume: checkpoint at step {start_step} but "
+                    f"{track_path} is missing")
+            with np.load(track_path) as data:
+                prev = {k: data[k] for k in data.files}
+            n_rows = len(next(iter(prev.values())))
+            if n_rows < start_step:
+                raise SystemExit(
+                    f"--resume: track file has {n_rows} steps but the "
+                    f"checkpoint says {start_step} — inconsistent state")
+            # a crash between the track write and the checkpoint write
+            # leaves extra rows (the checkpoint is the commit point): trim
+            # to the checkpointed step and replay the last chunk
+            prev = {k: torch.from_numpy(v[:start_step]).to(device)
+                    for k, v in prev.items()}
+
+        def on_chunk(t, c, es, tracks):
+            # track first, checkpoint second: the checkpoint's step is the
+            # commit point, so every crash window resumes consistently
+            np.savez(track_path, **{
+                k: torch.cat(([prev[k]] if prev else [])
+                             + [tr[k] for tr in tracks]).cpu().numpy()
+                for k in tracks[0]})
+            save_checkpoint(ckpt_path, (c, es), step=t)
+            if on_checkpoint is not None:
+                on_checkpoint(t, c, es)
+
+        carry, env_state, track = agent.run_episode_resumable(
+            carry, env_state, start=start_step, chunk=args.checkpoint_every,
+            on_chunk=on_chunk, callback=callback)
+        if prev:
+            track = ({k: torch.cat([prev[k], track[k]]) for k in track}
+                     if track else prev)
+    else:
+        if start_step:
+            raise SystemExit("--resume: the episode was checkpointed; "
+                             "resume it with --checkpoint-every")
+        carry, env_state, track = agent.run_episode(carry, env_state,
+                                                    callback)
     ret = float(track["reward"].sum())
     logging.info("Return: %.2f over %d timesteps", ret, args.timesteps)
     success = None

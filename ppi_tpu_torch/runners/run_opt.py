@@ -32,7 +32,7 @@ from ppi_tpu_torch.parallel.launch import call_main, in_group
 from ppi_tpu_torch.policies.gaussian import Gaussian
 from ppi_tpu_torch.samplers import BY_NAME as SAMPLER_NAMES
 from ppi_tpu_torch.utils import (
-    experiment_dir, save_results, setup_logging, write_args)
+    checked_device, experiment_dir, save_results, setup_logging, write_args)
 
 SAMPLER_CHOICES = ["mc", "qmc", "quad", "MonteCarlo", "QuasiMonteCarlo",
                    "CubatureQuadrature"]
@@ -76,12 +76,7 @@ def optimize(args, mesh=None):
     ``mesh``, the mesh rank's device, the evaluation sharded over it);
     returns (final state, trace as tensors, the generator after the
     last iteration)."""
-    device = torch.device(args.device) if mesh is None else mesh.device
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available")
-    # f32 everywhere: TF32 matmuls and convolutions off
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    device = checked_device(args.device if mesh is None else mesh.device)
     function = make_function(args.function, args.dimension, seed=args.seed)
     objective = (function if mesh is None
                  else sharded_objective(function, mesh))

@@ -41,8 +41,8 @@ from ppi_tpu_torch.parallel.launch import call_main, in_group
 from ppi_tpu_torch.policies import POLICY_NAMES, make_policy
 from ppi_tpu_torch.samplers import BY_NAME as SAMPLER_NAMES
 from ppi_tpu_torch.utils import (
-    experiment_dir, load_checkpoint, save_checkpoint, save_results,
-    setup_logging, write_args)
+    checked_device, experiment_dir, load_checkpoint, save_checkpoint,
+    save_results, setup_logging, write_args)
 
 
 def build_parser():
@@ -126,12 +126,7 @@ def search(args, mesh=None):
     ``mesh``, the mesh rank's device, the trajectories sharded over it).
     Returns (final policy state, trace as tensors, the
     generator after the last iteration, the first iteration's index)."""
-    device = torch.device(args.device) if mesh is None else mesh.device
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available")
-    # f32 everywhere: TF32 matmuls and convolutions off
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    device = checked_device(args.device if mesh is None else mesh.device)
     env, family, policy, solver = setup(args, device)
     generator = torch.Generator(device).manual_seed(args.seed)
     ckpt = (Path(args.dir) / run_name(args) / "checkpoint.npz"

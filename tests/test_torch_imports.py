@@ -15,6 +15,8 @@ SLICE_MODULES = [
     "ppi_tpu_torch",
     "ppi_tpu_torch.build",
     "ppi_tpu_torch.convert",
+    "ppi_tpu_torch.datasets",
+    "ppi_tpu_torch.model_selection",
     "ppi_tpu_torch.samplers",
     "ppi_tpu_torch.envs.base",
     "ppi_tpu_torch.envs.classic",
@@ -67,7 +69,15 @@ SLICE_MODULES = [
     "ppi_tpu_torch.parallel.launch",
     "ppi_tpu_torch.parallel.mesh",
     "ppi_tpu_torch.utils",
+    "ppi_tpu_torch.utils.batch",
+    "ppi_tpu_torch.utils.device",
+    "ppi_tpu_torch.utils.sweep",
+    "ppi_tpu_torch.runners.corl_curves",
+    "ppi_tpu_torch.runners.goal_success",
+    "ppi_tpu_torch.runners.multi_start",
+    "ppi_tpu_torch.runners.profile_mpc",
     "ppi_tpu_torch.runners.run_mpc",
+    "ppi_tpu_torch.runners.run_sweep",
     "ppi_tpu_torch.runners.run_opt",
     "ppi_tpu_torch.runners.run_policy_search",
     "ppi_tpu_torch.studies.body_report",

@@ -217,3 +217,22 @@ def sharded_objective_cases(rank, acts, opt_argv, search_argv):
         return _np(x) if isinstance(x, torch.Tensor) else x
 
     return numpy_tree(out)
+
+
+def _batch_fn(key):
+    """A per-key result of every kind the episode runners gather: a
+    scalar, a flag and a vector (``tests/test_torch_goal_success.py``)."""
+    k = float(key)
+    return (torch.tensor(k * 1.5 - 2.0), torch.tensor(int(key) % 2 == 1),
+            torch.tensor([k, -k, k * k]))
+
+
+def sharded_vmap_case(rank, keys):
+    """``utils.batch.sharded_vmap`` of ``_batch_fn`` over a 2-rank gloo
+    group on the CPU; rank 0 returns numpy results."""
+    from ppi_tpu_torch.utils.batch import sharded_vmap
+    torch.set_num_threads(1)
+    mesh = make_mesh(device="cpu")
+    out = sharded_vmap(_batch_fn, torch.from_numpy(keys), mesh)
+    agree = replicas_agree(list(out), mesh)
+    return ([_np(x) for x in out], agree) if rank == 0 else None
