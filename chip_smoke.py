@@ -177,15 +177,15 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 -Xptxas -v summary. All three plan and step through the
                 warp layout in phases 26-28;
  26. check   -- each of those bodies against its plain version on the card
-                at N=1000 (ragged), H=3 (the plain version is 191k-465k
+                at N=1000 (ragged), H=2 (the plain version is 191k-465k
                 eager ops a lane step): rewards and final state
                 bit-identical or within 1e-6, from lanes in contact (the pen
                 on the fingers, the ball under the digits, the hammer
                 dropped on the nail; the lanes where the object moved are
                 counted and must not be none), a pre-poisoned NaN lane, the
-                horizon mask in the objective and a second goal or board
-                (H=2), and the real step through the kernel (N=1, H=1)
-                against the eager step;
+                horizon mask in the objective (H=2) and a second goal or
+                board (H=1), and the real step through the kernel (N=1,
+                H=1) against the eager step;
  27. timings -- each body's kernel time at its canonical shape
                 (pen-v0-adroit N=96/H=15, relocate-v0-adroit N=256/H=20,
                 hammer-v0-adroit N=128/H=30) and at N=64/H=1, the plain
@@ -254,8 +254,8 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 bodies, first of all builds; print each body's line count,
                 nvcc seconds, shared memory a rollout and a block and
                 -Xptxas -v summary next to its lane layout's;
- 33. check   -- on phase 14's, 18's, 22's and 26's lanes (N=1000, H=3, 3,
-                3, 10, 5, 5, 3 and 10): the warp layout bit for bit the
+ 33. check   -- on phase 14's, 18's, 22's and 26's lanes (N=1000, H=3, 2,
+                2, 10, 5, 5, 2 and 10): the warp layout bit for bit the
                 lane kernel,
                 and the plain version bit for bit (the relocate bodies'
                 rewards within 1e-6: their division by the number of tip
@@ -403,12 +403,14 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 the fit launches no kernel (53 launches by the end of
                 step 0), exactly 800 launches, the door open; the old and
                 new hyperparameters and the fit's time printed; then
-                ``model_selection --expert`` on phase 43's data.npz (phase
-                4's actions; H=30, door-v0's dt; the SE family, the one
-                run_mpc plans with, ``--kernels``) and ``run_mpc
+                ``model_selection --expert`` on phase 47's collect_expert
+                npz (H=30, door-v0's dt; the SE family, the one run_mpc
+                plans with, ``--kernels``) and ``run_mpc
                 --model-selection`` with its artifact: finite return,
                 exactly 800 launches, the fitted SE parameters, KL and
-                success printed (success not gated);
+                success printed (success not gated): the reference's
+                pipeline, expert -> model_selection -> run_mpc
+                --model-selection (RESULTS.md:180-202);
  45. runners -- ``goal_success --env pen-v0 --resets 3`` (success rate >=
                 2/3, the goals spread, 350 launches an episode);
                 ``multi_start --env door-v0 --restarts 2`` (both restarts
@@ -417,11 +419,49 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 (door-v0, SE, Lbps, N=64: ms per control step, 21
                 launches); ``corl_curves --seeds 1 --timesteps 60`` on
                 door-v0 (three finite returns, overlay.png written, 570
-                launches). Each of phases 43-45 prints its wall time.
+                launches).
+ 46. experts -- the palm-IK kernel (``csrc/ik_palm.cu``, one thread running
+                every iteration of an IK call) with the five bodies of
+                ``envs/physics/ik_kernel.py`` (door-v0-hand, door-v0-adroit,
+                hammer-v0-hand, hammer-v0-adroit, relocate-v0-adroit), built
+                in phase 1 beside the others: nvcc seconds and -Xptxas -v;
+                each against its plain version (autograd through the sites)
+                at 20 iterations to IK_TOL, a NaN target all NaN; the
+                kernel's time at its expert's iteration counts and at 2,
+                the plain version's at 2, the bounds (f32 ops over the peak,
+                and one thread's dependent chain). Then the seven scripted
+                experts whole on the card to the JAX tests' gates:
+                door-v0-hand on JAX's key(0) frame (door > 1.35),
+                door-v0-adroit, relocate-v0-hand and relocate-v0-adroit
+                (the ball at the goal and > table + radius + 0.1),
+                hammer-v0-hand on the fixed board (nail > 0.95 depth,
+                |hammer_x| < 0.3, lifted > 0.03) and on JAX's key(0) board,
+                hammer-v0-adroit (nail > 0.95 depth, carried ham_z > 0.1),
+                pen-v0-hand (final similarity > 0.85, max > start + 0.05,
+                not dropped): exactly one rollout launch a step of each
+                expert's frames and one IK launch a call its log records;
+                each expert's wall, its IK kernel's time at its counts and
+                the plain IK's estimate there (a measured iteration times
+                the count);
+ 47. collect -- ``collect_expert`` at the canonical door-v0 config (Lbps,
+                SE, delta 0.9, 2 iterations, anneal 0.5, lengthscale 0.08,
+                N=64, H=30, T=250, 50 warm-start iterations, one episode):
+                the npz's keys and shapes, exactly 800 launches; it runs
+                after phase 43 and before phase 44, which reads its npz;
+ 48. sac     -- ``train_sac_expert`` on humanoid-standup: 5 chunks at the
+                default sizes (64 steps, 64 updates of 256), then 200 steps
+                of the trained policy's mean: finite losses, the actor
+                moved, actions in the box, the npz's shapes, exactly
+                5 x 64 + 200 launches.
+Phases run in order but for 47, which runs between 43 and 44; each of
+phases 43-48 prints its wall time.
 Then one JSON line with the kernels' numbers (each entry with the (N, H)
 of its ms and bound_ms, of its plain_ms, and the kernel's time at the
 latter; the rollout bodies of phase 35 with their registers and spills,
-their ``ms`` the main path's call and ``kernel_alone_ms`` the kernel alone)
+their ``ms`` the main path's call and ``kernel_alone_ms`` the kernel alone;
+the palm-IK kernel's five bodies with the iterations of their ``ms`` and
+``bound_ms`` (the expert's first call's), of their ``plain_ms`` and the
+kernel's time there, and ``chain_bound_ms``, one thread's dependent chain)
 and, last, the device line.
 All numbers also go to chip_smoke.json in the output directory.
 """
@@ -666,18 +706,23 @@ def rest_launches(name):
 # seed-0 episode (warm start + iterations + real steps) and whether it must
 # succeed. The plain version runs one eager op per scalar op, 191k-465k
 # of them a lane step (1-6 s a step on the card's host): the check runs
-# at H=3 and its mask and second goal or board at H=2, not at H=20 and 5,
-# and the real step is timed through the kernel only.
+# at H=2 (3 before the palm-IK phases came), its mask at H=2 and its second
+# goal or board at H=1 (``h_second``; 2 before), not at H=20 and 5, and
+# the real step is timed through the kernel only. At the cut horizons the
+# contact lanes still move the object (pen-v0-adroit 850, relocate-v0-
+# adroit 18, hammer-v0-adroit 500 of 1,000) and the second goal or board
+# changes every lane's cost, the plain version in the kernel's place on
+# the CPU.
 ADROIT = {
     "pen-v0-adroit": dict(
-        h_check=3, h_frame=2, scale=0.5, act0=5, moved=(3, 4),
+        h_check=2, h_frame=2, h_second=1, scale=0.5, act0=5, moved=(3, 4),
         shape=(96, 15), plain_shape=(64, 1), eager_step=False,
         family=("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08}),
         episode=["Lbps", "pen-v0-adroit", *_LBPS_SE, "--timesteps", "100",
                  "--horizon", "15"],
         launches=50 + 100 * 2 + 100, success=True),
     "relocate-v0-adroit": dict(
-        h_check=3, h_frame=2, scale=0.3, act0=0, moved=(21, 22),
+        h_check=2, h_frame=2, h_second=1, scale=0.3, act0=0, moved=(21, 22),
         shape=(256, 20), plain_shape=(64, 1), eager_step=False,
         family=("Mppi", "ColouredNoise", {"beta": 2.0}),
         episode=["Mppi", "relocate-v0-adroit", "ColouredNoise", "--beta",
@@ -685,7 +730,7 @@ ADROIT = {
                  "140", "--horizon", "20"],
         launches=50 + 140 + 140, success=True),
     "hammer-v0-adroit": dict(
-        h_check=3, h_frame=2, scale=0.3, act0=0, moved=(24,),
+        h_check=2, h_frame=2, h_second=1, scale=0.3, act0=0, moved=(24,),
         shape=(128, 30), plain_shape=(64, 1), eager_step=False,
         family=("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08}),
         episode=["Lbps", "hammer-v0-adroit", *_LBPS_SE, "--timesteps",
@@ -1353,8 +1398,9 @@ def adroit_lanes(env, name, dev, n, h, seed=1):
 def check_scene(name, env, dev, table=None, lanes_fn=None, state_fn=None):
     """Phase 18 (and 26) for one env: (errors, max abs error, lanes that
     moved the object). ``table``, ``lanes_fn`` and ``state_fn`` are the
-    phase's config, lanes and states (phase 18's by default); the mask and
-    the second board or goal run at the config's ``h_frame``."""
+    phase's config, lanes and states (phase 18's by default); the mask
+    runs at the config's ``h_frame``, the second board or goal at its
+    ``h_second`` (``h_frame`` unless given)."""
     from ppi_tpu_torch.envs.physics import rollout_kernel as rk
     table = SCENES if table is None else table
     lanes_fn = scene_lanes if lanes_fn is None else lanes_fn
@@ -1406,13 +1452,19 @@ def check_scene(name, env, dev, table=None, lanes_fn=None, state_fn=None):
     check(errs["masked_costs"] <= SCENE_TOL
           and not bool(torch.allclose(c_k, c_full)),
           f"{name}: horizon mask {errs['masked_costs']}")
+    # the second board or goal at the config's h_second (h_frame unless
+    # given)
+    h2 = cfg.get("h_second", h_frame)
+    a2 = acts[:, :h2].contiguous()
+    c_full2 = c_full if h2 == h_frame else rk.kernel_mpc_objective(
+        env, s0, h2)(None, a2)
     s1 = state_fn(env, name, dev, 1)
-    c_k1 = rk.kernel_mpc_objective(env, s1, h_frame)(None, a)
+    c_k1 = rk.kernel_mpc_objective(env, s1, h2)(None, a2)
     q_1, qd_1 = lanes(s1, N_CHECK)
-    r_p1 = rk.env_plain_rollout(env, s1, q_1, qd_1, a)[0]
+    r_p1 = rk.env_plain_rollout(env, s1, q_1, qd_1, a2)[0]
     errs["second_costs"] = rel_err(c_k1, -r_p1.sum(1))
     check(errs["second_costs"] <= SCENE_TOL
-          and not bool(torch.allclose(c_k1, c_full)),
+          and not bool(torch.allclose(c_k1, c_full2)),
           f"{name}: second board or goal {errs['second_costs']}, or it "
           "changes no cost")
 
@@ -3078,6 +3130,37 @@ MS_KERNELS = ["SquaredExponentialKernel"]
 # phase 31's sharded goal sweep: pen-v0, one reset a rank, T=10
 MESH_GOALS = dict(env="pen-v0", resets=4, timesteps=10)
 
+# phase 46: the palm-IK kernel's five bodies. Per body: the IK variables,
+# the level penalty's weight (None: none) and lr of its expert's calls,
+# and their iteration counts (door: the pre-press 1,500, each sweep 800).
+# The check runs IK_CHECK_ITERS iterations against the plain version on
+# the card (autograd through the sites: 2.5k-8.7k eager launches an
+# iteration), the plain version is timed at IK_PLAIN_ITERS; the kernel's
+# x to IK_TOL (the gradient by the geometric Jacobian against autograd's
+# chain rule: 0 to 5e-7 apart after 50 iterations on the CPU)
+IK_BODIES = {
+    "door-v0-hand": dict(n_var=10, level=None, lr=0.03, iters=(1500, 800)),
+    "door-v0-adroit": dict(n_var=21, level=None, lr=0.03,
+                           iters=(1500, 800)),
+    "hammer-v0-hand": dict(n_var=4, level=0.05, lr=0.02, iters=(500,)),
+    "hammer-v0-adroit": dict(n_var=4, level=0.005, lr=0.02, iters=(500,)),
+    "relocate-v0-adroit": dict(n_var=4, level=0.05, lr=0.05, iters=(1000,)),
+}
+IK_CHECK_ITERS, IK_PLAIN_ITERS, IK_TOL = 20, 2, 1e-5
+# one thread's dependent chain: cycles an f32 operation waits for its
+# operand (a math call counted as one operation), at the H100 SXM's
+# 1,980 MHz boost clock
+CHAIN_CYCLES, SM_HZ = 4, 1.98e9
+# phase 47: collect_expert at the canonical door-v0 config, one episode
+COLLECT = ["--env", "door-v0", "--algorithm", "Lbps", "--policy",
+           "SquaredExponentialKernel", "--lengthscale", "0.08", "--episodes",
+           "1", "--timesteps", "250", "--horizon", "30", "--n-samples", "64",
+           "--n-iters", "2", "--anneal", "0.5", "--warmstart", "50",
+           "--seed", "0", "--device", "cuda"]
+# phase 48: SAC on humanoid-standup, 5 chunks at the default sizes (64 env
+# steps and 64 updates of 256 a chunk), then 200 steps of the trained mean
+SAC_CHUNKS, SAC_COLLECT = 5, 200
+
 
 class Crash(Exception):
     """The stop of phase 43's first run, after a checkpoint."""
@@ -3208,8 +3291,9 @@ def log_line(run_dir, pattern):
 
 def prior_phase(expert_npz, tmp):
     """Phase 44: ``run_mpc --optimize-prior`` at the canonical door-v0
-    config, then ``model_selection`` on phase 43's data.npz (phase 4's
-    episode) and ``run_mpc --model-selection`` with its artifact."""
+    config, then ``model_selection --expert`` on ``expert_npz`` (phase
+    47's collect_expert episode) and ``run_mpc --model-selection`` with its
+    artifact."""
     from ppi_tpu_torch import model_selection
     from ppi_tpu_torch.build import LAUNCHES
     from ppi_tpu_torch.envs.door import Door
@@ -3283,7 +3367,7 @@ def prior_phase(expert_npz, tmp):
           f"phase 44: --model-selection return {ret_ms}")
     check(out["model_selection"]["launches"] == 800,
           f"phase 44: --model-selection {LAUNCHES[key]} launches")
-    print(f"prior fit (phase 44): model_selection on phase 4's actions "
+    print(f"prior fit (phase 44): model_selection on phase 47's expert "
           f"({fit_wall:.2f} s, {len(payload)} kernel(s) x 1,500 Adam steps): "
           f"SE param "
           f"{se['param'].tolist()} kl {se['kl']:.4f}; run_mpc "
@@ -3367,6 +3451,314 @@ def runner_phase(tmp):
           f"{LAUNCHES[door_key]} launches, expected {want}")
     print(f"runners (phase 45): {json.dumps(out)}", flush=True)
     return out
+
+
+def ik_problem(name, dev, seed=0):
+    """An IK call of ``name``'s body (``ik_kernel.palm_ik``'s operands):
+    the reset posture with the arm nudged by a seeded normal, the target
+    8-15 cm off the palm."""
+    from ppi_tpu_torch.runners.run_mpc import ENVS
+    cfg = IK_BODIES[name]
+    env = ENVS[name]()
+    s = env.reset(torch.Generator(dev).manual_seed(seed), dev)
+    rng = np.random.default_rng(seed)
+    q = s.physics.qpos.clone()
+    q[:4] += torch.from_numpy(
+        (0.1 * rng.standard_normal(4)).astype(np.float32)).to(dev)
+    dyn = getattr(s, "frame", getattr(s, "board", None))
+    target = env._sites_soa(q, dyn)[env._palm_geom] + torch.tensor(
+        [0.08, -0.04, 0.12], device=dev)
+    n = cfg["n_var"]
+    lo, hi = env.action_low.to(dev)[:n], env.action_high.to(dev)[:n]
+    return env, (q[:n].clone(), q[n:].clone(), target, lo, hi), dyn
+
+
+def ik_bound(env, name, iters):
+    """(ops bound ms, chain bound ms) of one IK call of ``iters``."""
+    from ppi_tpu_torch.envs.physics import ik_kernel as ik
+    cfg = IK_BODIES[name]
+    spec = (env._model, env._palm_geom, cfg["n_var"],
+            getattr(env, "scalar_dyn_body", None), cfg["level"] is not None)
+    ops = ik.ops_per_iteration(*spec) * iters
+    chain = ik.chain_per_iteration(*spec) * iters
+    # no bytes to speak of: x0, q, the target and the box in, x out
+    return least_time(ops, 4 * 64)[0], 1e3 * chain * CHAIN_CYCLES / SM_HZ
+
+
+def check_and_time_ik(name, dev):
+    """Phase 46's kernel part for one body: the kernel against the plain
+    version at IK_CHECK_ITERS; the kernel's time at each of its expert's
+    iteration counts and at IK_PLAIN_ITERS, the plain version's there
+    (both through ``palm_ik``, CUDA events); the bounds."""
+    from ppi_tpu_torch.envs.physics import ik_kernel as ik
+    cfg = IK_BODIES[name]
+    env, args, dyn = ik_problem(name, dev)
+    w, lr = cfg["level"], cfg["lr"]
+    got = ik.palm_ik(env, *args, IK_CHECK_ITERS, lr, w, dyn)
+    ref = ik.plain_palm_ik(env, *args, IK_CHECK_ITERS, lr, w, dyn)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    check(bool(torch.isfinite(ref).all()) and err <= IK_TOL,
+          f"phase 46: {name} IK kernel vs plain {err} > {IK_TOL}")
+    nan_target = torch.full((3,), float("nan"), device=dev)
+    nan_out = ik.palm_ik(env, args[0], args[1], nan_target, *args[3:], 3,
+                         lr, w, dyn)
+    check(bool(torch.isnan(nan_out).all()),
+          f"phase 46: {name} IK kernel: a NaN target came back {nan_out}")
+    out = {"max_abs_err": err, "check_iters": IK_CHECK_ITERS}
+    for iters in sorted(set(cfg["iters"]) | {IK_PLAIN_ITERS}):
+        out[f"kernel_ms_iters{iters}"] = cuda_ms(
+            lambda: ik.palm_ik(env, *args, iters, lr, w, dyn), 3, warmup=1)
+        out[f"bound_ms_iters{iters}"], out[f"chain_ms_iters{iters}"] = \
+            ik_bound(env, name, iters)
+    # one call: the check above warmed the plain version
+    out[f"plain_ms_iters{IK_PLAIN_ITERS}"] = cuda_ms(
+        lambda: ik.plain_palm_ik(env, *args, IK_PLAIN_ITERS, lr, w, dyn),
+        1, warmup=0)
+    out["plain_ms_per_iteration"] = (out[f"plain_ms_iters{IK_PLAIN_ITERS}"]
+                                     / IK_PLAIN_ITERS)
+    return out
+
+
+def run_expert(name, fn, env, state0, ik_calls, **kw):
+    """One scripted expert on the card from ``state0`` with its log and
+    frames; (final state, info, report): its wall, the rollout and IK
+    launches (counted from zero) against its own record: one launch a
+    step of its frames (``steps`` for pen-v0-hand), ``ik_calls(log)``
+    IK launches."""
+    from ppi_tpu_torch.build import LAUNCHES
+    from ppi_tpu_torch.envs.physics import ik_kernel as ik
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    log, frames = [], []
+    key = rk.launch_key(env)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    if name.startswith("pen"):
+        state, info = fn(env, state0, **kw)
+        steps = info["similarity"].shape[0]
+    else:
+        extra = {} if name.startswith("relocate-v0-hand") else {"log":
+                                                              log.append}
+        state, info = fn(env, state0, frames=frames, **extra, **kw)
+        steps = sum(f.shape[0] for f in frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rep = {"wall_s": wall, "steps": steps, "launches": LAUNCHES[key],
+           "ik_launches": LAUNCHES[ik.LAUNCH_KEY],
+           "ik_calls": ik_calls(log)}
+    check(rep["launches"] == steps and sum(LAUNCHES.values())
+          == steps + rep["ik_launches"],
+          f"phase 46: {name}: {dict(LAUNCHES)} launches for {steps} steps")
+    check(rep["ik_launches"] == rep["ik_calls"],
+          f"phase 46: {name}: {rep['ik_launches']} IK launches, expected "
+          f"{rep['ik_calls']}")
+    return state, info, rep, log
+
+
+def expert_phase(dev, ik_builds):
+    """Phase 46: the five IK bodies' builds, checks and times, then the
+    seven scripted experts whole on the card to the JAX tests' gates."""
+    from ppi_tpu_torch.convert import KEY0_DOOR_FRAME, KEY0_HAMMER_BOARD
+    from ppi_tpu_torch.envs import (
+        door_adroit, door_hand, hammer_adroit, hammer_hand, pen_hand,
+        relocate_adroit, relocate_hand)
+    from ppi_tpu_torch.envs.relocate import BALL_RADIUS, TABLE_Z
+    out = {"builds": {}, "ik": {}, "experts": {}}
+    for name, fut in ik_builds.items():
+        lib, secs = fut.result()
+        out["builds"][name] = {"nvcc_s": secs,
+                               "ptxas": ptxas_summary(lib)}
+        print(f"ik build {name}: nvcc {secs:.1f} s; ptxas: "
+              f"{' | '.join(out['builds'][name]['ptxas'])}", flush=True)
+    for name in IK_BODIES:
+        out["ik"][name] = check_and_time_ik(name, dev)
+        print(f"ik {name}: {json.dumps(out['ik'][name])}", flush=True)
+
+    def count(prefix):
+        return lambda log: sum(m.startswith(prefix) for m in log)
+
+    gates = {}
+    # door-v0-hand on JAX's key(0) frame (tests/test_door_hand.py:71-81)
+    env = door_hand.DoorHand()
+    st, info, rep, log = run_expert(
+        "door-v0-hand", door_hand.scripted_open, env,
+        env.reset(None, dev, frame=KEY0_DOOR_FRAME),
+        lambda log: 1 + count("sweep:")(log), device=dev)
+    gates["door-v0-hand"] = (info["success"] and info["door"] > 1.35, info,
+                             rep, log)
+    env = door_adroit.DoorAdroit(fixed_scene=True)
+    st, info, rep, log = run_expert(
+        "door-v0-adroit", door_adroit.scripted_open, env, None,
+        lambda log: 1 + count("sweep:")(log), device=dev)
+    gates["door-v0-adroit"] = (info["success"], info, rep, log)
+    for name, mod, cls in (
+            ("relocate-v0-hand", relocate_hand, relocate_hand.RelocateHand),
+            ("relocate-v0-adroit", relocate_adroit,
+             relocate_adroit.RelocateAdroit)):
+        env = cls(fixed_goal=True)
+        st, info, rep, log = run_expert(
+            name, mod.scripted_carry, env, None,
+            (lambda log: 0) if name == "relocate-v0-hand"
+            else (lambda log: 3 * count("wp")(log)), device=dev)
+        ball = env._sites(st.physics.qpos)[2]
+        info["ball_z"] = float(ball[2])
+        gates[name] = (info["success"]
+                       and info["ball_z"] > TABLE_Z + BALL_RADIUS + 0.1,
+                       info, rep, log)
+    # hammer-v0-hand on the fixed board and on JAX's key(0) board
+    # (tests/test_hammer_hand.py:60-77, 154-165)
+    for name, env, state0 in (
+            ("hammer-v0-hand", hammer_hand.HammerHand(fixed_scene=True),
+             None),
+            ("hammer-v0-hand raised", hammer_hand.HammerHand(),
+             hammer_hand.HammerHand().reset(None, dev,
+                                            board=KEY0_HAMMER_BOARD))):
+        demo = []
+        st, info, rep, log = run_expert(
+            name, hammer_hand.scripted_hammer, env, state0,
+            lambda log: 2 + sum("re-hover" in m for m in log),
+            actions=demo, device=dev)
+        rep["demo_actions"] = list(np.concatenate(demo).shape)
+        check(rep["demo_actions"] == [rep["steps"], env.action_dim],
+              f"phase 46: {name}: actions log {rep['demo_actions']}")
+        lifted = [float(m.split("=")[1]) for m in log if "lifted" in m]
+        info["lifted"] = lifted[0] if lifted else None
+        ok = info["success"] and info["nail"] > 0.95 * hammer_hand.NAIL_DEPTH
+        if name == "hammer-v0-hand":
+            ok = ok and abs(info["hammer_x"]) < 0.3 and lifted \
+                and lifted[0] > 0.03
+        gates[name] = (ok, info, rep, log)
+    env = hammer_adroit.HammerAdroit(fixed_scene=True)
+    st, info, rep, log = run_expert(
+        "hammer-v0-adroit", hammer_adroit.scripted_hammer_adroit, env, None,
+        lambda log: 2 + count("align")(log) + count("press")(log),
+        device=dev)
+    carried = [float(m.split("ham_z=")[1]) for m in log if "carried" in m]
+    info["carried_ham_z"] = carried[0] if carried else None
+    gates["hammer-v0-adroit"] = (
+        info["success"] and info["nail"] > 0.95 * hammer_hand.NAIL_DEPTH
+        and bool(carried) and carried[0] > 0.1, info, rep, log)
+    env = pen_hand.PenHand(fixed_goal=True)
+    s0 = env.reset(None, dev)
+    _, ax0 = env._pen_pose(s0.physics.qpos)
+    sim0 = float(torch.dot(ax0, s0.target_axis))
+    st, info, rep, log = run_expert(
+        "pen-v0-hand", pen_hand.scripted_reorient, env, s0, lambda log: 0)
+    info["start_similarity"] = sim0
+    gates["pen-v0-hand"] = (
+        info["final_similarity"] > 0.85
+        and info["max_similarity"] > sim0 + 0.05 and not info["dropped"],
+        info, rep, log)
+
+    ik_of = {"door-v0-hand": "door-v0-hand",
+             "door-v0-adroit": "door-v0-adroit",
+             "hammer-v0-hand": "hammer-v0-hand",
+             "hammer-v0-hand raised": "hammer-v0-hand",
+             "hammer-v0-adroit": "hammer-v0-adroit",
+             "relocate-v0-adroit": "relocate-v0-adroit"}
+    for name, (ok, info, rep, log) in gates.items():
+        info = {k: (v.tolist() if isinstance(v, (torch.Tensor, np.ndarray))
+                    else v) for k, v in info.items() if k != "similarity"}
+        if name in ik_of:
+            # the expert's IK at its counts: the kernel's measured time a
+            # call, the plain version's a measured iteration x the count
+            t = out["ik"][ik_of[name]]
+            iters = IK_BODIES[ik_of[name]]["iters"]
+            calls = ([1, rep["ik_calls"] - 1] if len(iters) == 2
+                     else [rep["ik_calls"]])
+            rep["ik_iterations"] = sum(c * i for c, i in zip(calls, iters))
+            rep["ik_kernel_ms"] = sum(c * t[f"kernel_ms_iters{i}"]
+                                      for c, i in zip(calls, iters))
+            rep["ik_plain_ms_estimate"] = (rep["ik_iterations"]
+                                           * t["plain_ms_per_iteration"])
+        out["experts"][name] = {"gate": bool(ok), **rep, **info}
+        print(f"expert {name}: {json.dumps(out['experts'][name])}",
+              flush=True)
+    failed = [n for n, (ok, _, _, log) in gates.items() if not ok]
+    check(not failed, f"phase 46: experts below their gates: "
+          + "; ".join(f"{n}: {out['experts'][n]} {gates[n][3][-3:]}"
+                      for n in failed))
+    return out
+
+
+def collect_phase(tmp):
+    """Phase 47: one canonical door-v0 episode through collect_expert;
+    returns its report and the npz path."""
+    from ppi_tpu_torch.build import LAUNCHES
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    from ppi_tpu_torch.runners import collect_expert
+    from ppi_tpu_torch.runners.run_mpc import ENVS
+    path = Path(tmp) / "door_expert.npz"
+    Path(tmp).mkdir(parents=True, exist_ok=True)
+    key = rk.launch_key(ENVS["door-v0"]())
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    returns = collect_expert.main(collect_expert.build_parser().parse_args(
+        COLLECT + ["--out", str(path)]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    data = np.load(path)
+    shapes_ = {k: list(data[k].shape) for k in data.files}
+    rep = {"return": returns[0], "launches": LAUNCHES[key], "wall_s": wall,
+           "shapes": shapes_, "door": float(data["observations"][-1, 8]),
+           "npz": str(path)}
+    check(sorted(data.files) == ["actions", "episode_length",
+                                 "observations", "rewards"]
+          and shapes_["actions"] == [250, 4] and shapes_["rewards"] == [250]
+          and shapes_["observations"][0] == 250
+          and int(data["episode_length"]) == 250
+          and np.isfinite(data["actions"]).all(),
+          f"phase 47: collect_expert npz {shapes_}")
+    check(rep["launches"] == 50 + 250 * 2 + 250,
+          f"phase 47: {rep['launches']} launches, expected 800")
+    print(f"collect_expert (phase 47): {json.dumps(rep)}", flush=True)
+    return rep
+
+
+def sac_phase(tmp, dev):
+    """Phase 48: train_sac_expert on humanoid-standup, SAC_CHUNKS chunks
+    then SAC_COLLECT steps of the trained policy, through its CLI."""
+    from ppi_tpu_torch.build import LAUNCHES
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    from ppi_tpu_torch.runners import train_sac_expert as sac_mod
+    from ppi_tpu_torch.runners.run_mpc import ENVS
+    env = ENVS["humanoid-standup"]()
+    Path(tmp).mkdir(parents=True, exist_ok=True)
+    out_npz = Path(tmp) / "standup_expert.npz"
+    start = sac_mod.SAC(env, device=dev).init(
+        torch.Generator(dev).manual_seed(0))
+    key = rk.launch_key(env)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    state, history, (obs, act, rew) = sac_mod.main(
+        sac_mod.build_parser().parse_args(
+            ["--env", "humanoid-standup", "--steps", str(64 * SAC_CHUNKS),
+             "--collect-steps", str(SAC_COLLECT), "--seed", "0", "--device",
+             "cuda", "--out", str(out_npz)]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    moved = max(float((a - b).abs().max()) for a, b in zip(
+        state.actor.state_dict().values(), start.actor.state_dict().values()))
+    lo, hi = env.action_low.numpy(), env.action_high.numpy()
+    data = np.load(out_npz)
+    rep = {"chunks": len(history), "critic_loss": [h[0] for h in history],
+           "mean_reward": [h[1] for h in history], "moved": moved,
+           "return": float(rew.sum()), "launches": LAUNCHES[key],
+           "wall_s": wall, "shapes": {k: list(data[k].shape)
+                                      for k in data.files}}
+    check(len(history) == SAC_CHUNKS
+          and all(np.isfinite(h).all() for h in history),
+          f"phase 48: SAC losses {history}")
+    check(moved > 0.0, "phase 48: the actor's parameters did not move")
+    check(bool(((act >= lo - 1e-5) & (act <= hi + 1e-5)).all())
+          and np.isfinite(obs).all(), "phase 48: actions out of the box")
+    check(rep["launches"] == 64 * SAC_CHUNKS + SAC_COLLECT,
+          f"phase 48: {rep['launches']} launches, expected "
+          f"{64 * SAC_CHUNKS + SAC_COLLECT}")
+    check(rep["shapes"]["actions"] == [SAC_COLLECT, env.action_dim],
+          f"phase 48: npz {rep['shapes']}")
+    print(f"train_sac_expert (phase 48): {json.dumps(rep)}", flush=True)
+    return rep
 
 
 def main():
@@ -3453,6 +3845,13 @@ def run(pool):
     bic_builds = {lay: pool.submit(build_timed, bk.SOURCES[lay][0],
                                    {bk.SOURCES[lay][1]: h})
                   for lay, h in bic_headers.items()}
+    # phase 46's five palm-IK bodies (each generated in ~0.1 s)
+    from ppi_tpu_torch.envs.physics import ik_kernel
+    ik_builds = {
+        name: pool.submit(build_timed, ik_kernel.SOURCE, {
+            ik_kernel.HEADER: ik_kernel.env_header(
+                ENVS[name](), cfg["n_var"], cfg["level"] is not None)})
+        for name, cfg in IK_BODIES.items()}
     # phase 9's bodies build beside phases 1 and 5, and phase 13's, 17's
     # and 21's: all twenty-two builds at once
     rest = {name: env_header(ENVS[name]())
@@ -4046,8 +4445,9 @@ def run(pool):
         print(f"check {name}: N={N_CHECK} H={cfg['h_check']} errors "
               f"{json.dumps(adroit_errs[name])} (tol {SCENE_TOL}); max abs "
               f"err {adroit_max_abs[name]:.3g}; contact moved the object in "
-              f"{moved} lanes; NaN lane isolated; mask and second board or "
-              f"goal applied (H={cfg['h_frame']}); real step matches",
+              f"{moved} lanes; NaN lane isolated; mask (H={cfg['h_frame']})"
+              f" and second board or goal (H={cfg['h_second']}) applied; "
+              "real step matches",
               flush=True)
     out.update(adroit_check=adroit_errs, adroit_max_abs_err=adroit_max_abs)
 
@@ -4339,14 +4739,24 @@ def run(pool):
         # ---- 43. resume phase 4's episode from a checkpoint ---------------
         mark_phase("43")
         resume_out = resume_phase(track, final4["state"], Path(tmp) / "ckpt")
+        # ---- 47. collect_expert (before 44, which reads its npz) ---------
+        mark_phase("47")
+        collect_out = collect_phase(Path(tmp) / "expert")
         # ---- 44. prior fitting ---------------------------------------------
         mark_phase("44")
-        prior_out = prior_phase(resume_out["data_npz"], Path(tmp) / "prior")
+        prior_out = prior_phase(collect_out["npz"], Path(tmp) / "prior")
         # ---- 45. the evaluation runners -----------------------------------
         mark_phase("45")
         runners_out = runner_phase(Path(tmp) / "runners")
+        # ---- 46. the scripted experts on the palm-IK kernel --------------
+        mark_phase("46")
+        expert_out = expert_phase(dev, ik_builds)
+        # ---- 48. SAC on humanoid-standup ------------------------------------
+        mark_phase("48")
+        sac_out = sac_phase(Path(tmp) / "sac", dev)
     out.update(resume=resume_out, prior_fit=prior_out,
-               evaluation_runners=runners_out)
+               evaluation_runners=runners_out, experts=expert_out,
+               collect_expert=collect_out, sac_expert=sac_out)
 
     mark_phase("end")
     out.update(split_builds=split_info, split_check=split_check,
@@ -4354,7 +4764,7 @@ def run(pool):
                split_other_episodes=other_runs, phase_s=phase_s,
                total_s=time.perf_counter() - t_start)
     print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
-    for name in ("43", "44", "45"):
+    for name in ("43", "44", "45", "46", "47", "48"):
         print(f"phase {name} wall: {phase_s[name]:.1f} s", flush=True)
     print(f"total: {out['total_s']:.0f} s, the kernels' builds included",
           flush=True)
@@ -4595,6 +5005,35 @@ def run(pool):
                                              "spill_loads_bytes")},
          **shapes((BIC_N_TIME, bic_time["steps"]),
                   (BIC_N_CHECK, sum(BIC_PHASES)), bic_check["kernel_ms"])})
+    # the palm-IK kernel's five bodies: the launches of their experts'
+    # main-path runs, the time at the expert's first call's count
+    ik_replaces = {
+        "door-v0-hand": "ppi_tpu/envs/door_hand.py:344-361",
+        "door-v0-adroit": "ppi_tpu/envs/door_adroit.py:351-371",
+        "hammer-v0-hand": "ppi_tpu/envs/hammer_hand.py:367-386",
+        "hammer-v0-adroit": "ppi_tpu/envs/hammer_adroit.py:390-409",
+        "relocate-v0-adroit": "ppi_tpu/envs/relocate_adroit.py:360-379"}
+    for name, cfg in IK_BODIES.items():
+        t = expert_out["ik"][name]
+        iters = cfg["iters"][0]
+        kernels.append(
+            {"name": f"ik_palm_{name.replace('-v0-', '_')}", "route": "cuda",
+             "source": "ppi_tpu_torch/csrc/ik_palm.cu",
+             "replaces": f"{ik_replaces[name]}: the palm IK's jax.grad "
+                         "loop; no Pallas kernel",
+             "launches": sum(e["ik_launches"]
+                             for k, e in expert_out["experts"].items()
+                             if k.split(" ")[0] == name),
+             "max_abs_err": t["max_abs_err"],
+             "ms": t[f"kernel_ms_iters{iters}"], "iters": iters,
+             "plain_ms": t[f"plain_ms_iters{IK_PLAIN_ITERS}"],
+             "plain_iters": IK_PLAIN_ITERS,
+             "kernel_ms_at_plain_iters": t[f"kernel_ms_iters{IK_PLAIN_ITERS}"],
+             "bound_ms": t[f"bound_ms_iters{iters}"],
+             "bound_by": "operations",
+             "chain_bound_ms": t[f"chain_ms_iters{iters}"],
+             "library_ms": None,
+             **regs_spills(expert_out["builds"][name]["ptxas"])})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

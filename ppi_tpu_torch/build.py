@@ -29,16 +29,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_CC_FLAGS = ("-x", "c", "-std=c99", "-O2", "-ffp-contract=off",
                  "-shared", "-fPIC")
-# per-source nvcc flags. The rollout and ball-in-a-cup kernels round every
-# operation of the scalar program once, as their plain versions' eager torch
-# ops do: no FMA contraction. pen-v0's dynamics grow a 1e-7 difference in
+# per-source nvcc flags. The rollout, ball-in-a-cup and palm-IK kernels
+# round every operation of the scalar program once, as their plain
+# versions' eager torch ops do: no FMA contraction. pen-v0's dynamics grow a 1e-7 difference in
 # the state to 1e-2 within 20 control steps, so contraction alone moved the
 # kernel that far from its plain version.
 SOURCE_NVCC_FLAGS = {"rollout.cu": ("-fmad=false",),
                      "rollout_warp.cu": ("-fmad=false",),
                      "rollout_split.cu": ("-fmad=false",),
                      "bic_rollout.cu": ("-fmad=false",),
-                     "bic_rollout_warp.cu": ("-fmad=false",)}
+                     "bic_rollout_warp.cu": ("-fmad=false",),
+                     "ik_palm.cu": ("-fmad=false",)}
 
 # kernel name -> launches in this process
 LAUNCHES = collections.Counter()

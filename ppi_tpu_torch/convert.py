@@ -1,8 +1,16 @@
-"""Carry models, env states and policy states across from the JAX package.
+"""Carry models, env states, policy states and SAC networks across from
+the JAX package.
 
 All take plain numpy arrays (``np.asarray`` of each JAX field), so this
 module needs no JAX. The comparison tests run the two packages from the
 same numbers through these.
+
+The JAX scripted experts start from ``env.reset(jax.random.key(0))``,
+whose draws torch's generators do not give; ``KEY0_DOOR_FRAME`` (door-v0-
+hand's and door-v0-adroit's sampled door frame) and ``KEY0_HAMMER_BOARD``
+(hammer-v0-hand's and hammer-v0-adroit's sampled board, the raised-board
+regime, dz = 0.142) are those draws, exactly, for ``reset(frame=...)`` and
+``reset(board=...)``.
 """
 
 import numpy as np
@@ -16,6 +24,12 @@ from ppi_tpu_torch.policies.features import FeatureState
 from ppi_tpu_torch.policies.gaussian import GaussianState
 from ppi_tpu_torch.policies.kernels import KernelState
 from ppi_tpu_torch.policies.noise import NoiseState
+
+KEY0_DOOR_FRAME = (float.fromhex("0x1.16ebaap-1"),
+                   float.fromhex("0x1.6434e4p-2"),
+                   float.fromhex("0x1.f31eb8p-1"))
+KEY0_HAMMER_BOARD = (float.fromhex("0x1.a3d70ap-1"), 0.0,
+                     float.fromhex("0x1.7bfb18p-1"))
 
 _INT_FIELDS = {"sphere_body", "pair_sphere_plane", "pair_sphere_sphere",
                "pair_sphere_segment"}
@@ -106,3 +120,30 @@ def bic_state_from_numpy(fields: dict, device) -> BicState:
     rest = {k: torch.tensor(np.asarray(v, np.float32), device=device)
             for k, v in fields.items()}
     return BicState(arm=arm, violated=violated, t=t, **rest)
+
+
+def _dense_layers(tree):
+    """The (kernel, bias) pairs of a flax MLP's ``Dense_0..k`` (under
+    ``params`` and, for an Actor, ``MLP_0``), in order."""
+    tree = tree.get("params", tree)
+    tree = tree.get("MLP_0", tree)
+    names = sorted((k for k in tree if k.startswith("Dense_")),
+                   key=lambda k: int(k.split("_")[1]))
+    return [(np.asarray(tree[k]["kernel"], np.float32),
+             np.asarray(tree[k]["bias"], np.float32)) for k in names]
+
+
+def sac_params_from_flax(params: dict) -> dict:
+    """State dicts of ``runners.train_sac_expert``'s modules from the flax
+    parameter trees of a JAX ``SacState`` (numpy leaves): ``params`` maps
+    ``actor``, ``critic`` and ``critic_target`` to their trees; each flax
+    ``Dense`` kernel (in, out) becomes a weight (out, in)."""
+    out = {}
+    for name, tree in params.items():
+        prefix = "mlp." if name == "actor" else ""
+        sd = {}
+        for k, (kernel, bias) in enumerate(_dense_layers(tree)):
+            sd[f"{prefix}weights.{k}"] = torch.from_numpy(kernel.T.copy())
+            sd[f"{prefix}biases.{k}"] = torch.from_numpy(bias.copy())
+        out[name] = sd
+    return out

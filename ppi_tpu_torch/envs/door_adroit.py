@@ -12,15 +12,19 @@ The JAX env's default engine is ``engine="stacked"``, XLA's assembly of
 the same dynamics, kept there for compile time. The port runs the scalar
 program only: eagerly on the CPU and, on the card, as the rollout kernel's
 generated body (the kernel's semantics on the TPU too).
+
+The scripted expert (``scripted_open``) is door-v0-hand's strategy on this
+hand (``door_hand.open_door``), its palm IK (``door_hand._ik`` over the 21
+actuated joints) one palm-IK kernel launch on the card.
 """
 
 import dataclasses
 
 import numpy as np
 
-from ppi_tpu_torch.envs.door_hand import (
-    DoorHand, DoorHandState, add_arm, add_door, add_door_geoms,
-    finish_contacts)
+from ppi_tpu_torch.envs.door_hand import (  # noqa: F401  (_ik: the expert's)
+    DoorHand, DoorHandState, _ik, add_arm, add_door, add_door_geoms,
+    finish_contacts, open_door)
 from ppi_tpu_torch.envs.hand import add_digit3
 from ppi_tpu_torch.envs.physics.engine import HINGE, ModelBuilder
 
@@ -121,3 +125,26 @@ class DoorAdroit(DoorHand):
         digit_d = [self.kd_abd, self.kd_hand, self.kd_hand] * 5
         return ([self.kp] * 4 + [self.kp_wrist] * 2 + digit,
                 [self.kd] * 4 + [self.kd_wrist] * 2 + digit_d)
+
+
+# ---------------------------------------------------------------------------
+# scripted expert (feasibility oracle + render demo)
+# ---------------------------------------------------------------------------
+
+# digit postures: (ABD, MCP, PIP) x 4 fingers + thumb
+_CURL_CLEAR = (0.0, 1.4, 1.6) * 4 + (0.0, -1.2, -1.4)
+
+
+def scripted_open(env, state0=None, log=None, frames=None, device="cuda"):
+    """Hand-scripted door opening on the Adroit-class hand: servo to a
+    pre-press posture above the handle bar (the digits curled clear),
+    press the latch past the unlock angle with the palm heel, withdraw
+    (the seal spring pops the bolt-free door ajar), then sweep the panel
+    open in at most 14 passes (~0.04-0.05 rad each through the reach
+    annulus). ``door_hand.scripted_open``'s strategy and arguments;
+    returns (final state, info)."""
+    state, door = open_door(
+        env, state0, log, frames, curl=_CURL_CLEAR,
+        neutral=(0.0, 0.3, -0.6, 0.3, 0.0, 0.0) + _CURL_CLEAR, sweeps=14,
+        device=device)
+    return state, {"door": door, "success": bool(env.success(state))}

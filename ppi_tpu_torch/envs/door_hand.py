@@ -13,17 +13,25 @@ and the per-episode door-frame sampling are the JAX env's.
 lanes, H=1; ``rollout_kernel.kernel_step``), the build that the MPC
 objective uses: the eager program is ~52k elementwise launches a step at
 12 DoF. On a CPU state ``step`` is ``plain_step``, the eager scalar
-program (torque, 4 substeps, the bolt clamp, the reward). The scripted
-expert of the JAX module (``scripted_open``) is not ported.
+program (torque, 4 substeps, the bolt clamp, the reward).
+
+The scripted expert (``scripted_open``) is the JAX module's: press the
+latch, let the door pop ajar, sweep it open with the palm. Its palm IK
+(``_ik``) runs on a CUDA state as one launch of the palm-IK kernel
+(``envs/physics/ik_kernel.py``), on a CPU state as the plain version
+(``torch.autograd`` through ``_sites_soa``); each control step is one
+rollout-kernel launch on the card.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from ppi_tpu_torch.envs.base import as_f32
-from ppi_tpu_torch.envs.hand import add_digit
+from ppi_tpu_torch.envs.hand import add_digit, expert_start, hold_target
+from ppi_tpu_torch.envs.physics import ik_kernel
 from ppi_tpu_torch.envs.physics import scalar_math as sm
 from ppi_tpu_torch.envs.physics.engine import HINGE, ModelBuilder, PhysicsState
 from ppi_tpu_torch.envs.physics.engine_soa import (
@@ -293,3 +301,137 @@ class DoorHand:
 
     def success(self, state: DoorHandState):
         return state.physics.qpos[..., self.scalar_dyn_body] > 1.35
+
+
+# ---------------------------------------------------------------------------
+# scripted expert (feasibility oracle + render demo)
+# ---------------------------------------------------------------------------
+
+def _ik(env, state, target_pt, q_init, iters=300, lr=0.03):
+    """Gradient IK for the palm over the actuated joints; the passive door
+    and latch are frozen at the state's, the FK runs through the
+    episode's frame. One palm-IK kernel launch on a CUDA state
+    (``ik_kernel.palm_ik``), the plain version on a CPU state."""
+    n = env.action_dim
+    return ik_kernel.palm_ik(
+        env, q_init, state.physics.qpos[n:], target_pt,
+        env.action_low.to(q_init.device), env.action_high.to(q_init.device),
+        iters, lr, dyn=state.frame)
+
+
+def open_door(env, state0, log, frames, curl, neutral, sweeps, device):
+    """The scripted door opening of ``door_hand`` and ``door_adroit``:
+    servo to a pre-press posture above the handle bar (the digits set to
+    ``curl``, the actuated tail), press the latch past the unlock angle,
+    withdraw (the seal spring pops the bolt-free door ajar), withdraw to
+    ``neutral``, then at most ``sweeps`` palm inserts behind the panel.
+    Returns (final state, the door angle)."""
+    n = env.action_dim
+    door, latch = env.scalar_dyn_body, env._latch
+    lo = env.action_low.to(device)
+    hi = env.action_high.to(device)
+    state = expert_start(env, state0, device)
+
+    def run(s, tgt, steps):
+        return hold_target(env, s, tgt, steps, frames)
+
+    def servo(s, tgt, rounds=4, steps=50):
+        cmd = tgt
+        for _ in range(rounds):
+            s = run(s, torch.clamp(cmd, lo, hi), steps)
+            cmd = cmd + (tgt - s.physics.qpos[:n])
+        return s, cmd
+
+    def note(msg):
+        if log:
+            log(msg)
+
+    def angle(s, k):
+        return float(s.physics.qpos[k])
+
+    # 1) pre-press: the palm above the handle bar, the digits curled clear
+    # (the scene through the episode's frame)
+    pts = env._sites_soa(state.physics.qpos, state.frame)
+    handle = 0.5 * (pts[env._handle_geoms[0]] + pts[env._handle_geoms[1]])
+    pre_pt = handle + handle.new_tensor([0.0, 0.0, 0.075])
+    q = _ik(env, state, pre_pt, state.physics.qpos[:n], iters=1500)
+    q = torch.cat([q[:n - len(curl)], q.new_tensor(curl)])
+    state, cmd = servo(state, q)
+    note(f"pre-press: latch={angle(state, latch):.3f}")
+
+    # 2) press the latch past the unlock angle (fine-grained, so that the
+    # press and pop events are not missed between command updates)
+    press = cmd
+    min_latch = 0.0
+    for k in range(40):
+        if (angle(state, latch) < env.latch_unlock_angle - 0.02
+                or angle(state, door) > 0.12):
+            break
+        if k % 4 == 0:
+            press = press.clone()
+            press[1] += 0.2
+        state = run(state, torch.clamp(press, lo, hi), 15)
+        min_latch = min(min_latch, angle(state, latch))
+    note(f"pressed: min latch={min_latch:.3f}")
+
+    # 3) hold the press while the seal spring drives the door past the
+    # bolt depth, then withdraw
+    for _ in range(20):
+        if angle(state, door) > 0.15:
+            break
+        state = run(state, torch.clamp(press, lo, hi), 15)
+    back = press.clone()
+    back[1] += -0.8
+    state = run(state, torch.clamp(back, lo, hi), 200)
+    note(f"ajar: door={angle(state, door):.3f}")
+
+    # 4) withdraw to the neutral posture, then sweep with palm inserts
+    # behind the panel; the push radius shrinks as the door swings, so
+    # that every target stays inside the arm's reach (0.76 m from the
+    # base)
+    hinge = state.frame[:2].cpu().numpy()
+    neutral = state.physics.qpos.new_tensor(neutral)
+    state, _ = servo(state, neutral, rounds=2, steps=60)
+    note(f"withdrawn: door={angle(state, door):.3f}")
+    for _ in range(sweeps):
+        a = angle(state, door)
+        if a > 1.45:
+            break
+        r = 0.30
+        while r > 0.16:
+            pt = hinge + r * np.array([np.sin(a), -np.cos(a)])
+            if np.linalg.norm(pt) <= 0.76:
+                break
+            r -= 0.02
+        pt = state.frame[:2] + r * state.frame.new_tensor(
+            [math.sin(a), -math.cos(a)])
+        tan = state.frame.new_tensor([math.cos(a), math.sin(a)])
+        behind = torch.stack([pt[0] - 0.07 * tan[0], pt[1] - 0.07 * tan[1],
+                              state.frame[2]])
+        q = _ik(env, state, behind, neutral, iters=800)
+        state, _ = servo(state, q, rounds=3, steps=40)
+        note(f"sweep: r={r:.2f} door={angle(state, door):.3f}")
+    note(f"final: door={angle(state, door):.3f}")
+    return state, angle(state, door)
+
+
+def scripted_open(env, state0=None, log=None, frames=None, device="cuda"):
+    """Hand-scripted door opening: servo to a pre-press posture above the
+    handle bar, press the latch past the unlock angle, withdraw (the seal
+    spring pops the bolt-free door ajar), then sweep the panel open with
+    the palm. Returns (final state, info).
+
+    The feasibility oracle of the JAX env tests (press, unlock, pop and
+    sweep are all achievable within the actuation limits).
+    ``frames=[]`` collects the qpos trajectory; ``log`` takes a line a
+    stage; ``state0`` None starts from ``hand.expert_start``'s reset on
+    ``device``."""
+    state, door = open_door(
+        env, state0, log, frames, curl=(1.4, 1.6, 1.4, 1.6, -1.2, -1.4),
+        neutral=(0.0, 0.3, -0.6, 0.3, 1.4, 1.6, 1.4, 1.6, -1.2, -1.4),
+        sweeps=6, device=device)
+    return state, {
+        "door": door,
+        "latch_min_reached": True,
+        "success": bool(env.success(state)),
+    }

@@ -14,18 +14,24 @@ The JAX env's default engine is ``engine="stacked"``, XLA's assembly of
 the same dynamics. The port runs the scalar program only: eagerly on the
 CPU and, on the card, as the rollout kernel's generated body, with the
 sampled board as the nail body's offset. ``step`` on a CUDA state is one
-launch of that kernel. The scripted experts of the JAX module are not
-ported.
+launch of that kernel.
+
+The scripted expert (``scripted_hammer_adroit``) is the JAX module's: a
+five-digit power wrap, a head-corrected two-stage carry and press-drive
+cycles; its palm IK (``hammer_hand._ik_palm`` over the 4 arm joints) is
+one palm-IK kernel launch on the card, its ``actions=`` log
+expert-demonstration data.
 """
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from ppi_tpu_torch.envs.hammer_hand import (
     BENCH_Z, BOARD_POS, GRIP_START, HEAD_LOCAL, NAIL_DEPTH, HammerHand,
-    HammerHandState)
-from ppi_tpu_torch.envs.hand import add_digit3
+    HammerHandState, _add, _ik_palm)
+from ppi_tpu_torch.envs.hand import add_digit3, expert_start, hold_target
 from ppi_tpu_torch.envs.physics.engine import HINGE, SLIDE, ModelBuilder
 
 # dof order: arm, wrist, 5 x (ABD, MCP, PIP), the hammer's planar base
@@ -198,3 +204,185 @@ class HammerAdroit(HammerHand):
                    + [self.kd_abd, self.kd_thumb, self.kd_thumb])
         return ([self.kp] * 4 + [self.kp_wrist] * 2 + digit,
                 [self.kd] * 4 + [self.kd_wrist] * 2 + digit_d)
+
+
+# ---------------------------------------------------------------------------
+# scripted expert (feasibility oracle + render demo + demonstrations)
+# ---------------------------------------------------------------------------
+
+def _grip(cmd, mcp, pip=None):
+    """A copy of ``cmd`` with all five digits set to a transverse
+    power-wrap command: the MCP takes the first link down and across, the
+    deeper PIP hooks the second under the handle and back up; the thumb
+    opposes with the mirrored signs."""
+    pip = mcp if pip is None else pip
+    cmd = cmd.clone()
+    for i in range(4):
+        base = FF_ABD + 3 * i
+        cmd[base + 1], cmd[base + 2] = -mcp, -pip
+    cmd[TH_MCP], cmd[TH_PIP] = mcp, pip
+    return cmd
+
+
+def scripted_hammer_adroit(env, state0=None, log=None, max_swings=22,
+                           frames=None, actions=None, device="cuda"):
+    """Five-digit power-grip tool use: descend the palm onto the resting
+    hammer handle, wrap the four fingers under the handle with the thumb
+    opposing, lift, carry to the board (the IK target corrected by the
+    measured palm-to-head offset, since the handle slides axially in the
+    wrap), align the head over the nail, and drive it with press cycles
+    (the nail's resistance is a dry-friction bound, so a sustained press
+    drives it). Returns (final state, info).
+
+    The feasibility oracle of the JAX env tests. ``actions`` (a list)
+    collects the clipped PD target of each segment, repeated a step;
+    ``frames`` the qpos trajectory; ``log`` a line a stage."""
+    lo = env.action_low.to(device)
+    hi = env.action_high.to(device)
+    state = expert_start(env, state0, device)
+    n_act = env.action_dim
+
+    def clip(x):
+        return torch.clamp(x, lo, hi)
+
+    def run(s, tgt, n):
+        tgt = clip(tgt)
+        s = hold_target(env, s, tgt, n, frames)
+        if actions is not None:
+            actions.append(np.repeat(tgt.cpu().numpy()[None], n, axis=0))
+        return s
+
+    def servo(s, tgt, rounds=2, n=30):
+        cmd = tgt
+        for _ in range(rounds):
+            s = run(s, cmd, n)
+            cmd = cmd + (tgt - s.physics.qpos[:n_act])
+        return s, cmd
+
+    def note(msg):
+        if log:
+            log(msg)
+
+    def qpos(s, k):
+        return float(s.physics.qpos[k])
+
+    def vec(*xs):
+        return state.board.new_tensor(xs)
+
+    def fmt(x):
+        return np.round(x.cpu().numpy(), 3)
+
+    # settle, then descend the palm to hover just above the handle top
+    hold = state.physics.qpos[:n_act].clone()
+    state = run(state, hold, 50)
+    state, cmd = servo(state, _add(hold, {1: 0.30}))
+    note(f"descended: ham_z={qpos(state, HAM_Z):.3f} "
+         f"palm={fmt(env._sites(state.physics.qpos, state.board)[0])}")
+
+    # power wrap: pre-shape half-curl, descend a little more, full wrap
+    state = run(state, _grip(cmd, 0.5, 0.9), 40)
+    closed = _add(_grip(cmd, 0.9, 1.9), {1: 0.08})
+    state = run(state, closed, 60)
+    note(f"caged: ff=({qpos(state, FF_MCP):.2f},{qpos(state, FF_PIP):.2f}) "
+         f"th=({qpos(state, TH_MCP):.2f},{qpos(state, TH_PIP):.2f})")
+
+    # gradual lift holding the wrap
+    base = clip(closed)
+    for dlt in np.linspace(0.0, -0.5, 12):
+        state = run(state, _add(base, {1: float(dlt)}), 10)
+    lift = _add(base, {1: -0.5})
+    state = run(state, lift, 30)
+    note(f"lifted: ham_z={qpos(state, HAM_Z):.3f}")
+
+    def palm_target_for_head(s, head_target):
+        """Where the palm must go for the head to reach ``head_target``,
+        from the measured in-grip palm-to-head offset, clamped into the
+        arm's workspace (after a drop the stale offset would send the
+        digits through the bench)."""
+        palm, _, head, _ = env._sites(s.physics.qpos, s.board)
+        tgt = head_target - (head - palm)
+        return torch.clamp(tgt, vec(0.30, -0.20, BENCH_Z + 0.08),
+                           vec(0.85, 0.20, BENCH_Z + 0.55))
+
+    # two-stage carry: a high waypoint above the nail, then the descent to
+    # the strike hover
+    high = _ik_palm(env, state,
+                    palm_target_for_head(state, state.board
+                                         + vec(0.0, 0.0, 0.32)), clip(lift))
+    start = clip(lift)
+    for alpha in np.linspace(0.0, 1.0, 18):
+        state = run(state, start + float(alpha) * (high - start), 6)
+    carry = _ik_palm(env, state,
+                     palm_target_for_head(state, state.board
+                                          + vec(0.0, 0.0, 0.20)), clip(high))
+    for alpha in np.linspace(0.0, 1.0, 12):
+        state = run(state, high + float(alpha) * (carry - high), 6)
+    carry_cmd = carry
+    state = run(state, carry_cmd, 30)
+    note(f"carried: nail={qpos(state, NAIL):.4f} "
+         f"ham_z={qpos(state, HAM_Z):.3f}")
+
+    # press-drive cycles (wide arcs shed the wrap, which has no aft stop):
+    # hover the head over the nail, press down to an overlapping target
+    # (the arm's PD turns the position error into force), relieve, re-aim
+    r_overlap = 0.045 + 0.018  # head + nail sphere contact distance
+
+    def glide(s, frm, to, segs=10, n=5):
+        """Interpolate the command: a step retarget jerks the arm and
+        sheds the caged hammer."""
+        for alpha in np.linspace(1.0 / segs, 1.0, segs):
+            s = run(s, frm + float(alpha) * (to - frm), n)
+        return s
+
+    # the lateral alignment before any press: servo the head over the nail
+    # at a safe hover height, an integral aim on the measured head error
+    aim = torch.zeros(2, device=device)
+    nail_top = 0.060
+    prev = clip(carry_cmd)
+    last_err = None
+    for k in range(4):
+        hover_tgt = torch.cat([aim, vec(nail_top + r_overlap + 0.02)])
+        carry_cmd = _ik_palm(env, state,
+                             palm_target_for_head(state,
+                                                  state.board + hover_tgt),
+                             prev, level_weight=0.005)
+        state = glide(state, prev, clip(carry_cmd))
+        prev = clip(carry_cmd)
+        _, _, head_m, nail_m = env._sites(state.physics.qpos, state.board)
+        err = (nail_m + vec(0.0, 0.0, r_overlap + 0.02) - head_m)[:2]
+        note(f"align {k}: err={fmt(err)} ham_z={qpos(state, HAM_Z):.3f}")
+        if last_err is not None and \
+                float(torch.linalg.norm(err)) > 0.8 * last_err:
+            # reach saturation: more wind-up drags the arm across its
+            # envelope and sheds the hammer
+            break
+        last_err = float(torch.linalg.norm(err))
+        aim = torch.clamp(aim + 0.7 * err, -0.3, 0.3)
+
+    for k in range(max_swings):
+        depth = qpos(state, NAIL)
+        nail_top = 0.060 - depth
+        press_tgt = torch.cat([aim, vec(nail_top + r_overlap - 0.015)])
+        press = clip(_ik_palm(env, state,
+                              palm_target_for_head(state,
+                                                   state.board + press_tgt),
+                              prev, level_weight=0.005))
+        state = glide(state, prev, press, segs=8, n=4)
+        state = run(state, press, 25)
+        _, _, head_m, nail_m = env._sites(state.physics.qpos, state.board)
+        aim = torch.clamp(aim + 0.5 * (nail_m - head_m)[:2], -0.3, 0.3)
+        relief = _add(press, {2: -0.06})
+        state = glide(state, press, relief, segs=4, n=4)
+        prev = relief
+        depth = qpos(state, NAIL)
+        _, _, head, nail = env._sites(state.physics.qpos, state.board)
+        note(f"press {k}: nail={depth:.4f} ham_z={qpos(state, HAM_Z):.3f} "
+             f"head={fmt(head)} tgt={fmt(nail)}")
+        if depth > 0.95 * NAIL_DEPTH:
+            break
+    return state, {
+        "nail": qpos(state, NAIL),
+        "success": bool(env.success(state)),
+        "ham_z_final": qpos(state, HAM_Z),
+        "hammer_x": qpos(state, HAM_X),
+    }

@@ -15,7 +15,14 @@ The friction-held grasp makes this the most rounding-sensitive task of the
 zoo: the port runs the scalar program only, the JAX env's certified path.
 ``step`` on a CUDA state is one launch of the env's rollout kernel
 (``rollout_kernel.kernel_step``); on a CPU state it is the eager scalar
-program. The scripted expert of the JAX module is not ported.
+program.
+
+The scripted expert (``scripted_hammer``) is the JAX module's: cage the
+handle, lift, carry, and drive the nail with arc swings; its ``actions=``
+log is expert-demonstration data. Its palm IK (``_ik_palm``) runs on a
+CUDA state as one launch of the palm-IK kernel
+(``envs/physics/ik_kernel.py``), on a CPU state as the plain version; each
+control step is one rollout-kernel launch on the card.
 """
 
 import dataclasses
@@ -25,6 +32,8 @@ import torch
 
 from ppi_tpu_torch.envs.base import as_f32
 from ppi_tpu_torch.envs.hammer import sample_board_z
+from ppi_tpu_torch.envs.hand import expert_start, hold_target
+from ppi_tpu_torch.envs.physics import ik_kernel
 from ppi_tpu_torch.envs.physics import rollout_kernel as rk
 from ppi_tpu_torch.envs.physics import scalar_math as sm
 from ppi_tpu_torch.envs.physics.engine import (
@@ -294,3 +303,142 @@ class HammerHand:
     def lifted(self, state: HammerHandState):
         """The hammer held off the bench (the proof of the grasp)."""
         return state.physics.qpos[..., self._ham_z] > 0.03
+
+
+# ---------------------------------------------------------------------------
+# scripted expert (feasibility oracle + render demo + demonstrations)
+# ---------------------------------------------------------------------------
+
+def _ik_palm(env, state, target_pt, q_init, iters=500, lr=0.02,
+             level_weight=0.05):
+    """Gradient IK for the palm over the 4 arm joints, the rest of
+    ``q_init`` held, with a wrist-tilt penalty that keeps the cradle level
+    (FK through the episode's board). One palm-IK kernel launch on a CUDA
+    state, the plain version on a CPU state. Returns the command
+    (``q_init``'s length)."""
+    n = env.action_dim
+    dev = q_init.device
+    qa = ik_kernel.palm_ik(
+        env, q_init[:4], torch.cat([q_init[4:], state.physics.qpos[n:]]),
+        target_pt, env.action_low.to(dev)[:4], env.action_high.to(dev)[:4],
+        iters, lr, level_weight=level_weight, dyn=state.board)
+    return torch.cat([qa, q_init[4:]])
+
+
+def _add(cmd, adds):
+    """A copy of ``cmd`` with ``adds`` ({index: value}) added to its
+    entries (JAX's ``cmd.at[j].add(value)``)."""
+    cmd = cmd.clone()
+    for j, value in adds.items():
+        cmd[j] += value
+    return cmd
+
+
+def scripted_hammer(env, state0=None, log=None, max_swings=22, frames=None,
+                    actions=None, device="cuda"):
+    """Hand-scripted tool use: descend onto the resting free hammer, cage
+    the handle (the aft finger first, then the fore finger wedges it
+    against the backstop), lift gradually, carry toward the nail in two
+    stages, and drive the nail with arc swings until seated (on a stall
+    the hover is re-solved lower by the driven depth). Returns (final
+    state, info).
+
+    The feasibility oracle of the JAX env tests. ``actions`` (a list)
+    collects the clipped PD target held for each segment, repeated a
+    step: the expert-demonstration record of the model-selection
+    pipeline; ``frames`` the qpos trajectory; ``log`` a line a stage."""
+    lo = env.action_low.to(device)
+    hi = env.action_high.to(device)
+    state = expert_start(env, state0, device)
+
+    def clip(x):
+        return torch.clamp(x, lo, hi)
+
+    def run(s, tgt, n):
+        s = hold_target(env, s, tgt, n, frames)
+        if actions is not None:
+            actions.append(np.repeat(clip(tgt).cpu().numpy()[None], n,
+                                     axis=0))
+        return s
+
+    def servo(s, tgt, rounds=2, n=30):
+        cmd = tgt
+        for _ in range(rounds):
+            s = run(s, clip(cmd), n)
+            cmd = cmd + (tgt - s.physics.qpos[:env.action_dim])
+        return s, cmd
+
+    def note(msg):
+        if log:
+            log(msg)
+
+    def qpos(s, k):
+        return float(s.physics.qpos[k])
+
+    board = state.board
+
+    def above_board(dx, dz):
+        return board + board.new_tensor([dx, 0.0, dz])
+
+    # settle, then descend the palm onto the handle top
+    hold = state.physics.qpos[:env.action_dim].clone()
+    state = run(state, hold, 50)
+    state, cmd = servo(state, _add(hold, {1: 0.30}))
+    note(f"descended: ham_z={qpos(state, HAM_Z):.3f}")
+
+    # cage: the aft backstop first, then the fore finger
+    close_a = _add(cmd, {1: 0.10})
+    close_a[5] = -0.25
+    state = run(state, clip(close_a), 30)
+    close = close_a.clone()
+    close[4] = 0.25
+    state = run(state, clip(close), 50)
+    note(f"caged: fingers=({qpos(state, FING_F):.2f},"
+         f"{qpos(state, FING_A):.2f})")
+
+    # gradual lift
+    base = clip(close)
+    for dlt in np.linspace(0.0, -0.5, 12):
+        state = run(state, _add(base, {1: float(dlt)}), 10)
+    lift = _add(base, {1: -0.5})
+    state = run(state, lift, 30)
+    note(f"lifted: ham_z={qpos(state, HAM_Z):.3f}")
+
+    # carry in two stages: a high waypoint well above the nail top, then a
+    # vertical descent to the strike hover (a single interpolation drags
+    # the head through a raised nail); the hover is the tuned offset from
+    # the board
+    high = _ik_palm(env, state, above_board(-0.18, 0.32), clip(lift))
+    start = clip(lift)
+    for alpha in np.linspace(0.0, 1.0, 18):
+        state = run(state, clip(start + float(alpha) * (high - start)), 6)
+    carry = _ik_palm(env, state, above_board(-0.18, 0.20), clip(high))
+    for alpha in np.linspace(0.0, 1.0, 12):
+        state = run(state, clip(high + float(alpha) * (carry - high)), 6)
+    carry_cmd = carry
+    state = run(state, clip(carry_cmd), 30)
+    note(f"carried: nail={qpos(state, NAIL):.4f} "
+         f"ham_z={qpos(state, HAM_Z):.3f}")
+
+    # arc swings until the nail seats; on a stall the hover is re-solved
+    # lower by the driven depth, so that the arc keeps reaching the head
+    # of a driven nail
+    last_depth = -1.0
+    for k in range(max_swings):
+        state = run(state, clip(_add(carry_cmd, {1: -0.18, 2: 0.12})), 22)
+        state = run(state, clip(_add(carry_cmd, {1: 0.40, 2: -0.25})), 16)
+        state = run(state, clip(carry_cmd), 20)
+        depth = qpos(state, NAIL)
+        note(f"swing {k}: nail={depth:.4f}")
+        if depth > 0.95 * NAIL_DEPTH:
+            break
+        if depth <= last_depth + 1e-4:
+            carry_cmd = _ik_palm(env, state, above_board(-0.18, 0.20 - depth),
+                                 clip(carry_cmd))
+            note(f"swing {k}: re-hover (depth {depth:.4f})")
+        last_depth = depth
+    return state, {
+        "nail": qpos(state, NAIL),
+        "success": bool(env.success(state)),
+        "hammer_x": qpos(state, HAM_X),
+    }

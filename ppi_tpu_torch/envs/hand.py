@@ -4,11 +4,41 @@ Port of ``ppi_tpu/envs/hand.py``: a two-hinge digit (MCP + PIP) carrying a
 proximal and a tip contact sphere, and the three-hinge Adroit-class digit
 (abduction + MCP + PIP). Each scene chooses mount points, hinge axes and
 limits for its grasp.
+
+``expert_start`` and ``hold_target`` are the scripted experts' shared
+steps (each hand module's ``scripted_*``): the JAX experts' ``run_scan``,
+a ``jax.lax.scan`` of ``env.step`` under one jit, is here a Python loop
+of ``env.step``, one rollout-kernel launch a step on the card.
 """
 
 import numpy as np
+import torch
 
 from ppi_tpu_torch.envs.physics.engine import HINGE
+
+
+def expert_start(env, state0, device):
+    """``state0``, or where it is None ``env``'s reset from a generator
+    seeded 0 on ``device`` (the JAX experts reset from ``key(0)``, whose
+    draws differ: ``convert.KEY0_DOOR_FRAME`` and ``KEY0_HAMMER_BOARD``
+    pin JAX's scenes)."""
+    if state0 is not None:
+        return state0
+    return env.reset(torch.Generator(device).manual_seed(0), device)
+
+
+def hold_target(env, state, target, n: int, frames=None):
+    """``n`` control steps of ``env`` from ``state`` toward the held PD
+    ``target``; with ``frames`` (a list) the (n, nq) qpos trajectory is
+    appended to it as numpy. Returns the final state."""
+    qs = []
+    for _ in range(n):
+        state, _ = env.step(state, target)
+        if frames is not None:
+            qs.append(state.physics.qpos)
+    if frames is not None:
+        frames.append(torch.stack(qs).cpu().numpy())
+    return state
 
 
 def add_digit(b, parent, mount, axis, mcp_limits, pip_limits,

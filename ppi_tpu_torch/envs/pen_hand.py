@@ -10,8 +10,11 @@ y-z plane. The reward shape, the compliant hold, the sampled goal
 
 ``step`` on a CUDA state is one launch of the env's rollout kernel
 (``rollout_kernel.kernel_step``); on a CPU state it is the eager scalar
-program. The goal axis is the reward's per-episode constants. The scripted
-expert of the JAX module is not ported.
+program. The goal axis is the reward's per-episode constants.
+
+The scripted expert (``scripted_reorient``) is the JAX module's: a
+closed-loop fingertip controller with a closed-form two-link IK a digit
+(``_ik_up``), each control step one rollout-kernel launch on the card.
 """
 
 import dataclasses
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 
 from ppi_tpu_torch.envs.base import as_f32
-from ppi_tpu_torch.envs.hand import add_digit, digit_spheres
+from ppi_tpu_torch.envs.hand import add_digit, digit_spheres, expert_start
 from ppi_tpu_torch.envs.pen import (
     GOAL_RANGE, HOLD_POS, PEN_HALF, axis_from_angles, offset,
     scalar_pen_pose, target_axis)
@@ -242,3 +245,108 @@ class PenHand:
         centre, axis = self._pen_pose(state.physics.qpos)
         dist = torch.linalg.norm(offset(centre, HOLD_POS), dim=-1)
         return ((axis * state.target_axis).sum(-1) > 0.95) & (dist < 0.075)
+
+
+# ---------------------------------------------------------------------------
+# scripted expert (feasibility oracle)
+# ---------------------------------------------------------------------------
+
+_R_MIN, _R_MAX = abs(L1 - L2) + 0.005, L1 + L2 - 0.003
+_MZ = HOLD_POS[2] - DIGIT_DROP
+
+
+def _ik_up(ty, tz):
+    """Closed-form 2-link IK in the digit's y-z plane (an up-pointing digit
+    rotating about +x; tip: y = -(l1 sin a + l2 sin(a+b)), z = mz + l1 cos
+    a + l2 cos(a+b))."""
+    ry, rz = ty, tz - _MZ
+    r = torch.sqrt(ry * ry + rz * rz) + 1e-12
+    rc = torch.clamp(r, _R_MIN, _R_MAX)
+    ry, rz = ry * rc / r, rz * rc / r
+    r2 = ry * ry + rz * rz
+    cb = torch.clamp((r2 - L1 * L1 - L2 * L2) / (2 * L1 * L2), -1.0, 1.0)
+    bb = torch.arccos(cb)
+    theta = torch.atan2(-ry, rz)
+    aa = theta - torch.atan2(L2 * torch.sin(bb), L1 + L2 * torch.cos(bb))
+    return aa, bb
+
+
+def _fk_up(a, b):
+    y = -(L1 * torch.sin(a) + L2 * torch.sin(a + b))
+    z = _MZ + L1 * torch.cos(a) + L2 * torch.cos(a + b)
+    return y, z
+
+
+def _digit_cmd(q, rod_yz, d_yz):
+    """Joint targets for one digit: press the rod along +d from the -d
+    side; when the tip sits on the wrong (+d) side, retract to a small
+    radius and swing its bearing toward the approach point, so that the
+    repositioning arc passes under the rod instead of through it."""
+    mag = torch.linalg.norm(d_yz) + 1e-9
+    dirv = d_yz / mag
+    press = torch.clamp(2.0 * mag, 0.0, 0.006)
+    standoff = torch.where(mag < 0.002, 0.033, 0.027 - press)
+    des = rod_yz - dirv * standoff
+    ty, tz = _fk_up(q[0], q[1])
+    cur = torch.stack([ty, tz])
+    wrong = torch.dot(cur - rod_yz, dirv) > 0.004
+    mount = des.new_tensor([0.0, _MZ])
+    des_bear = (des - mount) / (torch.linalg.norm(des - mount) + 1e-9)
+    swing = mount + des_bear * (_R_MIN + 0.004)
+    use = torch.where(wrong, swing, des)
+    return torch.stack(_ik_up(use[0], use[1]))
+
+
+def scripted_controller(env, target_axis):
+    """Closed-loop proportional fingertip controller toward
+    ``target_axis`` (3,): ``controller(state, pose=None) -> action (6,)``,
+    ``pose`` the state's ``env._pen_pose`` where the caller has it. It
+    reorients the pen substantially (the feasibility oracle); exact
+    alignment past ~0.87 similarity is MPC's job."""
+    tgt = target_axis
+
+    def controller(s, pose=None):
+        q = s.physics.qpos
+        c, ax = env._pen_pose(q) if pose is None else pose
+        delta = 0.5 * PEN_HALF * (tgt - ax)
+
+        def parts(plane_dx):
+            t = torch.clamp(plane_dx / (torch.abs(ax[0]) + 0.2),
+                            -PEN_HALF, PEN_HALF)
+            rod_yz = c[1:] + t * ax[1:]
+            d_yz = (plane_dx / PEN_HALF) * delta[1:]
+            return rod_yz, d_yz
+
+        rod_a, d_a = parts(0.06)
+        rod_b, d_b = parts(-0.06)
+        cmd_a = _digit_cmd(q[A_MCP:A_MCP + 2], rod_a, d_a)
+        cmd_b = _digit_cmd(q[B_MCP:B_MCP + 2], rod_b, d_b)
+        return torch.cat([cmd_a, cmd_b, q.new_tensor([0.5, 0.0])])
+
+    return controller
+
+
+def scripted_reorient(env, state0=None, steps: int = 300, device="cuda"):
+    """Run the scripted controller for ``steps`` control steps from
+    ``state0`` (``hand.expert_start``'s reset on ``device`` if None);
+    returns (final state, info) with the similarity trace (``steps``,),
+    its maximum and last value, and whether the pen dropped."""
+    state = expert_start(env, state0, device)
+    ctrl = scripted_controller(env, state.target_axis)
+    # a state's pose serves its similarity and the next command: the eager
+    # site FK is most of a step's time on the card
+    pose = env._pen_pose(state.physics.qpos)
+    sims = []
+    for _ in range(steps):
+        s2, _ = env.step(state, ctrl(state, pose))
+        pose = env._pen_pose(s2.physics.qpos)
+        sims.append(torch.dot(pose[1], state.target_axis))
+        state = s2
+    sims = torch.stack(sims)
+    centre = pose[0]
+    return state, {
+        "similarity": sims,
+        "max_similarity": float(sims.max()),
+        "final_similarity": float(sims[-1]),
+        "dropped": bool(centre[2] < HOLD_POS[2] - 0.15),
+    }

@@ -12,15 +12,21 @@ relocate-v0-hand's class with another scene and gains.
 The JAX env's default engine is ``engine="stacked"``, XLA's assembly of
 the same dynamics. The port runs the scalar program only: eagerly on the
 CPU and, on the card, as the rollout kernel's generated body. ``step`` on a
-CUDA state is one launch of that kernel. The scripted expert of the JAX
-module is not ported.
+CUDA state is one launch of that kernel.
+
+The scripted expert (``scripted_carry``) is the JAX module's: a five-digit
+basket curl, then an IK-derived, droop-compensated carry; its palm IK
+(``_ik_palm``, 42 calls of 1,000 iterations) runs on a CUDA state as one
+launch of the palm-IK kernel (``envs/physics/ik_kernel.py``) a call.
 """
 
 import dataclasses
 
 import numpy as np
+import torch
 
-from ppi_tpu_torch.envs.hand import add_digit3
+from ppi_tpu_torch.envs.hand import add_digit3, expert_start, hold_target
+from ppi_tpu_torch.envs.physics import ik_kernel
 from ppi_tpu_torch.envs.physics.engine import HINGE, SLIDE, ModelBuilder
 from ppi_tpu_torch.envs.relocate import BALL_RADIUS, BALL_START, TABLE_Z
 from ppi_tpu_torch.envs.relocate_hand import RelocateHand, RelocateHandState
@@ -162,3 +168,89 @@ class RelocateAdroit(RelocateHand):
                    + [self.kd_abd, self.kd_thumb, self.kd_thumb])
         return ([self.kp] * 4 + [self.kp_wrist] * 2 + digit,
                 [self.kd] * 4 + [self.kd_wrist] * 2 + digit_d)
+
+
+# ---------------------------------------------------------------------------
+# scripted expert (feasibility oracle + render demo)
+# ---------------------------------------------------------------------------
+
+# the gentle basket curl (relocate_hand's: an MCP-dominant swing cradles
+# the ball under its lower hemisphere, a deep PIP wrap ejects it)
+GRIP_FINGER = (0.0, -0.45, -0.05)
+GRIP_THUMB = (0.0, 0.45, 0.05)
+
+
+def _ik_palm(env, state, target_pt, qa_init, digits, iters=800, lr=0.04,
+             level_weight=0.05):
+    """Gradient IK for the palm over the 4 arm joints, the wrist held at
+    zero and the ``digits`` (15,) held, with a palm-level penalty that
+    keeps the basket upright. One palm-IK kernel launch on a CUDA state,
+    the plain version on a CPU state. Returns the arm's 4 joints."""
+    dev = qa_init.device
+    q_rest = torch.cat([torch.zeros(2, device=dev), digits,
+                        state.physics.qpos[env.action_dim:]])
+    return ik_kernel.palm_ik(
+        env, qa_init, q_rest, target_pt, env.action_low.to(dev)[:4],
+        env.action_high.to(dev)[:4], iters, lr, level_weight=level_weight)
+
+
+def scripted_carry(env, state0=None, frames=None, log=None, device="cuda"):
+    """Hand-scripted grasp-and-carry: curl the five digits into a basket
+    under the ball, then walk the level palm up a waypoint ladder and
+    across to the goal with a droop-compensating servo: each waypoint's IK
+    target is inflated by the measured palm error, three passes a
+    waypoint (the PD arm droops ~15 cm under gravity at the carry's
+    ceiling). Returns (final state, info)."""
+    state = expert_start(env, state0, device)
+    grip = state.physics.qpos[:N_ACT].clone()
+    grip[6:] = grip.new_tensor(GRIP_FINGER * 4 + GRIP_THUMB)
+
+    def run(s, tgt, n):
+        return hold_target(env, s, tgt, n, frames)
+
+    def note(msg):
+        if log:
+            log(msg)
+
+    def pos(s):
+        pts = env._sites_soa(s.physics.qpos)
+        return (pts[env._palm_geom].cpu().numpy(),
+                pts[env._ball_geom].cpu().numpy())
+
+    # 1) basket curl, in one stage (a second tightening pass squirts the
+    # ball out of the cage along +y)
+    state = run(state, grip, 60)
+    p, ball_grip = pos(state)
+    note(f"gripped: ball={ball_grip.round(3)}")
+
+    # 2) the waypoint ladder: a straight lift over the grasp point, then
+    # across to above the goal, the palm kept level
+    tgt = state.target.cpu().numpy()
+    cruise = np.array([0.58, 0.0, 0.95])
+    goal_palm = tgt + np.array([0.0, 0.0, p[2] - ball_grip[2]])
+    ups = [np.array([0.58, 0.0, z]) for z in np.arange(0.74, 0.96, 0.03)]
+    lats = [cruise + a * (goal_palm - cruise)
+            for a in np.linspace(0.2, 1.0, 6)]
+    qa = state.physics.qpos[:4]
+    infl = np.zeros(3)  # the persistent droop compensation
+    digits = grip[6:]
+    cmd = grip
+    wrist = torch.zeros(2, device=grip.device)
+    for i, wp in enumerate(ups + lats):
+        for _ in range(3):
+            qa = _ik_palm(env, state, torch.tensor(
+                wp + infl, dtype=torch.float32, device=grip.device), qa,
+                digits, iters=1000, lr=0.05)
+            cmd = torch.cat([qa, wrist, digits])
+            state = run(state, cmd, 12)
+            p, b = pos(state)
+            infl = np.clip(infl + 0.8 * (wp - p), -0.25, 0.25)
+        note(f"wp{i}: palm={p.round(3)} ball={b.round(3)}")
+    state = run(state, cmd, 40)
+    _, _, ball = env._sites(state.physics.qpos)
+    return state, {
+        "ball_after_grip": ball_grip,
+        "ball": ball,
+        "dist": float(torch.linalg.norm(ball - state.target)),
+        "success": bool(env.success(state)),
+    }

@@ -11,7 +11,11 @@ relocate-v0's.
 ``step`` on a CUDA state is one launch of the env's rollout kernel
 (``rollout_kernel.kernel_step``); on a CPU state it is the eager scalar
 program. The goal is the reward's per-episode constants; the ball's start
-is part of ``qpos``. The scripted expert of the JAX module is not ported.
+is part of ``qpos``.
+
+The scripted expert (``scripted_carry``) is the JAX module's: a basket
+curl of the digits under the ball, then the arm through fixed joint-space
+waypoints, each control step one rollout-kernel launch on the card.
 """
 
 import dataclasses
@@ -20,7 +24,8 @@ import numpy as np
 import torch
 
 from ppi_tpu_torch.envs.base import as_f32
-from ppi_tpu_torch.envs.hand import add_digit, digit_spheres
+from ppi_tpu_torch.envs.hand import (
+    add_digit, digit_spheres, expert_start, hold_target)
 from ppi_tpu_torch.envs.physics import rollout_kernel as rk
 from ppi_tpu_torch.envs.physics import scalar_math as sm
 from ppi_tpu_torch.envs.physics.engine import (
@@ -222,3 +227,47 @@ class RelocateHand(Relocate):
         n = self.action_dim
         return torch.cat([q[:n], qd[:n], palm, grasp, ball,
                           grasp - ball, ball - tgt, grasp - tgt])
+
+
+# ---------------------------------------------------------------------------
+# scripted expert (feasibility oracle)
+# ---------------------------------------------------------------------------
+
+# the gentle "basket" curl: an MCP-dominant swing puts the six digit
+# spheres under the ball's lower hemisphere (a cradle held by normal
+# forces); a deeper PIP wrap turns it into an equator pinch that ejects
+# the ball
+GRIP_FINGER = (-0.45, -0.05)
+GRIP_THUMB = (0.45, 0.05)
+
+# the wrist-level carry waypoints of the arm (yaw, shoulder, elbow, wrist)
+CARRY_POSES = ((0.0, -0.45, 1.82, -1.40),
+               (0.07, -0.60, 1.85, -1.28),
+               (0.15, -0.75, 1.88, -1.15),
+               (0.22, -0.87, 1.91, -1.05),
+               (0.291, -1.20, 1.80, -0.75))
+
+
+def scripted_carry(env, state0=None, frames=None, device="cuda"):
+    """Hand-scripted grasp-and-carry to the fixed goal: curl the three
+    digits into a basket under the ball (60 steps), then walk the arm
+    through ``CARRY_POSES`` (40 steps each). Returns (final state, info).
+    The waypoints end at the fixed TARGET: use ``fixed_goal=True``.
+    ``frames`` (a list) collects each segment's qpos trajectory."""
+    state = expert_start(env, state0, device)
+    grip = state.physics.qpos[:N_ACT].clone()
+    grip[IDX_MCP], grip[IDX_PIP] = GRIP_FINGER
+    grip[MID_MCP], grip[MID_PIP] = GRIP_FINGER
+    grip[TH_MCP], grip[TH_PIP] = GRIP_THUMB
+    state = hold_target(env, state, grip, 60, frames)
+    _, _, ball_grip = env._sites(state.physics.qpos)
+    for p in CARRY_POSES:
+        state = hold_target(env, state, torch.cat([grip.new_tensor(p),
+                                                   grip[4:]]), 40, frames)
+    _, _, ball = env._sites(state.physics.qpos)
+    return state, {
+        "ball_after_grip": ball_grip,
+        "ball": ball,
+        "dist": float(torch.linalg.norm(ball - state.target)),
+        "success": bool(env.success(state)),
+    }

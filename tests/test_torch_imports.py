@@ -51,6 +51,7 @@ SLICE_MODULES = [
     "ppi_tpu_torch.envs.physics.warp_layout",
     "ppi_tpu_torch.envs.physics.split_layout",
     "ppi_tpu_torch.envs.physics.bic_kernel",
+    "ppi_tpu_torch.envs.physics.ik_kernel",
     "ppi_tpu_torch.envs.functions",
     "ppi_tpu_torch.ops",
     "ppi_tpu_torch.ops.cuda_ops",
@@ -72,6 +73,7 @@ SLICE_MODULES = [
     "ppi_tpu_torch.utils.batch",
     "ppi_tpu_torch.utils.device",
     "ppi_tpu_torch.utils.sweep",
+    "ppi_tpu_torch.runners.collect_expert",
     "ppi_tpu_torch.runners.corl_curves",
     "ppi_tpu_torch.runners.goal_success",
     "ppi_tpu_torch.runners.multi_start",
@@ -80,6 +82,7 @@ SLICE_MODULES = [
     "ppi_tpu_torch.runners.run_sweep",
     "ppi_tpu_torch.runners.run_opt",
     "ppi_tpu_torch.runners.run_policy_search",
+    "ppi_tpu_torch.runners.train_sac_expert",
     "ppi_tpu_torch.studies.body_report",
     "ppi_tpu_torch.studies.episode_trace",
     "ppi_tpu_torch.studies.fma_contraction",
@@ -165,6 +168,39 @@ def test_opt_runner_cuda_without_a_card_raises():
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_opt.main(args)
+
+
+@pytest.mark.parametrize("runner", ["collect_expert", "train_sac_expert"])
+def test_expert_runners_cuda_without_a_card_raise(runner):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import importlib
+    mod = importlib.import_module(f"ppi_tpu_torch.runners.{runner}")
+    args = mod.build_parser().parse_args([])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(args)
+
+
+def test_experts_default_to_the_card():
+    import inspect
+    from ppi_tpu_torch.envs import (
+        door_adroit, door_hand, hammer_adroit, hammer_hand, pen_hand,
+        relocate_adroit, relocate_hand)
+    for fn in (door_hand.scripted_open, door_adroit.scripted_open,
+               pen_hand.scripted_reorient, relocate_hand.scripted_carry,
+               relocate_adroit.scripted_carry, hammer_hand.scripted_hammer,
+               hammer_adroit.scripted_hammer_adroit):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_palm_ik_has_no_cpu_fallback_for_other_devices():
+    from ppi_tpu_torch.envs.hammer_hand import HammerHand
+    from ppi_tpu_torch.envs.physics.ik_kernel import palm_ik
+    meta = lambda n: torch.zeros(n, device="meta")
+    with pytest.raises(TypeError, match="no palm-IK kernel"):
+        palm_ik(HammerHand(), meta(4), meta(6), meta(3), meta(4), meta(4),
+                3, 0.02, 0.05, meta(3))
 
 
 def test_kernel_wrapper_has_no_cpu_fallback_for_other_devices():
