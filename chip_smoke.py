@@ -269,11 +269,11 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 within the same tolerance) and the lane kernel;
  34. timings -- CUDA events at each body's canonical shape (N=64/H=30,
                 N=128/H=30, N=256/H=20, N=64/H=30, N=128/H=30, N=256/H=20,
-                N=96/H=15, N=384/H=20) and at N=1024: the lane
-                layout at 128, 32, 8 and 1 threads a block, the warp layout
-                at 1, 2, 4 and 8 rollouts a block and as routed, and both
-                as the main path launches them in turns (lane, warp, warp,
-                lane) at the canonical shape; the real
+                N=96/H=15, N=384/H=20): the lane layout at 128 threads a
+                block and the warp layout as routed (the sweeps over block
+                sizes, which re-timed PRs 9-12's choices, were cut), and
+                both as the main path launches them in turns (lane, warp,
+                warp, lane); the real
                 step and a synced PPI iteration (the canonical solver and
                 prior) in both layouts; then phase 16's, 20's, 24's and
                 28's seed-0 episodes of the eight once more through the
@@ -382,7 +382,15 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 through each layout (``bic_kernel.route`` patched for the
                 run): the final state, the trace and the generator's state
                 bit-identical, three launches of that layout's kernel and
-                none of the other's;
+                none of the other's. The canonical search runs with
+                ``--render --plot``: ``ball_in_a_cup.gif`` (the final
+                prior's mean trajectory traced step by step on the host,
+                a frame every 8 steps), ``result.png`` and
+                ``policy_samples.png`` decode; the traced trajectory's
+                final state against one launch of the kernel on the same
+                setpoints (its success flag equal, the errors reported),
+                and at phase 39's depth (10 + 20 + 10 steps) within phase
+                39's tolerances; the trace's seconds;
  42. episodes -- the pendulum swing-up (tests/test_mpc.py: Mppi alpha 10,
                 WhiteNoiseIid, H=20, T=60, N=64, no warm start, seed 0):
                 the last five rewards average above -1.0 and above the
@@ -453,8 +461,29 @@ Phases, one line each (phase 6 one per case); any failure exits non-zero:
                 of the trained policy's mean: finite losses, the actor
                 moved, actions in the box, the npz's shapes, exactly
                 5 x 64 + 200 launches.
+ 49. render  -- phase 4's door-v0 history (250 steps) on the card: the
+                schematic (``render.render_door``, the FK of all 250
+                frames in one call) to a GIF and to an MJPEG AVI, 125
+                frames each, both decoded; the ray-caster
+                (``render3d.render_trajectory``) at 320x240 over all 250
+                frames, its ms a frame and its peak device memory (within
+                ``render3d.MEMORY_BUDGET`` over what was allocated
+                before), written to a GIF and decoded; 3 of its frames
+                against the CPU's frames of the same qpos (at most 0.5% of
+                pixels off by more than 1 level) and against themselves
+                with TF32 allowed (equal); then ``run_mpc --render
+                --render-3d --video-format avi`` on a T=20 door-v0 episode:
+                exactly 110 launches, ``episode.avi``, ``episode_3d.gif``
+                and the plots written and decoded;
+ 50. figures -- ``run_opt --plot`` (Reps, NoisySphere, d=64, N=4096, 10
+                iterations: exactly 10 moment-match launches,
+                ``result.png``), ``runners.figures`` (three PNGs) and
+                ``runners.animations`` at 8, 2 a solver, 6 and 4 frames
+                (four GIFs), each file decoded with its frame count.
 Phases run in order but for 47, which runs between 43 and 44; each of
-phases 43-48 prints its wall time.
+phases 43-50 prints its wall time. The card's machine has no matplotlib
+and no imageio: phases 41, 49 and 50 draw with the port's PIL stand-in
+(``utils.plotting``) and write GIFs with PIL.
 Then one JSON line with the kernels' numbers (each entry with the (N, H)
 of its ms and bound_ms, of its plain_ms, and the kernel's time at the
 latter; the rollout bodies of phase 35 with their registers and spills,
@@ -752,10 +781,9 @@ ADROIT = {
 # Phase 16 (HAND), 20 (SCENES), 24 (REST, seed 0 only) or 28 (ADROIT)
 # gives its episode, return and launches, and its canonical solver and
 # prior; phase 34 sets the env's class to the lane layout for the second
-# episode. The lane
-# layout is timed at each of LANE_BLOCKS threads a block, the warp layout
-# at each of WARP_SIZES rollouts a block; SENTINEL_WARPS rollouts a block
-# leave N_CHECK ragged for the sentinel check.
+# episode. Phase 32 prints each body's shared memory a block at each of
+# WARP_SIZES rollouts a block; SENTINEL_WARPS rollouts a block leave
+# N_CHECK ragged for the sentinel check.
 WARP = {"door-v0-adroit": dict(shape=(64, 30), exact_rewards=True),
         "hammer-v0-adroit": dict(shape=(128, 30), exact_rewards=True),
         "relocate-v0-adroit": dict(shape=(256, 20), exact_rewards=False),
@@ -764,7 +792,6 @@ WARP = {"door-v0-adroit": dict(shape=(64, 30), exact_rewards=True),
         "relocate-v0-hand": dict(shape=(256, 20), exact_rewards=False),
         "pen-v0-adroit": dict(shape=(96, 15), exact_rewards=True),
         "fetch-pick": dict(shape=(384, 20), exact_rewards=True)}
-LANE_BLOCKS = (128, 32, 8, 1)
 WARP_SIZES = (1, 2, 4, 8)
 HAND_FAMILY = ("Lbps", "SquaredExponentialKernel", {"lengthscale": 0.08})
 SENTINEL, SENTINEL_WARPS, SENTINEL_PAD = -12345.0, 3, 64
@@ -862,6 +889,13 @@ BIC_PAD_BLOCK = {"thread": 32, "warp": 3}
 POLICY_SEARCH = ["Reps", "BallInACup", "RbfFeatures", "--epsilon", "2.0",
                  "--n-iters", "40", "--seed", "0", "--device", "cuda",
                  "MonteCarlo", "--n-samples", "128"]
+# phase 49's run_mpc --render --render-3d episode (door-v0, phase 4's
+# config): 50 + 3 T launches
+RENDER_T = 20
+# phase 50's run_opt --plot: N d at the moment match's dispatch threshold
+PLOT_OPT = ["Reps", "NoisySphere", "--dimension", "64", "--n-iter", "10",
+            "--seed", "0", "--plot", "--device", "cuda", "mc",
+            "--n-samples", "4096"]
 TEST_SEARCH = ["Reps", "Test", "RbfFeatures", "--epsilon", "2.0",
                "--n-iters", "20", "--seed", "0", "--device", "cuda",
                "MonteCarlo", "--n-samples", "64"]
@@ -2358,21 +2392,82 @@ def search_layouts():
     return res
 
 
-def policy_search_phase():
+def decoded_frames(path):
+    """How many frames ``path`` (a GIF or PNG by PIL, an AVI by the port's
+    MJPEG reader) decodes to, and the first one's (H, W, 3)."""
+    from PIL import Image, ImageSequence
+    from ppi_tpu_torch.utils.video import read_avi_frames
+    if Path(path).suffix == ".avi":
+        frames = read_avi_frames(path)
+    else:
+        with Image.open(path) as im:
+            frames = [np.asarray(f.convert("RGB"))
+                      for f in ImageSequence.Iterator(im)]
+    check(len(frames) > 0, f"{path}: no frame decoded")
+    return len(frames), frames[0].shape
+
+
+def traced_errors(sim, traced, kernel):
+    """The traced trajectory's final state (``render.trace_bic_trajectory``
+    on the host) against one launch of the kernel on the same setpoints:
+    phase 39's measures (``bic_errors``' groups), unchecked."""
+    st, pst = kernel[0].double(), torch.stack(
+        sim.scalars(traced), -1)[None].double().to(kernel[0].device)
+    L = sim.layout
+    rel = (st - pst).abs() / (1.0 + pst.abs())
+    fin = torch.isfinite(rel)
+    rel = torch.where(fin, rel, 0.0)
+    return {"state": float(rel[:, :L.FORCE].max()),
+            "state_argmax": int(rel[:, :L.FORCE].argmax()),
+            "stats": float(rel[:, L.MAX_POT:].max()),
+            "reaction_abs": float((st - pst)[:, L.FORCE:L.MAX_POT]
+                                  .abs().max()),
+            "nonfinite_equal": bool(torch.equal(torch.isfinite(st),
+                                                torch.isfinite(pst)))}
+
+
+def policy_search_phase(tmp):
     """Phase 41: ``make policy-search`` through the port's runner on the
-    card (every evaluation one launch of the ball-in-a-cup kernel): success
-    rate 1.00 within its 40 iterations with exactly 40 launches, the curve
-    at iterations 0, 10, 20, 30 and 39 and the wall time; then the Test
+    card (every evaluation one launch of the ball-in-a-cup kernel), with
+    ``--render --plot``: success rate 1.00 within its 40 iterations with
+    exactly 40 launches, the curve at iterations 0, 10, 20, 30 and 39 and
+    the wall time; the files of ``--render`` and ``--plot`` decoded; the
+    traced mean trajectory's success (and its final state, reported)
+    against one launch of the kernel on the same setpoints; then the Test
     env through the same runner, its final mean cost below 0.3 of its
     first, with no launch. The launches are counted by layout: the routed
     layout's kernel must take all 40, the other none."""
+    from ppi_tpu_torch import render
     from ppi_tpu_torch.build import LAUNCHES
     from ppi_tpu_torch.envs.ball_in_a_cup import BallInCupSim
     from ppi_tpu_torch.envs.physics import bic_kernel as bk
     from ppi_tpu_torch.runners import run_policy_search as rps
+    i = POLICY_SEARCH.index("MonteCarlo")
+    argv = POLICY_SEARCH[:i] + ["--render", "--plot", "--dir", str(tmp)] \
+        + POLICY_SEARCH[i:]
+    traced, spent = {}, {"trace_s": 0.0, "draw_s": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            spent[key] += time.perf_counter() - t
+            return out
+        return run
+
+    trace_fn, draw_fn = render.trace_bic_trajectory, render.render_ball_in_a_cup
+    render.trace_bic_trajectory = timed(trace_fn, "trace_s")
+    render.render_ball_in_a_cup = timed(draw_fn, "draw_s")
     LAUNCHES.clear()
     t0 = time.perf_counter()
-    _, trace, rate = rps.main(rps.build_parser().parse_args(POLICY_SEARCH))
+    try:
+        _, trace, rate = rps.main(
+            rps.build_parser().parse_args(argv),
+            on_trace=lambda path, acts, qh, ph, final: traced.update(
+                path=path, actions=acts, qh=qh, final=final))
+    finally:
+        render.trace_bic_trajectory = trace_fn
+        render.render_ball_in_a_cup = draw_fn
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     by_layout = {lay: LAUNCHES[key] for lay, key in bk.LAUNCH_KEYS.items()}
@@ -2382,20 +2477,76 @@ def policy_search_phase():
     curve = {i: {"success_rate": rate[i], "mean_cost": float(trace["mean"][i])}
              for i in (0, 10, 20, 30, 39)}
     first = rate.index(1.0) if 1.0 in rate else None
+    search_wall = wall - spent["trace_s"] - spent["draw_s"]
     res = dict(launches=launches, layout=layout,
-               launches_by_layout=by_layout, wall_s=wall, curve=curve,
+               launches_by_layout=by_layout, wall_s=search_wall,
+               wall_with_render_s=wall, curve=curve,
                first_iteration_at_1=first, final_success_rate=rate[-1],
                success_rate=rate)
     print(f"make policy-search (Reps BallInACup RbfFeatures, epsilon 2.0, "
           f"40 iterations, N=128, seed 0): success rate 1.00 first at "
           f"iteration {first}; curve {json.dumps(curve)}; kernel launches "
-          f"by layout {json.dumps(by_layout)}; wall {wall:.2f} s", flush=True)
+          f"by layout {json.dumps(by_layout)}; wall {search_wall:.2f} s "
+          f"without the render, {wall:.2f} s with it", flush=True)
     routed = bk.route(BallInCupSim())
     check(layout == routed and launches == 40,
           f"policy search: launches by layout {by_layout}, expected 40 of "
           f"the {routed} layout's kernel and none of the other's")
     check(first is not None, f"policy search: success rate never 1.00 "
           f"({rate})")
+    # --render and --plot: the files, and the trace against the kernel
+    run_dir = Path(traced["path"]).parent
+    sim = BallInCupSim()
+    steps = traced["qh"].shape[0]
+    frames, shape = decoded_frames(traced["path"])
+    check(steps == 1000 + sim.cooldown_steps and frames == -(-steps // 8)
+          and shape == (500, 500, 3),
+          f"ball_in_a_cup.gif: {frames} frames of {shape} for {steps} "
+          "traced steps")
+    for name in ("result.png", "policy_samples.png"):
+        decoded_frames(run_dir / name)
+    env = rps.make_env(rps.build_parser().parse_args(POLICY_SEARCH))
+    kernel = env.rollout()(env.q_start.cuda(), traced["actions"][None])
+    torch.cuda.synchronize()
+    ok_trace = bool(sim.reward_and_success(traced["final"])[1])
+    ok_kernel = bool(kernel[2][0])
+    errs = traced_errors(sim, traced["final"], kernel)
+    res["render"] = dict(trace_s=spent["trace_s"], draw_s=spent["draw_s"],
+                         traced_steps=steps, gif_frames=frames,
+                         traced_success=ok_trace,
+                         kernel_success=ok_kernel,
+                         traced_vs_kernel=errs)
+    print(f"make policy-search --render --plot: the mean trajectory traced "
+          f"({steps} steps on the host) in {spent['trace_s']:.2f} s, drawn "
+          f"({frames} frames) in {spent['draw_s']:.2f} s; success traced "
+          f"{ok_trace}, kernel {ok_kernel}; traced final state against the "
+          f"kernel's {json.dumps(errs)} (phase 39's tolerances {BIC_TOL}, "
+          f"{BIC_STATS_TOL}, {BIC_REACTION_ATOL} N); result.png and "
+          "policy_samples.png decoded", flush=True)
+    check(ok_trace == ok_kernel, f"the traced trajectory's success "
+          f"{ok_trace}, the kernel's {ok_kernel}")
+    # at phase 39's depth (10 + 20 + 10 steps of the same setpoints) the
+    # trace is held to the kernel within phase 39's tolerances; over the
+    # whole trajectory the last-ulp differences of the host's and the
+    # card's sinf/cosf grow, so there the errors are reported
+    n_stab, horizon, n_cool = BIC_PHASES
+    short = BallInCupSim(stabilize_steps=n_stab, cooldown_steps=n_cool)
+    acts = traced["actions"][:horizon]
+    qs, qds = bk.joint_setpoints(acts[None])
+    final = render.trace_bic_trajectory(short, env.q_start, qs[0],
+                                        qds[0])[2]
+    got = bk.make_bic_rollout(short)(env.q_start.cuda(), acts[None])
+    torch.cuda.synchronize()
+    short_errs = traced_errors(short, final, got)
+    res["render"]["traced_vs_kernel_at_phase_39_depth"] = short_errs
+    print(f"the trace at phase 39's depth ({BIC_PHASES} steps of the mean "
+          f"trajectory's setpoints) against the kernel: "
+          f"{json.dumps(short_errs)}", flush=True)
+    check(short_errs["state"] <= BIC_TOL
+          and short_errs["stats"] <= BIC_STATS_TOL
+          and short_errs["reaction_abs"] <= BIC_REACTION_ATOL
+          and short_errs["nonfinite_equal"],
+          f"the trace at phase 39's depth against the kernel {short_errs}")
     LAUNCHES.clear()
     t0 = time.perf_counter()
     _, trace, _ = rps.main(rps.build_parser().parse_args(TEST_SEARCH))
@@ -2781,12 +2932,11 @@ def warp_family(name):
 
 
 def time_warp(name, env, dev):
-    """Phase 34's timings for one env: the lane layout at each of
-    LANE_BLOCKS, the warp layout at each of WARP_SIZES and as the env
-    routes it, at the canonical shape and at N=1024 (CUDA events); both
-    layouts as the main path launches them in turns (lane, warp, warp,
-    lane) at the canonical shape; the real step in both layouts; a synced
-    PPI iteration (the canonical solver and prior) in both layouts."""
+    """Phase 34's timings for one env at the canonical shape (CUDA
+    events): the lane layout at 128 threads a block, the warp layout as
+    the env routes it, and both as the main path launches them in turns
+    (lane, warp, warp, lane); the real step in both layouts; a synced PPI
+    iteration (the canonical solver and prior) in both layouts."""
     from ppi_tpu_torch.algorithms import make_solver
     from ppi_tpu_torch.algorithms.base import _one_iteration
     from ppi_tpu_torch.envs.physics import rollout_kernel as rk
@@ -2799,22 +2949,16 @@ def time_warp(name, env, dev):
     out = {"ops_per_lane_step": rk.ops_per_lane_step(*rk.body_args(
         env, env.reset(torch.Generator().manual_seed(0), "cpu")))}
     out[f"bound_ms_N{n}_H{h}"], out["bound_by"] = rollout_bound(env, n, h)
-    for nn in (n, 1024):
-        q0, qd0, acts = study_lanes(env, s0, nn, h, 0.3)
-        iters = 10 if nn == n else 3
-        for layout, sizes in (("lane", LANE_BLOCKS), ("warp", WARP_SIZES)):
-            for size in sizes:
-                r = study_rollout(env, s0, h, layout, size)
-                out[f"{layout}_{size}_ms_N{nn}_H{h}"] = cuda_ms(
-                    lambda: r(q0, qd0, acts, consts=consts, dyn=dyn),
-                    iters, 1)
-        r = rk.env_rollout(env, s0, h)
-        out[f"warp_ms_N{nn}_H{h}"] = cuda_ms(
-            lambda: r(q0, qd0, acts, consts=consts, dyn=dyn), iters, 1)
+    q0, qd0, acts = study_lanes(env, s0, n, h, 0.3)
+    lane = study_rollout(env, s0, h, "lane", 128)
+    out[f"lane_128_ms_N{n}_H{h}"] = cuda_ms(
+        lambda: lane(q0, qd0, acts, consts=consts, dyn=dyn), 10, 1)
+    r = rk.env_rollout(env, s0, h)
+    out[f"warp_ms_N{n}_H{h}"] = cuda_ms(
+        lambda: r(q0, qd0, acts, consts=consts, dyn=dyn), 10, 1)
     # the two layouts as the main path launches them, in turns: lane, warp,
     # warp, lane at the canonical shape (the layout each env keeps)
-    q0, qd0, acts = study_lanes(env, s0, n, h, 0.3)
-    runs = {"lane": study_rollout(env, s0, h, "lane", 128),
+    runs = {"lane": lane,
             "warp": study_rollout(env, s0, h, "warp", rk.WARPS_PER_BLOCK)}
     out[f"abba_ms_N{n}_H{h}"] = [
         [lay, cuda_ms(lambda: runs[lay](q0, qd0, acts, consts=consts,
@@ -3761,6 +3905,163 @@ def sac_phase(tmp, dev):
     return rep
 
 
+def render_phase(door, track, state, tmp):
+    """Phase 49: phase 4's door-v0 history rendered on the card (the
+    schematic to a GIF and an AVI, the ray-caster at 320x240 over every
+    frame, its ms a frame and peak memory, 3 of its frames against the
+    CPU's and with TF32 allowed), then ``run_mpc --render --render-3d
+    --video-format avi`` on a T=RENDER_T door-v0 episode with its exact
+    launch count; every file decoded."""
+    from ppi_tpu_torch import render, render3d
+    from ppi_tpu_torch.build import LAUNCHES
+    from ppi_tpu_torch.envs.physics import rollout_kernel as rk
+    from ppi_tpu_torch.runners import run_mpc
+    from ppi_tpu_torch.utils.video import save_gif
+    tmp.mkdir(parents=True)
+    qpos, frame = track["qpos"], state.frame
+    steps = qpos.shape[0]
+    res = {}
+    for fmt in ("gif", "avi"):
+        t0 = time.perf_counter()
+        path = render.render_door(door, qpos, tmp / f"door.{fmt}",
+                                  frame=frame)
+        wall = time.perf_counter() - t0
+        n, shape = decoded_frames(path)
+        res[f"schematic_{fmt}"] = dict(frames=n, wall_s=wall,
+                                       bytes=path.stat().st_size)
+        check(n == -(-steps // 2) and shape == (500, 500, 3),
+              f"render_door {fmt}: {n} frames of {shape}")
+    # the ray-caster over the whole history, twice (the first call the
+    # first of its shapes), its peak over what was allocated before
+    style = render3d.SceneStyle(floor=0.0)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        frames = render3d.render_trajectory(door, qpos, dyn_pos=frame,
+                                            style=style)
+        times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() - before
+    chunk = render3d.frames_per_chunk(door._model, render3d.Camera(),
+                                      render3d.scene_arrays(door._model)[0])
+    check(frames.shape == (steps, 240, 320, 3) and frames.dtype == np.uint8,
+          f"render_trajectory: {frames.shape} {frames.dtype}")
+    check(peak <= render3d.MEMORY_BUDGET, f"render_trajectory: peak "
+          f"{peak} B over the {render3d.MEMORY_BUDGET} B budget")
+    t0 = time.perf_counter()
+    path = save_gif(tmp / "door_3d.gif", list(frames))
+    gif_s = time.perf_counter() - t0
+    n, shape = decoded_frames(path)
+    check(n == steps and shape == (240, 320, 3),
+          f"door_3d.gif: {n} frames of {shape}")
+    idx = [0, steps // 2, steps - 1]
+    cpu = render3d.render_trajectory(door, qpos[idx].cpu(),
+                                     dyn_pos=frame.cpu(), style=style,
+                                     device="cpu")
+    diff = np.abs(cpu.astype(int) - frames[idx].astype(int)).max(-1)
+    off = float((diff > 1).mean())
+    check(off <= 0.005, f"render_trajectory: {off:.4f} of the pixels off "
+          "the CPU's frames by more than 1 level")
+    prev = (torch.get_float32_matmul_precision(),
+            torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.set_float32_matmul_precision("medium")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32 = render3d.render_trajectory(door, qpos[idx], dyn_pos=frame,
+                                          style=style)
+    finally:
+        torch.set_float32_matmul_precision(prev[0])
+        torch.backends.cuda.matmul.allow_tf32 = prev[1]
+    check(np.array_equal(tf32, frames[idx]),
+          "render_trajectory: TF32 allowed changed the frames")
+    res["ray_caster"] = dict(
+        frames=steps, width=320, height=240, frames_a_chunk=chunk,
+        ms_a_frame=[1e3 * t / steps for t in times],
+        peak_bytes_over_before=peak,
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        budget_bytes=render3d.MEMORY_BUDGET, gif_s=gif_s,
+        vs_cpu_off_by_more_than_1=off, vs_cpu_max_level=int(diff.max()),
+        tf32_allowed_equal=True)
+    print(f"render door-v0 (phase 4's {steps} steps): schematic gif "
+          f"{json.dumps(res['schematic_gif'])}, avi "
+          f"{json.dumps(res['schematic_avi'])}; ray-caster 320x240 "
+          f"{json.dumps(res['ray_caster'])}", flush=True)
+    # the runner's flags on a short episode
+    argv = door_run_argv(tmp / "mpc", "--render", "--render-3d",
+                         "--video-format", "avi", timesteps=RENDER_T)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    ret, success, _ = run_mpc.main(run_mpc.build_parser().parse_args(argv))
+    wall = time.perf_counter() - t0
+    launches = LAUNCHES[rk.launch_key(door)]
+    (run_dir,) = (tmp / "mpc").iterdir()
+    names = {p.name for p in run_dir.iterdir()}
+    want = {"args.json", "log", "data.npz", "episode.avi", "episode_3d.gif",
+            "result_warmup.png", "observation_sequence.png",
+            "action_sequence_all.png", "ess_history.png",
+            "alpha_history.png", "smoothness.png"}
+    check(names == want, f"run_mpc --render --render-3d: wrote {sorted(names)}")
+    check(launches == 50 + 3 * RENDER_T, f"run_mpc --render: {launches} "
+          f"launches, expected {50 + 3 * RENDER_T}")
+    check("rendering failed" not in (run_dir / "log").read_text(),
+          "run_mpc --render: a render failed (see its log)")
+    counts = {name: decoded_frames(run_dir / name)[0] for name in want
+              if name.endswith((".avi", ".gif", ".png"))}
+    check(counts["episode.avi"] == RENDER_T // 2
+          and counts["episode_3d.gif"] == RENDER_T,
+          f"run_mpc --render: frames {counts}")
+    res["run_mpc"] = dict(ret=ret, success=success, launches=launches,
+                          wall_s=wall, frames=counts)
+    print(f"run_mpc --render --render-3d --video-format avi (door-v0, "
+          f"T={RENDER_T}): {json.dumps(res['run_mpc'])}", flush=True)
+    return res
+
+
+def figures_phase(tmp):
+    """Phase 50: ``run_opt --plot`` through the moment-match kernel, the
+    paper figures and the animations at reduced frame counts, on the
+    card; every file decoded with its frame count."""
+    from ppi_tpu_torch.build import LAUNCHES
+    from ppi_tpu_torch.runners import animations, figures, run_opt
+    res = {}
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    _, trace = run_opt.main(run_opt.build_parser().parse_args(
+        PLOT_OPT[:-3] + ["--dir", str(tmp / "opt")] + PLOT_OPT[-3:]))
+    torch.cuda.synchronize()
+    (run_dir,) = (tmp / "opt").iterdir()
+    decoded_frames(run_dir / "result.png")
+    res["run_opt"] = dict(launches=LAUNCHES["moment_match"],
+                          wall_s=time.perf_counter() - t0,
+                          first=float(trace["mean"][0]),
+                          final=float(trace["mean"][-1]))
+    check(res["run_opt"]["launches"] == 10, f"run_opt --plot: "
+          f"{res['run_opt']['launches']} moment-match launches, expected 10")
+    t0 = time.perf_counter()
+    figures.main(figures.build_parser().parse_args(
+        ["--out", str(tmp / "fig")]))
+    for name in ("gaussian_ppi.png", "gp_receding_horizon.png",
+                 "trajectory_priors.png"):
+        decoded_frames(tmp / "fig" / name)
+    res["figures_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = tmp / "anim"
+    out.mkdir()
+    made = {animations.anim_gaussian_ppi(out, 8, "cuda"): 8,
+            animations.anim_nonlinear_ppi(out, 2, "cuda"): 6,
+            animations.anim_policy_time_shift(out, 6, "cuda"): 6,
+            animations.anim_policy_time_resolution(out, 4, "cuda"): 4}
+    res["animations"] = {p.name: decoded_frames(p)[0] for p in made}
+    res["animations_s"] = time.perf_counter() - t0
+    check(all(res["animations"][p.name] == n for p, n in made.items()),
+          f"animations: frames {res['animations']}")
+    print(f"run_opt --plot, figures, animations: {json.dumps(res)}",
+          flush=True)
+    return res
+
+
 def main():
     # one nvcc for each source, all started together
     with ThreadPoolExecutor(max_workers=32) as pool:
@@ -4536,9 +4837,9 @@ def run(pool):
     warp_times = {}
     for name in WARP:
         warp_times[name] = time_warp(name, ENVS[name](), dev)
-        print(f"timings {name} (lane layout at blocks {LANE_BLOCKS}, warp "
-              f"layout at {WARP_SIZES} rollouts a block and as routed): "
-              f"{json.dumps(warp_times[name])}", flush=True)
+        print(f"timings {name} (lane layout at 128 threads a block, warp "
+              f"layout as routed): {json.dumps(warp_times[name])}",
+              flush=True)
     out.update(warp_timings=warp_times)
     lane_episodes = {}
     for name in WARP:
@@ -4724,7 +5025,9 @@ def run(pool):
 
     # ---- 41. make policy-search ---------------------------------------------
     mark_phase("41")
-    search_out = policy_search_phase()
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        search_out = policy_search_phase(Path(tmp))
     search_out["layouts"] = search_layouts()
 
     # ---- 42. the classic envs -----------------------------------------------
@@ -4734,7 +5037,6 @@ def run(pool):
                bic_branches=bic_branches, bic_timings=bic_time,
                policy_search=search_out, classic_episodes=classic_out)
 
-    import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         # ---- 43. resume phase 4's episode from a checkpoint ---------------
         mark_phase("43")
@@ -4754,9 +5056,17 @@ def run(pool):
         # ---- 48. SAC on humanoid-standup ------------------------------------
         mark_phase("48")
         sac_out = sac_phase(Path(tmp) / "sac", dev)
+        # ---- 49. rendering phase 4's episode ---------------------------------
+        mark_phase("49")
+        render_out = render_phase(door, track, final4["state"],
+                                  Path(tmp) / "render")
+        # ---- 50. run_opt --plot, the figures and the animations ------------
+        mark_phase("50")
+        figures_out = figures_phase(Path(tmp) / "figures")
     out.update(resume=resume_out, prior_fit=prior_out,
                evaluation_runners=runners_out, experts=expert_out,
-               collect_expert=collect_out, sac_expert=sac_out)
+               collect_expert=collect_out, sac_expert=sac_out,
+               render=render_out, figures=figures_out)
 
     mark_phase("end")
     out.update(split_builds=split_info, split_check=split_check,
@@ -4764,7 +5074,7 @@ def run(pool):
                split_other_episodes=other_runs, phase_s=phase_s,
                total_s=time.perf_counter() - t_start)
     print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
-    for name in ("43", "44", "45", "46", "47", "48"):
+    for name in ("43", "44", "45", "46", "47", "48", "49", "50"):
         print(f"phase {name} wall: {phase_s[name]:.1f} s", flush=True)
     print(f"total: {out['total_s']:.0f} s, the kernels' builds included",
           flush=True)

@@ -5,6 +5,9 @@ over this namespace and runs on three kinds of scalar:
 
   * a Python ``float`` -> ``math`` (model constants fold in float64, exactly
     as Python folds them before they meet a traced value in the JAX trace);
+  * a ``numpy.float32`` -> ``math``, rounded back to float32: one lane of
+    the program on the host in single precision (``render.
+    trace_bic_trajectory``), each arithmetic operator numpy's f32 one;
   * a ``torch.Tensor`` of shape ``(N,)`` (or 0-dim) -> one torch op over all
     lanes: the eager plain version of the rollout kernel;
   * a ``Sym`` -> one line of CUDA C appended to an ``Emitter``: the code
@@ -166,12 +169,18 @@ def _call(fn: str, *args) -> Sym:
 
 # ---- the namespace ------------------------------------------------------------
 
+def _host(x, value):
+    """A math function's ``value`` at a host scalar ``x``: a float, or a
+    ``numpy.float32`` where ``x`` is one (the f64 result rounded once)."""
+    return np.float32(value) if isinstance(x, np.float32) else value
+
+
 def sqrt(x):
     if isinstance(x, Sym):
         return _call("sqrtf", x)
     if isinstance(x, torch.Tensor):
         return torch.sqrt(x)
-    return math.sqrt(x)
+    return _host(x, math.sqrt(x))
 
 
 def sin(x):
@@ -179,7 +188,7 @@ def sin(x):
         return _call("sinf", x)
     if isinstance(x, torch.Tensor):
         return torch.sin(x)
-    return math.sin(x)
+    return _host(x, math.sin(x))
 
 
 def cos(x):
@@ -187,7 +196,7 @@ def cos(x):
         return _call("cosf", x)
     if isinstance(x, torch.Tensor):
         return torch.cos(x)
-    return math.cos(x)
+    return _host(x, math.cos(x))
 
 
 def abs(x):
@@ -196,7 +205,7 @@ def abs(x):
         return _call("fabsf", x)
     if isinstance(x, torch.Tensor):
         return torch.abs(x)
-    return math.fabs(x)
+    return _host(x, math.fabs(x))
 
 
 def exp(x):
@@ -204,7 +213,7 @@ def exp(x):
         return _call("expf", x)
     if isinstance(x, torch.Tensor):
         return torch.exp(x)
-    return math.exp(x)
+    return _host(x, math.exp(x))
 
 
 def maximum(a, b):
@@ -272,7 +281,7 @@ def sigmoid(x):
         return _call("ppi_sigmoid", x)
     if isinstance(x, torch.Tensor):
         return torch.sigmoid(x)
-    return 1.0 / (1.0 + math.exp(-x))
+    return _host(x, 1.0 / (1.0 + math.exp(-x)))
 
 
 def isfinite(x):

@@ -8,8 +8,8 @@ from ppi_tpu_torch.ops.moment_match import (
 from ppi_tpu_torch.ops.psd import (
     default_jitter, factorized, safe_cholesky, symmetric)
 from ppi_tpu_torch.ops.scalar_opt import (
-    ALPHA_LOWER, ALPHA_UPPER, grid_zoom_min, grid_zoom_root_decreasing,
-    minimize_newton)
+    ALPHA_LOWER, ALPHA_UPPER, bisect_decreasing, golden_section_min,
+    grid_zoom_min, grid_zoom_root_decreasing, minimize_newton)
 from ppi_tpu_torch.ops.weighting import (
     effective_sample_size, log_weight_stats, normalize_log_weights,
     select_row, weight_entropy)
@@ -19,7 +19,8 @@ __all__ = [
     "multivariate_gaussian_entropy", "multivariate_gaussian_kl", "vec",
     "KERNEL_MIN_ELEMENTS", "m_projection", "m_projection_mavn",
     "default_jitter", "factorized", "safe_cholesky", "symmetric",
-    "ALPHA_LOWER", "ALPHA_UPPER", "grid_zoom_min",
+    "ALPHA_LOWER", "ALPHA_UPPER", "bisect_decreasing", "golden_section_min",
+    "grid_zoom_min",
     "grid_zoom_root_decreasing", "minimize_newton", "effective_sample_size",
     "log_weight_stats", "normalize_log_weights", "select_row",
     "weight_entropy",

@@ -1,8 +1,9 @@
 """Temperature search by vectorized grid zoom, and a tiny Newton solver.
 
 Port of ``ALPHA_LOWER``, ``ALPHA_UPPER``, ``grid_zoom_min``,
-``grid_zoom_root_decreasing`` and ``minimize_newton`` from
-``ppi_tpu/ops/scalar_opt.py``. In the grid searches the JAX ``vmap`` over
+``grid_zoom_root_decreasing``, ``minimize_newton``, ``golden_section_min``
+and ``bisect_decreasing`` from ``ppi_tpu/ops/scalar_opt.py`` (the last two
+serve the animated figures, ``runners/animations.py``). In the grid searches the JAX ``vmap`` over
 candidates becomes one batched call: ``fn`` maps an ``(n_candidates,)``
 tensor of temperatures to ``(n_candidates,)`` objective values (an
 ``(n_candidates, N)`` evaluation inside). The searches stay on the device:
@@ -74,6 +75,45 @@ def grid_zoom_root_decreasing(fn: Callable, target: float,
         # still above the target
         i = torch.clamp(torch.sum(ys > target) - 1, 0, n - 2)
         a, b = torch.index_select(xs, 0, torch.stack([i, i + 1])).unbind()
+    return itf(0.5 * (a + b))
+
+
+_INV_PHI = 0.6180339887498949  # 1/golden ratio
+
+
+def golden_section_min(fn: Callable, lo, hi, iters: int = 40,
+                       log_space: bool = True, device=None):
+    """Golden-section minimization of a unimodal scalar ``fn`` on [lo,
+    hi] (in log-x with ``log_space``), ``iters`` fixed steps, each reusing
+    the surviving interior value: JAX's loop step for step, in f32."""
+    itf, _, _, a, b = _bounds(lo, hi, log_space, device)
+    c = b - _INV_PHI * (b - a)
+    d = a + _INV_PHI * (b - a)
+    fc, fd = fn(itf(c)), fn(itf(d))
+    for _ in range(iters):
+        right = fc < fd
+        a = torch.where(right, a, c)
+        b = torch.where(right, d, b)
+        c, d = b - _INV_PHI * (b - a), a + _INV_PHI * (b - a)
+        known = torch.where(right, fc, fd)
+        new = fn(itf(torch.where(right, c, d)))
+        fc = torch.where(right, new, known)
+        fd = torch.where(right, known, new)
+    return itf(0.5 * (a + b))
+
+
+def bisect_decreasing(fn: Callable, target, lo: float = ALPHA_LOWER,
+                      hi: float = ALPHA_UPPER, iters: int = 50,
+                      log_space: bool = True, device=None):
+    """Solve ``fn(x) = target`` for ``fn`` decreasing on [lo, hi] by
+    ``iters`` bisections (in log-x with ``log_space``); clamps to the
+    interval when the target is outside the attained range."""
+    itf, _, _, a, b = _bounds(lo, hi, log_space, device)
+    for _ in range(iters):
+        m = 0.5 * (a + b)
+        above = fn(itf(m)) > target   # still above the target: go right
+        a = torch.where(above, m, a)
+        b = torch.where(above, b, m)
     return itf(0.5 * (a + b))
 
 

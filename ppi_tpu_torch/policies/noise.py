@@ -139,6 +139,10 @@ class WhiteNoiseIid:
     def predict_mean(self, state: NoiseState):
         return state.mean_fn[None, :] + state.mean
 
+    def predict(self, state: NoiseState):
+        """(mean (H, d_a), variance (H, d_a)) of the per-cell prior."""
+        return self.predict_mean(state), state.std ** 2
+
     def map_action_sequence(self, state: NoiseState):
         return state.map_sequence
 

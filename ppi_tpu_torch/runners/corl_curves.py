@@ -7,8 +7,8 @@ three canonical door-v0 prior configurations (Cem + WhiteNoiseIid, Lbps +
 SE kernel, Essps + RFF) over N seeds through ``run_mpc`` and writes
 
   * ``overlay.png``: per-step reward curves (mean over seeds, min/max band)
-    and each config's smoothness (drawn with numpy where matplotlib is not
-    installed);
+    and each config's smoothness (``utils.plotting.pyplot``: matplotlib,
+    or the PIL stand-in where matplotlib is not installed);
   * ``summary.json`` and each run's ``run_mpc`` artifacts;
   * a table of return, smoothness and success rate per config.
 
@@ -33,6 +33,7 @@ import torch
 from ppi_tpu_torch.mpc import fft_smoothness, signal_power
 from ppi_tpu_torch.runners import run_mpc
 from ppi_tpu_torch.utils.batch import chunked_vmap
+from ppi_tpu_torch.utils.plotting import pyplot
 
 # the three canonical prior families of the door configs; labels follow the
 # paper's terms
@@ -179,16 +180,9 @@ def summarize(results):
 
 
 def plot_overlay(results, rows, path: Path):
-    """``overlay.png``: with matplotlib, the reward curves with a legend
-    and the smoothness bars with error bars; without it (a machine with
-    only the port's own dependencies), ``raster_overlay``."""
-    try:
-        import matplotlib
-    except ImportError:
-        return raster_overlay(results, rows, path)
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+    """``overlay.png``: the reward curves with a legend and the smoothness
+    bars with error bars."""
+    plt = pyplot()
     fig, (ax, ax2) = plt.subplots(
         1, 2, figsize=(11, 4), gridspec_kw={"width_ratios": [2.2, 1.0]})
     for i, (label, runs) in enumerate(results.items()):
@@ -212,64 +206,6 @@ def plot_overlay(results, rows, path: Path):
     fig.tight_layout()
     fig.savefig(path, dpi=130)
     plt.close(fig)
-
-
-COLOURS = np.array([(31, 119, 180), (255, 127, 14), (44, 160, 44),
-                    (214, 39, 40)], np.float64)
-
-
-def raster_overlay(results, rows, path: Path, height: int = 360,
-                   width: int = 960):
-    """The overlay drawn with numpy and written as a PNG by zlib: per
-    config its mean reward curve over the control steps with the seeds'
-    min/max band (left) and its mean smoothness as a bar (right), in
-    matplotlib's first colours; no text (summary.json has the numbers)."""
-    import struct
-    import zlib
-    img = np.full((height, width, 3), 255.0)
-    pad, split = 20, int(0.7 * width)
-    curves = [np.stack([r["rewards"] for r in runs])
-              for runs in results.values()]
-    lo = min(float(c.min()) for c in curves)
-    hi = max(float(c.max()) for c in curves)
-    rows_px = lambda v: (height - pad - (height - 2 * pad)
-                         * (v - lo) / ((hi - lo) or 1.0)).round().astype(int)
-    for i, c in enumerate(curves):
-        colour = COLOURS[i % len(COLOURS)]
-        cols = np.linspace(pad, split - pad, c.shape[1]).round().astype(int)
-        xs = np.arange(pad, split - pad + 1)
-        top = rows_px(np.interp(xs, cols, c.max(0)))
-        bottom = rows_px(np.interp(xs, cols, c.min(0)))
-        for x, y0, y1 in zip(xs, top, bottom):
-            img[y0:y1 + 1, x] = 0.8 * img[y0:y1 + 1, x] + 0.2 * colour
-        mean = rows_px(c.mean(0))
-        for k in range(len(cols) - 1):   # the mean line, segment by segment
-            n = 2 + 2 * max(abs(cols[k + 1] - cols[k]),
-                            abs(mean[k + 1] - mean[k]))
-            xs = np.linspace(cols[k], cols[k + 1], n).round().astype(int)
-            ys = np.linspace(mean[k], mean[k + 1], n).round().astype(int)
-            img[ys, xs] = colour
-    sm = np.array([rows[label]["smoothness_mean"] for label in results])
-    bar_w = (width - split - pad) // max(len(sm), 1)
-    for i, v in enumerate(sm):
-        h = int(round((height - 2 * pad) * v / (sm.max() or 1.0)))
-        x0 = split + i * bar_w + bar_w // 6
-        img[height - pad - h:height - pad, x0:x0 + 2 * bar_w // 3] = \
-            COLOURS[i % len(COLOURS)]
-    img[height - pad, pad:width - pad] = 0.0      # the axes
-    img[pad:height - pad, [pad, split]] = 0.0
-    raw = b"".join(b"\0" + line.tobytes()
-                   for line in img.astype(np.uint8))
-
-    def chunk(kind, data):
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data)))
-
-    Path(path).write_bytes(
-        b"\x89PNG\r\n\x1a\n"
-        + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0,
-                                     0))
-        + chunk(b"IDAT", zlib.compress(raw, 9)) + chunk(b"IEND", b""))
 
 
 def main(args):

@@ -43,7 +43,14 @@ carry (its generator by state) and the env state, every K control steps;
 episode. ``--optimize-prior`` refits a kernel prior's hyperparameters to
 the warm-started plan by marginal likelihood; ``--model-selection`` builds
 the prior from a ``model_selection`` artifact (``--ms-fitted-scale`` keeps
-the expert's action variance). Plots and rendering are not ported yet.
+the expert's action variance). With ``--dir`` the run also draws the JAX
+runner's plots (``result_warmup``, the observation, action, ESS and
+temperature sequences, ``smoothness``; ``--no-plots`` skips them);
+``--render`` writes a schematic of the episode (``episode.gif``, or
+``.avi``/``.mp4`` by ``--video-format``; an mp4 without an ffmpeg backend
+is written as avi) and ``--render-3d`` a ray-cast ``episode_3d.gif``, both
+from the episode's qpos on the run's device (``render``, ``render3d``). A
+failed render is logged and the run goes on, as in the JAX runner.
 """
 
 import argparse
@@ -55,6 +62,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ppi_tpu_torch import viz
 from ppi_tpu_torch.algorithms import ALGORITHMS, make_solver
 from ppi_tpu_torch.envs.cheetah import Cheetah
 from ppi_tpu_torch.envs.classic import Cartpole, Pendulum
@@ -118,6 +126,18 @@ def build_parser():
     parser.add_argument("--name", type=str, default="")
     parser.add_argument("--force", action="store_true",
                         help="rerun even if results exist")
+    parser.add_argument("--no-plots", action="store_true")
+    parser.add_argument("--render", action="store_true",
+                        help="save a schematic episode render (physics "
+                             "envs)")
+    parser.add_argument("--render-3d", action="store_true",
+                        help="also save a ray-cast 3-D episode GIF of the "
+                             "scene geometry (render3d; any physics env)")
+    parser.add_argument("--video-format", choices=["gif", "avi", "mp4"],
+                        default="gif",
+                        help="episode render container: gif, avi (the "
+                             "MJPEG muxer), mp4 (needs imageio-ffmpeg; "
+                             "written as avi otherwise)")
     parser.add_argument("--anneal", type=float, default=1.0)
     parser.add_argument("--checkpoint-every", type=int, default=0,
                         help="every N control steps write the track, then "
@@ -226,6 +246,47 @@ def setup(args):
             agent.env.reset(gen(), agent.device))
 
 
+def render_episode(name, env, env_state, qpos, out):
+    """The schematic render of env ``name``'s episode (the JAX runner's
+    dispatch); a failure is logged, not raised."""
+    from ppi_tpu_torch import render
+    fns = {"door-v0": (render.render_door, "frame"),
+           "door-v0-hand": (render.render_door_hand, "frame"),
+           "hammer-v0-hand": (render.render_hammer_hand, "board"),
+           "relocate-v0": (render.render_relocate, "target"),
+           "relocate-v0-hand": (render.render_relocate_hand, "target"),
+           "fetch-pick": (render.render_relocate, "target"),
+           "pen-v0": (render.render_pen, "target_axis"),
+           "pen-v0-hand": (render.render_pen_hand, "target_axis")}
+    try:
+        if name in fns:
+            fn, field = fns[name]
+            kw = {"target" if field == "target_axis" else field:
+                  getattr(env_state, field)}
+            out = fn(env, qpos, out, **kw)
+        else:
+            out = render.render_planar(env, qpos, out)
+        logging.info("rendered %s", out)
+    except Exception:
+        logging.exception("rendering failed")
+
+
+def render_episode_3d(env, env_state, qpos, out):
+    """The ray-cast 3-D GIF of the episode, the env's dynamic body at its
+    episode position; a failure is logged, not raised."""
+    from ppi_tpu_torch import render3d
+    try:
+        dyn_pos = None
+        if getattr(env, "scalar_dyn_body", None) is not None:
+            dyn_pos = env.scalar_dyn_consts(env_state)
+            dyn_pos = dyn_pos if tuple(dyn_pos.shape) == (3,) else None
+        out = render3d.save_gif_3d(out, env, qpos, dyn_pos=dyn_pos,
+                                   style=render3d.SceneStyle(floor=0.0))
+        logging.info("rendered %s", out)
+    except Exception:
+        logging.exception("3-D rendering failed")
+
+
 def main(args, callback=None, on_checkpoint=None):
     """Run one episode; returns (return, success, track), or None when the
     result directory already holds results; success is None for an env
@@ -263,6 +324,8 @@ def main(args, callback=None, on_checkpoint=None):
                                          args.n_warmstart_iters)
         logging.info("Warm start: %.2f +/- %.2f",
                      float(wtrace["mean"][-1]), float(wtrace["std"][-1]))
+        if not args.no_plots and filepath is not None:
+            viz.plot_algorithm_result(wtrace, filepath / "result_warmup")
     if args.optimize_prior and start_step == 0:
         if not hasattr(agent.family, "optimize_hyper"):
             raise SystemExit("--optimize-prior requires a kernel policy "
@@ -328,9 +391,21 @@ def main(args, callback=None, on_checkpoint=None):
                  device)
     acts = track["action"]
     power = float(signal_power(acts))
-    sm, sm_max, _, _, act_norm = fft_smoothness(acts, env.dt)
+    sm, sm_max, sp, freq, act_norm = fft_smoothness(acts, env.dt)
     logging.info("Smoothness: %.3f, Max: %.3f, Power: %.3f", float(sm),
                  float(sm_max), power)
+    if not args.no_plots and filepath is not None:
+        viz.plot_sequence(track["obs"], filepath / "observation_sequence")
+        viz.plot_sequence(acts, filepath / "action_sequence_all")
+        viz.plot_sequence(track["ess"], filepath / "ess_history")
+        viz.plot_sequence(track["alpha"], filepath / "alpha_history")
+        viz.plot_smoothness(sp, freq, act_norm, filepath / "smoothness")
+    if args.render and filepath is not None and "qpos" in track:
+        render_episode(args.env, env, env_state, track["qpos"],
+                       filepath / f"episode.{args.video_format}")
+    if args.render_3d and filepath is not None and "qpos" in track:
+        render_episode_3d(env, env_state, track["qpos"],
+                          filepath / "episode_3d.gif")
     if filepath is not None:
         save_results(filepath, obs=track["obs"], actions=acts,
                      rewards=track["reward"], ess=track["ess"],

@@ -15,7 +15,8 @@ the runner starts them (``parallel.launch.spawn``; on one card they share
 it over gloo) or, started under ``torchrun``, joins the launcher's group;
 every rank holds a replica of the solver and the generator, and rank 0
 alone writes ``args.json``, the ``log`` and ``data.npz``. The sharded run
-equals the unsharded one bit for bit. Plots are not ported yet.
+equals the unsharded one bit for bit. ``--plot`` draws the solver's
+trace (``viz.plot_algorithm_result``; ``result.png`` with ``--dir``).
 """
 
 import argparse
@@ -25,6 +26,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ppi_tpu_torch import viz
 from ppi_tpu_torch.algorithms import ALGORITHMS, make_solver, solve
 from ppi_tpu_torch.envs.functions import FUNCTIONS, make_function
 from ppi_tpu_torch.parallel import make_mesh, sharded_objective, spawn
@@ -45,6 +47,7 @@ def build_parser():
     parser.add_argument("--dimension", type=int, default=5)
     parser.add_argument("--n-iter", type=int, default=50)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--plot", action="store_true")
     parser.add_argument("--name", type=str, default="")
     parser.add_argument("--dir", type=str, default=None)
     parser.add_argument("--force", action="store_true",
@@ -147,6 +150,10 @@ def main(args):
         if filepath is not None:
             trace["episodes"] = n_samples(args) * np.arange(args.n_iter)
             save_results(filepath, **trace)
+        if args.plot:
+            viz.plot_algorithm_result(
+                trace, filepath / "result" if filepath else None,
+                label=args.algorithm)
     return state, trace
 
 

@@ -22,8 +22,14 @@ run would have. ``--mesh-devices W`` shards the trajectories over W ranks
 ``torchrun``); rank 0 alone writes the results. With ``--dir`` the run
 writes ``args.json``, its ``log`` and ``data.npz`` (the solver's trace,
 ``episodes`` and ``success_rate``) under
-``<dir>/<algorithm>_<env>_<policy>_<sampling>_<seed>_<name>``. Rendering
-and plots are not ported yet.
+``<dir>/<algorithm>_<env>_<policy>_<sampling>_<seed>_<name>``.
+``--render`` (BallInACup) traces the final prior's mean trajectory (its
+derivative channels from ``dfeat``) step by step
+(``render.trace_bic_trajectory``) and writes ``ball_in_a_cup.gif`` (in
+``--dir``, else the working directory), logging the traced trajectory's
+success; ``--plot`` (with ``--dir``) draws the solver's trace
+(``result.png``) and 16 samples of the final prior
+(``policy_samples.png``).
 """
 
 import argparse
@@ -33,6 +39,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ppi_tpu_torch import viz
 from ppi_tpu_torch.algorithms import ALGORITHMS, make_solver, solve
 from ppi_tpu_torch.envs.ball_in_a_cup import BallInCupSim
 from ppi_tpu_torch.envs.episodic import EPISODIC_ENVS
@@ -55,6 +62,10 @@ def build_parser():
     parser.add_argument("--dir", type=str, default=None)
     parser.add_argument("--name", type=str, default="")
     parser.add_argument("--force", action="store_true")
+    parser.add_argument("--plot", action="store_true")
+    parser.add_argument("--render", action="store_true",
+                        help="save a GIF of the learned mean trajectory "
+                             "(BallInACup)")
     parser.add_argument("--n-string-particles", type=int, default=0,
                         help="override the ball-in-a-cup string resolution "
                              "(0 = the env's default)")
@@ -158,16 +169,35 @@ def search(args, mesh=None):
     return policy, trace, generator, start
 
 
+def render_mean_trajectory(env, family, policy, out):
+    """Trace the prior's mean trajectory (with its derivative channels
+    where the family has them) through ``env``'s sim and write its GIF at
+    ``out``. Returns (the path written, the mean actions (T, 4), the traced
+    qpos and particles, the final ``BicState``)."""
+    from ppi_tpu_torch.render import render_ball_in_a_cup, trace_bic_trajectory
+    mean_actions = family.predict_mean(policy)
+    if family.use_derivatives:
+        dxs = family.dfeat(policy, policy.t) @ policy.mean
+        mean_actions = torch.cat([mean_actions, dxs], -1)
+    qs, qds = env.map_actions_to_joints(mean_actions[None])
+    qh, ph, final = trace_bic_trajectory(env.sim, env.q_start, qs[0], qds[0])
+    out = render_ball_in_a_cup(env.sim, qh, ph, out, stride=8,
+                               device=qs.device)
+    return out, mean_actions, qh, ph, final
+
+
 def run_name(args) -> str:
     return (f"{args.algorithm}_{args.env}_{args.policy}_{args.sampling}_"
             f"{args.seed}_{args.name}")
 
 
-def main(args):
+def main(args, on_trace=None):
     """Run one policy search; returns (final policy state, trace as numpy,
     success-rate history), or None when the result directory already
     holds results. With ``--mesh-devices`` outside a process group it
-    starts the ranks and returns rank 0's result."""
+    starts the ranks and returns rank 0's result. With ``--render``,
+    ``on_trace(path, mean actions, qpos, particles, final state)`` sees the
+    traced mean trajectory."""
     if args.mesh_devices and not in_group():
         return spawn(call_main, args.mesh_devices, main, args,
                      device=args.device)
@@ -197,6 +227,24 @@ def main(args):
                                                            args.n_iters)
             trace["success_rate"] = np.asarray(success_rate)
             save_results(filepath, **trace)
+        if args.render or args.plot:
+            env, family, _, _ = setup(args, policy.t.device)
+        if args.render and args.env == "BallInACup":
+            traced = render_mean_trajectory(
+                env, family, policy, (filepath or Path(".")) /
+                "ball_in_a_cup.gif")
+            _, success = env.sim.reward_and_success(traced[-1])
+            logging.info("rendered mean trajectory -> %s (success=%s)",
+                         traced[0], bool(success))
+            if on_trace is not None:
+                on_trace(*traced)
+        if args.plot and filepath is not None:
+            viz.plot_algorithm_result(trace, filepath / "result",
+                                      label=args.algorithm)
+            actions, _ = family.sample(
+                policy, torch.Generator(policy.t.device).manual_seed(1), 16)
+            viz.plot_policy_samples(actions[..., :env.dim_action],
+                                    filepath / "policy_samples")
     return policy, trace, success_rate
 
 

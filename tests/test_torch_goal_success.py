@@ -182,30 +182,29 @@ def test_corl_curves_writes_the_overlay_and_resumes(tmp_path):
     assert (tmp_path / "seq" / "overlay.png").stat().st_size > 0
 
 
-def test_raster_overlay_writes_a_png_without_matplotlib(tmp_path):
-    """The overlay a machine without matplotlib gets: an RGB PNG of the
-    curves and bars (decoded here by zlib; its pixels hold each colour)."""
-    import struct
-    import zlib
+def test_raster_overlay_writes_a_png_without_matplotlib(tmp_path,
+                                                        monkeypatch):
+    """The overlay a machine without matplotlib gets (the plotting
+    backend's PIL stand-in): an RGB PNG whose pixels hold each curve's
+    colour."""
+    from PIL import Image
+    from ppi_tpu_torch.utils import plotting
+    monkeypatch.setattr(corl_curves, "pyplot", lambda: plotting.RASTER)
     t = np.arange(30)
     results = {label: [{"rewards": np.sin(t / (3 + i)) + 0.1 * k}
                        for k in range(2)]
                for i, label in enumerate(("iid", "gp-se", "rff"))}
-    rows = {label: {"smoothness_mean": float(3 - i)}
+    rows = {label: {"smoothness_mean": float(3 - i),
+                    "smoothness_std": 0.1, "return_mean": 1.0,
+                    "return_std": 0.5}
             for i, label in enumerate(results)}
     path = tmp_path / "overlay.png"
-    corl_curves.raster_overlay(results, rows, path, height=90, width=200)
-    data = path.read_bytes()
-    assert data[:8] == b"\x89PNG\r\n\x1a\n"
-    width, height = struct.unpack(">II", data[16:24])
-    assert (width, height) == (200, 90)
-    idat = data.index(b"IDAT")
-    size = struct.unpack(">I", data[idat - 4:idat])[0]
-    raw = zlib.decompress(data[idat + 4:idat + 4 + size])
-    img = np.frombuffer(raw, np.uint8).reshape(90, 1 + 200 * 3)[:, 1:]
+    corl_curves.plot_overlay(results, rows, path)
+    img = np.asarray(Image.open(path))
+    assert img.shape == (400, 1100, 3)
     pixels = {tuple(x) for x in img.reshape(-1, 3)}
-    for colour in corl_curves.COLOURS[:3].astype(np.uint8):
-        assert tuple(colour) in pixels
+    for colour in ("C0", "C1", "C2"):
+        assert plotting.rgb(colour) in pixels
 
 
 def test_runners_take_the_card_by_default_and_raise_without_one():

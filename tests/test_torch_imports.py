@@ -52,6 +52,7 @@ SLICE_MODULES = [
     "ppi_tpu_torch.envs.physics.split_layout",
     "ppi_tpu_torch.envs.physics.bic_kernel",
     "ppi_tpu_torch.envs.physics.ik_kernel",
+    "ppi_tpu_torch.envs.physics.mjcf",
     "ppi_tpu_torch.envs.functions",
     "ppi_tpu_torch.ops",
     "ppi_tpu_torch.ops.cuda_ops",
@@ -73,6 +74,13 @@ SLICE_MODULES = [
     "ppi_tpu_torch.utils.batch",
     "ppi_tpu_torch.utils.device",
     "ppi_tpu_torch.utils.sweep",
+    "ppi_tpu_torch.utils.plotting",
+    "ppi_tpu_torch.utils.video",
+    "ppi_tpu_torch.viz",
+    "ppi_tpu_torch.render",
+    "ppi_tpu_torch.render3d",
+    "ppi_tpu_torch.runners.animations",
+    "ppi_tpu_torch.runners.figures",
     "ppi_tpu_torch.runners.collect_expert",
     "ppi_tpu_torch.runners.corl_curves",
     "ppi_tpu_torch.runners.goal_success",
@@ -87,6 +95,7 @@ SLICE_MODULES = [
     "ppi_tpu_torch.studies.episode_trace",
     "ppi_tpu_torch.studies.fma_contraction",
     "ppi_tpu_torch.studies.moment_match",
+    "ppi_tpu_torch.studies.render_phases",
     "ppi_tpu_torch.studies.replan_trace",
     "ppi_tpu_torch.studies.seed_sweep",
     "ppi_tpu_torch.studies.split_layout",
